@@ -8,11 +8,13 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    paper_llama shapes (and a GQA shape, and the other head dims and page
    sizes the kernels take); times kernel, plain version and the PyTorch
    SDPA yardstick.
-3. Serves paper_llama at full width (bf16) through ``ServeEngine`` with
-   the paged decode backend: 16 staggered requests, then again with a
-   pool small enough to force preemption.  Both kernels must have been
-   launched by the serve run (the launch counts are reset just before it
-   and read just after).
+3. Serves paper_llama at full width (bf16) through ``ServeEngine``: 16
+   staggered requests, then again with a pool small enough to force
+   preemption.  Both kernels must have been launched by the serve run
+   (the launch counts are reset just before it and read just after).
+   The same window is then served a few more times for the spread of
+   tokens/s and step times, and once under ``torch.profiler`` for the
+   device's busy share and the device time of each kernel.
 4. Card vs plain end to end: the f32 model with the same weights served
    through the kernels on the card and through the plain path on the
    CPU; teacher-forced logits must agree, greedy tokens must agree up to
@@ -65,7 +67,12 @@ def time_ms(fn, inputs, iters: int = 50):
     own pool).  The host ms is the wall time of the calls, synchronised
     at the end.  For the device ms a spin kernel holds the stream while
     the host enqueues every call behind it; CUDA events around the calls
-    then time the device alone, not the Python that launches them."""
+    then time the device alone, not the Python that launches them.  The
+    spin covered the enqueue when the start event is still pending once
+    the host has queued the last call; otherwise the spin is doubled and
+    the timing repeated, and the function raises if it never covers.
+    The plain versions launch a dozen kernels a call, so they are timed
+    with fewer iterations to keep the queue below what blocks the host."""
     import torch
     for i in range(3):
         fn(*inputs[i % len(inputs)])
@@ -77,13 +84,19 @@ def time_ms(fn, inputs, iters: int = 50):
     host_s = time.perf_counter() - t
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(2 * host_s * 2e9))     # ~2x the enqueue time
-    start.record()
-    for i in range(iters):
-        fn(*inputs[i % len(inputs)])
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters, host_s * 1e3 / iters
+    cycles = int(2 * host_s * 2e9)               # ~2x the enqueue at 2 GHz
+    for _ in range(4):
+        torch.cuda._sleep(cycles)
+        start.record()
+        for i in range(iters):
+            fn(*inputs[i % len(inputs)])
+        end.record()
+        covered = not start.query()
+        torch.cuda.synchronize()
+        if covered:
+            return start.elapsed_time(end) / iters, host_s * 1e3 / iters
+        cycles *= 2
+    raise AssertionError(f"the spin never covered the enqueue of {fn}")
 
 
 def copies_for(tensors, budget_bytes: int = 96 << 20):
@@ -180,13 +193,12 @@ def check_kernels(card: str) -> dict:
             continue
         ins = copies_for(args)
         ms, host_ms = time_ms(paged_attention.paged_attention, ins)
-        plain_ms, _ = time_ms(ref.paged_attention_ref, ins)
+        plain_ms, _ = time_ms(ref.paged_attention_ref, ins, iters=20)
         # yardstick: SDPA over the same KV already gathered contiguous
         # (the gather itself not timed), a boolean length mask
-        from repro_torch.models.layers import paged_gather
         sd_ins = []
         for q, kp, vp, tb, ln in ins:
-            kg, vg = paged_gather(kp, tb), paged_gather(vp, tb)
+            kg, vg = ref.paged_gather(kp, tb), ref.paged_gather(vp, tb)
             mask = (torch.arange(kg.shape[2], device="cuda")[None, :]
                     < ln[:, None].long())[:, None, None, :]
             sd_ins.append((q, kg, vg, mask))
@@ -236,7 +248,7 @@ def check_kernels(card: str) -> dict:
             continue
         ins = copies_for(args)
         ms, host_ms = time_ms(attention.flash_attention, ins)
-        plain_ms, _ = time_ms(ref.attention_ref, ins)
+        plain_ms, _ = time_ms(ref.attention_ref, ins, iters=20)
         lib_ms, _ = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
             q, k, v, is_causal=True), ins)
         bound, by = flash_bounds(b, h, hkv, hd, sq, skv, dt)
@@ -293,6 +305,32 @@ def pct(xs, q):
     return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
 
 
+def device_profile(prof, wall_s: float, card: str) -> None:
+    """Print the device's busy share of a profiled serve window (device
+    time of every kernel and copy CUPTI saw, over the window's wall time)
+    and the device time of its heaviest kernels."""
+    from torch.autograd import DeviceType
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    busy_us = sum(dev_us(e) for e in rows)
+    if not rows:
+        print("device busy share: not measured (the profiler saw no device "
+              "time)", flush=True)
+        return
+    print(f"profiled serve window: {wall_s * 1e3:.3f} ms wall, device busy "
+          f"{busy_us / 1e3:.3f} ms = {100 * busy_us / (wall_s * 1e6):.2f}% "
+          f"[{card}]", flush=True)
+    for e in sorted(rows, key=dev_us, reverse=True)[:10]:
+        print(f"  device {dev_us(e):10.1f} us {e.count:5d} calls "
+              f"{dev_us(e) / e.count:8.2f} us/call "
+              f"{100 * dev_us(e) / busy_us:5.1f}%  {e.key[:90]}", flush=True)
+
+
 def serve_full_width(card: str) -> dict:
     """Returns the launch count of each kernel in the main serve run."""
     import torch
@@ -303,7 +341,7 @@ def serve_full_width(card: str) -> dict:
 
     cfg = configs.get("paper_llama")
     serve = ServeConfig(page_size=16, max_active=8, max_seq=256,
-                        max_queue=64, decode_backend="paged")
+                        max_queue=64)
     eng = ServeEngine(cfg, serve, device="cuda", seed=SEED)
     prompts = make_prompts(16, cfg.vocab, 8, 128, SEED)
     ServeEngine(cfg, serve, eng.params, device="cuda").serve(
@@ -323,24 +361,41 @@ def serve_full_width(card: str) -> dict:
             raise AssertionError(f"{name} launched {n} times in the serve "
                                  f"run (want a positive multiple of "
                                  f"{cfg.n_layers})")
+    # the same window again on fresh engines, for the spread between
+    # windows of one machine (the host is shared, so host-bound steps vary)
+    tps = [32 * len(rids) / wall]
     dec = [s for s, pre in steps if not pre]
-    print(f"serve metrics: {32 * len(rids) / wall:.1f} tok/s, decode step "
-          f"p50 {pct(dec, 0.5) * 1e3:.3f} ms p99 {pct(dec, 0.99) * 1e3:.3f} "
-          f"ms over {len(dec)} decode-only steps [{card}]", flush=True)
+    for _ in range(4):
+        e = ServeEngine(cfg, serve, eng.params, device="cuda")
+        r, st, w = drive(e, prompts, 32, stagger=True)
+        tps.append(32 * len(r) / w)
+        dec += [s for s, pre in st if not pre]
+    print(f"serve metrics over {len(tps)} windows of 16 x 32 tokens: tok/s "
+          f"{', '.join(f'{x:.1f}' for x in tps)}; decode step p50 "
+          f"{pct(dec, 0.5) * 1e3:.3f} ms p99 {pct(dec, 0.99) * 1e3:.3f} ms "
+          f"over {len(dec)} decode-only steps [{card}]", flush=True)
 
-    tight = dataclasses.replace(serve, pages=1 + 30)
+    from torch.profiler import ProfilerActivity, profile
+    e = ServeEngine(cfg, serve, eng.params, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, _, w = drive(e, prompts, 32, stagger=True)
+        torch.cuda.synchronize()
+    device_profile(prof, w, card)
+
+    tight = dataclasses.replace(serve, pages=1 + 30)   # + the null page
     eng2 = ServeEngine(cfg, tight, eng.params, device="cuda")
     rids2, _, wall2 = drive(eng2, prompts, 32, stagger=True)
     if eng2.sched.n_preempted == 0:
         raise AssertionError("the 30-page pool forced no preemption")
     same = sum(eng2.results[r2] == eng.results[r1]
                for r1, r2 in zip(rids, rids2))
-    print(f"serve with 30 pages: {eng2.sched.n_preempted} preemptions, all "
-          f"{len(rids2)} requests finished, {32 * len(rids2) / wall2:.1f} "
-          f"tok/s; {same}/{len(rids2)} token streams equal to the "
-          f"unpreempted run (bf16: a resumed request re-prefills its "
-          f"generated tokens, so a thin margin may flip) [{card}]",
-          flush=True)
+    print(f"serve with a pool of 30 pages (+ the null page): "
+          f"{eng2.sched.n_preempted} preemptions, all {len(rids2)} requests "
+          f"finished, {32 * len(rids2) / wall2:.1f} tok/s; "
+          f"{same}/{len(rids2)} token streams equal to the unpreempted run "
+          f"(bf16: a resumed request re-prefills its generated tokens, so a "
+          f"thin margin may flip) [{card}]", flush=True)
     return launches
 
 
@@ -374,7 +429,7 @@ def teacher_forced_logits(cfg, params, prompts, forced, device):
         for j in range(forced.shape[1] - 1):
             x = torch.from_numpy(forced[:, j:j + 1].astype(np.int64))
             logits, pool = lm.paged_decode_step(cfg, params, pool, pt, ln,
-                                                x.to(device), "paged")
+                                                x.to(device))
             ln = ln + 1
             out.append(logits)
     return torch.stack(out, dim=1).float().cpu()       # (n, steps, V)
@@ -389,8 +444,7 @@ def card_vs_plain(card: str) -> None:
     from repro_torch.serving.engine import ServeEngine
 
     cfg = dataclasses.replace(configs.get("paper_llama"), dtype="float32")
-    serve = ServeConfig(page_size=16, max_active=8, max_seq=256,
-                        decode_backend="paged")
+    serve = ServeConfig(page_size=16, max_active=8, max_seq=256)
     params_cpu = lm.init_params(cfg, SEED, "cpu")
     params_gpu = {k: ({kk: vv.cuda() for kk, vv in v.items()}
                       if isinstance(v, dict) else v.cuda())

@@ -4,12 +4,17 @@
 Each kernel wrapper runs its plain version for CPU tensors, and
 ``chip_smoke.py`` holds each CUDA kernel against it on the card.  Both
 compute in float32 whatever the input dtype, like the TPU kernels.
+
+``decode_attention`` and ``paged_gather`` are the JAX package's
+``models.layers`` functions of those names (the gather decode path);
+they live here because the paged kernel's plain version is built from
+them, and ``models.layers`` re-exports them under their JAX home.
 """
 from __future__ import annotations
 
 import torch
 
-from ..models.layers import NEG_INF, decode_attention, paged_gather
+NEG_INF = -1e30   # finite: exp(NEG_INF - m) == 0.0 for any finite m
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor,
@@ -32,6 +37,42 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor,
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bgrqk,bgkd->bgrqd", p, v.float()) / l.clamp_min(1e-30)
     return out.reshape(b, h, sq, v.shape[-1]).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos) -> torch.Tensor:
+    """One-token attention over a contiguous KV view.  q: (b, h, 1, hd);
+    k_cache/v_cache: (b, hkv, S, hd); pos: number of valid cache entries,
+    an int or a (b,) tensor of per-slot counts."""
+    b, h, _, hd = q.shape
+    hkv, s_len = k_cache.shape[1], k_cache.shape[2]
+    rep = h // hkv
+    qf = q.float().reshape(b, hkv, rep, hd) * hd ** -0.5
+    s = torch.einsum("bgrd,bgkd->bgrk", qf, k_cache.float())
+    idx = torch.arange(s_len, device=q.device)
+    pos = torch.as_tensor(pos, device=q.device)
+    if pos.ndim:
+        valid = (idx[None, :] < pos[:, None])[:, None, None, :]
+    else:
+        valid = (idx < pos)[None, None, None, :]
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bgrk,bgkd->bgrd", p, v_cache.float())
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(b, h, 1, hd).to(q.dtype)
+
+
+def paged_gather(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
+    """Each slot's pages as a contiguous (b, hkv, nb*page, hd) KV view.
+    pool: (P, hkv, page, hd); page_table: (b, nb) page ids in
+    logical-block order.  Entries beyond a slot's allocation hit the null
+    page and are masked out by decode_attention's validity test."""
+    b, nb = page_table.shape
+    _, hkv, ps, hd = pool.shape
+    pages = pool[page_table.long()]                   # (b, nb, hkv, ps, hd)
+    return pages.permute(0, 2, 1, 3, 4).reshape(b, hkv, nb * ps, hd)
 
 
 def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,

@@ -5,8 +5,7 @@ from __future__ import annotations
 
 from ..kernels.paged_attention import paged_attention
 from .config import ModelConfig
-from .layers import (blocked_attention, decode_attention, paged_gather,
-                     paged_update_cache, rmsnorm, rope)
+from .layers import blocked_attention, paged_update_cache, rmsnorm, rope
 
 
 def _gqa_qkv(cfg: ModelConfig, p, x, pos):
@@ -38,19 +37,16 @@ def gqa_attention(cfg: ModelConfig, p, x, pos):
     return attn @ p["wo"], {"k": k, "v": v}
 
 
-def gqa_decode_paged(cfg: ModelConfig, p, x, lengths, pool_kv, page_table,
-                     backend: str = "gather"):
+def gqa_decode_paged(cfg: ModelConfig, p, x, lengths, pool_kv, page_table):
     """One paged decode step of GQA self-attention over a packed slot
     batch.  x: (b, 1, d) each slot's pending token; lengths: (b,) int32
     tokens already cached per slot (the new token's position); pool_kv:
     {"k","v"} physical page pools (P, hkv, page, hd), written IN PLACE;
     page_table: (b, nb) int32 per-slot page ids.  Returns (out, pool_kv).
 
-    ``backend`` is ServeConfig.decode_backend: 'gather' copies each
-    slot's pages contiguous (``paged_gather``) before
-    ``decode_attention``; 'paged' attends over the pool in place through
-    ``kernels.paged_attention`` — the CUDA kernel for CUDA tensors, its
-    plain version (the gather math) for CPU tensors."""
+    Attention reads the pool in place through ``kernels.paged_attention``
+    (the JAX ``decode_backend='paged'`` path): the CUDA kernel for CUDA
+    tensors, its plain version (the JAX gather math) for CPU tensors."""
     ps = pool_kv["k"].shape[2]
     q, k, v = _gqa_qkv(cfg, p, x, lengths[:, None])
     q = q.transpose(1, 2)                            # (b, hl, 1, hd)
@@ -61,11 +57,7 @@ def gqa_decode_paged(cfg: ModelConfig, p, x, lengths, pool_kv, page_table,
     offsets = lengths_l % ps
     kp = paged_update_cache(pool_kv["k"], k, page_ids, offsets)
     vp = paged_update_cache(pool_kv["v"], v, page_ids, offsets)
-    if backend == "paged":
-        attn = paged_attention(q, kp, vp, page_table, lengths + 1)
-    else:
-        attn = decode_attention(q, paged_gather(kp, page_table),
-                                paged_gather(vp, page_table), lengths + 1)
+    attn = paged_attention(q, kp, vp, page_table, lengths + 1)
     b, hl = q.shape[:2]
     attn = attn.transpose(1, 2).reshape(b, 1, hl * cfg.hd)
     return attn @ p["wo"], {"k": kp, "v": vp}

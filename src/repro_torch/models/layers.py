@@ -4,13 +4,24 @@
 The JAX module runs inside shard_map and closes each row-parallel
 projection with ``lax.psum`` over 'model'; at tp=1 those collectives are
 identities and are left out here, as are the FSDP gathers.
+
+Attention keeps the JAX names: ``blocked_attention`` is the flash
+kernel's wrapper itself (``kernels.attention.flash_attention``: the CUDA
+kernel for CUDA tensors, ``ref.attention_ref`` for CPU tensors), and
+``decode_attention``/``paged_gather``, the gather decode math that only
+the paged kernel's plain version uses, are defined in ``kernels.ref``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-NEG_INF = -1e30   # finite: exp(NEG_INF - m) == 0.0 for any finite m
+from ..kernels.attention import flash_attention as blocked_attention
+from ..kernels.ref import NEG_INF, decode_attention, paged_gather
+
+__all__ = ["NEG_INF", "rmsnorm", "rope", "embed_lookup", "blocked_attention",
+           "decode_attention", "swiglu_mlp", "paged_update_cache",
+           "paged_gather"]
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -39,40 +50,6 @@ def embed_lookup(emb: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return F.embedding(ids, emb)
 
 
-def blocked_attention(q: torch.Tensor, k: torch.Tensor,
-                      v: torch.Tensor) -> torch.Tensor:
-    """Causal prefill attention, q: (b, h, sq, hd), k/v: (b, hkv, skv, hd),
-    GQA-aware.  A CUDA tensor runs the flash kernel
-    (``kernels.attention``), a CPU tensor its plain version."""
-    from ..kernels.attention import flash_attention
-    return flash_attention(q, k, v)
-
-
-def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, pos) -> torch.Tensor:
-    """One-token attention over a contiguous KV view.  q: (b, h, 1, hd);
-    k_cache/v_cache: (b, hkv, S, hd); pos: number of valid cache entries,
-    an int or a (b,) tensor of per-slot counts."""
-    b, h, _, hd = q.shape
-    hkv, s_len = k_cache.shape[1], k_cache.shape[2]
-    rep = h // hkv
-    qf = q.float().reshape(b, hkv, rep, hd) * hd ** -0.5
-    s = torch.einsum("bgrd,bgkd->bgrk", qf, k_cache.float())
-    idx = torch.arange(s_len, device=q.device)
-    pos = torch.as_tensor(pos, device=q.device)
-    if pos.ndim:
-        valid = (idx[None, :] < pos[:, None])[:, None, None, :]
-    else:
-        valid = (idx < pos)[None, None, None, :]
-    s = torch.where(valid, s, NEG_INF)
-    m = s.amax(dim=-1)
-    p = torch.exp(s - m[..., None])
-    l = p.sum(dim=-1)
-    acc = torch.einsum("bgrk,bgkd->bgrd", p, v_cache.float())
-    out = acc / l.clamp_min(1e-30)[..., None]
-    return out.reshape(b, h, 1, hd).to(q.dtype)
-
-
 def swiglu_mlp(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
     """SwiGLU MLP.  w_gate/w_up: (d, ff), w_down: (ff, d)."""
     g = x @ w_gate
@@ -93,14 +70,3 @@ def paged_update_cache(pool: torch.Tensor, new: torch.Tensor, page_ids,
     page 0, whose contents are never read as valid."""
     pool[page_ids, :, offsets, :] = new[:, :, 0, :].to(pool.dtype)
     return pool
-
-
-def paged_gather(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
-    """Each slot's pages as a contiguous (b, hkv, nb*page, hd) KV view.
-    pool: (P, hkv, page, hd); page_table: (b, nb) page ids in
-    logical-block order.  Entries beyond a slot's allocation hit the null
-    page and are masked out by decode_attention's validity test."""
-    b, nb = page_table.shape
-    _, hkv, ps, hd = pool.shape
-    pages = pool[page_table.long()]                   # (b, nb, hkv, ps, hd)
-    return pages.permute(0, 2, 1, 3, 4).reshape(b, hkv, nb * ps, hd)

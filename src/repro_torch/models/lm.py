@@ -192,22 +192,21 @@ def batched_prefill_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
 def paged_decode_step(cfg: ModelConfig, params: dict, pool: dict,
                       page_table: torch.Tensor, lengths: torch.Tensor,
-                      token: torch.Tensor, decode_backend: str = "gather"):
+                      token: torch.Tensor):
     """One continuous-batching decode step over the paged KV pool.
 
     pool: {"layers": {"k"/"v": (L, P, hkv, page, hd)}}, updated IN PLACE
     (the JAX step returns a new pool and donates the old buffer);
     page_table: (b, nb) int32; lengths: (b,) int32 tokens already cached
-    per slot; token: (b, 1) int64 pending tokens; decode_backend:
-    ServeConfig.decode_backend (see ``blocks.gqa_decode_paged``).
+    per slot; token: (b, 1) int64 pending tokens.  Attention runs the
+    paged kernel (``blocks.gqa_decode_paged``), once per layer.
     Returns (logits (b, V) f32, pool)."""
     _check_dense(cfg, "paged_decode_step")
     x = embed_lookup(params["embed"], token)
     for i in range(cfg.n_layers):
         p = layer_params(params, i)
         kv = {"k": pool["layers"]["k"][i], "v": pool["layers"]["v"][i]}
-        a, _ = blocks.gqa_decode_paged(cfg, p, x, lengths, kv, page_table,
-                                       backend=decode_backend)
+        a, _ = blocks.gqa_decode_paged(cfg, p, x, lengths, kv, page_table)
         x = x + a
         x = x + swiglu_mlp(rmsnorm(x, p["mlp_norm"]), p["w_gate"], p["w_up"],
                            p["w_down"])

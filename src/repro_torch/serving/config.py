@@ -14,18 +14,17 @@ class ServeConfig:
     ``ceil(max_seq / page_size)`` blocks wide.  ``pages`` sizes the shared
     physical KV pool (0 = auto: every slot can hold a full max_seq plus
     the reserved null page — no preemption possible; smaller values admit
-    optimistically and preempt under pressure).  ``reload_every``
-    (checkpoint hot-swap) is kept for parity with the JAX package; the
-    port's engine does not reload yet.
+    optimistically and preempt under pressure).
 
-    ``decode_backend`` selects the decode attention path: 'gather'
-    materializes each slot's pages contiguous before attending, 'paged'
-    attends over the pool in place through kernels.paged_attention (the
-    CUDA kernel on the card, its plain version on the CPU).  ``kv_dtype``
-    is the pool storage
-    dtype: 'auto' follows the model dtype, 'bf16' halves pool bytes and
-    page-read traffic (attention still accumulates f32), 'f32' stores
-    full precision regardless of model dtype.
+    ``kv_dtype`` is the pool storage dtype: 'auto' follows the model
+    dtype, 'bf16' halves pool bytes and page-read traffic (attention
+    still accumulates f32), 'f32' stores full precision regardless of
+    model dtype.
+
+    Two fields of the JAX ServeConfig are absent: ``reload_every``
+    (checkpoint hot-swap is not ported) and ``decode_backend`` (decode
+    attention always reads the pool in place through
+    ``kernels.paged_attention``, the JAX 'paged' backend).
     """
     page_size: int = 16       # tokens per KV page
     max_active: int = 8       # concurrently decoding sequences (slots)
@@ -36,14 +35,9 @@ class ServeConfig:
     temperature: float = 0.0  # 0 = greedy argmax
     top_k: int = 0            # sample from the k best logits (0 = full vocab)
     pages: int = 0            # physical KV pool size in pages (0 = auto)
-    reload_every: int = 0     # hot-swap poll period in engine steps (0 = off)
-    decode_backend: str = "gather"  # 'gather' | 'paged' (CUDA kernel)
     kv_dtype: str = "auto"    # KV pool storage: 'auto' | 'f32' | 'bf16'
 
     def __post_init__(self):
-        if self.decode_backend not in ("gather", "paged"):
-            raise ValueError(f"serve.decode_backend must be 'gather' or "
-                             f"'paged', got {self.decode_backend!r}")
         if self.kv_dtype not in ("auto", "f32", "bf16"):
             raise ValueError(f"serve.kv_dtype must be 'auto', 'f32' or "
                              f"'bf16', got {self.kv_dtype!r}")
@@ -52,7 +46,7 @@ class ServeConfig:
             if getattr(self, name) < 1:
                 raise ValueError(f"serve.{name} must be >= 1, "
                                  f"got {getattr(self, name)}")
-        for name in ("temperature", "top_k", "pages", "reload_every"):
+        for name in ("temperature", "top_k", "pages"):
             if getattr(self, name) < 0:
                 raise ValueError(f"serve.{name} must be >= 0, "
                                  f"got {getattr(self, name)}")

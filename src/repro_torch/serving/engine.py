@@ -15,8 +15,7 @@ power-of-two whole pages.  Pad rows carry length 0 and an all-null page
 table; their outputs are discarded.
 
 On the card, prefill attention runs the flash kernel and decode attention
-(``decode_backend='paged'``) the paged kernel, each ``n_layers`` times a
-call.  The engine runs on ``"cuda"`` unless the caller passes another
+the paged kernel, each ``n_layers`` times a call.  The engine runs on ``"cuda"`` unless the caller passes another
 device; it never falls back to the CPU by itself.
 """
 from __future__ import annotations
@@ -54,9 +53,6 @@ class ServeEngine:
             raise NotImplementedError(
                 f"paged serving covers the dense-attention families; "
                 f"{cfg.name} (ssm/enc-dec/moe) is not ported")
-        if serve.reload_every:
-            raise NotImplementedError("checkpoint hot-swap (reload_every) "
-                                      "is not ported")
         if serve.top_k and serve.temperature == 0.0:
             raise ValueError("top_k needs temperature > 0")
         self.cfg = cfg
@@ -108,8 +104,7 @@ class ServeEngine:
             tok[i, 0] = seq.last_token
         logits, self.pool = lm.paged_decode_step(
             self.cfg, self.params, self.pool, self._tensor(pt),
-            self._tensor(ln), self._tensor(tok),
-            decode_backend=self.scfg.decode_backend)
+            self._tensor(ln), self._tensor(tok))
         toks = self._sample(logits[:len(act)], act)
         for seq, t in zip(list(act), toks):
             seq.length += 1

@@ -267,9 +267,10 @@ def test_batched_prefill_matches_jax(prefilled):
 @pytest.mark.parametrize("backend", ["gather", "paged"])
 def test_paged_decode_step_matches_jax(prefilled, backend):
     """One decode step after the prefill: slot 0 crosses into a fresh
-    page, the pad row writes into the null page.  JAX 'paged' runs the
-    interpreted Pallas kernel (FORCE_KERNEL), the port's runs the paged
-    wrapper's plain version on these CPU tensors."""
+    page, the pad row writes into the null page.  JAX runs its gather
+    path or, for 'paged', the interpreted Pallas kernel (FORCE_KERNEL);
+    the port has one path, the paged wrapper, whose plain version runs
+    on these CPU tensors."""
     cfg, rng = prefilled["cfg"], prefilled["rng"]
     token = rng.integers(0, cfg.vocab, (len(LENGTHS), 1)).astype(np.int32)
     jpk.FORCE_KERNEL = backend == "paged"
@@ -285,8 +286,7 @@ def test_paged_decode_step_matches_jax(prefilled, backend):
         tlog, tpool = tlm.paged_decode_step(
             cfg, prefilled["params"], tpool,
             torch.from_numpy(prefilled["table"]),
-            torch.from_numpy(LENGTHS), torch.from_numpy(token).long(),
-            decode_backend=backend)
+            torch.from_numpy(LENGTHS), torch.from_numpy(token).long())
     live = LENGTHS > 0
     np.testing.assert_allclose(_np(tlog)[live], jlog[live], atol=STEP_TOL,
                                rtol=0)

@@ -1,7 +1,8 @@
 """repro_torch.serving on the CPU: ServeConfig, the allocator, the
 scheduler and the prompt scatter held against their JAX counterparts,
 and the port's ServeEngine against the JAX ServeEngine on the same f32
-weights: greedy tokens equal under staggered load (both decode backends)
+weights: greedy tokens equal under staggered load (against both JAX
+decode backends; the port has one, the paged kernel's), with a bf16 pool,
 and under preemption.  Every engine here is given ``device='cpu'``."""
 import dataclasses
 
@@ -35,10 +36,15 @@ def _torch_threads():
 
 
 # -------------------------------------------------------------- config
+# JAX fields the port leaves out: hot-swap is not ported, and decode
+# always runs the paged kernel (the JAX 'paged' backend).
+NOT_PORTED = ("reload_every", "decode_backend")
+
+
 def test_serve_config_is_a_copy_of_jax():
     jf = [(f.name, f.default) for f in dataclasses.fields(JaxServeConfig)]
     tf = [(f.name, f.default) for f in dataclasses.fields(ServeConfig)]
-    assert jf == tf
+    assert tf == [f for f in jf if f[0] not in NOT_PORTED]
     for kw in (dict(), dict(page_size=4, max_seq=30, max_active=3),
                dict(page_size=16, max_seq=256, pages=41)):
         j, t = JaxServeConfig(**kw), ServeConfig(**kw)
@@ -46,11 +52,14 @@ def test_serve_config_is_a_copy_of_jax():
             == (t.max_blocks, t.capacity, t.auto_pages())
     for bad, match in ((dict(page_size=0), "page_size"),
                        (dict(temperature=-1.0), "temperature"),
-                       (dict(decode_backend="contiguous"), "decode_backend"),
                        (dict(kv_dtype="fp8"), "kv_dtype"),
+                       (dict(pages=-1), "pages"),
                        (dict(stop_token=-2), "stop_token")):
         with pytest.raises(ValueError, match=match):
             ServeConfig(**bad)
+    for name in NOT_PORTED:
+        with pytest.raises(TypeError, match=name):
+            ServeConfig(**{name: getattr(JaxServeConfig(), name)})
 
 
 # ----------------------------------------------------- allocator, sched
@@ -180,18 +189,41 @@ def _staggered(eng, prompts, budgets):
     return rids
 
 
-@pytest.mark.parametrize("backend", ["gather", "paged"])
-def test_engine_greedy_tokens_match_jax_under_staggered_load(backend):
+def _staggered_pair(kv_dtype, jax_backend):
+    """The port's engine and the JAX engine (decode backend
+    ``jax_backend``) on the same f32 weights and staggered load; returns
+    (results, rids) of each and the budgets."""
     serve_kw = dict(page_size=4, max_active=8, max_seq=32, max_queue=32,
-                    kv_dtype="f32", decode_backend=backend)
+                    kv_dtype=kv_dtype)
     jparams, cfg, params = _f32_pair()
     prompts = _prompts(10, cfg.vocab)
     budgets = [4 + (i % 5) * 2 for i in range(10)]
-    jeng = JaxServeEngine(_jax_spec(**serve_kw), params=jparams)
+    jeng = JaxServeEngine(_jax_spec(decode_backend=jax_backend, **serve_kw),
+                          params=jparams)
     jrids = _staggered(jeng, prompts, budgets)
     eng = ServeEngine(cfg, ServeConfig(**serve_kw), params, device="cpu")
     rids = _staggered(eng, prompts, budgets)
     assert eng.max_observed_active == jeng.max_observed_active == 8
+    return eng, rids, jeng, jrids, budgets
+
+
+@pytest.mark.parametrize("backend", ["gather", "paged"])
+def test_engine_greedy_tokens_match_jax_under_staggered_load(backend):
+    """The port decodes through the paged kernel's wrapper (its plain
+    version on these CPU tensors); JAX through either of its backends."""
+    eng, rids, jeng, jrids, budgets = _staggered_pair("f32", backend)
+    for jr, r, b in zip(jrids, rids, budgets):
+        assert len(eng.results[r]) == b
+        assert eng.results[r] == [int(x) for x in jeng.results[jr]], r
+
+
+def test_engine_bf16_pool_of_an_f32_model_matches_jax():
+    """kv_dtype='bf16' under an f32 model: both engines round K/V to bf16
+    (round to nearest even) when they write the pool and attend in f32,
+    so greedy tokens stay equal."""
+    eng, rids, jeng, jrids, budgets = _staggered_pair("bf16", "gather")
+    assert eng.pool["layers"]["k"].dtype == torch.bfloat16
+    assert eng.params["embed"].dtype == torch.float32
     for jr, r, b in zip(jrids, rids, budgets):
         assert len(eng.results[r]) == b
         assert eng.results[r] == [int(x) for x in jeng.results[jr]], r
@@ -224,8 +256,6 @@ def test_engine_needs_cuda_unless_a_device_is_given(monkeypatch):
     with pytest.raises(NotImplementedError, match="qk_norm"):
         ServeEngine(dataclasses.replace(cfg, qk_norm=True), ServeConfig(),
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="hot-swap"):
-        ServeEngine(cfg, ServeConfig(reload_every=2), device="cpu")
     eng = ServeEngine(cfg, ServeConfig(page_size=4, max_seq=32),
                       device="cpu")
     assert eng.pool["layers"]["k"].device.type == "cpu"
