@@ -3,22 +3,37 @@
 NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
 
 1. Prints the card's name and power limit, then builds every CUDA kernel
-   from ``src/repro_torch/csrc`` (timed).
+   from ``src/repro_torch/csrc`` (timed, all sources in parallel).
 2. Holds each kernel against its plain PyTorch version on the card at
-   paper_llama shapes (and a GQA shape, and the other head dims and page
-   sizes the kernels take); times kernel, plain version and the PyTorch
-   SDPA yardstick.
+   the main paths' shapes (and a GQA shape, and the other head dims and
+   page sizes the kernels take): paged decode, flash forward (with and
+   without the log-sum-exp), flash backward, and the pam4 encode/decode
+   pair (bit for bit, ties, zero blocks and ragged tails included);
+   times each kernel, its plain version and a PyTorch yardstick where
+   one call computes the same function.
 3. Serves paper_llama at full width (bf16) through ``ServeEngine``: 16
    staggered requests, then again with a pool small enough to force
-   preemption.  Both kernels must have been launched by the serve run
-   (the launch counts are reset just before it and read just after).
+   preemption.  Both serving kernels must have been launched by the serve
+   run (the launch counts are reset just before it and read just after).
    The same window is then served a few more times for the spread of
    tokens/s and step times, and once under ``torch.profiler`` for the
    device's busy share and the device time of each kernel.
-4. Card vs plain end to end: the f32 model with the same weights served
+4. Trains paper_llama at full width (bf16) through the training entry
+   point, ``--sync optinc --bits 8 --block 2048 --mesh 4x1`` (four
+   data-parallel peers stacked on the card), global batch 32 x 512
+   tokens, 30 steps: the loss must fall and the four training kernels
+   (flash forward and backward, pam4 encode and decode) must have been
+   launched by the run (counts reset just before, read just after).
+   Step time p50/p99 and tokens/s; one step under ``torch.profiler``;
+   a short ``--sync psum`` run of the same config as a yardstick.
+5. Card vs plain end to end: the f32 model with the same weights served
    through the kernels on the card and through the plain path on the
    CPU; teacher-forced logits must agree, greedy tokens must agree up to
    the first position the plain run's top-2 margin is too thin to decide.
+   Then a narrow f32 training step on the card and on the CPU: losses
+   and pre-sync gradients within tolerance, and the card's gradient
+   stack synced on the CPU through the plain versions must give the
+   card's synced gradients and residuals bit for bit.
 
 Every phase raises on failure, so the script exits non-zero without the
 last line.  The line before the last is a JSON object of per-kernel
@@ -28,6 +43,7 @@ imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import io
 import json
 import math
 import subprocess
@@ -46,6 +62,17 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense bf16 TC / f32
 # bf16 outputs: each side rounds its f32 result to bf16; a 1e-6 difference
 # can flip one rounding, and one bf16 ulp is 2^-6 for |x| in [2, 4).
 KERNEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# Flash backward, kernel vs plain, max abs difference over the largest
+# |gradient|: f32 sums reordered over a 512-long row (~1e-6 relative);
+# bf16 outputs each round their f32 result, 2^-8 relative at worst.
+BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# Card vs CPU training step, f32 (cuBLAS without TF32 vs CPU BLAS): the
+# loss (O(6)) and each gradient leaf relative to its largest entry.
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GRAD_TOL = 1e-4
+TRAIN_ARGV = ["--arch", "paper_llama", "--sync", "optinc", "--bits", "8",
+              "--block", "2048", "--mesh", "4x1", "--global-batch", "32",
+              "--seq-len", "512", "--device", "cuda"]
 # Teacher-forced f32 logits, card (kernels, cuBLAS f32 without TF32) vs
 # CPU (plain): sums reordered through 8 layers; logits are O(1).
 LOGIT_TOL = 1e-3
@@ -194,20 +221,20 @@ def check_kernels(card: str) -> dict:
         ins = copies_for(args)
         ms, host_ms = time_ms(paged_attention.paged_attention, ins)
         plain_ms, _ = time_ms(ref.paged_attention_ref, ins, iters=20)
-        # yardstick: SDPA over the same KV already gathered contiguous
-        # (the gather itself not timed), a boolean length mask
-        sd_ins = []
-        for q, kp, vp, tb, ln in ins:
+        # yardstick: the same work through PyTorch calls, each slot's
+        # pages gathered contiguous and SDPA under a boolean length mask
+        # (gather and mask inside the timed call)
+        def gather_sdpa(q, kp, vp, tb, ln):
             kg, vg = ref.paged_gather(kp, tb), ref.paged_gather(vp, tb)
-            mask = (torch.arange(kg.shape[2], device="cuda")[None, :]
+            mask = (torch.arange(kg.shape[2], device=q.device)[None, :]
                     < ln[:, None].long())[:, None, None, :]
-            sd_ins.append((q, kg, vg, mask))
-        lib_ms, _ = time_ms(lambda q, k, v, m: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=m), sd_ins)
+            return F.scaled_dot_product_attention(q, kg, vg, attn_mask=mask)
+
+        lib_ms, _ = time_ms(gather_sdpa, ins)
         bound, by = paged_bounds(b, h, hkv, hd, ps, lengths, dt)
         print(f"paged_attention main timing: kernel {ms * 1e3:.2f} us "
               f"(wrapper call on the host {host_ms * 1e3:.2f} us), "
-              f"plain {plain_ms * 1e3:.2f} us, sdpa (pre-gathered) "
+              f"plain {plain_ms * 1e3:.2f} us, gather + sdpa "
               f"{lib_ms * 1e3:.2f} us, bound {bound * 1e3:.3f} us ({by}) "
               f"[{card}]", flush=True)
         records["paged_attention"] = dict(
@@ -266,6 +293,184 @@ def check_kernels(card: str) -> dict:
     return records
 
 
+# ------------------------------------------ phase 2b: training kernels
+def pam4_case(peers, nb, block, tail, bits, seed):
+    """A bucket of ``peers`` rows with exact ties (g / s * levels on a
+    .5), all-zero blocks on every peer, and a ragged tail of ``tail``
+    missing elements; its shared block scale; and the code sum with
+    exact Q(mean) ties (total = n k + n / 2)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    g = torch.Generator().manual_seed(seed)
+    m = nb * block - tail
+    x = torch.randn((peers, m), generator=g)
+    x[:, :block] = 0.0
+    x[:, 5 * block:6 * block] = 0.0
+    levels = 2 ** (bits - 1) - 1
+    s1 = x[:, block:2 * block].abs().max()
+    k = torch.arange(1, 33, dtype=torch.float32)
+    x[:, block:block + 32] = (k - 0.5) / levels * s1
+    padded = F.pad(x, (0, nb * block - m)).reshape(peers, nb, block)
+    scale = padded.abs().amax(-1).clamp_min(
+        torch.finfo(torch.float32).tiny).amax(0)
+    u = ref.pam4_quantize_encode_ref(x, scale, bits, block)
+    total = u.sum(0, dtype=torch.int32).reshape(1, -1)
+    total[0, 2 * block:2 * block + 64] = (
+        peers * torch.arange(64, dtype=torch.int32) + peers // 2)
+    return x.cuda(), scale.cuda(), total.cuda(), u.cuda(), m
+
+
+def pam4_bound(nbytes):
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def flash_bwd_bounds(b, h, hkv, hd, sq, skv, dtype):
+    import torch
+    item = torch.tensor([], dtype=dtype).element_size()
+    pairs = sum(min(skv, r + (skv - sq) + 1) for r in range(sq))  # causal
+    flops = 10 * b * h * pairs * hd      # S, dP, dV, dK, dQ: 2 * hd each
+    nbytes = ((4 * b * h * sq * hd + 4 * b * hkv * skv * hd) * item
+              + 4 * b * h * sq)          # q, o, dO, dq; k, v, dk, dv; lse
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(dtype).split(".")[-1]] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_training_kernels(card: str) -> dict:
+    """pam4 encode/decode and the flash backward (and the forward's lse)
+    vs their plain versions on the card; records of the training path's
+    shapes with timings."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import attention, pam4, ref
+
+    records = {}
+    # a full 4 MiB bucket of 4 peers, and a ragged one
+    for bits in (2, 4, 8):
+        for label, nb, tail in (("bucket", 512, 0), ("ragged", 37, 1000)):
+            x, scale, total, u_ref, m = pam4_case(4, nb, 2048, tail, bits,
+                                                  SEED + bits)
+            u = pam4.pam4_quantize_encode(x, scale, bits, 2048)
+            out = pam4.pam4_decode_dequantize(total, scale, bits, 4, m)
+            out_ref = ref.pam4_decode_dequantize_ref(total, scale, bits, 4,
+                                                     m)
+            err = pam4.pam4_decode_dequantize(u.reshape(4, -1), scale, bits,
+                                              1, m, base=x)
+            err_ref = ref.pam4_decode_dequantize_ref(
+                u_ref.reshape(4, -1), scale, bits, 1, m, base=x)
+            torch.cuda.synchronize()
+            same = (torch.equal(u, u_ref), torch.equal(out, out_ref),
+                    torch.equal(err, err_ref))
+            print(f"pam4 {label} bits={bits}: 4 peers x {m} elements in "
+                  f"blocks of 2048: encode bit-equal {same[0]}, decode "
+                  f"(Q(mean), n=4) bit-equal {same[1]}, decode n=1 with "
+                  f"base (error feedback) bit-equal {same[2]}", flush=True)
+            if not all(same):
+                raise AssertionError(f"pam4 {label} bits={bits} differs "
+                                     f"from its plain version")
+            if label != "bucket" or bits != 8:
+                continue
+            ins = copies_for([x, scale])
+            ms, host_ms = time_ms(lambda a, s: pam4.pam4_quantize_encode(
+                a, s, 8, 2048), ins)
+            plain_ms, _ = time_ms(lambda a, s: ref.pam4_quantize_encode_ref(
+                a, s, 8, 2048), ins, iters=20)
+            bound, by = pam4_bound(4 * x.numel() + 4 * u.numel()
+                                   + 4 * scale.numel())
+            print(f"pam4_quantize_encode timing (4 x 512 x 2048, bits 8): "
+                  f"kernel {ms * 1e3:.2f} us (host {host_ms * 1e3:.2f} us), "
+                  f"plain {plain_ms * 1e3:.2f} us, bound {bound * 1e3:.3f} "
+                  f"us ({by}) [{card}]", flush=True)
+            records["pam4_quantize_encode"] = dict(
+                name="pam4_quantize_encode", route="cuda",
+                source="src/repro_torch/csrc/pam4.cu",
+                replaces="src/repro/kernels/pam4.py:40", max_abs_err=0.0,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=None)
+            ins = copies_for([total, scale])
+            ms, host_ms = time_ms(lambda t, s: pam4.pam4_decode_dequantize(
+                t, s, 8, 4, m), ins)
+            plain_ms, _ = time_ms(lambda t, s: ref.pam4_decode_dequantize_ref(
+                t, s, 8, 4, m), ins, iters=20)
+            bound, by = pam4_bound(4 * total.numel() + 4 * m
+                                   + 4 * scale.numel())
+            print(f"pam4_decode_dequantize timing (512 x 2048 sums of 4, "
+                  f"bits 8): kernel {ms * 1e3:.2f} us (host "
+                  f"{host_ms * 1e3:.2f} us), plain {plain_ms * 1e3:.2f} us, "
+                  f"bound {bound * 1e3:.3f} us ({by}) [{card}]", flush=True)
+            records["pam4_decode_dequantize"] = dict(
+                name="pam4_decode_dequantize", route="cuda",
+                source="src/repro_torch/csrc/pam4.cu",
+                replaces="src/repro/kernels/pam4.py:64", max_abs_err=0.0,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=None)
+
+    bwd_cases = [
+        # (label, b, h, hkv, hd, sq, skv, dtype)
+        ("main", 8, 8, 8, 48, 512, 512, torch.bfloat16),
+        ("f32", 8, 8, 8, 48, 512, 512, torch.float32),
+        ("gqa_hd16", 4, 8, 2, 16, 300, 300, torch.float32),
+        ("gqa_shift", 2, 4, 2, 64, 100, 173, torch.bfloat16),
+        ("hd32", 2, 4, 4, 32, 70, 70, torch.float32),
+        ("hd128", 2, 4, 2, 128, 129, 129, torch.bfloat16),
+    ]
+    for label, b, h, hkv, hd, sq, skv, dt in bwd_cases:
+        q, k, v = flash_case(b, h, hkv, hd, sq, skv, dt, SEED)
+        g = torch.Generator().manual_seed(SEED + 1)
+        do = torch.randn((b, h, sq, hd), generator=g).to(dt).cuda()
+        o, lse = attention.flash_attention(q, k, v, return_lse=True)
+        o_ref, lse_ref = ref.attention_fwd_ref(q, k, v)
+        torch.cuda.synchronize()
+        f_err = (o.float() - o_ref.float()).abs().max().item()
+        l_err = (lse - lse_ref).abs().max().item()
+        tol = KERNEL_TOL[str(dt).split(".")[-1]]
+        if not (f_err <= tol and l_err <= KERNEL_TOL["float32"]):
+            raise AssertionError(f"flash forward with lse {label}: out "
+                                 f"{f_err}, lse {l_err}")
+        got = attention.flash_attention_bwd(q, k, v, o, lse, do)
+        want = ref.attention_bwd_ref(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        rel = max(((a.float() - w.float()).abs().max()
+                   / w.float().abs().max()).item() for a, w in zip(got, want))
+        btol = BWD_TOL[str(dt).split(".")[-1]]
+        print(f"flash_attention_bwd {label}: b={b} h={h} hkv={hkv} hd={hd} "
+              f"sq={sq} skv={skv} {dt}: max_abs_err / max|grad| {rel:.3e} "
+              f"(tol {btol:.0e}); forward with lse: out {f_err:.3e}, lse "
+              f"{l_err:.3e}", flush=True)
+        if not rel <= btol:
+            raise AssertionError(f"flash_attention_bwd {label} disagrees "
+                                 f"with its plain version: {rel} > {btol}")
+        if label != "main":
+            continue
+        ins = copies_for([q, k, v, o, lse, do])
+        ms, host_ms = time_ms(attention.flash_attention_bwd, ins)
+        plain_ms, _ = time_ms(ref.attention_bwd_ref, ins, iters=10)
+        # yardstick: the backward of PyTorch's SDPA alone (its forward
+        # graph built once, the backward replayed on it)
+        sd_ins = []
+        for qq, kk, vv, _, _, dd in ins:
+            qq, kk, vv = (t.detach().requires_grad_() for t in (qq, kk, vv))
+            out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
+            sd_ins.append((out, qq, kk, vv, dd))
+        lib_ms, _ = time_ms(lambda out, qq, kk, vv, dd: torch.autograd.grad(
+            out, (qq, kk, vv), dd, retain_graph=True), sd_ins)
+        bound, by = flash_bwd_bounds(b, h, hkv, hd, sq, skv, dt)
+        print(f"flash_attention_bwd main timing: kernel {ms * 1e3:.2f} us "
+              f"(host {host_ms * 1e3:.2f} us), plain {plain_ms * 1e3:.2f} "
+              f"us, sdpa backward {lib_ms * 1e3:.2f} us, bound "
+              f"{bound * 1e3:.3f} us ({by}) [{card}]", flush=True)
+        records["flash_attention_bwd"] = dict(
+            name="flash_attention_bwd", route="cuda",
+            source="src/repro_torch/csrc/flash_attention_bwd.cu",
+            replaces="src/repro/kernels/attention.py:63",
+            max_abs_err=max((a.float() - w.float()).abs().max().item()
+                            for a, w in zip(got, want)),
+            ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+            library_ms=lib_ms)
+    return records
+
+
 # ----------------------------------------------------- phase 3: serve
 def make_prompts(n, vocab, lo, hi, seed):
     import numpy as np
@@ -305,10 +510,11 @@ def pct(xs, q):
     return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
 
 
-def device_profile(prof, wall_s: float, card: str) -> None:
-    """Print the device's busy share of a profiled serve window (device
-    time of every kernel and copy CUPTI saw, over the window's wall time)
-    and the device time of its heaviest kernels."""
+def device_profile(prof, wall_s: float, card: str,
+                   what: str = "serve window") -> None:
+    """Print the device's busy share of a profiled window (device time of
+    every kernel and copy CUPTI saw, over the window's wall time) and the
+    device time of its heaviest kernels."""
     from torch.autograd import DeviceType
 
     def dev_us(e):
@@ -322,7 +528,7 @@ def device_profile(prof, wall_s: float, card: str) -> None:
         print("device busy share: not measured (the profiler saw no device "
               "time)", flush=True)
         return
-    print(f"profiled serve window: {wall_s * 1e3:.3f} ms wall, device busy "
+    print(f"profiled {what}: {wall_s * 1e3:.3f} ms wall, device busy "
           f"{busy_us / 1e3:.3f} ms = {100 * busy_us / (wall_s * 1e6):.2f}% "
           f"[{card}]", flush=True)
     for e in sorted(rows, key=dev_us, reverse=True)[:10]:
@@ -399,7 +605,163 @@ def serve_full_width(card: str) -> dict:
     return launches
 
 
-# ----------------------------------------- phase 4: card vs plain, f32
+# ----------------------------------------------------- phase 4: train
+def _train_counters():
+    from repro_torch.kernels import attention, pam4
+    return {"flash_attention": attention.flash_attention,
+            "flash_attention_bwd": attention.flash_attention_bwd,
+            "pam4_quantize_encode": pam4.pam4_quantize_encode,
+            "pam4_decode_dequantize": pam4.pam4_decode_dequantize}
+
+
+def train_run(argv, steps: int):
+    """Records of ``steps`` steps of the training entry point."""
+    from repro_torch.launch import train
+    buf = io.StringIO()
+    recs = train.run(train.parse_args(TRAIN_ARGV + argv
+                                      + ["--steps", str(steps)]), out=buf)
+    if [json.loads(line) for line in buf.getvalue().splitlines()] != recs:
+        raise AssertionError("the printed step records differ")
+    return recs
+
+
+def train_full_width(card: str) -> dict:
+    """Returns the launch count of each training kernel in the run."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.collectives.bucketizer import expected_buckets
+    from repro_torch.collectives.engine import SyncConfig
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.tree import leaves
+
+    cfg = configs.get("paper_llama")
+    n_params = sum(math.prod(s) for s in leaves(lm.param_shapes(cfg)))
+    counters = _train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    recs = train_run([], 30)
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [r["loss"] for r in recs]
+    times = [r["time_s"] for r in recs[5:]]
+    tokens = 32 * 512
+    n_buckets = expected_buckets(4 * n_params)
+    print(f"train paper_llama bf16 ({n_params} params, {n_buckets} buckets "
+          f"of 4 MiB), --sync optinc --bits 8 --mesh 4x1, 32 x 512 tokens, "
+          f"30 steps in {wall:.3f} s: loss {losses[0]} -> {losses[-1]}; "
+          f"launches {launches}; peak memory {peak_gb:.3f} GB", flush=True)
+    p50 = pct(times, 0.5)
+    print(f"train step time over steps 5-29: p50 {p50 * 1e3:.3f} ms p99 "
+          f"{pct(times, 0.99) * 1e3:.3f} ms; {tokens / p50:.1f} tokens/s at "
+          f"p50; first step {recs[0]['time_s'] * 1e3:.3f} ms [{card}]",
+          flush=True)
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"{name} was not launched by the run")
+    want_pam4 = 30 * n_buckets
+    if (launches["pam4_quantize_encode"] != want_pam4
+            or launches["pam4_decode_dequantize"] != want_pam4):
+        raise AssertionError(f"pam4 launches {launches}: want one encode and "
+                             f"one decode per bucket, {want_pam4}")
+
+    psum = train_run(["--sync", "psum"], 10)
+    ptimes = [r["time_s"] for r in psum[3:]]
+    print(f"yardstick --sync psum, same config, 10 steps: step p50 "
+          f"{pct(ptimes, 0.5) * 1e3:.3f} ms p99 {pct(ptimes, 0.99) * 1e3:.3f}"
+          f" ms over steps 3-9; loss {psum[0]['loss']} -> {psum[-1]['loss']}"
+          f" [{card}]", flush=True)
+
+    # one steady step under the profiler: the device's busy share and the
+    # device time of each kernel
+    from torch.profiler import ProfilerActivity, profile
+    sync = SyncConfig(mode="optinc", bits=8, block=2048)
+    opt = AdamWConfig()
+    params = lm.init_params(cfg, SEED, "cuda")
+    ostate = adamw_init(opt, params)
+    step = tsteps.make_train_step(cfg, 4, sync, opt, "cuda")
+    g = torch.Generator().manual_seed(SEED)
+    tok = torch.randint(0, cfg.vocab, (32, 513), generator=g).cuda()
+    for _ in range(2):
+        params, ostate, _, m = step(params, ostate, {}, tok)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, ostate, _, m = step(params, ostate, {}, tok)
+        float(m["loss"])
+        w = time.perf_counter() - t0
+    device_profile(prof, w, card, "train step")
+    return launches
+
+
+def card_vs_plain_training(card: str) -> None:
+    """A narrow f32 training step on the card and on the CPU from the
+    same weights and tokens; then the card's gradient stack synced on
+    the CPU through the plain versions, two steps with error feedback."""
+    import torch
+    from repro_torch.collectives.bucketizer import make_layout
+    from repro_torch.collectives.engine import SyncConfig, sync_flat
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models import lm
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.tree import leaves
+
+    cfg = ModelConfig(name="paper-llama-narrow", family="dense", n_layers=2,
+                      d_model=128, n_heads=8, n_kv_heads=8, d_ff=512,
+                      vocab=512, dtype="float32")
+    params_cpu = lm.init_params(cfg, SEED, "cpu")
+    params_gpu = {k: ({kk: vv.cuda() for kk, vv in v.items()}
+                      if isinstance(v, dict) else v.cuda())
+                  for k, v in params_cpu.items()}
+    sync = SyncConfig(mode="optinc", bits=8, block=2048, error_feedback=True,
+                      bucket_bytes=2 ** 20)
+    layout = make_layout([(s, torch.float32) for s in
+                          leaves(lm.param_shapes(cfg))], sync.bucket_bytes)
+    g = torch.Generator().manual_seed(SEED + 2)
+    res_gpu = res_cpu = None
+    for step in range(2):
+        tok = torch.randint(0, cfg.vocab, (8, 129), generator=g)
+        l_cpu, f_cpu = tsteps.peer_grad_stack(cfg, params_cpu, tok, 2,
+                                              layout.total)
+        l_gpu, f_gpu = tsteps.peer_grad_stack(cfg, params_gpu, tok.cuda(), 2,
+                                              layout.total)
+        loss_err = (l_gpu.cpu() - l_cpu).abs().max().item()
+        grad_err, start = 0.0, 0
+        for size in layout.sizes:          # each leaf against its own max
+            want = f_cpu[:, start:start + size]
+            got = f_gpu[:, start:start + size].cpu()
+            grad_err = max(grad_err, ((got - want).abs().max()
+                                      / want.abs().max()).item())
+            start += size
+        if res_gpu is None:
+            res_gpu = torch.zeros_like(f_gpu)
+            res_cpu = res_gpu.cpu()
+        out_gpu, new_res_gpu = sync_flat(f_gpu, layout.bounds, sync, res_gpu)
+        out_cpu, new_res_cpu = sync_flat(f_gpu.cpu(), layout.bounds, sync,
+                                         res_gpu.cpu())
+        same = (torch.equal(out_gpu.cpu(), out_cpu),
+                torch.equal(new_res_gpu.cpu(), new_res_cpu))
+        print(f"card vs plain training step {step} (narrow f32, 2 peers, "
+              f"{layout.total} params in {layout.n_buckets} buckets): loss "
+              f"max_abs_err {loss_err:.3e} (tol {TRAIN_LOSS_TOL:.0e}), "
+              f"pre-sync gradients max_abs_err / max|leaf| {grad_err:.3e} "
+              f"(tol {TRAIN_GRAD_TOL:.0e}); the card's stack synced on the "
+              f"CPU: synced bit-equal {same[0]}, residuals bit-equal "
+              f"{same[1]} [{card}]", flush=True)
+        if not (loss_err <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_TOL
+                and all(same)):
+            raise AssertionError("card vs plain training disagrees")
+        res_gpu = new_res_gpu
+
+
+# ----------------------------------------- phase 5: card vs plain, f32
 def teacher_forced_logits(cfg, params, prompts, forced, device):
     """Logits of prefill + every decode step, feeding ``forced`` tokens
     (n, steps) instead of sampling, through the engine's own calls."""
@@ -505,10 +867,16 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     records = check_kernels(card)
+    records.update(check_training_kernels(card))
     launches = serve_full_width(card)
-    for name, rec in records.items():
-        rec["launches"] = launches[name]
+    for name in launches:
+        records[name]["launches"] = launches[name]
+    train_launches = train_full_width(card)
+    for name in ("flash_attention_bwd", "pam4_quantize_encode",
+                 "pam4_decode_dequantize"):
+        records[name]["launches"] = train_launches[name]
     card_vs_plain(card)
+    card_vs_plain_training(card)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -26,6 +26,9 @@
 // tail) are computed on zero queries and not stored.  Shared rows are
 // padded by one float against bank conflicts.  Inputs may be strided
 // (last dim contiguous), so the model's transposed views need no copy.
+// For training the kernel also writes each row's log-sum-exp m + log l
+// (f32), which the backward (flash_attention_bwd.cu) rebuilds the
+// probabilities from; serving passes a null pointer and writes none.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,7 +63,8 @@ constexpr size_t smem_bytes() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int h,
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int h,
                        int hkv, int sq, int skv, long long qsb, long long qsh,
                        long long qss, long long ksb, long long ksh,
                        long long kss, long long vsb, long long vsh,
@@ -172,13 +176,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i)
       orow[half + 2 * i] = from_f32<T>(acc[i] / den);
+    if (lse != nullptr && half == 0)
+      lse[((size_t)bi * h + hq) * sq + row] = m + logf(den);
   }
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int h, int hkv, int sq, int skv, const long long* st, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int b, int h, int hkv, int sq, int skv,
+           const long long* st, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   auto kernel = flash_attention_kernel<T, HD>;
   if (smem > 48 * 1024) {
@@ -189,21 +195,21 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   const dim3 grid((sq + kBQ - 1) / kBQ, h, b);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), h, hkv, sq, skv, st[0],
-      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, h, hkv, sq, skv,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch_hd(const void* q, const void* k, const void* v, void* out, int b,
-                int h, int hkv, int sq, int skv, int hd, const long long* st,
-                float scale, cudaStream_t s) {
+int dispatch_hd(const void* q, const void* k, const void* v, void* out,
+                float* lse, int b, int h, int hkv, int sq, int skv, int hd,
+                const long long* st, float scale, cudaStream_t s) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, out, b, h, hkv, sq, skv, st, scale, s);
-    case 32: return launch<T, 32>(q, k, v, out, b, h, hkv, sq, skv, st, scale, s);
-    case 48: return launch<T, 48>(q, k, v, out, b, h, hkv, sq, skv, st, scale, s);
-    case 64: return launch<T, 64>(q, k, v, out, b, h, hkv, sq, skv, st, scale, s);
-    case 128: return launch<T, 128>(q, k, v, out, b, h, hkv, sq, skv, st, scale, s);
+    case 16: return launch<T, 16>(q, k, v, out, lse, b, h, hkv, sq, skv, st, scale, s);
+    case 32: return launch<T, 32>(q, k, v, out, lse, b, h, hkv, sq, skv, st, scale, s);
+    case 48: return launch<T, 48>(q, k, v, out, lse, b, h, hkv, sq, skv, st, scale, s);
+    case 64: return launch<T, 64>(q, k, v, out, lse, b, h, hkv, sq, skv, st, scale, s);
+    case 128: return launch<T, 128>(q, k, v, out, lse, b, h, hkv, sq, skv, st, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -212,11 +218,13 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* out, int b,
 
 // q: (b, h, sq, hd), k/v: (b, hkv, skv, hd) with element strides (batch,
 // head, row) given and the last dim contiguous; out: contiguous
-// (b, h, sq, hd).  dtype code: 0 = float32, 1 = bfloat16 (all four
-// tensors).  Returns the cudaError_t of the launch (0 = success); an
-// unsupported head dim or dtype returns cudaErrorInvalidValue.
+// (b, h, sq, hd); lse: contiguous (b, h, sq) f32, or null to skip it.
+// dtype code: 0 = float32, 1 = bfloat16 (all four tensors).  Returns the
+// cudaError_t of the launch (0 = success); an unsupported head dim or
+// dtype returns cudaErrorInvalidValue.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* out, int b, int h,
+                                   const void* v, void* out, void* lse,
+                                   int b, int h,
                                    int hkv, int sq, int skv, int hd,
                                    long long qsb, long long qsh, long long qss,
                                    long long ksb, long long ksh, long long kss,
@@ -226,10 +234,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   const long long st[9] = {qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss};
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_hd<float>(q, k, v, out, b, h, hkv, sq, skv, hd, st, scale,
-                              s);
+    return dispatch_hd<float>(q, k, v, out, static_cast<float*>(lse), b, h,
+                              hkv, sq, skv, hd, st, scale, s);
   if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(q, k, v, out, b, h, hkv, sq, skv, hd,
-                                      st, scale, s);
+    return dispatch_hd<__nv_bfloat16>(q, k, v, out, static_cast<float*>(lse),
+                                      b, h, hkv, sq, skv, hd, st, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,11 +1,13 @@
-"""Flash-attention prefill: wrapper of the CUDA kernel
-``csrc/flash_attention.cu`` (counterpart of
+"""Flash attention: wrappers of the CUDA kernels
+``csrc/flash_attention.cu`` (forward, counterpart of
 ``repro.kernels.attention.flash_attention``, GQA-aware like
-``repro.models.layers.blocked_attention``).
+``repro.models.layers.blocked_attention``) and
+``csrc/flash_attention_bwd.cu`` (backward), and ``FlashAttention``, the
+autograd function that joins them for training.
 
-For a CPU tensor the wrapper runs the plain version
-(``ref.attention_ref``); for a CUDA tensor it launches the kernel or
-raises; any other device raises.
+For CPU tensors each wrapper runs its plain version
+(``ref.attention_fwd_ref`` / ``ref.attention_bwd_ref``); for CUDA
+tensors it launches the kernel or raises; any other device raises.
 """
 from __future__ import annotations
 
@@ -17,18 +19,23 @@ from . import _build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 48, 64, 128)   # instantiated in flash_attention.cu
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 9
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                 + [ctypes.c_longlong] * 12
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    return_lse: bool = False):
     """Causal multi-head GQA attention.  q: (b, h, sq, hd); k/v: (b, hkv,
     skv, hd) with h a multiple of hkv; f32 or bf16, all one dtype; each
     tensor's last dimension contiguous (other strides are free, so
     transposed views need no copy).  Query row r sees key columns c <= r + (skv -
-    sq), which needs skv >= sq.  Returns (b, h, sq, hd) in q.dtype."""
+    sq), which needs skv >= sq.  Returns (b, h, sq, hd) in q.dtype, and
+    with ``return_lse`` also the per-row log-sum-exp of the scaled scores
+    (b, h, sq) f32, which the backward needs."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(f"flash_attention wants 4-d q/k/v, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -49,7 +56,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if q.device.type == "cpu" and k.device.type == "cpu" \
             and v.device.type == "cpu":
-        return ref.attention_ref(q, k, v)
+        out, lse = ref.attention_fwd_ref(q, k, v)
+        return (out, lse) if return_lse else out
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(f"flash_attention runs on CPU or one CUDA device, "
                          f"got {q.device}, {k.device}, {v.device}")
@@ -59,8 +67,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("flash_attention needs each last dim contiguous")
     out = torch.empty((b, h, sq, hd), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     fn = _build.entry("flash_attention", "flash_attention_fwd", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             lse.data_ptr() if return_lse else None,
              b, h, hkv, sq, skv, hd,
              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
              hd ** -0.5, _DTYPES[q.dtype],
@@ -69,7 +80,87 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
         raise RuntimeError(f"flash_attention kernel launch failed "
                            f"(cudaError {err})")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor):
+    """Gradients (dq, dk, dv) of ``flash_attention`` given its output o,
+    its log-sum-exp lse and the output gradient do.  q/k/v as the
+    forward took them; do: (b, h, sq, hd) with its last dim contiguous;
+    o: contiguous (b, h, sq, hd), lse: contiguous (b, h, sq) f32.
+    Returns dq (b, h, sq, hd) and dk/dv (b, hkv, skv, hd), contiguous,
+    in the input dtype.  Deterministic: no atomics."""
+    b, h, sq, hd = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if (o.shape != q.shape or do.shape != q.shape or lse.shape != (b, h, sq)
+            or k.shape != (b, hkv, skv, hd) or v.shape != k.shape
+            or h % hkv or skv < sq):
+        raise ValueError(f"flash_attention_bwd shape mismatch: q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}, o {tuple(o.shape)}, lse "
+                         f"{tuple(lse.shape)}, do {tuple(do.shape)}")
+    if (q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in (k, v, o, do))
+            or lse.dtype != torch.float32):
+        raise TypeError(f"flash_attention_bwd takes f32 or bf16 tensors of "
+                        f"one dtype and an f32 lse, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}, {o.dtype}, {do.dtype}, "
+                        f"{lse.dtype}")
+    ts = (q, k, v, o, lse, do)
+    if all(t.device.type == "cpu" for t in ts):
+        return ref.attention_bwd_ref(q, k, v, o, lse, do)
+    if not (q.is_cuda and all(t.device == q.device for t in ts)):
+        raise ValueError(f"flash_attention_bwd runs on CPU or one CUDA "
+                         f"device, got {[str(t.device) for t in ts]}")
+    if hd not in _HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd kernel head dims are "
+                         f"{_HEAD_DIMS}, got {hd}")
+    if any(t.stride(-1) != 1 for t in (q, k, v, do)) or not (
+            o.is_contiguous() and lse.is_contiguous()):
+        raise ValueError("flash_attention_bwd needs q/k/v/do last dims "
+                         "contiguous and o, lse contiguous")
+    dq = torch.empty((b, h, sq, hd), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, hkv, skv, hd), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    dsum = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    fn = _build.entry("flash_attention_bwd", "flash_attention_bwd",
+                      _BWD_ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             lse.data_ptr(), do.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), b, h, hkv, sq, skv, hd,
+             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+             *do.stride()[:3], hd ** -0.5, _DTYPES[q.dtype],
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed "
+                           f"(cudaError {err})")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
 
 
 flash_attention.launches = 0
+flash_attention_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with a gradient: the forward runs the forward
+    kernel and, when a gradient is needed, keeps its output and
+    log-sum-exp; the backward runs ``flash_attention_bwd`` (the backward
+    kernel on the card, ``ref.attention_bwd_ref`` on the CPU).  Without
+    a gradient (serving, ``torch.no_grad``) the forward writes no lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        if not any(ctx.needs_input_grad):
+            return flash_attention(q, k, v)
+        out, lse = flash_attention(q, k, v, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        return flash_attention_bwd(q, k, v, out, lse, do)

@@ -1,6 +1,8 @@
 """GQA self-attention blocks of the dense transformer (counterpart of
-``repro.models.blocks``) at tensor parallelism 1: the prefill branch of
-``gqa_attention`` and the paged decode step ``gqa_decode_paged``."""
+``repro.models.blocks``) at tensor parallelism 1: the training/prefill
+branch of ``gqa_attention`` (differentiable: attention goes through the
+flash kernels' autograd function, and nothing autograd saves is written
+in place) and the paged decode step ``gqa_decode_paged``."""
 from __future__ import annotations
 
 from ..kernels.paged_attention import paged_attention
@@ -25,8 +27,8 @@ def _gqa_qkv(cfg: ModelConfig, p, x, pos):
 
 
 def gqa_attention(cfg: ModelConfig, p, x, pos):
-    """Causal self-attention over a whole prompt batch (the prefill
-    branch of the JAX ``gqa_attention``).  x: (b, t, d), pos: (t,).
+    """Causal self-attention over a whole sequence batch (the training
+    and prefill branch of the JAX ``gqa_attention``).  x: (b, t, d), pos: (t,).
     Returns (out (b, t, d), {"k", "v": (b, kvl, t, hd)})."""
     q, k, v = _gqa_qkv(cfg, p, x, pos)
     b, t, hl = q.shape[:3]

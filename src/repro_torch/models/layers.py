@@ -6,8 +6,9 @@ projection with ``lax.psum`` over 'model'; at tp=1 those collectives are
 identities and are left out here, as are the FSDP gathers.
 
 Attention keeps the JAX names: ``blocked_attention`` is the flash
-kernel's wrapper itself (``kernels.attention.flash_attention``: the CUDA
-kernel for CUDA tensors, ``ref.attention_ref`` for CPU tensors), and
+kernel with its gradient (``kernels.attention.FlashAttention``: the CUDA
+forward and backward kernels for CUDA tensors, their plain versions for
+CPU tensors), and
 ``decode_attention``/``paged_gather``, the gather decode math that only
 the paged kernel's plain version uses, are defined in ``kernels.ref``.
 """
@@ -16,12 +17,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..kernels.attention import flash_attention as blocked_attention
+from ..kernels.attention import FlashAttention
 from ..kernels.ref import NEG_INF, decode_attention, paged_gather
 
-__all__ = ["NEG_INF", "rmsnorm", "rope", "embed_lookup", "blocked_attention",
-           "decode_attention", "swiglu_mlp", "paged_update_cache",
-           "paged_gather"]
+__all__ = ["NEG_INF", "rmsnorm", "rope", "embed_lookup", "lm_loss",
+           "blocked_attention", "decode_attention", "swiglu_mlp",
+           "paged_update_cache", "paged_gather"]
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -48,6 +49,26 @@ def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
 def embed_lookup(emb: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Embedding rows for token ids (the whole vocabulary at tp=1)."""
     return F.embedding(ids, emb)
+
+
+def lm_loss(x: torch.Tensor, head: torch.Tensor,
+            targets: torch.Tensor) -> torch.Tensor:
+    """Cross-entropy over the whole vocabulary (tp=1): x (b, t, d), head
+    (d, V), targets (b, t).  Returns the mean NLL, f32.  The JAX version
+    scans sequence chunks of 1024 under ``jax.checkpoint`` to bound the
+    live logits; that memory device is not ported (one chunk here)."""
+    logits = (x @ head).float()                        # (b, t, V)
+    m = logits.detach().amax(dim=-1)                  # stability shift only
+    lse = torch.log(torch.exp(logits - m[..., None]).sum(dim=-1)) + m
+    tgt = logits.gather(-1, targets.long()[..., None])[..., 0]
+    return (lse - tgt).mean()
+
+
+def blocked_attention(q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor) -> torch.Tensor:
+    """Causal GQA attention with a gradient, through the flash kernels.
+    q: (b, h, sq, hd), k/v: (b, hkv, skv, hd), last dims contiguous."""
+    return FlashAttention.apply(q, k, v)
 
 
 def swiglu_mlp(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:

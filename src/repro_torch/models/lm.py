@@ -1,8 +1,8 @@
-"""Dense transformer assembly for serving (counterpart of
-``repro.models.lm``) at tensor parallelism 1: parameter shapes and seeded
-init, the JAX-parameter bridge, and the two steps of the
-continuous-batching engine — ``batched_prefill_step`` and
-``paged_decode_step``.
+"""Dense transformer assembly (counterpart of ``repro.models.lm``) at
+tensor parallelism 1: parameter shapes and seeded init, the
+JAX-parameter bridge, the training forward and loss (``forward_lm``,
+``loss_fn``), and the two steps of the continuous-batching engine —
+``batched_prefill_step`` and ``paged_decode_step``.
 
 Parameters are a plain dict with the JAX package's layout: ``embed``
 (V, d), ``final_norm`` (d,), ``lm_head`` (d, V), and ``layers`` holding
@@ -17,9 +17,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import tree as tree_util
 from . import blocks
 from .config import ModelConfig
-from .layers import embed_lookup, rmsnorm, swiglu_mlp
+from .layers import embed_lookup, lm_loss, rmsnorm, swiglu_mlp
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -85,21 +86,6 @@ def param_shapes(cfg: ModelConfig) -> dict:
             "layers": {k: (cfg.n_layers,) + s for k, s in layer.items()}}
 
 
-def _leaves(tree: dict, prefix=()):
-    """(path, leaf) pairs in sorted-key order (jax.tree's order)."""
-    for k in sorted(tree):
-        if isinstance(tree[k], dict):
-            yield from _leaves(tree[k], prefix + (k,))
-        else:
-            yield prefix + (k,), tree[k]
-
-
-def _set(tree: dict, path, value):
-    for k in path[:-1]:
-        tree = tree.setdefault(k, {})
-    tree[path[-1]] = value
-
-
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     """Seeded parameters, the JAX ``init_params`` recipe: normal * 0.02
     (0.5 when fan_in <= 8), norms = 1, cast to the config dtype.  Draws
@@ -110,14 +96,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     gen = torch.Generator().manual_seed(seed)
     dt = torch_dtype(cfg)
     out: dict = {}
-    for path, shp in _leaves(param_shapes(cfg)):
+    for path, shp in tree_util.leaves_with_paths(param_shapes(cfg)):
         fan_in = shp[-2] if len(shp) >= 2 else shp[-1]
         if len(shp) == 1 or shp[-1] == 1 or path[-1].endswith("norm"):
             w = torch.ones(shp, dtype=dt)
         else:
             w = (torch.randn(shp, generator=gen, dtype=torch.float32)
                  * (0.02 if fan_in > 8 else 0.5)).to(dt)
-        _set(out, path, w.to(device))
+        tree_util.set_path(out, path, w.to(device))
     return out
 
 
@@ -137,7 +123,7 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     parameters, bit for bit.  Shapes are checked against
     ``param_shapes(cfg)``."""
     out: dict = {}
-    for path, shp in _leaves(param_shapes(cfg)):
+    for path, shp in tree_util.leaves_with_paths(param_shapes(cfg)):
         node = tree
         for k in path:
             node = node[k]
@@ -145,13 +131,51 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
         if tuple(t.shape) != shp:
             raise ValueError(f"param {'/'.join(path)}: shape "
                              f"{tuple(t.shape)} != {shp}")
-        _set(out, path, t.to(device))
+        tree_util.set_path(out, path, t.to(device))
     return out
 
 
-def layer_params(params: dict, i: int) -> dict:
-    """Layer i's weights as views into the stacked tensors."""
-    return {k: v[i] for k, v in params["layers"].items()}
+def layer_params(params: dict) -> list:
+    """Each layer's weights, views into the stacked tensors (one
+    ``unbind`` per leaf, so a backward through them is one stack)."""
+    stacked = {k: v.unbind(0) for k, v in params["layers"].items()}
+    n = len(next(iter(stacked.values())))
+    return [{k: v[i] for k, v in stacked.items()} for i in range(n)]
+
+
+def _attn_mlp_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, pos):
+    """One pre-norm transformer layer (attention + SwiGLU MLP); returns
+    (x, {"k", "v"})."""
+    a, kv = blocks.gqa_attention(cfg, p, x, pos)
+    x = x + a
+    x = x + swiglu_mlp(rmsnorm(x, p["mlp_norm"]), p["w_gate"], p["w_up"],
+                       p["w_down"])
+    return x, kv
+
+
+# ============================== training ==============================
+
+def forward_lm(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
+    """Training forward of the dense family.  tokens: (b, t).  Returns
+    (hidden (b, t, d), aux_loss = 0.0).  The JAX version scans the
+    stacked layers under ``jax.checkpoint``; a Python loop walks them
+    here, with no rematerialization."""
+    _check_dense(cfg, "forward_lm")
+    pos = torch.arange(tokens.shape[1], device=tokens.device)
+    x = embed_lookup(params["embed"], tokens)
+    for p in layer_params(params):
+        x, _ = _attn_mlp_layer(cfg, p, x, pos)
+    return x, 0.0
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
+    """Next-token NLL of a (b, t + 1) token batch (dense: no MoE aux, no
+    MTP).  Returns (loss, {"nll": loss})."""
+    tokens = batch["tokens"].long()
+    x, aux = forward_lm(cfg, params, tokens[:, :-1])
+    h = rmsnorm(x, params["final_norm"])
+    loss = lm_loss(h, params["lm_head"], tokens[:, 1:])
+    return loss + 0.01 * aux, {"nll": loss}
 
 
 def _logits(params: dict, h: torch.Tensor) -> torch.Tensor:
@@ -176,12 +200,8 @@ def batched_prefill_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     pos = torch.arange(t, device=tokens.device)
     x = embed_lookup(params["embed"], tokens)
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        p = layer_params(params, i)
-        a, kv = blocks.gqa_attention(cfg, p, x, pos)
-        x = x + a
-        x = x + swiglu_mlp(rmsnorm(x, p["mlp_norm"]), p["w_gate"], p["w_up"],
-                           p["w_down"])
+    for p in layer_params(params):
+        x, kv = _attn_mlp_layer(cfg, p, x, pos)
         ks.append(kv["k"])
         vs.append(kv["v"])
     last = lengths.long().clamp_min(1) - 1        # pad rows clamp to 0
@@ -203,8 +223,7 @@ def paged_decode_step(cfg: ModelConfig, params: dict, pool: dict,
     Returns (logits (b, V) f32, pool)."""
     _check_dense(cfg, "paged_decode_step")
     x = embed_lookup(params["embed"], token)
-    for i in range(cfg.n_layers):
-        p = layer_params(params, i)
+    for i, p in enumerate(layer_params(params)):
         kv = {"k": pool["layers"]["k"][i], "v": pool["layers"]["v"][i]}
         a, _ = blocks.gqa_decode_paged(cfg, p, x, lengths, kv, page_table)
         x = x + a

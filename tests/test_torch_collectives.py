@@ -1,0 +1,384 @@
+"""repro_torch.photonics.encoding and repro_torch.collectives on the CPU,
+held against the JAX package on the same numpy-seeded inputs.
+
+Everything here is integer math or f32 arithmetic in the JAX order, so
+the encoding functions, the pam4 plain versions and the optinc sync are
+held bit for bit; the psum sync sums floats over peers in an order the
+two frameworks may choose differently, so it is held to 1 ulp of the
+per-element magnitude.
+
+The 2- and 4-peer JAX references need a JAX process with several host
+devices.  They come from ONE subprocess per module (started with
+``XLA_FLAGS`` in its environment, never set in this process), which
+writes its results to an ``.npz`` the tests read.
+"""
+import functools
+import json
+import subprocess
+import sys
+import textwrap
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.collectives import SyncConfig as JaxSyncConfig
+from repro.collectives import backends as jbackends
+from repro.collectives import bucketizer as jbucketizer
+from repro.kernels import pam4 as jpam4
+from repro.photonics import encoding as jenc
+from repro_torch.collectives import backends, bucketizer, engine, registry
+from repro_torch.kernels import pam4, ref
+from repro_torch.photonics import encoding as tenc
+
+BITS = (2, 4, 8)
+
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _grad(rng, shape, bits, block, scale=None):
+    """Random f32 values with exact ties (g / s * levels on a .5 for the
+    block scale s), an all-zero block and a ragged tail."""
+    g = rng.normal(size=shape).astype(np.float32)
+    flat = g.reshape(-1)
+    levels = 2 ** (bits - 1) - 1
+    flat[:block] = 0.0                                  # a zero block
+    s = np.abs(flat[block:2 * block]).max()
+    k = np.arange(1, 9, dtype=np.float32)
+    flat[block:block + 8] = ((k - 0.5) / levels * s).astype(np.float32)
+    return g
+
+
+# ------------------------------------------------------------ encoding
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("block", [0, 16])
+def test_encoding_matches_jax_bit_for_bit(bits, block):
+    rng = np.random.default_rng(bits * 10 + block)
+    g = _grad(rng, (7, 13), bits, max(block, 16))       # 91: ragged blocks
+    spec = tenc.QuantSpec(bits=bits, block=block)
+    jspec = jenc.QuantSpec(bits=bits, block=block)
+    assert (spec.levels, spec.offset) == (jspec.levels, jspec.offset)
+    assert tenc.num_symbols(bits) == jenc.num_symbols(bits)
+    scale = tenc.compute_scale(_t(g), spec)
+    np.testing.assert_array_equal(
+        scale.numpy(), np.asarray(jenc.compute_scale(jnp.asarray(g), jspec)))
+    u, s = tenc.quantize(_t(g), spec)
+    ju, js = jenc.quantize(jnp.asarray(g), jspec)
+    np.testing.assert_array_equal(u.numpy(), np.asarray(ju))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(
+        tenc.dequantize(u, s, spec).numpy(),
+        np.asarray(jenc.dequantize(ju, js, jspec)))
+    stack = rng.integers(0, 2 ** bits - 1, size=(4, 50)).astype(np.int32)
+    stack[:, :4] = [[0, 0, 1, 1], [1, 0, 1, 1], [0, 1, 0, 1], [1, 1, 0, 0]]
+    np.testing.assert_array_equal(                      # ties: 2/4, 3/4...
+        tenc.qmean(_t(stack)).numpy(), np.asarray(jenc.qmean(stack)))
+
+
+# --------------------------------------------------- pam4 plain versions
+def _encode_case(bits, peers=3, nb=16, block=128, tail=40, seed=0):
+    rng = np.random.default_rng(seed + bits)
+    m = nb * block - tail
+    g = np.stack([_grad(rng, (m,), bits, block) for _ in range(peers)])
+    padded = np.pad(g, ((0, 0), (0, nb * block - m)))
+    scale = np.maximum(np.abs(padded.reshape(peers, nb, block)).max(-1),
+                       np.float32(1.1754944e-38)).max(0)
+    return g, scale.astype(np.float32), m, block
+
+
+@pytest.mark.parametrize("bits", BITS)
+def test_pam4_plain_versions_match_the_jax_pallas_kernels(bits):
+    """The Pallas kernels (interpret mode) have no zero-block guard, so
+    this case has no zero block; the next test covers it."""
+    g, scale, m, block = _encode_case(bits)
+    g[:, :block] = 1.0
+    scale[0] = 1.0
+    nb = scale.shape[0]
+    padded = np.pad(g, ((0, 0), (0, nb * block - m)))
+    u = ref.pam4_quantize_encode_ref(_t(g), _t(scale), bits, block).numpy()
+    for p in range(g.shape[0]):
+        want = jpam4.pam4_quantize_encode(
+            jnp.asarray(padded[p].reshape(nb, block)), jnp.asarray(scale),
+            bits, interpret=True)
+        np.testing.assert_array_equal(u[p], np.asarray(want))
+    total = u.sum(0, dtype=np.int32)
+    total[0, :12] = np.arange(12) * 3 + 1               # ties at n = 2 below
+    for n in (1, 2, 3):
+        got = ref.pam4_decode_dequantize_ref(_t(total.reshape(1, -1)),
+                                             _t(scale), bits, n, m).numpy()
+        want = jpam4.pam4_decode_dequantize(
+            jnp.asarray(total), jnp.asarray(scale), bits, n, interpret=True)
+        np.testing.assert_array_equal(got[0],
+                                      np.asarray(want).reshape(-1)[:m])
+
+
+@pytest.mark.parametrize("bits", BITS)
+def test_pam4_plain_versions_match_the_backend_encode_and_decode(bits):
+    """Against backends._encode (zero-block guard included) and the
+    Q(mean) + _decode of _quantized_sync, per peer."""
+    g, scale, m, block = _encode_case(bits)
+    g[:, :block] = 0.0                                  # zero on every peer
+    scale[0] = np.float32(1.1754944e-38)
+    cfg = JaxSyncConfig(bits=bits, block=block)
+    u = ref.pam4_quantize_encode_ref(_t(g), _t(scale), bits, block)
+    assert torch.all(u[:, 0] == 2 ** (bits - 1) - 1)
+    for p in range(g.shape[0]):
+        ju, jq, jsafe, jspec = jbackends._encode(jnp.asarray(g[p]),
+                                                 jnp.asarray(scale), cfg)
+        np.testing.assert_array_equal(u[p].numpy(), np.asarray(ju))
+        local = ref.pam4_decode_dequantize_ref(u[p].reshape(1, -1),
+                                               _t(scale), bits, 1, m)
+        np.testing.assert_array_equal(
+            local[0].numpy(), np.asarray(_jax_qmean_decode(
+                ju.reshape(-1), jsafe, bits, 1, m)))
+        err = ref.pam4_decode_dequantize_ref(u[p].reshape(1, -1), _t(scale),
+                                             bits, 1, m, _t(g[p:p + 1]))
+        np.testing.assert_array_equal(err[0].numpy(), np.asarray(
+            _jax_local_error(jnp.asarray(g[p]), jq, jsafe, bits, m)))
+    for n in (2, 3):
+        total = u[:n].sum(0, dtype=torch.int32).reshape(1, -1)
+        got = ref.pam4_decode_dequantize_ref(total, _t(scale), bits, n, m)
+        np.testing.assert_array_equal(
+            got[0].numpy(), np.asarray(_jax_qmean_decode(
+                jnp.asarray(total.numpy()), jsafe, bits, n, m)))
+
+
+@functools.partial(jax.jit, static_argnums=(2, 3, 4))
+def _jax_qmean_decode(total, safe, bits, n, m):
+    """``_quantized_sync``'s Q(mean) and ``_decode`` as the training step
+    compiles them (XLA turns the constant divisions into reciprocal
+    products, so they are held jitted, as they run)."""
+    spec = jenc.QuantSpec(bits=bits, block=safe.shape[0])
+    u_avg = jnp.round(total.astype(jnp.float32) / n).astype(jnp.int32)
+    return jbackends._decode(u_avg.reshape(safe.shape[0], -1) - spec.levels,
+                             safe, spec, m)
+
+
+@functools.partial(jax.jit, static_argnums=(3, 4))
+def _jax_local_error(flat, q, safe, bits, m):
+    """``flat - _decode(q, ...)``, the error-feedback term of
+    ``_quantized_sync``, jitted (XLA fuses it into one multiply-add)."""
+    spec = jenc.QuantSpec(bits=bits, block=safe.shape[0])
+    return flat - jbackends._decode(q, safe, spec, m)
+
+
+def test_pam4_wrappers_route_cpu_to_plain_and_reject_bad_input():
+    g, scale, m, block = _encode_case(8, peers=2, nb=4)
+    before = (pam4.pam4_quantize_encode.launches,
+              pam4.pam4_decode_dequantize.launches)
+    u = pam4.pam4_quantize_encode(_t(g), _t(scale), 8, block)
+    assert torch.equal(u, ref.pam4_quantize_encode_ref(_t(g), _t(scale), 8,
+                                                       block))
+    tot = u.sum(0, dtype=torch.int32).reshape(1, -1)
+    assert torch.equal(pam4.pam4_decode_dequantize(tot, _t(scale), 8, 2, m),
+                       ref.pam4_decode_dequantize_ref(tot, _t(scale), 8, 2,
+                                                      m))
+    assert (pam4.pam4_quantize_encode.launches,
+            pam4.pam4_decode_dequantize.launches) == before
+    with pytest.raises(TypeError, match="float32"):
+        pam4.pam4_quantize_encode(_t(g).double(), _t(scale), 8, block)
+    with pytest.raises(ValueError, match="scales for"):
+        pam4.pam4_quantize_encode(_t(g), _t(scale[:2]), 8, block)
+    with pytest.raises(ValueError, match="CPU or one CUDA"):
+        pam4.pam4_quantize_encode(_t(g).to("meta"), _t(scale), 8, block)
+    with pytest.raises(TypeError, match="int32"):
+        pam4.pam4_decode_dequantize(tot.long(), _t(scale), 8, 2, m)
+    with pytest.raises(ValueError, match="whole number"):
+        pam4.pam4_decode_dequantize(tot[:, :-1], _t(scale), 8, 2, m)
+
+
+# ----------------------------------------------------------- bucketizer
+def _tree(peers, rng, dtype=np.float32):
+    return {"a": rng.normal(size=(peers, 3, 700)).astype(dtype),
+            "b": rng.normal(size=(peers, 1500)).astype(dtype),
+            "c": {"d": rng.normal(size=(peers, 40, 10)).astype(dtype)}}
+
+
+@pytest.mark.parametrize("bucket_bytes", [4096, 3000, 1 << 20])
+def test_bucketizer_matches_jax(bucket_bytes):
+    rng = np.random.default_rng(0)
+    tree = _tree(2, rng)
+    jleaves = [tree["a"][0], tree["b"][0], tree["c"]["d"][0]]
+    jl = jbucketizer.make_layout(jleaves, bucket_bytes)
+    stacks = [_t(x) for x in (tree["a"], tree["b"], tree["c"]["d"])]
+    tl = bucketizer.make_layout([x[0] for x in stacks], bucket_bytes)
+    assert (tl.shapes, tl.sizes, tl.total, tl.bucket_elems, tl.bounds) == \
+        (jl.shapes, jl.sizes, jl.total, jl.bucket_elems, jl.bounds)
+    assert tl.n_buckets == jl.n_buckets == bucketizer.expected_buckets(
+        4 * tl.total, bucket_bytes) == jbucketizer.expected_buckets(
+        4 * jl.total, bucket_bytes)
+    assert bucketizer.make_layout([(x.shape[1:], x.dtype) for x in stacks],
+                                  bucket_bytes) == tl
+    for p in range(2):
+        buckets = bucketizer.bucketize([x[p] for x in stacks], tl)
+        want = jbucketizer.bucketize([x[p] for x in (
+            tree["a"], tree["b"], tree["c"]["d"])], jl)
+        for got, w in zip(buckets, want):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(w))
+        back = bucketizer.unbucketize(buckets, tl)
+        for got, leaf in zip(back, stacks):
+            assert torch.equal(got, leaf[p])
+    bf = [x[0].bfloat16() for x in stacks]
+    lay = bucketizer.make_layout(bf, bucket_bytes)
+    back = bucketizer.unbucketize(bucketizer.bucketize(bf, lay), lay)
+    assert all(torch.equal(a, b) for a, b in zip(back, bf))
+    with pytest.raises(ValueError, match="positive"):
+        bucketizer.make_layout(stacks, 0)
+
+
+def test_registry_and_config_reject_what_is_not_ported():
+    assert registry.available_backends() == ("optinc", "psum")
+    with pytest.raises(ValueError, match="already registered"):
+        registry.register_backend("optinc", backends.OptincBackend())
+    with pytest.raises(TypeError, match="time_on_wire"):
+        registry.register_backend("x", type("B", (), {
+            "sync": lambda *a: None, "bytes_on_wire": lambda *a: 0})())
+    with pytest.raises(ValueError, match="unknown sync mode"):
+        engine.SyncConfig(mode="nope")
+    for kw, what in ((dict(mode="ring"), "ring"),
+                     (dict(mode="cascade"), "cascade"),
+                     (dict(overlap=True), "overlap"),
+                     (dict(error_layers=(3, 4)), "Table-II"),
+                     (dict(photonics="mesh"), "fidelities"),
+                     (dict(sparse_residuals=True), "checkpoint")):
+        with pytest.raises(NotImplementedError, match=what):
+            engine.SyncConfig(**kw)
+
+
+@pytest.mark.parametrize("name", ["psum", "optinc"])
+def test_wire_models_match_jax(name):
+    port, jax_b = registry.get_backend(name), jbackends.OptincBackend() \
+        if name == "optinc" else jbackends.PsumBackend()
+    for nbytes in (1e3, 8.7e7):
+        for n in (2, 4, 16):
+            assert port.bytes_on_wire(nbytes, n, 8) == \
+                jax_b.bytes_on_wire(nbytes, n, 8)
+            for overlap in (False, True):
+                assert port.time_on_wire(nbytes, n, 8, overlap) == \
+                    jax_b.time_on_wire(nbytes, n, 8, overlap)
+
+
+# ------------------------------------------------- sync vs JAX shard_map
+# (mode, bits, error_feedback) with 4 KiB buckets of 128-element blocks:
+# 4000 elements are 3 full buckets and a ragged tail of 928 (7 blocks and
+# a 32-element block); columns 1280..1407 (one block) are zero on every
+# peer; bits 2 makes Q(mean) ties common
+CASES = {"psum": ("psum", 8, False), "optinc8": ("optinc", 8, False),
+         "optinc8_ef": ("optinc", 8, True), "optinc2_ef": ("optinc", 2, True)}
+PEERS = (1, 2, 4)
+SYNC_KW = dict(block=128, bucket_bytes=4096)
+
+JAX_SYNC_SCRIPT = textwrap.dedent("""
+    import json, sys
+    import jax, jax.numpy as jnp
+    import numpy as np
+    from jax.sharding import PartitionSpec as P
+    from repro.collectives import SyncConfig, sync_gradients
+    from repro.launch.mesh import make_mesh
+
+    inp = np.load(sys.argv[1])
+    cases = json.loads(sys.argv[3])
+    out = {}
+    for n in (1, 2, 4):
+        mesh = make_mesh((n,), ("data",))
+        for name, (mode, bits, ef) in cases.items():
+            cfg = SyncConfig(mode=mode, axes=("data",), bits=bits,
+                             error_feedback=ef, block=128, bucket_bytes=4096)
+
+            def f(a, b, d, res):
+                tree = {"a": a[0], "b": b[0], "c": {"d": d[0]}}
+                s, r = sync_gradients(tree, cfg, None, res[0] if ef else None)
+                r = res[0] * 0 if r is None else r
+                return s["a"][None], s["b"][None], s["c"]["d"][None], r[None]
+
+            fn = jax.jit(jax.shard_map(f, mesh=mesh, in_specs=P("data"),
+                                       out_specs=P("data"), check_vma=False))
+            res = jnp.zeros((n, 4000), jnp.float32)
+            for step in (1, 2):
+                args = [jnp.asarray(inp[f"{k}{step}"][:n]) for k in "abd"]
+                a, b, d, res = fn(*args, res)
+                key = f"{name}/{n}/{step}"
+                out[key + "/synced"] = np.concatenate(
+                    [np.asarray(x).reshape(n, -1) for x in (a, b, d)], 1)
+                out[key + "/residual"] = np.asarray(res)
+    np.savez(sys.argv[2], **out)
+    print("OK")
+""")
+
+
+def _sync_inputs():
+    rng = np.random.default_rng(7)
+    out = {}
+    for step in (1, 2):
+        flat = rng.normal(size=(4, 4000)).astype(np.float32)
+        flat[:, 1280:1408] = 0.0
+        flat[:, :3] = [[1.0, 0.5, -0.5]] * 4         # exact ties at bits 2
+        out[f"a{step}"] = flat[:, :2100].reshape(4, 3, 700)
+        out[f"b{step}"] = flat[:, 2100:3600]
+        out[f"d{step}"] = flat[:, 3600:].reshape(4, 40, 10)
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_sync(tmp_path_factory):
+    """The JAX sync_gradients under shard_map at 1, 2 and 4 devices, two
+    steps each, from one subprocess with four host devices."""
+    from conftest import subprocess_env
+    d = tmp_path_factory.mktemp("jax_sync")
+    inputs = _sync_inputs()
+    np.savez(d / "in.npz", **inputs)
+    r = subprocess.run(
+        [sys.executable, "-c", JAX_SYNC_SCRIPT, str(d / "in.npz"),
+         str(d / "out.npz"), json.dumps(CASES)],
+        capture_output=True, text=True, timeout=600,
+        env=subprocess_env(
+            XLA_FLAGS="--xla_force_host_platform_device_count=4"))
+    assert r.returncode == 0, r.stderr[-3000:]
+    return inputs, dict(np.load(d / "out.npz"))
+
+
+@pytest.mark.parametrize("peers", PEERS)
+@pytest.mark.parametrize("case", list(CASES))
+def test_sync_gradients_matches_jax_shard_map(jax_sync, case, peers):
+    inputs, ref_out = jax_sync
+    mode, bits, ef = CASES[case]
+    cfg = engine.SyncConfig(mode=mode, bits=bits, error_feedback=ef,
+                            **SYNC_KW)
+    res = torch.zeros((peers, 4000)) if ef else None
+    for step in (1, 2):
+        grads = {"a": _t(inputs[f"a{step}"][:peers]),
+                 "b": _t(inputs[f"b{step}"][:peers]),
+                 "c": {"d": _t(inputs[f"d{step}"][:peers])}}
+        synced, res = engine.sync_gradients(grads, cfg, res)
+        got = torch.cat([synced["a"].reshape(-1), synced["b"],
+                         synced["c"]["d"].reshape(-1)]).numpy()
+        key = f"{case}/{peers}/{step}"
+        want = ref_out[key + "/synced"]
+        # every JAX device holds the same average
+        assert (want == want[0]).all()
+        if mode == "optinc":
+            np.testing.assert_array_equal(got, want[0])
+        else:
+            flat = np.concatenate([inputs[f"{k}{step}"][:peers].reshape(
+                peers, -1) for k in "abd"], 1)
+            ulp = np.spacing(np.abs(flat).sum(0) / peers).astype(np.float32)
+            assert (np.abs(got - want[0]) <= ulp).all()
+        if ef and mode == "optinc":
+            np.testing.assert_array_equal(res.numpy(),
+                                          ref_out[key + "/residual"])
+            assert res.abs().max() > 0
+        else:
+            assert res is None
+        assert np.all(got[1280:1408] == 0.0)        # the zero block

@@ -10,6 +10,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -197,17 +198,96 @@ def test_flash_wrapper_routes_cpu_to_plain_and_rejects_bad_input():
         attention.flash_attention(q.to("meta"), k.to("meta"), k.to("meta"))
 
 
+# ------------------------------------------------- flash backward
+# f32 gradients of O(1) inputs, both sides summing in f32 in other
+# orders (online vs straight softmax, the JAX scan's tiles): a few ulp
+BWD_TOL = 2e-5
+
+
+@pytest.mark.parametrize("b,h,hkv,hd,sq,skv", [
+    (2, 4, 4, 16, 37, 37),    # MHA, ragged
+    (2, 8, 2, 48, 40, 40),    # GQA rep 4, paper_llama head dim
+    (1, 4, 2, 16, 10, 29),    # GQA, fewer queries than keys
+])
+def test_attention_bwd_plain_matches_jax_grad(b, h, hkv, hd, sq, skv):
+    """attention_bwd_ref against jax.vjp of the JAX blocked_attention
+    (the function the JAX package trains through)."""
+    rng = np.random.default_rng(h * sq + skv)
+    q = rng.normal(size=(b, h, sq, hd)).astype(np.float32)
+    k = rng.normal(size=(b, hkv, skv, hd)).astype(np.float32)
+    v = rng.normal(size=(b, hkv, skv, hd)).astype(np.float32)
+    do = rng.normal(size=(b, h, sq, hd)).astype(np.float32)
+    o, vjp = jax.vjp(lambda q, k, v: jax_blocked(q, k, v, blk_q=16,
+                                                  blk_kv=16),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    out, lse = ref.attention_fwd_ref(_t(q), _t(k), _t(v))
+    np.testing.assert_allclose(out.numpy(), np.asarray(o), atol=FLASH_TOL,
+                               rtol=0)
+    got = ref.attention_bwd_ref(_t(q), _t(k), _t(v), out, lse, _t(do))
+    for g, w, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=BWD_TOL,
+                                   rtol=0, err_msg=f"d{name}")
+
+
+def test_flash_autograd_on_cpu_is_the_plain_backward():
+    """FlashAttention's CPU route: the forward keeps the plain lse and
+    the backward is attention_bwd_ref, so its gradients equal autograd
+    through attention_ref up to summation order; no launch is counted."""
+    rng = np.random.default_rng(1)
+    q, k, v = (_t(rng.normal(size=s).astype(np.float32)).requires_grad_()
+               for s in ((2, 4, 9, 16), (2, 2, 9, 16), (2, 2, 9, 16)))
+    before = (attention.flash_attention.launches,
+              attention.flash_attention_bwd.launches)
+    out = attention.FlashAttention.apply(q.transpose(2, 3).transpose(2, 3),
+                                         k, v)
+    grads = torch.autograd.grad((out * out).sum(), (q, k, v))
+    want = torch.autograd.grad(
+        (ref.attention_ref(q, k, v) ** 2).sum(), (q, k, v))
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g, w, atol=BWD_TOL, rtol=0)
+    assert (attention.flash_attention.launches,
+            attention.flash_attention_bwd.launches) == before
+    with torch.no_grad():
+        assert torch.equal(attention.FlashAttention.apply(q, k, v),
+                           ref.attention_ref(q, k, v))
+    o, lse = attention.flash_attention(q.detach(), k.detach(), v.detach(),
+                                       return_lse=True)
+    want_o, want_lse = ref.attention_fwd_ref(q.detach(), k.detach(),
+                                             v.detach())
+    assert torch.equal(o, want_o) and torch.equal(lse, want_lse)
+
+
+def test_flash_bwd_wrapper_rejects_bad_input():
+    rng = np.random.default_rng(2)
+    q = _t(rng.normal(size=(1, 4, 8, 16)).astype(np.float32))
+    k = _t(rng.normal(size=(1, 2, 8, 16)).astype(np.float32))
+    o, lse = ref.attention_fwd_ref(q, k, k)
+    args = [q, k, k, o, lse, q]
+    assert all(torch.equal(a, b) for a, b in zip(
+        attention.flash_attention_bwd(*args), ref.attention_bwd_ref(*args)))
+    with pytest.raises(ValueError, match="shape mismatch"):
+        attention.flash_attention_bwd(q, k, k, o, lse[..., :4], q)
+    with pytest.raises(TypeError, match="f32 lse"):
+        attention.flash_attention_bwd(q, k, k, o, lse.double(), q)
+    with pytest.raises(TypeError, match="one dtype"):
+        attention.flash_attention_bwd(q, k.bfloat16(), k, o, lse, q)
+    with pytest.raises(ValueError, match="CPU or one CUDA"):
+        attention.flash_attention_bwd(*(a.to("meta") for a in args))
+
+
 # ------------------------------------------------------------- build
 def test_build_is_content_addressed_and_reuses_a_current_build(
         tmp_path, monkeypatch):
     """A library named by the hash of its source is reused as it is: no
     compiler is needed when the build is current."""
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-    assert names == ["flash_attention", "paged_attention"]
+    assert names == ["flash_attention", "flash_attention_bwd",
+                     "paged_attention", "pam4"]
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(_build, "_nvcc", lambda: pytest.fail("nvcc called"))
     paths = {n: _build.library_path(n) for n in names}
-    assert len({p.name for p in paths.values()}) == 2
+    assert len({p.name for p in paths.values()}) == len(names)
     for p in paths.values():
         assert p.parent == tmp_path
         p.write_bytes(b"")
@@ -244,6 +324,23 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                       if m.split(".")[0] in banned]
     assert len(_port_sources()) > 15
     assert not found, found
+
+
+def test_importing_the_trainer_loads_no_jax_and_builds_nothing():
+    code = ("import sys\n"
+            "import repro_torch.launch.train, repro_torch.collectives.engine\n"
+            "import repro_torch.kernels.pam4\n"
+            "from repro_torch.kernels import _build\n"
+            "assert 'jax' not in sys.modules, 'jax imported'\n"
+            "assert 'repro' not in sys.modules, 'repro imported'\n"
+            "assert 'triton' not in sys.modules, 'triton imported'\n"
+            "assert not _build._ENTRIES, 'a kernel library was loaded'\n"
+            "print('CLEAN')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "CLEAN" in out.stdout
 
 
 def test_importing_the_engine_loads_no_jax_and_builds_nothing():

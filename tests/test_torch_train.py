@@ -1,0 +1,267 @@
+"""The port's training path on the CPU, held against the JAX package on
+the same weights (carried across with ``params_from_jax``) and the same
+tokens: ``loss_fn`` and its gradients, ``SyntheticLM``, AdamW, and the
+trainer over stacked peers against ``make_train_step`` on a 1-device
+mesh.
+
+XLA and PyTorch sum matmuls, softmaxes and reductions in other orders,
+so nothing downstream of a float gradient is held bit for bit: losses
+and gradients are held to stated f32 tolerances.  (The sync itself is
+held bit-exact on identical input buckets in test_torch_collectives.)
+"""
+import argparse
+import dataclasses
+import io
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import PartitionSpec as P
+
+from repro import compat  # noqa: F401  (jax API shims)
+from repro import configs as jax_configs
+from repro.api import MeshSpec
+from repro.collectives import SyncConfig as JaxSyncConfig
+from repro.data import pipeline as jdata
+from repro.launch import steps as jsteps
+from repro.models import layers as jl
+from repro.models import lm as jlm
+from repro.models.config import ModelConfig as JaxModelConfig
+from repro.optim import adamw as jadamw
+from repro_torch.data import pipeline as tdata
+from repro_torch.launch import train
+from repro_torch.models import lm as tlm
+from repro_torch.models.config import ModelConfig
+from repro_torch.optim import adamw as tadamw
+from repro_torch.tree import leaves_with_paths
+
+# f32 loss of a 2-3 layer model: the two frameworks reorder sums, a few
+# ulp per op; the loss is O(5)
+LOSS_TOL = 2e-5
+# gradients: the same reorderings, compared relative to each leaf's
+# largest entry (embedding rows that no token hits are exactly zero)
+GRAD_RTOL = 1e-4
+# five trainer steps in f32 with the same tokens: per-step differences of
+# ~1e-6 grow through AdamW's normalisation; an optinc code may flip where
+# a gradient sits within an ulp of a rounding edge
+TRAIN_TOL = 2e-4
+
+NARROW = dict(name="paper-llama-narrow", family="dense", n_layers=2,
+              d_model=128, n_heads=8, n_kv_heads=8, d_ff=512, vocab=512,
+              dtype="float32")
+
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
+def cfg_pair(which: str):
+    """(JAX config, port config), the same fields, f32."""
+    if which == "narrow":
+        return JaxModelConfig(**NARROW), ModelConfig(**NARROW)
+    jcfg = dataclasses.replace(jax_configs.get_smoke("minitron_4b"),
+                               dtype="float32")
+    return jcfg, ModelConfig(**dataclasses.asdict(jcfg))
+
+
+def _port_params(jparams, cfg):
+    return tlm.params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
+                               device="cpu")
+
+
+# ------------------------------------------------------- loss and grads
+@pytest.mark.parametrize("which", ["narrow", "minitron"])
+def test_loss_and_gradients_match_jax(which):
+    jcfg, cfg = cfg_pair(which)
+    jparams = jlm.init_params(jcfg, jl.ShardCtx(), jax.random.PRNGKey(3))
+    rng = np.random.default_rng(4)
+    tokens = rng.integers(0, cfg.vocab, (3, 41)).astype(np.int32)
+
+    mesh = MeshSpec().build()
+    ctx = jsteps.make_ctx(mesh)
+    specs = jlm.flat_specs(jcfg, ctx)
+
+    def f(params, toks):
+        (loss, _), grads = jax.value_and_grad(
+            lambda p: jlm.loss_fn(jcfg, ctx, p, {"tokens": toks}),
+            has_aux=True)(params)
+        return loss, grads
+
+    fn = jax.jit(jax.shard_map(f, mesh=mesh, in_specs=(specs, P()),
+                               out_specs=(P(), specs), check_vma=False))
+    with jax.set_mesh(mesh):
+        jloss, jgrads = fn(jparams, jnp.asarray(tokens))
+
+    params = _port_params(jparams, cfg)
+    train_leaves = [p.requires_grad_() for _, p in leaves_with_paths(params)]
+    loss, aux = tlm.loss_fn(cfg, params, {"tokens": torch.from_numpy(tokens)})
+    grads = torch.autograd.grad(loss, train_leaves)
+    assert abs(loss.item() - float(jloss)) <= LOSS_TOL
+    assert torch.equal(aux["nll"], loss)      # dense: no aux loss
+    for (path, _), g in zip(leaves_with_paths(params), grads):
+        want = np.asarray(jgrads[path[0]] if len(path) == 1
+                          else jgrads[path[0]][path[1]])
+        scale = np.abs(want).max()
+        assert scale > 0, path
+        np.testing.assert_allclose(g.numpy(), want, rtol=0,
+                                   atol=GRAD_RTOL * scale, err_msg=str(path))
+
+
+# ---------------------------------------------------------------- data
+def test_synthetic_lm_tokens_are_the_jax_tokens():
+    for kw in (dict(vocab=512, seq_len=16, global_batch=4, seed=3),
+               dict(vocab=32000, seq_len=64, global_batch=8, seed=0)):
+        for shard, shards in ((0, 1), (1, 2)):
+            port = tdata.SyntheticLM(tdata.DataConfig(**kw), shard, shards)
+            ref = jdata.SyntheticLM(jdata.DataConfig(**kw), shard, shards)
+            for step in (0, 5):
+                np.testing.assert_array_equal(port.batch(step),
+                                              ref.batch(step))
+    it = tdata.make_batch_iterator(tdata.DataConfig(vocab=64, seq_len=4,
+                                                    global_batch=2), 7)
+    step, batch = next(it)
+    assert step == 7 and batch["tokens"].shape == (2, 5)
+    with pytest.raises(ValueError, match="divisible"):
+        tdata.SyntheticLM(tdata.DataConfig(global_batch=3), 0, 2)
+
+
+# ---------------------------------------------------------------- adamw
+def test_adamw_and_clip_match_jax():
+    """Two AdamW steps on f32 and bf16 leaves (matrices decay, vectors do
+    not), clipped by the global norm first.  Same f32 operations in the
+    same order; XLA may fuse a multiply-add, so within 1e-7 in f32, and
+    within one bf16 ulp (2^-9 at |p| < 0.5) where that can flip a bf16
+    rounding."""
+    rng = np.random.default_rng(0)
+    shapes = {"w": (6, 5), "b": (5,), "e": {"m": (3, 4, 2)}}
+    cfg = tadamw.AdamWConfig(lr=1e-2, clip_norm=0.5)
+    jcfg = jadamw.AdamWConfig(lr=1e-2, clip_norm=0.5)
+    for dtype, jdtype in ((torch.float32, jnp.float32),
+                          (torch.bfloat16, jnp.bfloat16)):
+        def draw(scale):
+            return {"w": rng.normal(size=shapes["w"]) * scale,
+                    "b": rng.normal(size=shapes["b"]) * scale,
+                    "e": {"m": rng.normal(size=shapes["e"]["m"]) * scale}}
+        p_np = draw(0.1)
+        tp = jax.tree.map(lambda a: torch.tensor(a, dtype=torch.float32)
+                          .to(dtype), p_np)
+        jp = jax.tree.map(lambda a: jnp.asarray(a, jnp.float32).astype(
+            jdtype), p_np)
+        tstate, jstate = tadamw.adamw_init(cfg, tp), jadamw.adamw_init(jcfg,
+                                                                       jp)
+        for _ in range(2):
+            g_np = draw(1.0)
+            tg = jax.tree.map(lambda a: torch.tensor(a, dtype=torch.float32)
+                              .to(dtype), g_np)
+            jg = jax.tree.map(lambda a: jnp.asarray(a, jnp.float32).astype(
+                jdtype), g_np)
+            tg, tnorm = tadamw.clip_by_global_norm(tg, cfg.clip_norm)
+            jg, jnorm = jadamw.clip_by_global_norm(jg, jcfg.clip_norm)
+            assert abs(tnorm.item() - float(jnorm)) <= 1e-6 * float(jnorm)
+            tp, tstate = tadamw.adamw_update(cfg, tp, tg, tstate)
+            jp, jstate = jadamw.adamw_update(jcfg, jp, jg, jstate)
+        assert int(tstate["step"]) == int(jstate["step"]) == 2
+        for got, want in ((tp, jp), (tstate["m"], jstate["m"]),
+                          (tstate["v"], jstate["v"])):
+            for (path, t), j in zip(leaves_with_paths(got),
+                                    jax.tree.leaves(want)):
+                np.testing.assert_allclose(
+                    t.float().numpy(), np.asarray(j, np.float32), rtol=0,
+                    atol=1e-7 if dtype == torch.float32 else 2 ** -9,
+                    err_msg=f"{dtype} {path}")
+
+
+# -------------------------------------------------------------- trainer
+def _opts(*argv):
+    return train.parse_args(["--device", "cpu", *argv])
+
+
+@pytest.mark.parametrize("mode", ["psum", "optinc"])
+def test_trainer_matches_jax_make_train_step(mode):
+    """The port's trainer at --mesh 1x1 against JAX's make_train_step on
+    a 1-device mesh, 5 steps, same weights and tokens (f32 minitron smoke:
+    GQA; 0.25 MiB buckets, so three buckets with a ragged tail)."""
+    jcfg, cfg = cfg_pair("minitron")
+    jparams = jlm.init_params(jcfg, jl.ShardCtx(), jax.random.PRNGKey(0))
+    argv = ["--sync", mode, "--mesh", "1x1", "--steps", "5", "--lr", "1e-3",
+            "--global-batch", "4", "--seq-len", "32", "--bucket-mb", "0.25",
+            "--block", "128", "--error-feedback"]
+    out = io.StringIO()
+    recs = train.run(_opts(*argv), params=_port_params(jparams, cfg),
+                     cfg=cfg, out=out)
+    assert [json.loads(line) for line in out.getvalue().splitlines()] == recs
+    assert [r["step"] for r in recs] == list(range(5))
+
+    mesh = MeshSpec().build()
+    sync = JaxSyncConfig(mode=mode, axes=("data",), bits=8, block=128,
+                         error_feedback=True, bucket_bytes=2 ** 18)
+    opt = jadamw.AdamWConfig(lr=1e-3)
+    fn, _, _ = jsteps.make_train_step(jcfg, mesh, sync, opt)
+    fn = jax.jit(fn)
+    params, ostate = jparams, jadamw.adamw_init(opt, jparams)
+    sstate = jsteps.init_sync_state(jcfg, mesh, sync)
+    data = jdata.SyntheticLM(jdata.DataConfig(vocab=jcfg.vocab, seq_len=32,
+                                              global_batch=4, seed=0))
+    want = []
+    with jax.set_mesh(mesh):
+        for step in range(5):
+            params, ostate, sstate, metrics = fn(
+                params, ostate, sstate,
+                {"tokens": jnp.asarray(data.batch(step))},
+                jax.random.PRNGKey(step))
+            want.append(float(metrics["loss"]))
+    got = [r["loss"] for r in recs]
+    np.testing.assert_allclose(got, want, rtol=0, atol=TRAIN_TOL)
+    assert got[-1] < got[0]
+
+
+def test_loss_falls_with_two_stacked_peers_and_optinc(capsys):
+    assert train.main(["--device", "cpu", "--arch", "minitron_4b",
+                       "--smoke-config", "--sync", "optinc", "--mesh", "2x1",
+                       "--steps", "20", "--global-batch", "4", "--seq-len",
+                       "32", "--lr", "1e-3"]) == 0
+    recs = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert [r["step"] for r in recs] == list(range(20))
+    assert all(set(r) == {"step", "loss", "time_s"} for r in recs)
+    first = sum(r["loss"] for r in recs[:5]) / 5
+    last = sum(r["loss"] for r in recs[-5:]) / 5
+    assert last < first - 0.3, (first, last)
+
+
+def test_train_needs_cuda_unless_a_device_is_given(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        train.main(["--smoke-config", "--steps", "1"])
+
+
+@pytest.mark.parametrize("argv,what", [
+    (["--ckpt-dir", "x"], "checkpointing"),
+    (["--overlap"], "overlap"),
+    (["--fidelity", "mesh"], "fidelities"),
+    (["--mesh", "2x2"], "tensor parallelism"),
+    (["--sync", "cascade"], "cascade"),
+    (["--sync", "ring"], "ring"),
+])
+def test_train_names_what_is_not_ported(argv, what, capsys):
+    with pytest.raises(SystemExit) as e:
+        train.main(["--device", "cpu", "--steps", "1", *argv])
+    assert what in str(e.value)
+
+
+def test_parse_args_takes_the_jax_flag_names():
+    opts = train.parse_args(["--arch", "paper_llama", "--sync", "optinc",
+                             "--bits", "8", "--block", "2048", "--mesh",
+                             "4x1", "--global-batch", "32", "--seq-len",
+                             "512", "--steps", "30", "--bucket-mb", "4",
+                             "--error-feedback", "--lr", "3e-4", "--seed",
+                             "1", "--smoke-config"])
+    assert isinstance(opts, argparse.Namespace) and opts.peers == 4
+    with pytest.raises(SystemExit):
+        train.parse_args(["--global-batch", "6", "--mesh", "4x1"])
