@@ -10,6 +10,6 @@ max over it.  ``--mesh Nx1`` means N data-parallel peers in both
 packages.
 
 Ported: ``bucketizer`` (layout, flatten, (un)bucketize), ``registry``,
-``backends`` (psum and optinc at fidelity 'behavioral') and ``engine``
-(SyncConfig, the barrier ``sync_gradients`` with error-feedback
-residuals)."""
+``backends`` (psum, and optinc at fidelities 'behavioral' and 'onn')
+and ``engine`` (SyncConfig, the barrier ``sync_gradients`` with
+error-feedback residuals)."""

@@ -17,15 +17,26 @@ term.
 Integer sums are exact in any order, so the result is bit-identical to
 the JAX package's on the same input bucket.
 
+At fidelity 'onn' the Q(mean) step is the in-network ONN instead
+(``_photonic_sync``): after the same shared scale and encode, the codes
+run one ``photonics.pipeline`` level (PAM4 symbols, unit P over the
+peers, the dense ONN with every layer one ``onn_layer`` launch, the
+transceiver readout, symbol decode), and ``_finish_photonic``
+dequantizes the averaged codes with the pam4 decode kernel at n = 1
+(Q(mean) of one code is the code), as the behavioral path dequantizes
+its code sums.
+
 Not ported yet (later slices, ROADMAP.md): the ring and cascade
-backends, Table-II error injection (``error_layers``) and the 'onn' /
-'mesh' fidelities.
+backends, Table-II error injection (``error_layers``) and the 'mesh'
+fidelity.
 """
 from __future__ import annotations
 
 import torch
 
 from ..kernels.pam4 import pam4_decode_dequantize, pam4_quantize_encode
+from ..photonics import pipeline as ph_pipeline
+from ..photonics import runtime as ph_runtime
 from ..photonics.encoding import QuantSpec, compute_scale
 from .bucketizer import DEFAULT_BUCKET_BYTES, expected_buckets
 from .registry import register_backend
@@ -70,6 +81,34 @@ def _decode(u: torch.Tensor, scale: torch.Tensor, cfg, n: int, size: int,
                                   cfg.bits, n, size, base)
 
 
+def _finish(total: torch.Tensor, n: int, u: torch.Tensor, x: torch.Tensor,
+            scale: torch.Tensor, cfg):
+    """Epilogue of both optinc paths (JAX: the tail of ``_quantized_sync``
+    and ``_finish_photonic``): Q(mean) over n of the code sums ``total``
+    (width,) dequantized, and, with error feedback on, each peer's input
+    minus its locally quantized gradient; both through the pam4 decode
+    kernel.  The photonic path passes its averaged codes with n = 1."""
+    m = x.shape[1]
+    out = _decode(total.reshape(1, -1), scale, cfg, n, m)[0]
+    if not cfg.error_feedback:
+        return out, None
+    return out, _decode(u, scale, cfg, 1, m, base=x)
+
+
+def _photonic_sync(x: torch.Tensor, cfg):
+    """The hardware-in-the-loop OptINC path (fidelity 'onn'): the B-bit
+    codes of the N peers run one ``photonics.pipeline`` level instead of
+    the integer Q(mean)."""
+    n = x.shape[0]
+    module = ph_runtime.get_module(cfg.photonics, cfg.bits, n)
+    scale = _shared_scale(x, cfg)
+    u = _encode(x, scale, cfg)
+    pipe = ph_pipeline.level_pipeline(module, cfg.bits,
+                                      fidelity=cfg.photonics.fidelity)
+    u_avg = pipe.run(u.reshape(n, -1)).data
+    return _finish(u_avg, 1, u, x, scale, cfg)
+
+
 class PsumBackend:
     """Exact all-reduce mean over the peers (reference)."""
     name = "psum"
@@ -91,19 +130,18 @@ class PsumBackend:
 
 
 class OptincBackend:
-    """Quantize -> integer in-network sum -> Q(mean) -> dequantize, at
-    fidelity 'behavioral' (the module docstring has the steps)."""
+    """Quantize -> in-network sum -> Q(mean) -> dequantize; at fidelity
+    'behavioral' Q(mean) in the integer domain, at 'onn' through the ONN
+    (the module docstring has the steps)."""
     name = "optinc"
 
     def sync(self, x, cfg):
-        n, m = x.shape
+        if cfg.photonics.fidelity != "behavioral":
+            return _photonic_sync(x, cfg)
         scale = _shared_scale(x, cfg)
         u = _encode(x, scale, cfg)
-        total = u.sum(dim=0, keepdim=True, dtype=torch.int32)
-        out = _decode(total, scale, cfg, n, m)[0]
-        if not cfg.error_feedback:
-            return out, None
-        return out, _decode(u, scale, cfg, 1, m, base=x)
+        total = u.sum(dim=0, dtype=torch.int32)
+        return _finish(total, x.shape[0], u, x, scale, cfg)
 
     def bytes_on_wire(self, nbytes: float, n: int, bits: int) -> float:
         # one send of the B-bit codes into the optical fabric per server

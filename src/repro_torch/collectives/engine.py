@@ -18,6 +18,7 @@ import dataclasses
 
 import torch
 
+from ..photonics.config import PhotonicsConfig
 from ..tree import leaves as tree_leaves
 from ..tree import unflatten
 from . import backends  # noqa: F401  (registers psum and optinc)
@@ -30,11 +31,11 @@ _LATER = {
     "sparse_residuals": "block-sparse residual checkpoints (the "
                         "checkpoint slice)",
     "error_layers": "Table-II error injection (the error-model slice)",
-    "photonics": "the 'onn'/'mesh' fidelities (the onn_layer and "
-                 "mesh_scan slices)",
     "ring": "the ring backend (the ring/cascade slice)",
     "cascade": "the cascade backend (the ring/cascade slice)",
 }
+_MESH_SLICE = ("the mesh fidelity and its MZI-mesh emulator (the mesh "
+               "slice: mzi.py, approx.py, mesh.py, PhaseNoise, mesh_scan)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,13 +48,14 @@ class SyncConfig:
     bucket_bytes: int = DEFAULT_BUCKET_BYTES  # fused-bucket wire payload
     overlap: bool = False            # streaming dispatch: not ported
     sparse_residuals: bool = False   # sparse checkpoints: not ported
-    photonics: str = "behavioral"    # emulation fidelity; only behavioral
+    # emulation fidelity of the optinc backend: behavioral | onn (the
+    # trained dense ONN inside the collective); mesh is not ported
+    photonics: PhotonicsConfig = PhotonicsConfig()
 
     def __post_init__(self):
         for field, bad in (("overlap", self.overlap),
                            ("sparse_residuals", self.sparse_residuals),
-                           ("error_layers", bool(self.error_layers)),
-                           ("photonics", self.photonics != "behavioral")):
+                           ("error_layers", bool(self.error_layers))):
             if bad:
                 raise NotImplementedError(
                     f"SyncConfig.{field}={getattr(self, field)!r}: "
@@ -65,6 +67,24 @@ class SyncConfig:
         if self.bucket_bytes <= 0:
             raise ValueError(f"bucket_bytes must be positive, got "
                              f"{self.bucket_bytes}")
+        ph = self.photonics
+        if not isinstance(ph, PhotonicsConfig):
+            raise TypeError(f"SyncConfig.photonics must be a "
+                            f"PhotonicsConfig, got {ph!r}")
+        for knob, bad in (("fidelity", ph.fidelity == "mesh"),
+                          ("mesh_backend", ph.mesh_backend != "xla"),
+                          ("blk_b", ph.blk_b != 0),
+                          ("theta_drift_std", ph.theta_drift_std > 0),
+                          ("shot_noise_std", ph.shot_noise_std > 0)):
+            if bad:
+                raise NotImplementedError(
+                    f"PhotonicsConfig.{knob}={getattr(ph, knob)!r}: "
+                    f"{_MESH_SLICE} is not ported yet")
+        if ph.fidelity != "behavioral" and self.mode != "optinc":
+            raise ValueError(
+                f"--fidelity {ph.fidelity} is a photonic-backend knob (the "
+                f"hardware-in-the-loop ONN path of optinc/cascade); got "
+                f"--sync {self.mode}")
 
 
 def residual_size(leaves) -> int:

@@ -85,6 +85,17 @@ def pam4_decode_dequantize_ref(total: torch.Tensor, scale: torch.Tensor,
     return (base.double() - qr).float()
 
 
+# ----------------------------- onn layer ----------------------------
+
+def onn_layer_ref(x: torch.Tensor, u: torch.Tensor, d: torch.Tensor,
+                  b: torch.Tensor, relu: bool = True) -> torch.Tensor:
+    """Fused ONN layer: y = act(d * (x @ u^T) + b).
+
+    x: (rows, n), u: (m, n), d: (m,), b: (m,); f32."""
+    y = x.float() @ u.float().T * d.float() + b.float()
+    return torch.relu(y) if relu else y
+
+
 # ---------------------------- attention -----------------------------
 
 def _causal_scores(q: torch.Tensor, k: torch.Tensor):

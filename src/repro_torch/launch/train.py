@@ -7,6 +7,13 @@ averaged by the OptINC collective (or psum).
       --sync optinc --bits 8 --block 2048 --mesh 4x1 --global-batch 32 \\
       --seq-len 512 --steps 30
 
+  # the gradient average through the in-network ONN (--bits 2: the
+  # built-in exact identity ONN; wider widths need trained parameters,
+  # see photonics.runtime)
+  PYTHONPATH=src python -m repro_torch.launch.train --arch paper_llama \\
+      --sync optinc --bits 2 --fidelity onn --mesh 4x1 --global-batch 32 \\
+      --seq-len 512 --steps 10
+
   # a CPU smoke run (the plain versions of the kernels)
   PYTHONPATH=src python -m repro_torch.launch.train --arch paper_llama \\
       --smoke-config --sync optinc --mesh 2x1 --global-batch 4 \\
@@ -35,6 +42,8 @@ from ..collectives.engine import SyncConfig
 from ..data.pipeline import DataConfig, SyntheticLM
 from ..models import lm
 from ..optim.adamw import AdamWConfig, adamw_init
+from ..photonics import runtime
+from ..photonics.config import FIDELITIES, PhotonicsConfig
 from .steps import init_sync_state, make_train_step
 
 # flags of the JAX CLI this port does not take yet, and what they need
@@ -42,11 +51,10 @@ _NOT_PORTED = {
     "--spec": "the RunSpec surface (repro.api)",
     "--pods": "the cascade backend and its pod axis",
     "--overlap": "streaming overlap",
-    "--fidelity": "the 'onn'/'mesh' fidelities",
-    "--mesh-backend": "the mesh fidelity (mesh_scan kernel)",
-    "--blk-b": "the mesh fidelity (mesh_scan kernel)",
-    "--theta-drift-std": "the mesh fidelity's PhaseNoise",
-    "--shot-noise-std": "the mesh fidelity's PhaseNoise",
+    "--mesh-backend": "the mesh fidelity (the mesh slice, mesh_scan kernel)",
+    "--blk-b": "the mesh fidelity (the mesh slice, mesh_scan kernel)",
+    "--theta-drift-std": "the mesh fidelity's PhaseNoise (the mesh slice)",
+    "--shot-noise-std": "the mesh fidelity's PhaseNoise (the mesh slice)",
     "--error-layers": "Table-II error injection",
     "--sparse-residuals": "checkpointing (checkpoint/ckpt.py)",
     "--fsdp": "FSDP",
@@ -80,6 +88,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="quantization block (0 = one scale per bucket)")
     ap.add_argument("--bucket-mb", type=float,
                     default=DEFAULT_BUCKET_BYTES / 2 ** 20)
+    ap.add_argument("--fidelity", choices=FIDELITIES, default="behavioral",
+                    help="optinc emulation depth: behavioral Q(mean) | "
+                         "trained dense ONN (mesh: not ported)")
     ap.add_argument("--error-feedback", action="store_true")
     ap.add_argument("--mesh", default="1x1",
                     help="DPxTP: DP peers stacked on one card; TP must be 1")
@@ -135,7 +146,11 @@ def run(opts: argparse.Namespace, params=None, cfg=None, out=None) -> list:
                    else configs.get(opts.arch))
         sync = SyncConfig(mode=opts.sync, bits=opts.bits, block=opts.block,
                           error_feedback=opts.error_feedback,
-                          bucket_bytes=int(opts.bucket_mb * 2 ** 20))
+                          bucket_bytes=int(opts.bucket_mb * 2 ** 20),
+                          photonics=PhotonicsConfig(fidelity=opts.fidelity))
+        # resolve the in-network ONN before the first step, so a missing
+        # one fails here with guidance, and put its weights on the device
+        runtime.warmup(sync, opts.peers, device)
     except (ValueError, NotImplementedError) as e:
         raise SystemExit(f"error: {e}")
     opt = AdamWConfig(lr=opts.lr)

@@ -1,0 +1,122 @@
+"""ONNModule: one in-network ONN as a device-ready object (counterpart of
+``repro.photonics.module``).
+
+Bundles the ``ONNConfig`` and the trained dense parameters behind the
+fidelity levels the collective engine exposes:
+
+    module.apply(a)        dense forward pass, one ``onn_layer`` launch
+                           per layer (fidelity='onn')
+    module.symbols(a)      the same + transceiver readout
+
+The parameters are kept on the CPU, as the JAX module keeps numpy; the
+first apply on a device copies them there once (``params_on``).  The
+mesh fidelity (``programs``, ``apply_mesh``, ``symbols(fidelity=
+"mesh")``) and ONN training (``train``) are not ported yet and raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from . import onn as onn_mod
+from .encoding import num_symbols
+from .onn import ONNConfig, Transceiver
+
+_MESH_SLICE = ("the mesh fidelity (photonics/mzi.py, approx.py, mesh.py, "
+               "PhaseNoise and the mesh_scan kernel) is not ported yet")
+
+
+def _cpu_f32(v) -> torch.Tensor:
+    if isinstance(v, torch.Tensor):
+        return v.detach().to("cpu", torch.float32)
+    return torch.from_numpy(np.array(v, np.float32))
+
+
+@dataclasses.dataclass
+class ONNModule:
+    cfg: ONNConfig
+    params: list                       # dense layer dicts ({"w", "b"}), CPU
+    transceiver: Transceiver = dataclasses.field(default_factory=Transceiver)
+    _on_device: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    # ------------------------------------------------------ constructors
+    @classmethod
+    def init(cls, cfg: ONNConfig, seed: int = 0) -> "ONNModule":
+        return cls(cfg, onn_mod.init_params(cfg, seed, "cpu"))
+
+    @classmethod
+    def from_params(cls, cfg: ONNConfig, params) -> "ONNModule":
+        """params: a list of {"w", "b"}, tensors or arrays (numpy, or
+        anything ``np.array`` takes)."""
+        return cls(cfg, [{k: _cpu_f32(l[k]) for k in ("w", "b")}
+                         for l in params])
+
+    @classmethod
+    def exact_identity(cls, bits: int, n_servers: int) -> "ONNModule":
+        """Analytically exact ONN for the single-symbol transfer function.
+
+        With M = num_symbols(bits) == 1 and K = 1 the behavioural target
+        Q(mean) is just round(A), so a (1, 4, 1) identity network plus the
+        transceiver's rounding IS the oracle.  The weights are the
+        wire-exact form of the JAX module (w1 = e1, w2 = e1^T): the value
+        rides a single waveguide, and the only float operations left are
+        the in/out scale pair a * f32(1/3) * 3, exact at every
+        half-integer of [0, 2^B - 2], so PAM4 decision ties resolve like
+        ``torch.round``'s round-half-even, bit-identical to the
+        behavioral backend."""
+        if num_symbols(bits) != 1:
+            raise ValueError(
+                f"exact identity ONN needs a single PAM4 symbol per value "
+                f"(bits <= 2), got bits={bits}")
+        cfg = ONNConfig(structure=(1, 4, 1), approx_layers=(), bits=bits,
+                        n_servers=n_servers, k_inputs=1)
+        w1 = np.zeros((4, 1), np.float32)
+        w1[0, 0] = 1.0
+        params = [{"w": w1, "b": np.zeros((4,), np.float32)},
+                  {"w": w1.T.copy(), "b": np.zeros((1,), np.float32)}]
+        return cls.from_params(cfg, params)
+
+    @classmethod
+    def train(cls, cfg: ONNConfig, epochs: int, seed: int = 0,
+              samples: int = 0, **train_kw) -> "ONNModule":
+        raise NotImplementedError(
+            "ONN training (photonics/training.py and dataset.py) is not "
+            "ported yet")
+
+    # ------------------------------------------------------ fidelities
+    def params_on(self, device) -> list:
+        """The parameters on ``device``, copied there once."""
+        device = torch.device(device)
+        if device.type == "cpu":
+            return self.params
+        key = str(device)
+        if key not in self._on_device:
+            self._on_device[key] = [{k: v.to(device) for k, v in l.items()}
+                                    for l in self.params]
+        return self._on_device[key]
+
+    def apply(self, a: torch.Tensor) -> torch.Tensor:
+        """Dense forward pass -> analog outputs in symbol units, on a's
+        device."""
+        return onn_mod.apply(self.params_on(a.device), a, self.cfg)
+
+    @property
+    def programs(self) -> list:
+        raise NotImplementedError(f"MZI programs: {_MESH_SLICE}")
+
+    def apply_mesh(self, a, backend=None, noise=None, key=None,
+                   blk_b: int = 0):
+        raise NotImplementedError(f"apply_mesh: {_MESH_SLICE}")
+
+    def symbols(self, a: torch.Tensor, fidelity: str = "onn") -> torch.Tensor:
+        """Analog forward pass + transceiver readout -> PAM4 symbols."""
+        if fidelity == "mesh":
+            raise NotImplementedError(f"symbols(fidelity={fidelity!r}): "
+                                      f"{_MESH_SLICE}")
+        return self.transceiver.readout(self.apply(a))
+
+    # ------------------------------------------------------ diagnostics
+    def area_ratio(self) -> float:
+        return onn_mod.area_ratio(self.cfg)

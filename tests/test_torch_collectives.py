@@ -12,6 +12,7 @@ devices.  They come from ONE subprocess per module (started with
 ``XLA_FLAGS`` in its environment, never set in this process), which
 writes its results to an ``.npz`` the tests read.
 """
+import dataclasses
 import functools
 import json
 import subprocess
@@ -28,10 +29,17 @@ from repro.collectives import SyncConfig as JaxSyncConfig
 from repro.collectives import backends as jbackends
 from repro.collectives import bucketizer as jbucketizer
 from repro.kernels import pam4 as jpam4
+from repro.photonics import PhotonicsConfig as JaxPhotonicsConfig
 from repro.photonics import encoding as jenc
+from repro.photonics import pipeline as jpipe
+from repro.photonics import runtime as jruntime
+from repro.photonics.module import ONNModule as JaxONNModule
 from repro_torch.collectives import backends, bucketizer, engine, registry
 from repro_torch.kernels import pam4, ref
+from repro_torch.photonics import PhotonicsConfig
 from repro_torch.photonics import encoding as tenc
+from repro_torch.photonics import runtime
+from repro_torch.photonics.module import ONNModule
 
 BITS = (2, 4, 8)
 
@@ -251,10 +259,31 @@ def test_registry_and_config_reject_what_is_not_ported():
                      (dict(mode="cascade"), "cascade"),
                      (dict(overlap=True), "overlap"),
                      (dict(error_layers=(3, 4)), "Table-II"),
-                     (dict(photonics="mesh"), "fidelities"),
+                     (dict(photonics=PhotonicsConfig(fidelity="mesh")),
+                      "mesh fidelity"),
+                     (dict(photonics=PhotonicsConfig(
+                         fidelity="onn", mesh_backend="pallas")),
+                      "mesh fidelity"),
+                     (dict(photonics=PhotonicsConfig(fidelity="onn",
+                                                     blk_b=64)),
+                      "mesh fidelity"),
+                     (dict(photonics=PhotonicsConfig(
+                         fidelity="onn", theta_drift_std=0.01)),
+                      "mesh fidelity"),
+                     (dict(photonics=PhotonicsConfig(
+                         fidelity="onn", shot_noise_std=0.01)),
+                      "mesh fidelity"),
                      (dict(sparse_residuals=True), "checkpoint")):
         with pytest.raises(NotImplementedError, match=what):
             engine.SyncConfig(**kw)
+    with pytest.raises(ValueError, match="photonic-backend knob"):
+        engine.SyncConfig(mode="psum",
+                          photonics=PhotonicsConfig(fidelity="onn"))
+    with pytest.raises(TypeError, match="PhotonicsConfig"):
+        engine.SyncConfig(photonics="onn")
+    assert engine.SyncConfig().photonics == PhotonicsConfig()
+    assert engine.SyncConfig(
+        photonics=PhotonicsConfig(fidelity="onn")).photonics.fidelity == "onn"
 
 
 @pytest.mark.parametrize("name", ["psum", "optinc"])
@@ -277,8 +306,19 @@ def test_wire_models_match_jax(name):
 # peer; bits 2 makes Q(mean) ties common
 CASES = {"psum": ("psum", 8, False), "optinc8": ("optinc", 8, False),
          "optinc8_ef": ("optinc", 8, True), "optinc2_ef": ("optinc", 2, True)}
+# optinc at fidelity 'onn': (bits, error_feedback).  Bits 2 resolves the
+# exact identity ONN in both packages; at bits 8 both runtimes get the
+# same seeded ONN of the default structure through put_module.
+ONN_CASES = {"onn2": (2, False), "onn2_ef": (2, True), "onn8": (8, False),
+             "onn8_ef": (8, True)}
+ONN8_STRUCTURE = (4, 64, 128, 256, 128, 64, 4)
 PEERS = (1, 2, 4)
 SYNC_KW = dict(block=128, bucket_bytes=4096)
+# bits 8 at fidelity 'onn': an element is compared bit for bit unless one
+# of its four analog ONN outputs on the JAX side lies within this of a
+# PAM4 decision threshold (0.5, 1.5, 2.5), where f32 sums taken in
+# another order may round to the other symbol
+ONN_MARGIN = 1e-4
 
 JAX_SYNC_SCRIPT = textwrap.dedent("""
     import json, sys
@@ -287,15 +327,23 @@ JAX_SYNC_SCRIPT = textwrap.dedent("""
     from jax.sharding import PartitionSpec as P
     from repro.collectives import SyncConfig, sync_gradients
     from repro.launch.mesh import make_mesh
+    from repro.photonics import PhotonicsConfig, runtime
+    from repro.photonics.module import ONNModule
 
     inp = np.load(sys.argv[1])
     cases = json.loads(sys.argv[3])
     out = {}
+    onn = [{"w": inp[f"onn_w{i}"], "b": inp[f"onn_b{i}"]}
+           for i in range(6)]
     for n in (1, 2, 4):
+        ph = PhotonicsConfig(fidelity="onn")
+        runtime.put_module(ph, 8, n, ONNModule.from_params(
+            runtime.onn_config(ph, 8, n), onn))
         mesh = make_mesh((n,), ("data",))
-        for name, (mode, bits, ef) in cases.items():
+        for name, (mode, bits, ef, fidelity) in cases.items():
             cfg = SyncConfig(mode=mode, axes=("data",), bits=bits,
-                             error_feedback=ef, block=128, bucket_bytes=4096)
+                             error_feedback=ef, block=128, bucket_bytes=4096,
+                             photonics=PhotonicsConfig(fidelity=fidelity))
 
             def f(a, b, d, res):
                 tree = {"a": a[0], "b": b[0], "c": {"d": d[0]}}
@@ -318,9 +366,24 @@ JAX_SYNC_SCRIPT = textwrap.dedent("""
 """)
 
 
+def _onn8_params():
+    """A seeded bits-8 ONN of the default structure (He-normal weights,
+    small random biases), as numpy."""
+    rng = np.random.default_rng(11)
+    out = []
+    for i in range(len(ONN8_STRUCTURE) - 1):
+        n, m = ONN8_STRUCTURE[i], ONN8_STRUCTURE[i + 1]
+        out.append({"w": (rng.normal(size=(m, n)) * (2.0 / n) ** 0.5
+                          ).astype(np.float32),
+                    "b": (rng.normal(size=(m,)) * 0.3).astype(np.float32)})
+    return out
+
+
 def _sync_inputs():
     rng = np.random.default_rng(7)
     out = {}
+    for i, layer in enumerate(_onn8_params()):
+        out[f"onn_w{i}"], out[f"onn_b{i}"] = layer["w"], layer["b"]
     for step in (1, 2):
         flat = rng.normal(size=(4, 4000)).astype(np.float32)
         flat[:, 1280:1408] = 0.0
@@ -339,9 +402,12 @@ def jax_sync(tmp_path_factory):
     d = tmp_path_factory.mktemp("jax_sync")
     inputs = _sync_inputs()
     np.savez(d / "in.npz", **inputs)
+    cases = {k: v + ("behavioral",) for k, v in CASES.items()}
+    cases.update({k: ("optinc", bits, ef, "onn")
+                  for k, (bits, ef) in ONN_CASES.items()})
     r = subprocess.run(
         [sys.executable, "-c", JAX_SYNC_SCRIPT, str(d / "in.npz"),
-         str(d / "out.npz"), json.dumps(CASES)],
+         str(d / "out.npz"), json.dumps(cases)],
         capture_output=True, text=True, timeout=600,
         env=subprocess_env(
             XLA_FLAGS="--xla_force_host_platform_device_count=4"))
@@ -382,3 +448,95 @@ def test_sync_gradients_matches_jax_shard_map(jax_sync, case, peers):
         else:
             assert res is None
         assert np.all(got[1280:1408] == 0.0)        # the zero block
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_onn_analog(peers):
+    """JAX's analog ONN outputs for one bucket of ``peers`` rows at bits
+    8: the optinc photonic path up to and including MeshApply (shared
+    scale, encode, Encode, Preprocess, the ONN), jitted, with a vmap
+    over a named axis standing in for the peers' mesh axis."""
+    ph = JaxPhotonicsConfig(fidelity="onn")
+    module = JaxONNModule.from_params(jruntime.onn_config(ph, 8, peers),
+                                      _onn8_params())
+    cfg = JaxSyncConfig(mode="optinc", axes=("data",), bits=8, block=128,
+                        photonics=ph)
+    stages = jpipe.level_pipeline(module, 8, ("data",)).stages[:3]
+
+    def f(x):
+        u = jbackends._encode(x, jbackends._shared_scale(x, cfg), cfg)[0]
+        return jpipe.SyncPipeline(stages).run(u.reshape(-1)).data
+
+    return jax.jit(jax.vmap(f, axis_name="data"))
+
+
+def _near_threshold(flat, peers):
+    """Elements (total,) whose JAX analog ONN outputs at bits 8 lie within
+    ONN_MARGIN of a PAM4 decision threshold."""
+    layout = bucketizer.make_layout([torch.empty(flat.shape[1])],
+                                    SYNC_KW["bucket_bytes"])
+    near = np.zeros(flat.shape[1], bool)
+    for s, e in layout.bounds:
+        y = np.asarray(_jax_onn_analog(peers)(jnp.asarray(flat[:, s:e])))[0]
+        d = np.abs(y[..., None] - np.array([0.5, 1.5, 2.5], np.float32))
+        near[s:e] = (d <= ONN_MARGIN).any((-1, -2))[:e - s]
+    return near
+
+
+@pytest.mark.parametrize("peers", PEERS)
+@pytest.mark.parametrize("case", list(ONN_CASES))
+def test_onn_sync_matches_jax_shard_map(jax_sync, case, peers, monkeypatch,
+                                        capsys):
+    """optinc at fidelity 'onn' against the JAX sync_gradients under
+    shard_map.  Bits 2 (the exact identity ONN): output and residuals bit
+    for bit, and equal to the port's behavioral sync.  Bits 8 (the same
+    seeded ONN in both runtimes): residuals bit for bit, the output bit
+    for bit away from the decision thresholds."""
+    inputs, ref_out = jax_sync
+    bits, ef = ONN_CASES[case]
+    ph = PhotonicsConfig(fidelity="onn")
+    monkeypatch.setattr(runtime, "_CACHE", {})
+    runtime.put_module(ph, 8, peers, ONNModule.from_params(
+        runtime.onn_config(ph, 8, peers), _onn8_params()))
+    cfg = engine.SyncConfig(mode="optinc", bits=bits, error_feedback=ef,
+                            photonics=ph, **SYNC_KW)
+    behavioral = dataclasses.replace(cfg, photonics=PhotonicsConfig())
+    res = torch.zeros((peers, 4000)) if ef else None
+    for step in (1, 2):
+        grads = {"a": _t(inputs[f"a{step}"][:peers]),
+                 "b": _t(inputs[f"b{step}"][:peers]),
+                 "c": {"d": _t(inputs[f"d{step}"][:peers])}}
+        flat = torch.cat([grads["a"].reshape(peers, -1), grads["b"],
+                          grads["c"]["d"].reshape(peers, -1)], 1)
+        if ef:
+            flat = flat + res
+        synced, new_res = engine.sync_gradients(grads, cfg, res)
+        got = torch.cat([synced["a"].reshape(-1), synced["b"],
+                         synced["c"]["d"].reshape(-1)]).numpy()
+        key = f"{case}/{peers}/{step}"
+        want = ref_out[key + "/synced"]
+        assert (want == want[0]).all()
+        if bits == 2:
+            np.testing.assert_array_equal(got, want[0])
+            beh, beh_res = engine.sync_gradients(grads, behavioral, res)
+            np.testing.assert_array_equal(got, torch.cat([
+                beh["a"].reshape(-1), beh["b"],
+                beh["c"]["d"].reshape(-1)]).numpy())
+            if ef:
+                assert torch.equal(new_res, beh_res)
+        else:
+            near = _near_threshold(flat.numpy(), peers)
+            with capsys.disabled():
+                print(f"\n{key}: {near.sum()} of {near.size} elements within "
+                      f"{ONN_MARGIN} of a decision threshold (not compared)")
+            assert near.sum() <= 0.01 * near.size
+            np.testing.assert_array_equal(got[~near], want[0][~near])
+            assert len(np.unique(got)) > 20      # the ONN is not degenerate
+        if ef:
+            np.testing.assert_array_equal(new_res.numpy(),
+                                          ref_out[key + "/residual"])
+        else:
+            assert new_res is None
+        if bits == 2:                     # an exact ONN keeps the zero block
+            assert np.all(got[1280:1408] == 0.0)
+        res = new_res

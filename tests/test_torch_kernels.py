@@ -283,7 +283,7 @@ def test_build_is_content_addressed_and_reuses_a_current_build(
     compiler is needed when the build is current."""
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     assert names == ["flash_attention", "flash_attention_bwd",
-                     "paged_attention", "pam4"]
+                     "onn_layer", "paged_attention", "pam4"]
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(_build, "_nvcc", lambda: pytest.fail("nvcc called"))
     paths = {n: _build.library_path(n) for n in names}
@@ -329,7 +329,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
 def test_importing_the_trainer_loads_no_jax_and_builds_nothing():
     code = ("import sys\n"
             "import repro_torch.launch.train, repro_torch.collectives.engine\n"
-            "import repro_torch.kernels.pam4\n"
+            "import repro_torch.kernels.pam4, repro_torch.photonics\n"
             "from repro_torch.kernels import _build\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert 'repro' not in sys.modules, 'repro imported'\n"

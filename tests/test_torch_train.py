@@ -31,12 +31,16 @@ from repro.models import layers as jl
 from repro.models import lm as jlm
 from repro.models.config import ModelConfig as JaxModelConfig
 from repro.optim import adamw as jadamw
+from repro.photonics import PhotonicsConfig as JaxPhotonicsConfig
+from repro_torch.collectives.engine import SyncConfig
 from repro_torch.data import pipeline as tdata
+from repro_torch.launch import steps as tsteps
 from repro_torch.launch import train
 from repro_torch.models import lm as tlm
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw as tadamw
-from repro_torch.tree import leaves_with_paths
+from repro_torch.photonics import PhotonicsConfig, runtime
+from repro_torch.tree import leaves, leaves_with_paths
 
 # f32 loss of a 2-3 layer model: the two frameworks reorder sums, a few
 # ulp per op; the loss is O(5)
@@ -244,7 +248,8 @@ def test_train_needs_cuda_unless_a_device_is_given(monkeypatch):
 @pytest.mark.parametrize("argv,what", [
     (["--ckpt-dir", "x"], "checkpointing"),
     (["--overlap"], "overlap"),
-    (["--fidelity", "mesh"], "fidelities"),
+    pytest.param(["--fidelity", "mesh", "--bits", "2"], "the mesh fidelity",
+                 id="argv2-fidelities"),
     (["--mesh", "2x2"], "tensor parallelism"),
     (["--sync", "cascade"], "cascade"),
     (["--sync", "ring"], "ring"),
@@ -255,13 +260,98 @@ def test_train_names_what_is_not_ported(argv, what, capsys):
     assert what in str(e.value)
 
 
+@pytest.mark.parametrize("flag", ["--mesh-backend", "--blk-b",
+                                  "--theta-drift-std", "--shot-noise-std"])
+def test_train_names_the_mesh_slice_for_its_flags(flag):
+    with pytest.raises(SystemExit, match="the mesh slice"):
+        train.main(["--device", "cpu", "--steps", "1", "--fidelity", "onn",
+                    flag, "1"])
+
+
+def test_train_takes_fidelity_onn_and_refuses_what_jax_refuses(
+        monkeypatch):
+    assert train.parse_args(["--fidelity", "onn"]).fidelity == "onn"
+    assert train.parse_args([]).fidelity == "behavioral"
+    with pytest.raises(SystemExit):
+        train.parse_args(["--fidelity", "optical"])
+    with pytest.raises(SystemExit, match="photonic-backend knob"):
+        train.main(["--device", "cpu", "--steps", "1", "--fidelity", "onn",
+                    "--sync", "psum"])
+    # no trained ONN for bits 8: JAX's guidance, before the step loop
+    monkeypatch.setattr(runtime, "_CACHE", {})
+    monkeypatch.setattr(runtime, "RESULTS_PICKLES",
+                        ("results/_absent_for_test.pkl",))
+    with pytest.raises(SystemExit, match="no trained params.*--bits 2"):
+        train.main(["--device", "cpu", "--steps", "1", "--fidelity", "onn",
+                    "--bits", "8"])
+
+
+def test_trainer_at_fidelity_onn_bits_2_is_behavioral_and_matches_jax(
+        monkeypatch):
+    """Bits 2 resolves the exact identity ONN: two stacked peers train to
+    byte-identical losses and parameters at fidelities onn and
+    behavioral; one peer through the CLI matches JAX make_train_step at
+    fidelity onn within TRAIN_TOL (narrow f32 model, error feedback on,
+    0.25 MiB buckets)."""
+    monkeypatch.setattr(runtime, "_CACHE", {})
+    jcfg, cfg = cfg_pair("narrow")
+    jparams = jlm.init_params(jcfg, jl.ShardCtx(), jax.random.PRNGKey(1))
+    opt = tadamw.AdamWConfig(lr=1e-3)
+    data = tdata.SyntheticLM(tdata.DataConfig(vocab=cfg.vocab, seq_len=32,
+                                              global_batch=4, seed=0))
+    runs = {}
+    for fidelity in ("behavioral", "onn"):
+        sync = SyncConfig(mode="optinc", bits=2, block=128,
+                          error_feedback=True, bucket_bytes=2 ** 18,
+                          photonics=PhotonicsConfig(fidelity=fidelity))
+        step = tsteps.make_train_step(cfg, 2, sync, opt, "cpu")
+        params = _port_params(jparams, cfg)
+        ostate = tadamw.adamw_init(opt, params)
+        sstate = tsteps.init_sync_state(cfg, 2, sync, "cpu")
+        losses = []
+        for i in range(4):
+            params, ostate, sstate, m = step(
+                params, ostate, sstate, torch.from_numpy(data.batch(i)))
+            losses.append(m["loss"].item())
+        runs[fidelity] = losses, params
+    assert runs["onn"][0] == runs["behavioral"][0]
+    assert all(torch.equal(a, b) for a, b in zip(
+        leaves(runs["onn"][1]), leaves(runs["behavioral"][1])))
+
+    argv = ["--sync", "optinc", "--bits", "2", "--fidelity", "onn", "--mesh",
+            "1x1", "--steps", "4", "--lr", "1e-3", "--global-batch", "4",
+            "--seq-len", "32", "--bucket-mb", "0.25", "--block", "128",
+            "--error-feedback"]
+    recs = train.run(_opts(*argv), params=_port_params(jparams, cfg),
+                     cfg=cfg, out=io.StringIO())
+    mesh = MeshSpec().build()
+    jsync = JaxSyncConfig(mode="optinc", axes=("data",), bits=2, block=128,
+                          error_feedback=True, bucket_bytes=2 ** 18,
+                          photonics=JaxPhotonicsConfig(fidelity="onn"))
+    jopt = jadamw.AdamWConfig(lr=1e-3)
+    fn, _, _ = jsteps.make_train_step(jcfg, mesh, jsync, jopt)
+    fn = jax.jit(fn)
+    params, ostate = jparams, jadamw.adamw_init(jopt, jparams)
+    sstate = jsteps.init_sync_state(jcfg, mesh, jsync)
+    want = []
+    with jax.set_mesh(mesh):
+        for i in range(4):
+            params, ostate, sstate, metrics = fn(
+                params, ostate, sstate, {"tokens": jnp.asarray(data.batch(i))},
+                jax.random.PRNGKey(i))
+            want.append(float(metrics["loss"]))
+    np.testing.assert_allclose([r["loss"] for r in recs], want, rtol=0,
+                               atol=TRAIN_TOL)
+
+
 def test_parse_args_takes_the_jax_flag_names():
     opts = train.parse_args(["--arch", "paper_llama", "--sync", "optinc",
                              "--bits", "8", "--block", "2048", "--mesh",
                              "4x1", "--global-batch", "32", "--seq-len",
                              "512", "--steps", "30", "--bucket-mb", "4",
                              "--error-feedback", "--lr", "3e-4", "--seed",
-                             "1", "--smoke-config"])
+                             "1", "--smoke-config", "--fidelity", "onn"])
     assert isinstance(opts, argparse.Namespace) and opts.peers == 4
+    assert opts.fidelity == "onn"
     with pytest.raises(SystemExit):
         train.parse_args(["--global-batch", "6", "--mesh", "4x1"])
