@@ -23,6 +23,13 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    identity ONN (1-4-1) over one full bucket of rows, and at a ragged
    shape with a diagonal d != 1 and no ReLU; timed beside its plain
    version and ``torch.addmm`` (+ ReLU) in f32 without TF32.
+   2d. The ``mesh_scan_blocks`` kernel against its plain version on
+   random Givens-programmed meshes of every width of the mesh path (4,
+   64, 128, 256; B = 1, 2 and 16), both transposes, shared and blocked
+   x, a post_scale, 1000 ragged rows and two row tiles: bit for bit
+   without noise, within MESH_THETA_TOL with the theta drift; timed over
+   a full bucket at the path's two largest launches beside its plain
+   version and the dense f32 product of the same linear map.
 4. Trains paper_llama at full width (bf16) through the training entry
    point, ``--sync optinc --bits 8 --block 2048 --mesh 4x1`` (four
    data-parallel peers stacked on the card), global batch 32 x 512
@@ -38,6 +45,14 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    the default structure (installed with ``runtime.put_module``) for 5
    steps must give finite losses and 6 x 42 launches a step.  Step
    times, and one profiled step at each bit width.
+   4c. The same config through the ONN's MZI meshes (``--fidelity
+   mesh``): at ``--bits 2`` for 10 steps the losses of the behavioral
+   run and no ``mesh_scan`` launch (the exact identity has no rotation);
+   at ``--bits 8`` with a seeded Table I row 1 ONN (layers 1-6
+   approximated) for 3 steps on ``--mesh-backend pallas`` and 1 on
+   ``xla`` (the same step-0 loss), 6 x 42 launches a step; the default
+   ONN (no approximated layer) for 2 steps, 12 x 42 a step.  Step
+   times, peak memory, one profiled step.
 5. Card vs plain end to end: the f32 model with the same weights served
    through the kernels on the card and through the plain path on the
    CPU; teacher-forced logits must agree, greedy tokens must agree up to
@@ -46,9 +61,12 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    and pre-sync gradients within tolerance, and the card's gradient
    stack synced on the CPU through the plain versions must give the
    card's synced gradients and residuals bit for bit, at fidelity
-   behavioral and at fidelity onn with bits 2; at fidelity onn with
-   bits 8 the ONN's analog outputs must agree within tolerance and the
-   averaged codes bit for bit away from the PAM4 decision thresholds.
+   behavioral and at fidelities onn and mesh with bits 2; at bits 8 the
+   ONN's analog outputs must agree within tolerance and the averaged
+   codes bit for bit away from the PAM4 decision thresholds (fidelity
+   onn over the whole stack, fidelity mesh over MESH_ELEMS elements
+   through the Table I row 1 ONN, whose mesh outputs must also match
+   the dense ONN of the same projected weights).
 
 Every phase raises on failure, so the script exits non-zero without the
 last line.  The line before the last is a JSON object of per-kernel
@@ -99,7 +117,21 @@ ONN_TOL = 1e-5
 # analog ONN output is farther than this from a threshold k + 0.5
 ONN_MARGIN = 1e-4
 ONN8_STRUCTURE = (4, 64, 128, 256, 128, 64, 4)
+# Table I row 1 of the paper: layers 1-6 of ONN8_STRUCTURE approximated
+# (Sigma_a U_a), area ratio 0.393
+APPROX_LAYERS = (1, 2, 3, 4, 5, 6)
 BUCKET_ROWS = 1 << 20                 # f32 elements of one 4 MiB bucket
+# mesh_scan with the theta drift, kernel vs plain: max abs difference over
+# the largest |output|; the drift's logf/cosf/sinf differ by a few ulp
+# between CUDA's libm and the CPU's, through up to 509 layers
+MESH_THETA_TOL = 1e-5
+# the mesh ONN against the dense ONN of the same projected weights: the
+# Givens programs reproduce W to ~1e-15 in f64, and f32 rounding through
+# up to 509 rotation layers adds a few hundred ulp
+MESH_DENSE_TOL = 1e-4
+# elements of the bits-8 mesh sync compared card vs CPU: the CPU's plain
+# mesh takes about a minute and a half for them
+MESH_ELEMS = 32768
 
 
 def card_line() -> str:
@@ -566,6 +598,168 @@ def check_onn_kernel(card: str) -> dict:
     return records
 
 
+# ---------------------------------------------- phase 2d: mesh_scan
+def random_stack(m: int, blocks: int, seed: int):
+    """B compiled programs of random orthogonal m x m matrices (QR, then
+    Givens) stacked on a block axis, on the CPU, and the matrices."""
+    import numpy as np
+    from repro_torch.photonics import mesh, mzi
+    rng = np.random.default_rng(seed)
+    qs = [np.linalg.qr(rng.normal(size=(m, m)))[0] for _ in range(blocks)]
+    return mesh._stack_meshes([mesh.MZIMesh.compile(mzi.givens_decompose(q))
+                               for q in qs]), qs
+
+
+def mesh_bound(rows, blocks, layers, m, x_blocked):
+    """Least time of one launch: x read once (one slice per block when
+    blocked), the output written once, the (perm, ca, sa) stacks and the
+    diagonals read once, against 3 rows B L m f32 flops (one fma and one
+    product per update)."""
+    x_rows = rows * blocks if x_blocked else rows
+    nbytes = 4 * (x_rows * m + rows * blocks * m + 3 * blocks * layers * m
+                  + 2 * blocks * m)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * rows * blocks * layers * m / PEAK_FLOPS["float32"] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def once_ms(fn, args) -> float:
+    """Device ms of one call after one warm-up call: for the plain
+    versions at a full bucket, seconds a call, where launch overhead is
+    noise."""
+    import torch
+    fn(*args)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn(*args)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def check_mesh_kernel(card: str) -> dict:
+    """mesh_scan_blocks vs its plain version on the card: every width of
+    the mesh path, both transposes, shared and blocked x, a post_scale,
+    ragged rows, two row tiles, with and without the theta drift; then
+    timed at the main path's two largest launches."""
+    import torch
+    from repro_torch.kernels import mesh_scan, ref
+    from repro_torch.photonics import mesh
+
+    g = torch.Generator().manual_seed(SEED + 5)
+    # (m, B): the widths and block counts of the approx and svd layers
+    shapes = [(4, 16), (64, 2), (128, 2), (64, 1), (256, 1)]
+    stacks = {}
+    for i, (m, blocks) in enumerate(shapes):
+        st, _ = random_stack(m, blocks, SEED + 10 + i)
+        stacks[m, blocks] = st.to("cuda")
+        print(f"mesh_scan program m={m} B={blocks}: L={st.depth}, "
+              f"{st.n_rot} rotations", flush=True)
+    worst = 0.0
+    for (m, blocks), st in stacks.items():
+        ps = (torch.randn((blocks, m), generator=g) + 1.0).cuda()
+        for transpose in (False, True):
+            for blocked in ((False, True) if blocks > 1 else (False,)):
+                shape = (1000, blocks, m) if blocked else (1000, m)
+                x = torch.randn(shape, generator=g).cuda()
+                for blk_b in (0, 24):
+                    post = ps if blk_b else None
+                    kw = dict(x_block_axis=blocked, transpose=transpose,
+                              post_scale=post)
+                    args = (st.signs, st.perm, st.ca, st.sa, x)
+                    got = mesh_scan.mesh_scan_blocks(*args, blk_b=blk_b,
+                                                     **kw)
+                    want = ref.mesh_scan_blocks_ref(*args, **kw)
+                    seeds = torch.randint(0, 2 ** 32, (blocks,),
+                                          generator=g).cuda()
+                    got_t = mesh_scan.mesh_scan_blocks(
+                        *args, blk_b=blk_b, theta_std=0.05, seeds=seeds, **kw)
+                    want_t = ref.mesh_scan_blocks_ref(
+                        *args, theta_std=0.05, seeds=seeds, **kw)
+                    torch.cuda.synchronize()
+                    same = torch.equal(got, want)
+                    rel = ((got_t - want_t).abs().max()
+                           / want_t.abs().max()).item()
+                    moved = (got_t - got).abs().max().item()
+                    worst = max(worst, rel)
+                    print(f"mesh_scan_blocks m={m} B={blocks} L={st.depth} "
+                          f"transpose={transpose} x_blocked={blocked} "
+                          f"blk_b={blk_b} post_scale={post is not None}: "
+                          f"1000 rows bit-equal {same}; theta_std 0.05: "
+                          f"max_abs_err / max|y| {rel:.3e} (tol "
+                          f"{MESH_THETA_TOL:.0e}), drift moved the output "
+                          f"by {moved:.3e}", flush=True)
+                    if not (same and rel <= MESH_THETA_TOL and moved > 0):
+                        raise AssertionError(
+                            f"mesh_scan_blocks m={m} B={blocks} disagrees "
+                            f"with its plain version")
+
+    records = {}
+    # the main path's largest launches over one bucket of rows: the V
+    # mesh of the 256 -> 128 svd layer (o^T, B = 1), and the blocked
+    # approx layer 256 -> 128 (B = 2 meshes of 128, its Sigma_a fused)
+    for label, m, blocks, blocked, transpose in (
+            ("svd V 256, transpose", 256, 1, False, True),
+            ("approx 128 x 2, blocked", 128, 2, True, False)):
+        st, qs = random_stack(m, blocks, SEED + 20 + m)
+        st = st.to("cuda")
+        shape = (BUCKET_ROWS, blocks, m) if blocked else (BUCKET_ROWS, m)
+        x = torch.randn(shape, generator=g).cuda()
+        ps = (torch.rand((blocks, m), generator=g) + 0.5).cuda()
+        post = ps if blocked else None
+        kw = dict(x_block_axis=blocked, transpose=transpose, post_scale=post)
+        args = (st.signs, st.perm, st.ca, st.sa, x)
+        got = mesh_scan.mesh_scan_blocks(*args, **kw)
+        want = ref.mesh_scan_blocks_ref(*args, **kw)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        # yardstick: the same linear map as one dense product, f32 with
+        # TF32 off: y = x o_b^T (o_b with transpose), Sigma_a folded in
+        mats = torch.stack([torch.from_numpy(q.T if transpose else q)
+                            .float() for q in qs]).cuda()
+        if post is not None:
+            mats = mats * post[:, :, None]
+        dense = torch.einsum("rbi,bji->rbj",
+                             x if blocked else x[:, None, :].expand(
+                                 -1, blocks, -1), mats)
+        lib_err = ((dense - got).abs().max() / got.abs().max()).item()
+        print(f"mesh_scan_blocks {label}: {BUCKET_ROWS} rows, L={st.depth}: "
+              f"bit-equal to the plain version {same}; the dense product "
+              f"agrees within {lib_err:.3e} of max|y|", flush=True)
+        if not same:
+            raise AssertionError(f"mesh_scan_blocks {label} disagrees with "
+                                 f"its plain version")
+        ins = copies_for([x])
+        ms, host_ms = time_ms(lambda a: mesh_scan.mesh_scan_blocks(
+            st.signs, st.perm, st.ca, st.sa, a, **kw), ins, iters=5)
+        plain_ms = once_ms(lambda a: ref.mesh_scan_blocks_ref(
+            st.signs, st.perm, st.ca, st.sa, a, **kw), ins[0])
+        if blocked:
+            lib_ms, _ = time_ms(lambda a: torch.einsum("rbi,bji->rbj", a,
+                                                       mats), ins, iters=5)
+        else:
+            lib_ms, _ = time_ms(lambda a: torch.matmul(a, mats[0].T), ins,
+                                iters=5)
+        bound, by = mesh_bound(BUCKET_ROWS, blocks, st.depth, m, blocked)
+        print(f"mesh_scan_blocks {label} timing: kernel {ms:.3f} ms (host "
+              f"{host_ms:.3f} ms), plain {plain_ms:.3f} ms, dense f32 "
+              f"product ({'einsum' if blocked else 'matmul'}, TF32 off, "
+              f"the same linear map in other arithmetic) {lib_ms:.3f} ms, "
+              f"bound {bound:.3f} ms ({by}); kernel at "
+              f"{100 * bound / ms:.1f}% of its bound [{card}]", flush=True)
+        if label.startswith("svd"):
+            records["mesh_scan_blocks"] = dict(
+                name="mesh_scan_blocks", route="cuda",
+                source="src/repro_torch/csrc/mesh_scan.cu",
+                replaces="src/repro/kernels/mesh_scan.py:194",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=lib_ms)
+        del ins, got, want, dense
+    return records
+
+
 # ----------------------------------------------------- phase 3: serve
 def make_prompts(n, vocab, lo, hi, seed):
     import numpy as np
@@ -807,9 +1001,10 @@ def profile_train_step(card: str, sync, what: str) -> dict:
     return device_profile(prof, w, card, what)
 
 
-def train_onn_full_width(card: str) -> dict:
+def train_onn_full_width(card: str):
     """Phase 4b: the onn fidelity at full width; returns the launch
-    counts of the bits-8 run."""
+    counts of the bits-8 run and the losses of the behavioral bits-2
+    run."""
     import torch
     from repro_torch import configs
     from repro_torch.collectives.bucketizer import expected_buckets
@@ -885,7 +1080,129 @@ def train_onn_full_width(card: str) -> dict:
         print(f"  onn_layer: {onn_us:.1f} us of the step's device time, "
               f"{100 * onn_us / max(sum(dev.values()), 1e-9):.2f}% "
               f"[{card}]", flush=True)
-    return launches
+    return launches, losses["behavioral"]
+
+
+def seeded_onn(ph, approx_layers, seed: int, peers: int = 4):
+    """A seeded bits-8 ONN of ONN8_STRUCTURE for ``peers`` servers, its
+    ``approx_layers`` projected onto Sigma_a U_a (random weights: the
+    kernels at the paper's widths, not a trained ONN)."""
+    from repro_torch.photonics import onn, runtime
+    from repro_torch.photonics.module import ONNModule
+    cfg = dataclasses.replace(runtime.onn_config(ph, 8, peers),
+                              approx_layers=tuple(approx_layers))
+    module = ONNModule.init(cfg, seed)
+    return ONNModule.from_params(cfg, onn.project_approx(module.params, cfg))
+
+
+def mesh_launches(programs) -> list:
+    """Per ONN layer, (blocks, wires, depth) of each mesh_scan launch it
+    makes: one for a Sigma_a U_a layer's stacked meshes, two (V^T, then
+    U) for an SVD layer."""
+    return [[(st.signs.shape[0] if st.signs.ndim > 1 else 1, st.dim,
+              st.depth)
+             for st in ([p.meshes] if hasattr(p, "meshes") else [p.v, p.u])]
+            for p in programs]
+
+
+def train_mesh_full_width(card: str, behavioral_losses) -> dict:
+    """Phase 4c: the mesh fidelity at full width; returns the launch
+    counts of the bits-8 run through the Table I row 1 ONN."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.collectives.bucketizer import expected_buckets
+    from repro_torch.collectives.engine import SyncConfig
+    from repro_torch.kernels import mesh_scan, onn_layer
+    from repro_torch.models import lm
+    from repro_torch.photonics import PhotonicsConfig, runtime
+    from repro_torch.tree import leaves
+
+    cfg = configs.get("paper_llama")
+    n_buckets = expected_buckets(4 * sum(
+        math.prod(s) for s in leaves(lm.param_shapes(cfg))))
+    counters = dict(_train_counters(), onn_layer=onn_layer.onn_layer,
+                    mesh_scan_blocks=mesh_scan.mesh_scan_blocks)
+
+    def run(argv, steps):
+        for fn in counters.values():
+            fn.launches = 0
+        recs = train_run(["--fidelity", "mesh"] + argv, steps)
+        launches = {name: fn.launches for name, fn in counters.items()}
+        idle = [name for name, n in launches.items()
+                if n == 0 and name not in ("onn_layer", "mesh_scan_blocks")]
+        if (idle or launches["pam4_quantize_encode"] != n_buckets * steps
+                or launches["onn_layer"]):
+            raise AssertionError(f"launches {launches} of {argv}: every "
+                                 f"training kernel, pam4 once per bucket, "
+                                 f"no onn_layer")
+        losses = [r["loss"] for r in recs]
+        times = [r["time_s"] for r in recs]
+        print(f"train paper_llama bf16 --sync optinc --fidelity mesh "
+              f"{' '.join(argv)} --mesh 4x1, {steps} steps: loss {losses}; "
+              f"step times ms {[round(t * 1e3, 3) for t in times]}; "
+              f"launches {launches} [{card}]", flush=True)
+        return losses, times, launches
+
+    losses, times, launches = run(["--bits", "2"], 10)
+    print(f"  --fidelity mesh --bits 2: step p50 "
+          f"{pct(times[3:], 0.5) * 1e3:.3f} ms p99 "
+          f"{pct(times[3:], 0.99) * 1e3:.3f} ms over steps 3-9 [{card}]",
+          flush=True)
+    if losses != behavioral_losses or launches["mesh_scan_blocks"]:
+        raise AssertionError(f"--fidelity mesh --bits 2: losses {losses} vs "
+                             f"behavioral {behavioral_losses}, "
+                             f"{launches['mesh_scan_blocks']} mesh_scan "
+                             f"launches (want equal losses and 0)")
+
+    ph = PhotonicsConfig(fidelity="mesh")
+    results = {}
+    for label, approx, backend, steps in (
+            ("Table I row 1 (approx 1-6)", APPROX_LAYERS, "pallas", 3),
+            ("Table I row 1 (approx 1-6)", APPROX_LAYERS, "xla", 1),
+            ("default (no approx)", (), "pallas", 2)):
+        if backend == "pallas":
+            module = seeded_onn(ph, approx, SEED + 6)
+            t = time.perf_counter()
+            launches_of = mesh_launches(module.programs)
+            print(f"mesh ONN {label}: Givens programming "
+                  f"{time.perf_counter() - t:.3f} s on the host; per layer, "
+                  f"(blocks, wires, depth) of each launch {launches_of} "
+                  f"[{card}]", flush=True)
+            per_bucket = sum(len(layer) for layer in launches_of)
+            runtime.put_module(ph, 8, 4, module)
+        torch.cuda.reset_peak_memory_stats()
+        losses, times, launches = run(["--bits", "8", "--mesh-backend",
+                                       backend], steps)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        rest = times[1:] or times
+        print(f"  {label}, --mesh-backend {backend}: first step "
+              f"{times[0] * 1e3:.3f} ms, p50 of the rest "
+              f"{pct(rest, 0.5) * 1e3:.3f} ms; peak memory {peak:.3f} GB "
+              f"[{card}]", flush=True)
+        want = per_bucket * n_buckets * steps
+        if (launches["mesh_scan_blocks"] != want
+                or not all(math.isfinite(x) for x in losses)):
+            raise AssertionError(f"{label} {backend}: mesh_scan launches "
+                                 f"{launches['mesh_scan_blocks']} (want "
+                                 f"{want}), losses {losses}")
+        results[label, backend] = losses, launches
+    pallas, xla = (results["Table I row 1 (approx 1-6)", b][0]
+                   for b in ("pallas", "xla"))
+    if xla[0] != pallas[0]:
+        raise AssertionError(f"step-0 loss xla {xla[0]} != pallas "
+                             f"{pallas[0]}")
+
+    runtime.put_module(ph, 8, 4, seeded_onn(ph, APPROX_LAYERS, SEED + 6))
+    dev = profile_train_step(
+        card, SyncConfig(mode="optinc", bits=8, block=2048,
+                         photonics=PhotonicsConfig(fidelity="mesh",
+                                                   mesh_backend="pallas")),
+        "train step --fidelity mesh --bits 8 (Table I row 1)")
+    mesh_us = sum(us for k, us in dev.items() if "mesh_scan" in k)
+    print(f"  mesh_scan: {mesh_us:.1f} us of the step's device time, "
+          f"{100 * mesh_us / max(sum(dev.values()), 1e-9):.2f}% [{card}]",
+          flush=True)
+    return results["Table I row 1 (approx 1-6)", "pallas"][1]
 
 
 def card_vs_plain_training(card: str) -> None:
@@ -948,6 +1265,7 @@ def card_vs_plain_training(card: str) -> None:
         res_gpu = new_res_gpu
         if step == 0:
             card_vs_plain_onn_sync(card, f_gpu, layout.bounds)
+            card_vs_plain_mesh_sync(card, f_gpu, layout.bounds)
 
 
 def card_vs_plain_onn_sync(card: str, f_gpu, bounds) -> None:
@@ -1022,6 +1340,73 @@ def card_vs_plain_onn_sync(card: str, f_gpu, bounds) -> None:
         if not (rel <= ONN_TOL and code_diff == 0 and out_same and res_same
                 and near_rows <= 0.01 * f_gpu.shape[1]):
             raise AssertionError("card vs plain onn sync at bits 8")
+
+
+def card_vs_plain_mesh_sync(card: str, f_gpu, bounds) -> None:
+    """The mesh fidelity card vs CPU: bits 2 over the whole stack bit for
+    bit (and equal to the card's behavioral sync); bits 8 through the
+    Table I row 1 ONN over MESH_ELEMS elements (one bucket): analog
+    outputs within ONN_TOL, codes bit for bit away from the thresholds;
+    and the card's mesh outputs against the dense ONN of the same
+    projected weights within MESH_DENSE_TOL."""
+    import torch
+    from repro_torch.collectives import backends
+    from repro_torch.collectives.engine import SyncConfig, sync_flat
+    from repro_torch.photonics import PhotonicsConfig, pipeline, runtime
+
+    peers = f_gpu.shape[0]
+    zeros = torch.zeros_like(f_gpu)
+    ph = PhotonicsConfig(fidelity="mesh", mesh_backend="pallas")
+    sync = SyncConfig(mode="optinc", bits=2, block=2048, error_feedback=True,
+                      bucket_bytes=2 ** 20, photonics=ph)
+    out_g, res_g = sync_flat(f_gpu, bounds, sync, zeros)
+    out_c, res_c = sync_flat(f_gpu.cpu(), bounds, sync, zeros.cpu())
+    beh, _ = sync_flat(f_gpu, bounds, dataclasses.replace(
+        sync, photonics=PhotonicsConfig()), zeros)
+    same = (torch.equal(out_g.cpu(), out_c), torch.equal(res_g.cpu(), res_c),
+            torch.equal(out_g, beh))
+    print(f"card vs plain mesh sync, bits 2 (exact identity ONN, {peers} "
+          f"peers, {f_gpu.shape[1]} elements): synced bit-equal {same[0]}, "
+          f"residuals bit-equal {same[1]}, equal to the card's behavioral "
+          f"sync {same[2]} [{card}]", flush=True)
+    if not all(same):
+        raise AssertionError("card vs plain mesh sync at bits 2")
+
+    module = seeded_onn(ph, APPROX_LAYERS, SEED + 7, peers)
+    runtime.put_module(ph, 8, peers, module)
+    sync = dataclasses.replace(sync, bits=8)
+    stages = pipeline.level_pipeline(module, 8, fidelity="mesh",
+                                     mesh_backend="pallas").stages
+    got = {}
+    for dev, x in (("cuda", f_gpu[:, :MESH_ELEMS]),
+                   ("cpu", f_gpu[:, :MESH_ELEMS].cpu())):
+        t = time.perf_counter()
+        u = backends._encode(x, backends._shared_scale(x, sync), sync)
+        pre = pipeline.SyncPipeline(stages[:2]).run(u.reshape(peers, -1))
+        analog = stages[2].apply(pre).data
+        codes = pipeline.SyncPipeline(stages[3:]).run(analog).data
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            dense = module.apply(pre.data)
+        got[dev] = analog.cpu(), codes.cpu(), time.perf_counter() - t
+    (ag, cg, tg), (ac, cc, tc) = got["cuda"], got["cpu"]
+    rel = ((ag - ac).abs().max() / ac.abs().max()).item()
+    thr = torch.tensor([0.5, 1.5, 2.5])
+    near = ((ac[..., None] - thr).abs() <= ONN_MARGIN).any(-1).any(-1)
+    code_diff = int((cg != cc)[~near].sum())
+    dense_rel = ((dense.cpu() - ag).abs().max() / ag.abs().max()).item()
+    print(f"card vs plain mesh sync, bits 8 (seeded Table I row 1 ONN, "
+          f"{peers} peers, {MESH_ELEMS} elements): ONN analog outputs "
+          f"max_abs_err / max|y| {rel:.3e} (tol {ONN_TOL:.0e}); "
+          f"{int(near.sum())} rows within {ONN_MARGIN} of a threshold (not "
+          f"compared); codes differing elsewhere {code_diff}; mesh vs dense "
+          f"ONN of the same projected weights on the card max_abs_err / "
+          f"max|y| {dense_rel:.3e} (tol {MESH_DENSE_TOL:.0e}); pipeline "
+          f"{tg:.3f} s on the card, {tc:.3f} s on the CPU [{card}]",
+          flush=True)
+    if not (rel <= ONN_TOL and code_diff == 0 and dense_rel <= MESH_DENSE_TOL
+            and near.sum() <= 0.01 * MESH_ELEMS):
+        raise AssertionError("card vs plain mesh sync at bits 8")
 
 
 # ----------------------------------------- phase 5: card vs plain, f32
@@ -1132,6 +1517,7 @@ def main() -> int:
     records = check_kernels(card)
     records.update(check_training_kernels(card))
     records.update(check_onn_kernel(card))
+    records.update(check_mesh_kernel(card))
     launches = serve_full_width(card)
     for name in launches:
         records[name]["launches"] = launches[name]
@@ -1139,8 +1525,10 @@ def main() -> int:
     for name in ("flash_attention_bwd", "pam4_quantize_encode",
                  "pam4_decode_dequantize"):
         records[name]["launches"] = train_launches[name]
-    records["onn_layer"]["launches"] = train_onn_full_width(card)[
-        "onn_layer"]
+    onn_launches, behavioral_bits2 = train_onn_full_width(card)
+    records["onn_layer"]["launches"] = onn_launches["onn_layer"]
+    records["mesh_scan_blocks"]["launches"] = train_mesh_full_width(
+        card, behavioral_bits2)["mesh_scan_blocks"]
     card_vs_plain(card)
     card_vs_plain_training(card)
 

@@ -17,18 +17,19 @@ term.
 Integer sums are exact in any order, so the result is bit-identical to
 the JAX package's on the same input bucket.
 
-At fidelity 'onn' the Q(mean) step is the in-network ONN instead
-(``_photonic_sync``): after the same shared scale and encode, the codes
-run one ``photonics.pipeline`` level (PAM4 symbols, unit P over the
-peers, the dense ONN with every layer one ``onn_layer`` launch, the
-transceiver readout, symbol decode), and ``_finish_photonic``
+At fidelity 'onn' or 'mesh' the Q(mean) step is the in-network ONN
+instead (``_photonic_sync``): after the same shared scale and encode,
+the codes run one ``photonics.pipeline`` level (PAM4 symbols, unit P
+over the peers, the ONN: dense with every layer one ``onn_layer``
+launch, or its MZI meshes with every mesh stack one ``mesh_scan``
+launch; the transceiver readout, symbol decode), and ``_finish``
 dequantizes the averaged codes with the pam4 decode kernel at n = 1
 (Q(mean) of one code is the code), as the behavioral path dequantizes
 its code sums.
 
 Not ported yet (later slices, ROADMAP.md): the ring and cascade
-backends, Table-II error injection (``error_layers``) and the 'mesh'
-fidelity.
+backends, Table-II error injection (``error_layers``) and the mesh
+fidelity's PhaseNoise model.
 """
 from __future__ import annotations
 
@@ -96,15 +97,18 @@ def _finish(total: torch.Tensor, n: int, u: torch.Tensor, x: torch.Tensor,
 
 
 def _photonic_sync(x: torch.Tensor, cfg):
-    """The hardware-in-the-loop OptINC path (fidelity 'onn'): the B-bit
-    codes of the N peers run one ``photonics.pipeline`` level instead of
-    the integer Q(mean)."""
+    """The hardware-in-the-loop OptINC path (fidelity 'onn' or 'mesh'):
+    the B-bit codes of the N peers run one ``photonics.pipeline`` level
+    instead of the integer Q(mean)."""
     n = x.shape[0]
-    module = ph_runtime.get_module(cfg.photonics, cfg.bits, n)
+    ph = cfg.photonics
+    module = ph_runtime.get_module(ph, cfg.bits, n)
     scale = _shared_scale(x, cfg)
     u = _encode(x, scale, cfg)
     pipe = ph_pipeline.level_pipeline(module, cfg.bits,
-                                      fidelity=cfg.photonics.fidelity)
+                                      fidelity=ph.fidelity,
+                                      mesh_backend=ph.mesh_backend,
+                                      blk_b=ph.blk_b)
     u_avg = pipe.run(u.reshape(n, -1)).data
     return _finish(u_avg, 1, u, x, scale, cfg)
 
@@ -131,8 +135,8 @@ class PsumBackend:
 
 class OptincBackend:
     """Quantize -> in-network sum -> Q(mean) -> dequantize; at fidelity
-    'behavioral' Q(mean) in the integer domain, at 'onn' through the ONN
-    (the module docstring has the steps)."""
+    'behavioral' Q(mean) in the integer domain, at 'onn' or 'mesh'
+    through the ONN (the module docstring has the steps)."""
     name = "optinc"
 
     def sync(self, x, cfg):

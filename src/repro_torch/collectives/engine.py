@@ -34,8 +34,8 @@ _LATER = {
     "ring": "the ring backend (the ring/cascade slice)",
     "cascade": "the cascade backend (the ring/cascade slice)",
 }
-_MESH_SLICE = ("the mesh fidelity and its MZI-mesh emulator (the mesh "
-               "slice: mzi.py, approx.py, mesh.py, PhaseNoise, mesh_scan)")
+_PHASE_NOISE = ("the PhaseNoise model of the mesh fidelity (the PhaseNoise "
+                "slice: a per-step sync key, theta drift and shot noise)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,7 +49,7 @@ class SyncConfig:
     overlap: bool = False            # streaming dispatch: not ported
     sparse_residuals: bool = False   # sparse checkpoints: not ported
     # emulation fidelity of the optinc backend: behavioral | onn (the
-    # trained dense ONN inside the collective); mesh is not ported
+    # trained dense ONN inside the collective) | mesh (its MZI meshes)
     photonics: PhotonicsConfig = PhotonicsConfig()
 
     def __post_init__(self):
@@ -71,15 +71,11 @@ class SyncConfig:
         if not isinstance(ph, PhotonicsConfig):
             raise TypeError(f"SyncConfig.photonics must be a "
                             f"PhotonicsConfig, got {ph!r}")
-        for knob, bad in (("fidelity", ph.fidelity == "mesh"),
-                          ("mesh_backend", ph.mesh_backend != "xla"),
-                          ("blk_b", ph.blk_b != 0),
-                          ("theta_drift_std", ph.theta_drift_std > 0),
-                          ("shot_noise_std", ph.shot_noise_std > 0)):
-            if bad:
+        for knob in ("theta_drift_std", "shot_noise_std"):
+            if getattr(ph, knob) > 0:
                 raise NotImplementedError(
                     f"PhotonicsConfig.{knob}={getattr(ph, knob)!r}: "
-                    f"{_MESH_SLICE} is not ported yet")
+                    f"{_PHASE_NOISE} is not ported yet")
         if ph.fidelity != "behavioral" and self.mode != "optinc":
             raise ValueError(
                 f"--fidelity {ph.fidelity} is a photonic-backend knob (the "

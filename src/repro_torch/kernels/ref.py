@@ -11,12 +11,19 @@ TPU kernels compute too: encode adds the zero-block guard, and decode
 fuses Q(mean) (the JAX ``pam4_qmean_ref``) with dequantization, as the
 Pallas decode kernel does.
 
+``mesh_scan_blocks_ref`` is the MZI-mesh cascade of
+``repro.kernels.mesh_scan`` (the ``lax.scan`` of ``photonics.mesh`` with
+the block axis written out), in the arithmetic XLA compiles that scan
+into; ``mix32_ref`` and ``normal_field_ref`` are its in-kernel PRNG.
+
 ``decode_attention`` and ``paged_gather`` are the JAX package's
 ``models.layers`` functions of those names (the gather decode path);
 they live here because the paged kernel's plain version is built from
 them, and ``models.layers`` re-exports them under their JAX home.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -94,6 +101,152 @@ def onn_layer_ref(x: torch.Tensor, u: torch.Tensor, d: torch.Tensor,
     x: (rows, n), u: (m, n), d: (m,), b: (m,); f32."""
     y = x.float() @ u.float().T * d.float() + b.float()
     return torch.relu(y) if relu else y
+
+
+# ----------------------------- mesh scan ----------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, k: int) -> torch.Tensor:
+    """(x * k) mod 2^32 for int64 x in [0, 2^32) and a 32-bit constant k,
+    in two 16-bit halves of k so that no int64 product overflows (torch
+    on the CPU has no uint32 multiply or shift)."""
+    lo, hi = k & 0xFFFF, k >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
+
+
+def mix32_ref(x: torch.Tensor) -> torch.Tensor:
+    """splitmix32-style avalanche of uint32 counter words held in int64
+    (the JAX kernel's ``_mix32``)."""
+    x = _mul32(x ^ (x >> 16), 0x7FEB352D)
+    x = _mul32(x ^ (x >> 15), 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def counter_stride(m: int) -> int:
+    """Row stride of the drift's counter: m rounded up to 128, the width
+    of the JAX kernel's field (it draws over its 128-lane padded rows),
+    so that the port draws the JAX kernel's numbers."""
+    return -(-max(m, 1) // 128) * 128
+
+
+def drift_uniforms_ref(seed: int, n_layers: int, m: int,
+                       dtype=torch.float32, device="cpu"):
+    """The two (L, m) uniform fields behind ``normal_field_ref``: counter
+    c = (l k + w) 0x9E3779B9 + seed with k = ``counter_stride(m)``, and
+    from its hash words h1 = mix32(c), h2 = mix32(c ^ 0x85EBCA6B)
+    u1 = ((h1 >> 8) + 1) 2^-24 in (0, 1] and u2 = (h2 >> 8) 2^-24 in
+    [0, 1), both exact."""
+    lw = (torch.arange(n_layers, dtype=torch.int64, device=device)[:, None]
+          * counter_stride(m)
+          + torch.arange(m, dtype=torch.int64, device=device)[None, :])
+    c = (_mul32(lw & _M32, 0x9E3779B9) + (int(seed) & _M32)) & _M32
+    h1, h2 = mix32_ref(c), mix32_ref(c ^ 0x85EBCA6B)
+    two24 = torch.tensor(2.0 ** -24, dtype=dtype, device=device)
+    return ((h1 >> 8).to(dtype) + 1.0) * two24, (h2 >> 8).to(dtype) * two24
+
+
+def normal_field_ref(seed: int, n_layers: int, m: int,
+                     dtype=torch.float32, device="cpu") -> torch.Tensor:
+    """(L, m) standard normals from one uint32 seed, counter-based (the
+    JAX kernel's ``_normal_field``): the Box-Muller transform of
+    ``drift_uniforms_ref``."""
+    u1, u2 = drift_uniforms_ref(seed, n_layers, m, dtype, device)
+    r = torch.sqrt(torch.tensor(-2.0, dtype=dtype, device=device)
+                   * torch.log(u1))
+    return r * torch.cos(torch.tensor(2.0 * math.pi, dtype=dtype,
+                                      device=device) * u2)
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor) -> torch.Tensor:
+    """a * b + c rounded once to f32, for f32 tensors: ``fmaf`` on the
+    card, and the fused multiply-add XLA emits for ``ca * y + sa *
+    y[perm]``.  The product is exact in f64 and the f64 sum s rounds to
+    f32 as the exact sum would, unless s fell exactly on the midpoint
+    between two f32 neighbours (or in f32's subnormal range) while the
+    exact sum did not: only there the TwoSum error of s says which way
+    to step it (to the f64 neighbour with an odd last bit, rounding to
+    odd, correct for any target with 2 bits fewer than f64)."""
+    cd = c.double()
+    s = torch.addcmul(cd, a.double(), b.double())
+    bits = s.view(torch.int64)
+    check = (((bits & 0x1FFFFFFF) == 0x10000000)
+             | (s.abs() < 2.0 ** -125)).nonzero(as_tuple=True)
+    if check[0].numel():
+        ab_ = (a.double() * b.double()).expand_as(s)[check]
+        cd_, s_ = cd.expand_as(s)[check], s[check]
+        bb = s_ - ab_
+        err = (ab_ - (s_ - bb)) + (cd_ - bb)
+        fix = (err != 0) & ((s_.view(torch.int64) & 1) == 0)
+        away = torch.where(err > 0, math.inf, -math.inf).to(s.dtype)
+        s = s.clone()
+        s[check] = torch.where(fix, torch.nextafter(s_, away), s_)
+    return s.float()
+
+
+def mesh_scan_blocks_ref(signs: torch.Tensor, perm: torch.Tensor,
+                         ca: torch.Tensor, sa: torch.Tensor,
+                         x: torch.Tensor, *, x_block_axis: bool = False,
+                         transpose: bool = False,
+                         post_scale: torch.Tensor | None = None,
+                         theta_std: float = 0.0,
+                         seeds: torch.Tensor | None = None) -> torch.Tensor:
+    """B stacked rotation-layer programs applied to ``x``.
+
+    signs: (B, m); perm (int), ca, sa: (B, L, m); x: (..., m) shared by
+    the blocks or (..., B, m) with ``x_block_axis``; returns (..., B, m).
+    Per block: y = x * signs, then L layers of y <- ca y + sa y[perm],
+    then y * post_scale; with ``transpose`` the layers run in reverse
+    with sa negated and the signs move to the end (o^T instead of o).
+
+    In f32 each layer is ``fma(ca, y, sa * y[perm])``, the product
+    rounded and the sum rounded once with it (``fma_f32``): the form XLA
+    compiles the JAX scan into, and the CUDA kernel's ``fmaf``.  In f64
+    (the oracle tests) it is computed plainly.  With ``theta_std > 0``
+    each block's (ca, sa) are rotated by the theta drift of its uint32
+    seed (``seeds``, (B,)): eps = theta_std sqrt(1/2) (g[w] + g[perm])
+    sign(w - perm) with g = ``normal_field_ref``, so a wire with no
+    partner gets eps = 0 exactly."""
+    n_blocks, n_layers, m = perm.shape
+    dt = torch.promote_types(x.dtype, ca.dtype)
+    if theta_std > 0.0 and seeds is None:
+        raise ValueError("mesh_scan_blocks: theta_std > 0 needs per-block "
+                         "uint32 seeds")
+    batch_shape = x.shape[:-2] if x_block_axis else x.shape[:-1]
+    y = x.to(dt).reshape(-1, n_blocks if x_block_axis else 1, m)
+    y = y.expand(-1, n_blocks, m)
+    signs, ca, sa = signs.to(dt), ca.to(dt), sa.to(dt)
+    if not transpose:
+        y = y * signs
+    g = None
+    if theta_std > 0.0:
+        g = torch.stack([normal_field_ref(int(s), n_layers, m, dt, x.device)
+                         for s in seeds.to(torch.int64).tolist()])
+        std = torch.tensor(theta_std, dtype=dt, device=x.device)
+        half = torch.tensor(0.5 ** 0.5, dtype=dt, device=x.device)
+        wire = torch.arange(m, device=x.device)
+    blk = torch.arange(n_blocks, device=x.device)[:, None]
+    for i in range(n_layers):
+        l = n_layers - 1 - i if transpose else i
+        p = perm[:, l, :].long()
+        c, s = ca[:, l, :], sa[:, l, :]
+        if g is not None:
+            gw = g[:, l, :]
+            eps = std * (half * (gw + gw[blk, p])) * torch.sign(
+                wire - p).to(dt)
+            ce, se = torch.cos(eps), torch.sin(eps)
+            c, s = c * ce - s * se, s * ce + c * se
+        if transpose:
+            s = -s
+        yp = s * y[:, blk, p]
+        y = fma_f32(c, y, yp) if dt == torch.float32 else c * y + yp
+    if transpose:
+        y = y * signs
+    if post_scale is not None:
+        y = y * post_scale.to(dt)
+    return y.reshape(batch_shape + (n_blocks, m))
 
 
 # ---------------------------- attention -----------------------------

@@ -14,6 +14,13 @@ averaged by the OptINC collective (or psum).
       --sync optinc --bits 2 --fidelity onn --mesh 4x1 --global-batch 32 \\
       --seq-len 512 --steps 10
 
+  # ... through the ONN's phase-programmed MZI meshes (every mesh one
+  # launch of the mesh_scan kernel; --mesh-backend xla and pallas both
+  # run it, --blk-b is its row tile)
+  PYTHONPATH=src python -m repro_torch.launch.train --arch paper_llama \\
+      --sync optinc --bits 2 --fidelity mesh --mesh-backend pallas \\
+      --mesh 4x1 --global-batch 32 --seq-len 512 --steps 10
+
   # a CPU smoke run (the plain versions of the kernels)
   PYTHONPATH=src python -m repro_torch.launch.train --arch paper_llama \\
       --smoke-config --sync optinc --mesh 2x1 --global-batch 4 \\
@@ -43,7 +50,7 @@ from ..data.pipeline import DataConfig, SyntheticLM
 from ..models import lm
 from ..optim.adamw import AdamWConfig, adamw_init
 from ..photonics import runtime
-from ..photonics.config import FIDELITIES, PhotonicsConfig
+from ..photonics.config import FIDELITIES, MESH_BACKENDS, PhotonicsConfig
 from .steps import init_sync_state, make_train_step
 
 # flags of the JAX CLI this port does not take yet, and what they need
@@ -51,10 +58,10 @@ _NOT_PORTED = {
     "--spec": "the RunSpec surface (repro.api)",
     "--pods": "the cascade backend and its pod axis",
     "--overlap": "streaming overlap",
-    "--mesh-backend": "the mesh fidelity (the mesh slice, mesh_scan kernel)",
-    "--blk-b": "the mesh fidelity (the mesh slice, mesh_scan kernel)",
-    "--theta-drift-std": "the mesh fidelity's PhaseNoise (the mesh slice)",
-    "--shot-noise-std": "the mesh fidelity's PhaseNoise (the mesh slice)",
+    "--theta-drift-std": "the mesh fidelity's PhaseNoise model (the "
+                         "PhaseNoise slice)",
+    "--shot-noise-std": "the mesh fidelity's PhaseNoise model (the "
+                        "PhaseNoise slice)",
     "--error-layers": "Table-II error injection",
     "--sparse-residuals": "checkpointing (checkpoint/ckpt.py)",
     "--fsdp": "FSDP",
@@ -90,7 +97,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                     default=DEFAULT_BUCKET_BYTES / 2 ** 20)
     ap.add_argument("--fidelity", choices=FIDELITIES, default="behavioral",
                     help="optinc emulation depth: behavioral Q(mean) | "
-                         "trained dense ONN (mesh: not ported)")
+                         "trained dense ONN | MZI mesh emulator")
+    ap.add_argument("--mesh-backend", choices=MESH_BACKENDS, default="xla",
+                    help="fidelity=mesh executor; both run the mesh_scan "
+                         "kernel in the port")
+    ap.add_argument("--blk-b", type=int, default=0,
+                    help="mesh_scan kernel row tile (multiple of 8; 0 = "
+                         "default)")
     ap.add_argument("--error-feedback", action="store_true")
     ap.add_argument("--mesh", default="1x1",
                     help="DPxTP: DP peers stacked on one card; TP must be 1")
@@ -119,8 +132,24 @@ def parse_args(argv=None) -> argparse.Namespace:
     if dp < 1 or opts.global_batch % dp:
         ap.error(f"global batch {opts.global_batch} must split over {dp} "
                  f"peers")
+    for flag, set_ in (("--mesh-backend", opts.mesh_backend != "xla"),
+                       ("--blk-b", opts.blk_b != 0)):
+        if set_ and opts.fidelity != "mesh":
+            ap.error(f"{flag} only applies to --fidelity mesh; got "
+                     f"--fidelity {opts.fidelity}")
     opts.peers = dp
     return opts
+
+
+def sync_config(opts: argparse.Namespace) -> SyncConfig:
+    """The SyncConfig of parsed options (raises on what it refuses)."""
+    return SyncConfig(mode=opts.sync, bits=opts.bits, block=opts.block,
+                      error_feedback=opts.error_feedback,
+                      bucket_bytes=int(opts.bucket_mb * 2 ** 20),
+                      photonics=PhotonicsConfig(
+                          fidelity=opts.fidelity,
+                          mesh_backend=opts.mesh_backend,
+                          blk_b=opts.blk_b))
 
 
 def _device(name) -> torch.device:
@@ -144,12 +173,10 @@ def run(opts: argparse.Namespace, params=None, cfg=None, out=None) -> list:
         if cfg is None:
             cfg = (configs.get_smoke(opts.arch) if opts.smoke_config
                    else configs.get(opts.arch))
-        sync = SyncConfig(mode=opts.sync, bits=opts.bits, block=opts.block,
-                          error_feedback=opts.error_feedback,
-                          bucket_bytes=int(opts.bucket_mb * 2 ** 20),
-                          photonics=PhotonicsConfig(fidelity=opts.fidelity))
+        sync = sync_config(opts)
         # resolve the in-network ONN before the first step, so a missing
-        # one fails here with guidance, and put its weights on the device
+        # one fails here with guidance (and, at fidelity mesh, program
+        # its meshes), and put what it applies on the device
         runtime.warmup(sync, opts.peers, device)
     except (ValueError, NotImplementedError) as e:
         raise SystemExit(f"error: {e}")

@@ -3,21 +3,27 @@ split by layer as in the JAX package:
 
   encoding.py     PAM4 symbols, block quantization, the P unit (eq. 2-3)
   onn.py          the ONN f_theta + ONNConfig + Transceiver (paper IV);
-                  every dense layer one launch of the onn_layer kernel
+                  every dense layer one launch of the onn_layer kernel;
+                  hardware mapping and its numpy oracle
+  mzi.py          MZI hardware model: Givens decomposition (numpy)
+  approx.py       Sigma_a U_a matrix approximation (paper eq. 4-6)
+  mesh.py         the compiled MZI-mesh executor: every mesh stack one
+                  launch of the mesh_scan kernel
   area.py         MZI area-cost model (Tables I/II)
-  module.py       ONNModule: params per device, the 'onn' fidelity
+  module.py       ONNModule: params and programs per device, the 'onn'
+                  and 'mesh' fidelities
   config.py       PhotonicsConfig: the runtime fidelity knob
   pipeline.py     SyncPipeline: Encode -> Preprocess -> MeshApply ->
                   Readout -> Decode, the photonic reduction the optinc
                   backend runs
   runtime.py      cached ONN resolution for the collective engine
 
-Not ported yet (ROADMAP.md): the mesh fidelity (``mzi``, ``approx``,
-``mesh``, ``PhaseNoise`` and the mesh_scan kernel), ONN training
+Not ported yet (ROADMAP.md): the PhaseNoise model, ONN training
 (``training``, ``dataset``), ``error_model`` and ``cascade``.
 """
-from . import area, encoding, onn, pipeline
+from . import approx, area, encoding, mesh, mzi, onn, pipeline
 from .config import FIDELITIES, MESH_BACKENDS, PARAM_SOURCES, PhotonicsConfig
+from .mesh import MZIMesh
 from .module import ONNModule
 from .onn import ONNConfig, Transceiver
 from .pipeline import SyncPipeline, level_pipeline
@@ -25,8 +31,8 @@ from .runtime import get_module, put_module, warmup
 
 __all__ = [
     "PhotonicsConfig", "FIDELITIES", "MESH_BACKENDS", "PARAM_SOURCES",
-    "ONNConfig", "ONNModule", "Transceiver",
+    "ONNConfig", "ONNModule", "Transceiver", "MZIMesh",
     "SyncPipeline", "level_pipeline",
     "get_module", "put_module", "warmup",
-    "area", "encoding", "onn", "pipeline",
+    "approx", "area", "encoding", "mesh", "mzi", "onn", "pipeline",
 ]

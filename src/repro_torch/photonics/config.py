@@ -10,9 +10,10 @@ emulates the in-network ONN:
                          dense ONN (``onn.apply``, every layer one launch
                          of the ``onn_layer`` kernel) and the transceiver
                          readout.
-  fidelity='mesh'        the phase-programmed MZI mesh emulator; not
-                         ported yet (the mesh slice), refused by
-                         ``collectives.engine.SyncConfig``.
+  fidelity='mesh'        the phase-programmed MZI mesh emulator itself
+                         (``mesh.py``: every rotation mesh one launch of
+                         the ``mesh_scan`` kernel) computes the ONN's
+                         analog outputs.
 
 ``SyncConfig.photonics`` carries this config into the optinc backend;
 the training CLI sets its fidelity from ``--fidelity``.  The fields and
@@ -27,8 +28,13 @@ FIDELITIES = ("behavioral", "onn", "mesh")
 
 PARAM_SOURCES = ("auto", "exact", "results", "train")
 
-# how fidelity='mesh' executes the compiled rotation-layer stacks (JAX:
-# a gather+FMA per layer, or the fused mesh_scan kernel)
+# how fidelity='mesh' executes the compiled rotation-layer stacks.  In
+# the JAX package 'xla' is a lax.scan of one gather+FMA per layer and
+# 'pallas' the fused Pallas kernel.  The port has one executor: both
+# values run the mesh_scan kernel (kernels/mesh_scan.py) for CUDA tensors
+# and its plain version for CPU tensors, and never the plain version on
+# the card.  The field stays so that configs round-trip with JAX, and
+# blk_b is that kernel's row tile (0 = its default).
 MESH_BACKENDS = ("xla", "pallas")
 
 
@@ -50,9 +56,10 @@ class PhotonicsConfig:
       'auto'     exact if possible, else results, else an error with
                  guidance
 
-    ``mesh_backend``, ``blk_b``, ``theta_drift_std`` and
-    ``shot_noise_std`` belong to the mesh fidelity and its PhaseNoise
-    model.
+    ``mesh_backend`` and ``blk_b`` belong to the mesh fidelity (see
+    ``MESH_BACKENDS``); ``theta_drift_std`` and ``shot_noise_std`` to its
+    PhaseNoise model, which is not ported yet
+    (``collectives.engine.SyncConfig`` refuses them).
     """
     fidelity: str = "behavioral"
     structure: tuple = ()          # () = auto from bits/k_inputs
@@ -62,7 +69,7 @@ class PhotonicsConfig:
     train_epochs: int = 0          # 'train' source budget (0 = refuse)
     seed: int = 0
     mesh_backend: str = "xla"      # fidelity='mesh' executor: xla | pallas
-    blk_b: int = 0                 # mesh kernel batch tile (0 = default)
+    blk_b: int = 0                 # mesh kernel row tile (0 = default)
     theta_drift_std: float = 0.0   # thermal drift on programmed phases (rad)
     shot_noise_std: float = 0.0    # additive noise on analog outputs
 

@@ -1,17 +1,22 @@
 """ONNModule: one in-network ONN as a device-ready object (counterpart of
 ``repro.photonics.module``).
 
-Bundles the ``ONNConfig`` and the trained dense parameters behind the
-fidelity levels the collective engine exposes:
+Bundles the ``ONNConfig``, the trained dense parameters and their
+phase-programmed mesh emulation behind the fidelity levels the
+collective engine exposes:
 
     module.apply(a)        dense forward pass, one ``onn_layer`` launch
                            per layer (fidelity='onn')
-    module.symbols(a)      the same + transceiver readout
+    module.apply_mesh(a)   the compiled MZI meshes, one ``mesh_scan``
+                           launch per mesh stack (fidelity='mesh')
+    module.symbols(a, ...) either of the above + transceiver readout
 
-The parameters are kept on the CPU, as the JAX module keeps numpy; the
-first apply on a device copies them there once (``params_on``).  The
-mesh fidelity (``programs``, ``apply_mesh``, ``symbols(fidelity=
-"mesh")``) and ONN training (``train``) are not ported yet and raise.
+The parameters and the compiled programs are kept on the CPU, as the JAX
+module keeps numpy; the first use on a device copies them there once
+(``params_on``, ``programs_on``).  ``programs`` Givens-programs the
+meshes at its first call and caches them (``runtime`` calls it when it
+resolves a module for the mesh fidelity).  ONN training (``train``) is
+not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -20,12 +25,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import mesh as mesh_mod
 from . import onn as onn_mod
 from .encoding import num_symbols
 from .onn import ONNConfig, Transceiver
-
-_MESH_SLICE = ("the mesh fidelity (photonics/mzi.py, approx.py, mesh.py, "
-               "PhaseNoise and the mesh_scan kernel) is not ported yet")
 
 
 def _cpu_f32(v) -> torch.Tensor:
@@ -40,6 +43,9 @@ class ONNModule:
     params: list                       # dense layer dicts ({"w", "b"}), CPU
     transceiver: Transceiver = dataclasses.field(default_factory=Transceiver)
     _on_device: dict = dataclasses.field(default_factory=dict, repr=False)
+    _programs: list | None = dataclasses.field(default=None, repr=False)
+    _programs_on: dict = dataclasses.field(default_factory=dict,
+                                           repr=False)
 
     # ------------------------------------------------------ constructors
     @classmethod
@@ -104,18 +110,39 @@ class ONNModule:
 
     @property
     def programs(self) -> list:
-        raise NotImplementedError(f"MZI programs: {_MESH_SLICE}")
+        """Compiled MZI-mesh layer programs (Givens-programmed once), CPU
+        f32 tensors."""
+        if self._programs is None:
+            hw = onn_mod.map_to_hardware(self.params, self.cfg)
+            self._programs = mesh_mod.compile_hardware(hw)
+        return self._programs
 
-    def apply_mesh(self, a, backend=None, noise=None, key=None,
-                   blk_b: int = 0):
-        raise NotImplementedError(f"apply_mesh: {_MESH_SLICE}")
+    def programs_on(self, device) -> list:
+        """The compiled programs on ``device``, copied there once."""
+        device = torch.device(device)
+        if device.type == "cpu":
+            return self.programs
+        key = str(device)
+        if key not in self._programs_on:
+            self._programs_on[key] = [p.to(device) for p in self.programs]
+        return self._programs_on[key]
 
-    def symbols(self, a: torch.Tensor, fidelity: str = "onn") -> torch.Tensor:
+    def apply_mesh(self, a: torch.Tensor, backend: str | None = None,
+                   blk_b: int = 0) -> torch.Tensor:
+        """Forward pass through the phase-programmed mesh emulator on a's
+        device.  ``backend`` is ``PhotonicsConfig.mesh_backend`` (both
+        values run the ``mesh_scan`` kernel) and ``blk_b`` its row tile."""
+        return mesh_mod.apply_hardware(self.programs_on(a.device), a,
+                                       self.cfg, backend=backend,
+                                       blk_b=blk_b)
+
+    def symbols(self, a: torch.Tensor, fidelity: str = "onn",
+                mesh_backend: str | None = None,
+                blk_b: int = 0) -> torch.Tensor:
         """Analog forward pass + transceiver readout -> PAM4 symbols."""
-        if fidelity == "mesh":
-            raise NotImplementedError(f"symbols(fidelity={fidelity!r}): "
-                                      f"{_MESH_SLICE}")
-        return self.transceiver.readout(self.apply(a))
+        out = (self.apply_mesh(a, backend=mesh_backend, blk_b=blk_b)
+               if fidelity == "mesh" else self.apply(a))
+        return self.transceiver.readout(out)
 
     # ------------------------------------------------------ diagnostics
     def area_ratio(self) -> float:

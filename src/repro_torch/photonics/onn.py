@@ -10,9 +10,10 @@ The JAX package computes the same layers in plain jnp inside ``jit``,
 where XLA compiles the input scaling ``a / in_scale`` into a product
 with the f32 reciprocal; ``apply`` computes that compiled form.
 
-Not ported yet (ROADMAP.md): ``project_approx`` (needs ``approx.py``)
-and ``map_to_hardware``/``apply_hardware`` (need ``mzi.py``), with the
-mesh fidelity and ONN training.
+``project_approx`` applies the matrix approximation to the selected
+layers; ``map_to_hardware`` programs every layer onto MZI meshes (numpy,
+as in the JAX package) and ``apply_hardware`` is the numpy f64 oracle of
+that mapping.  The fast mesh forward pass is ``mesh.apply_hardware``.
 """
 from __future__ import annotations
 
@@ -23,7 +24,9 @@ import numpy as np
 import torch
 
 from ..kernels.onn_layer import onn_layer
+from . import approx as approx_mod
 from . import area as area_mod
+from . import mzi as mzi_mod
 from .encoding import f32_reciprocal, preprocess_group_size
 
 
@@ -99,3 +102,76 @@ def readout(outputs: torch.Tensor) -> torch.Tensor:
 
 def area_ratio(cfg: ONNConfig) -> float:
     return area_mod.area_ratio(list(cfg.structure), set(cfg.approx_layers))
+
+
+def project_approx(params, cfg: ONNConfig) -> list:
+    """Apply the matrix approximation to the selected layers (projection
+    step of the hardware-aware training, paper III-B)."""
+    out = []
+    for idx, layer in enumerate(params, start=1):
+        if idx in cfg.approx_layers:
+            out.append({"w": approx_mod.approx_matrix(layer["w"]),
+                        "b": layer["b"]})
+        else:
+            out.append(layer)
+    return out
+
+
+def _np(v) -> np.ndarray:
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) \
+        else np.asarray(v)
+
+
+# ---------------- hardware mapping (MZI programming) ----------------
+
+def map_to_hardware(params, cfg: ONNConfig) -> list:
+    """Program every layer onto MZI meshes. Approximated layers use the
+    Sigma_a U_a form (one mesh + diag); others use full SVD (two meshes).
+    Returns a list of per-layer hardware programs (numpy)."""
+    hw = []
+    for idx, layer in enumerate(params, start=1):
+        w = np.asarray(_np(layer["w"]), np.float64)
+        m, n = w.shape
+        if idx in cfg.approx_layers:
+            s = approx_mod.block_size(m, n)
+            blocks = []
+            if m >= n:
+                parts = w.reshape(m // s, s, n)
+            else:
+                parts = w.reshape(m, n // s, s).transpose(1, 0, 2)
+            for ws in parts:
+                d, ua = approx_mod.approx_block_factors(ws)
+                blocks.append({"d": d, "u": mzi_mod.givens_decompose(ua)})
+            hw.append({"kind": "approx", "blocks": blocks, "shape": (m, n),
+                       "b": _np(layer["b"])})
+        else:
+            pu, s, pv = mzi_mod.program_matrix_svd(w)
+            hw.append({"kind": "svd", "u": pu, "sigma": s, "v": pv,
+                       "shape": (m, n), "b": _np(layer["b"])})
+    return hw
+
+
+def apply_hardware(hw, a: np.ndarray, cfg: ONNConfig) -> np.ndarray:
+    """Numpy forward pass through the programmed MZI meshes: the f64
+    oracle that the mapping preserves the trained function."""
+    x = np.asarray(a, np.float64) / cfg.in_scale
+    for li, layer in enumerate(hw):
+        m, n = layer["shape"]
+        if layer["kind"] == "svd":
+            y = mzi_mod.apply_programmed_svd(layer["u"], layer["sigma"],
+                                             layer["v"], x.T).T
+        elif m >= n:
+            y = np.concatenate([(mzi_mod.reconstruct(p["u"]) @ x.T).T * p["d"]
+                                for p in layer["blocks"]], axis=-1)
+        else:
+            s = min(m, n)
+            xs = x.reshape(x.shape[:-1] + (n // s, s))
+            y = 0.0
+            for j, p in enumerate(layer["blocks"]):
+                y = y + (mzi_mod.reconstruct(p["u"]) @ xs[..., j, :].T).T \
+                    * p["d"]
+        y = y + layer["b"]
+        if li < len(hw) - 1:
+            y = np.maximum(y, 0.0)
+        x = y
+    return x * cfg.out_scale

@@ -11,7 +11,9 @@ dimension:
     Preprocess  unit P: the exact sum over the peer dimension / N (the
                 single-card form of the JAX ``lax.psum`` over 'data')
     MeshApply   the in-network ONN: the trained dense forward ('onn'),
-                one ``onn_layer`` launch per layer
+                one ``onn_layer`` launch per layer, or the phase-
+                programmed MZI mesh emulator ('mesh'), one ``mesh_scan``
+                launch per mesh stack
     Readout     transceiver decision stage; with ``emit_carry`` the
                 eq.-10 decimal part d = analog value - decoded value
                 leaves the level as ``Carry.frac``
@@ -20,8 +22,9 @@ dimension:
 Each stage is a frozen dataclass with ``apply(carry) -> carry``; a
 ``SyncPipeline`` runs them in order.  The optinc backend runs ONE
 pipeline per bucket.  The JAX stages also take a key for the mesh
-fidelity's PhaseNoise; the onn fidelity draws nothing, so the port's do
-not.  The mesh fidelity and PhaseNoise come with the mesh slice.
+fidelity's PhaseNoise model; PhaseNoise is not ported yet (its slice
+threads a per-step key through the stages), so the port's stages take
+none and the mesh emulator runs noise-free.
 
 Preprocess divides by N as the compiled JAX step does, by multiplying
 with the f32 reciprocal of N (XLA's rewrite of a division by a
@@ -73,16 +76,18 @@ class Preprocess:
 
 @dataclasses.dataclass(frozen=True)
 class MeshApply:
-    """The in-network ONN: the dense forward pass ('onn').  The mesh
-    emulator ('mesh') is not ported yet."""
+    """The in-network ONN: the dense forward pass ('onn') or the MZI mesh
+    emulator ('mesh'; ``mesh_backend`` is validated and both values run
+    the ``mesh_scan`` kernel, with ``blk_b`` its row tile)."""
     module: object                  # ONNModule
     fidelity: str = "onn"
+    mesh_backend: str | None = None
+    blk_b: int = 0                  # mesh kernel row tile (0 = default)
 
     def apply(self, carry: Carry) -> Carry:
-        if self.fidelity != "onn":
-            raise NotImplementedError(
-                f"MeshApply(fidelity={self.fidelity!r}): the mesh fidelity "
-                f"is not ported yet")
+        if self.fidelity == "mesh":
+            return Carry(self.module.apply_mesh(
+                carry.data, backend=self.mesh_backend, blk_b=self.blk_b))
         return Carry(self.module.apply(carry.data))
 
 
@@ -126,13 +131,15 @@ class SyncPipeline:
 
 
 def level_pipeline(module, bits: int, fidelity: str = "onn",
-                   emit_carry: bool = False) -> SyncPipeline:
+                   mesh_backend: str | None = None,
+                   emit_carry: bool = False, blk_b: int = 0) -> SyncPipeline:
     """The Encode -> Preprocess -> MeshApply -> Readout -> Decode pipeline
     of one reduction level over the stacked peers."""
     return SyncPipeline(stages=(
         Encode(bits=bits, k_inputs=module.cfg.k_inputs),
         Preprocess(),
-        MeshApply(module=module, fidelity=fidelity),
+        MeshApply(module=module, fidelity=fidelity,
+                  mesh_backend=mesh_backend, blk_b=blk_b),
         Readout(transceiver=module.transceiver, emit_carry=emit_carry),
         Decode(),
     ))

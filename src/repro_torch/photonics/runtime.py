@@ -7,9 +7,13 @@ resolution, keyed by ``(PhotonicsConfig, bits, n_servers)`` and cached
 process-wide, so a module is built or loaded once per scenario, not
 once per bucket.
 
+For the mesh fidelity the module's meshes are Givens-programmed when
+it is resolved, once, as the JAX runtime does: a few seconds of numpy
+for the scenario-1 ONN, never inside a training step.
+
 ``warmup`` lets the trainer resolve eagerly, so a missing source fails
-with guidance before the step loop starts, and places the weights on
-the run's device.
+with guidance before the step loop starts, and places the weights (or,
+for the mesh fidelity, the compiled programs) on the run's device.
 
 Trained parameters come from the JAX package's pickles
 (``results/scenario1*_params.pkl``, written by ``examples/quickstart.py
@@ -157,7 +161,10 @@ def get_module(ph: PhotonicsConfig, bits: int, n_servers: int) -> ONNModule:
     """The cached ONNModule for one (photonics, bits, N) scenario."""
     key = _cache_key(ph, bits, n_servers)
     if key not in _CACHE:
-        _CACHE[key] = _build(ph, bits, n_servers)
+        module = _build(ph, bits, n_servers)
+        if ph.fidelity == "mesh":
+            module.programs  # Givens-program the meshes once, eagerly
+        _CACHE[key] = module
     return _CACHE[key]
 
 
@@ -169,11 +176,15 @@ def put_module(ph: PhotonicsConfig, bits: int, n_servers: int,
 
 def warmup(sync_cfg, n_servers: int, device=None) -> ONNModule | None:
     """Resolve the ONN for a SyncConfig eagerly (None for behavioral) and,
-    given a device, put its weights there."""
+    given a device, put what its fidelity applies there: the weights, or
+    the compiled mesh programs (programmed here if a module installed
+    with ``put_module`` has not been yet)."""
     ph = getattr(sync_cfg, "photonics", None)
     if ph is None or ph.fidelity == "behavioral":
         return None
     module = get_module(ph, sync_cfg.bits, n_servers)
-    if device is not None:
+    if ph.fidelity == "mesh":
+        module.programs_on("cpu" if device is None else device)
+    elif device is not None:
         module.params_on(device)
     return module

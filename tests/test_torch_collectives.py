@@ -31,6 +31,7 @@ from repro.collectives import bucketizer as jbucketizer
 from repro.kernels import pam4 as jpam4
 from repro.photonics import PhotonicsConfig as JaxPhotonicsConfig
 from repro.photonics import encoding as jenc
+from repro.photonics import onn as jonn
 from repro.photonics import pipeline as jpipe
 from repro.photonics import runtime as jruntime
 from repro.photonics.module import ONNModule as JaxONNModule
@@ -38,6 +39,7 @@ from repro_torch.collectives import backends, bucketizer, engine, registry
 from repro_torch.kernels import pam4, ref
 from repro_torch.photonics import PhotonicsConfig
 from repro_torch.photonics import encoding as tenc
+from repro_torch.photonics import onn as tonn
 from repro_torch.photonics import runtime
 from repro_torch.photonics.module import ONNModule
 
@@ -259,23 +261,20 @@ def test_registry_and_config_reject_what_is_not_ported():
                      (dict(mode="cascade"), "cascade"),
                      (dict(overlap=True), "overlap"),
                      (dict(error_layers=(3, 4)), "Table-II"),
-                     (dict(photonics=PhotonicsConfig(fidelity="mesh")),
-                      "mesh fidelity"),
                      (dict(photonics=PhotonicsConfig(
-                         fidelity="onn", mesh_backend="pallas")),
-                      "mesh fidelity"),
-                     (dict(photonics=PhotonicsConfig(fidelity="onn",
-                                                     blk_b=64)),
-                      "mesh fidelity"),
+                         fidelity="mesh", theta_drift_std=0.01)),
+                      "the PhaseNoise slice"),
                      (dict(photonics=PhotonicsConfig(
-                         fidelity="onn", theta_drift_std=0.01)),
-                      "mesh fidelity"),
-                     (dict(photonics=PhotonicsConfig(
-                         fidelity="onn", shot_noise_std=0.01)),
-                      "mesh fidelity"),
+                         fidelity="mesh", shot_noise_std=0.01)),
+                      "the PhaseNoise slice"),
                      (dict(sparse_residuals=True), "checkpoint")):
         with pytest.raises(NotImplementedError, match=what):
             engine.SyncConfig(**kw)
+    # the mesh fidelity, its executor and its row tile are taken
+    for ph in (PhotonicsConfig(fidelity="mesh"),
+               PhotonicsConfig(fidelity="mesh", mesh_backend="pallas"),
+               PhotonicsConfig(fidelity="mesh", blk_b=64)):
+        assert engine.SyncConfig(photonics=ph).photonics == ph
     with pytest.raises(ValueError, match="photonic-backend knob"):
         engine.SyncConfig(mode="psum",
                           photonics=PhotonicsConfig(fidelity="onn"))
@@ -312,7 +311,17 @@ CASES = {"psum": ("psum", 8, False), "optinc8": ("optinc", 8, False),
 ONN_CASES = {"onn2": (2, False), "onn2_ef": (2, True), "onn8": (8, False),
              "onn8_ef": (8, True)}
 ONN8_STRUCTURE = (4, 64, 128, 256, 128, 64, 4)
+# optinc at fidelity 'mesh': (bits, error_feedback, mesh_backend).  Bits
+# 2 resolves the exact identity ONN (zero rotations); at bits 8 both
+# runtimes get the same seeded approx ONN of MESH8_STRUCTURE (every layer
+# Sigma_a U_a: meshes of 4 and 32 wires, 5 to 61 layers deep)
+MESH_CASES = {"mesh2_xla": (2, True, "xla"), "mesh2_pallas": (2, False, "pallas"),
+              "mesh8_xla": (8, False, "xla"),
+              "mesh8_pallas": (8, True, "pallas")}
+MESH8_STRUCTURE = (4, 32, 64, 32, 4)
+MESH8_APPROX = (1, 2, 3, 4)
 PEERS = (1, 2, 4)
+MESH_PEERS = (2, 4)      # an ONN averages peers; one peer adds no case
 SYNC_KW = dict(block=128, bucket_bytes=4096)
 # bits 8 at fidelity 'onn': an element is compared bit for bit unless one
 # of its four analog ONN outputs on the JAX side lies within this of a
@@ -330,20 +339,32 @@ JAX_SYNC_SCRIPT = textwrap.dedent("""
     from repro.photonics import PhotonicsConfig, runtime
     from repro.photonics.module import ONNModule
 
+    from repro.photonics.onn import ONNConfig
+
     inp = np.load(sys.argv[1])
     cases = json.loads(sys.argv[3])
     out = {}
     onn = [{"w": inp[f"onn_w{i}"], "b": inp[f"onn_b{i}"]}
            for i in range(6)]
+    mesh_onn = [{"w": inp[f"mesh_w{i}"], "b": inp[f"mesh_b{i}"]}
+                for i in range(4)]
     for n in (1, 2, 4):
         ph = PhotonicsConfig(fidelity="onn")
         runtime.put_module(ph, 8, n, ONNModule.from_params(
             runtime.onn_config(ph, 8, n), onn))
+        runtime.put_module(PhotonicsConfig(fidelity="mesh"), 8, n,
+                           ONNModule.from_params(ONNConfig(
+                               structure=tuple(inp["mesh_structure"]),
+                               approx_layers=tuple(inp["mesh_approx"]),
+                               bits=8, n_servers=n, k_inputs=4), mesh_onn))
         mesh = make_mesh((n,), ("data",))
-        for name, (mode, bits, ef, fidelity) in cases.items():
+        for name, (mode, bits, ef, fidelity, backend, peers) in cases.items():
+            if n not in peers:
+                continue
             cfg = SyncConfig(mode=mode, axes=("data",), bits=bits,
                              error_feedback=ef, block=128, bucket_bytes=4096,
-                             photonics=PhotonicsConfig(fidelity=fidelity))
+                             photonics=PhotonicsConfig(
+                                 fidelity=fidelity, mesh_backend=backend))
 
             def f(a, b, d, res):
                 tree = {"a": a[0], "b": b[0], "c": {"d": d[0]}}
@@ -379,11 +400,39 @@ def _onn8_params():
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _mesh8_params():
+    """A seeded bits-8 ONN of MESH8_STRUCTURE (He-normal weights, small
+    random biases) projected onto Sigma_a U_a with JAX's
+    ``project_approx``, as numpy."""
+    rng = np.random.default_rng(12)
+    raw = []
+    for n, m in zip(MESH8_STRUCTURE[:-1], MESH8_STRUCTURE[1:]):
+        raw.append({"w": (rng.normal(size=(m, n)) * (2.0 / n) ** 0.5
+                          ).astype(np.float32),
+                    "b": (rng.normal(size=(m,)) * 0.3).astype(np.float32)})
+    cfg = jonn.ONNConfig(structure=MESH8_STRUCTURE,
+                         approx_layers=MESH8_APPROX, bits=8, n_servers=1,
+                         k_inputs=4)
+    return [{k: np.asarray(l[k], np.float32) for k in ("w", "b")}
+            for l in jonn.project_approx(raw, cfg)]
+
+
+def _mesh8_module(peers, module_cls, cfg_cls):
+    return module_cls.from_params(
+        cfg_cls(structure=MESH8_STRUCTURE, approx_layers=MESH8_APPROX,
+                bits=8, n_servers=peers, k_inputs=4), _mesh8_params())
+
+
 def _sync_inputs():
     rng = np.random.default_rng(7)
     out = {}
     for i, layer in enumerate(_onn8_params()):
         out[f"onn_w{i}"], out[f"onn_b{i}"] = layer["w"], layer["b"]
+    for i, layer in enumerate(_mesh8_params()):
+        out[f"mesh_w{i}"], out[f"mesh_b{i}"] = layer["w"], layer["b"]
+    out["mesh_structure"] = np.array(MESH8_STRUCTURE)
+    out["mesh_approx"] = np.array(MESH8_APPROX)
     for step in (1, 2):
         flat = rng.normal(size=(4, 4000)).astype(np.float32)
         flat[:, 1280:1408] = 0.0
@@ -402,9 +451,11 @@ def jax_sync(tmp_path_factory):
     d = tmp_path_factory.mktemp("jax_sync")
     inputs = _sync_inputs()
     np.savez(d / "in.npz", **inputs)
-    cases = {k: v + ("behavioral",) for k, v in CASES.items()}
-    cases.update({k: ("optinc", bits, ef, "onn")
+    cases = {k: v + ("behavioral", "xla", PEERS) for k, v in CASES.items()}
+    cases.update({k: ("optinc", bits, ef, "onn", "xla", PEERS)
                   for k, (bits, ef) in ONN_CASES.items()})
+    cases.update({k: ("optinc", bits, ef, "mesh", backend, MESH_PEERS)
+                  for k, (bits, ef, backend) in MESH_CASES.items()})
     r = subprocess.run(
         [sys.executable, "-c", JAX_SYNC_SCRIPT, str(d / "in.npz"),
          str(d / "out.npz"), json.dumps(cases)],
@@ -451,17 +502,24 @@ def test_sync_gradients_matches_jax_shard_map(jax_sync, case, peers):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_onn_analog(peers):
+def _jax_onn_analog(peers, fidelity="onn", backend="xla"):
     """JAX's analog ONN outputs for one bucket of ``peers`` rows at bits
     8: the optinc photonic path up to and including MeshApply (shared
     scale, encode, Encode, Preprocess, the ONN), jitted, with a vmap
-    over a named axis standing in for the peers' mesh axis."""
-    ph = JaxPhotonicsConfig(fidelity="onn")
-    module = JaxONNModule.from_params(jruntime.onn_config(ph, 8, peers),
-                                      _onn8_params())
+    over a named axis standing in for the peers' mesh axis.  Fidelity
+    'onn' runs the dense ONN of ``_onn8_params``, 'mesh' the meshes of
+    ``_mesh8_params`` on ``backend``."""
+    ph = JaxPhotonicsConfig(fidelity=fidelity, mesh_backend=backend)
+    if fidelity == "mesh":
+        from repro.photonics.onn import ONNConfig as JaxONNConfig
+        module = _mesh8_module(peers, JaxONNModule, JaxONNConfig)
+    else:
+        module = JaxONNModule.from_params(jruntime.onn_config(ph, 8, peers),
+                                          _onn8_params())
     cfg = JaxSyncConfig(mode="optinc", axes=("data",), bits=8, block=128,
                         photonics=ph)
-    stages = jpipe.level_pipeline(module, 8, ("data",)).stages[:3]
+    stages = jpipe.level_pipeline(module, 8, ("data",), fidelity=fidelity,
+                                  mesh_backend=backend).stages[:3]
 
     def f(x):
         u = jbackends._encode(x, jbackends._shared_scale(x, cfg), cfg)[0]
@@ -470,34 +528,30 @@ def _jax_onn_analog(peers):
     return jax.jit(jax.vmap(f, axis_name="data"))
 
 
-def _near_threshold(flat, peers):
+def _near_threshold(flat, peers, fidelity="onn", backend="xla"):
     """Elements (total,) whose JAX analog ONN outputs at bits 8 lie within
     ONN_MARGIN of a PAM4 decision threshold."""
     layout = bucketizer.make_layout([torch.empty(flat.shape[1])],
                                     SYNC_KW["bucket_bytes"])
     near = np.zeros(flat.shape[1], bool)
+    analog = _jax_onn_analog(peers, fidelity, backend)
     for s, e in layout.bounds:
-        y = np.asarray(_jax_onn_analog(peers)(jnp.asarray(flat[:, s:e])))[0]
+        y = np.asarray(analog(jnp.asarray(flat[:, s:e])))[0]
         d = np.abs(y[..., None] - np.array([0.5, 1.5, 2.5], np.float32))
         near[s:e] = (d <= ONN_MARGIN).any((-1, -2))[:e - s]
     return near
 
 
-@pytest.mark.parametrize("peers", PEERS)
-@pytest.mark.parametrize("case", list(ONN_CASES))
-def test_onn_sync_matches_jax_shard_map(jax_sync, case, peers, monkeypatch,
-                                        capsys):
-    """optinc at fidelity 'onn' against the JAX sync_gradients under
-    shard_map.  Bits 2 (the exact identity ONN): output and residuals bit
-    for bit, and equal to the port's behavioral sync.  Bits 8 (the same
-    seeded ONN in both runtimes): residuals bit for bit, the output bit
-    for bit away from the decision thresholds."""
+def _check_photonic_sync(jax_sync, key_case, peers, ph, bits, ef, module,
+                         capsys):
+    """optinc at a photonic fidelity (``ph``, its bits-8 ONN ``module``
+    installed in the port's runtime) against the JAX sync_gradients under
+    shard_map, two steps.  Bits 2 (the exact identity ONN): output and
+    residuals bit for bit, and equal to the port's behavioral sync.
+    Bits 8 (the same seeded ONN in both runtimes): residuals bit for
+    bit, the output bit for bit away from the decision thresholds."""
     inputs, ref_out = jax_sync
-    bits, ef = ONN_CASES[case]
-    ph = PhotonicsConfig(fidelity="onn")
-    monkeypatch.setattr(runtime, "_CACHE", {})
-    runtime.put_module(ph, 8, peers, ONNModule.from_params(
-        runtime.onn_config(ph, 8, peers), _onn8_params()))
+    runtime.put_module(ph, 8, peers, module)
     cfg = engine.SyncConfig(mode="optinc", bits=bits, error_feedback=ef,
                             photonics=ph, **SYNC_KW)
     behavioral = dataclasses.replace(cfg, photonics=PhotonicsConfig())
@@ -513,7 +567,7 @@ def test_onn_sync_matches_jax_shard_map(jax_sync, case, peers, monkeypatch,
         synced, new_res = engine.sync_gradients(grads, cfg, res)
         got = torch.cat([synced["a"].reshape(-1), synced["b"],
                          synced["c"]["d"].reshape(-1)]).numpy()
-        key = f"{case}/{peers}/{step}"
+        key = f"{key_case}/{peers}/{step}"
         want = ref_out[key + "/synced"]
         assert (want == want[0]).all()
         if bits == 2:
@@ -525,7 +579,8 @@ def test_onn_sync_matches_jax_shard_map(jax_sync, case, peers, monkeypatch,
             if ef:
                 assert torch.equal(new_res, beh_res)
         else:
-            near = _near_threshold(flat.numpy(), peers)
+            near = _near_threshold(flat.numpy(), peers, ph.fidelity,
+                                   ph.mesh_backend)
             with capsys.disabled():
                 print(f"\n{key}: {near.sum()} of {near.size} elements within "
                       f"{ONN_MARGIN} of a decision threshold (not compared)")
@@ -540,3 +595,34 @@ def test_onn_sync_matches_jax_shard_map(jax_sync, case, peers, monkeypatch,
         if bits == 2:                     # an exact ONN keeps the zero block
             assert np.all(got[1280:1408] == 0.0)
         res = new_res
+
+
+@pytest.mark.parametrize("peers", PEERS)
+@pytest.mark.parametrize("case", list(ONN_CASES))
+def test_onn_sync_matches_jax_shard_map(jax_sync, case, peers, monkeypatch,
+                                        capsys):
+    """optinc at fidelity 'onn' against the JAX sync_gradients under
+    shard_map (``_check_photonic_sync``), the dense ONN of
+    ``_onn8_params`` at bits 8."""
+    bits, ef = ONN_CASES[case]
+    ph = PhotonicsConfig(fidelity="onn")
+    monkeypatch.setattr(runtime, "_CACHE", {})
+    _check_photonic_sync(jax_sync, case, peers, ph, bits, ef,
+                         ONNModule.from_params(runtime.onn_config(ph, 8, peers),
+                                               _onn8_params()), capsys)
+
+
+@pytest.mark.parametrize("peers", MESH_PEERS)
+@pytest.mark.parametrize("case", list(MESH_CASES))
+def test_mesh_sync_matches_jax_shard_map(jax_sync, case, peers, monkeypatch,
+                                         capsys):
+    """optinc at fidelity 'mesh' on either executor against the JAX
+    sync_gradients under shard_map on the same executor
+    (``_check_photonic_sync``): every mesh through the plain mesh_scan,
+    the approx ONN of ``_mesh8_params`` at bits 8."""
+    bits, ef, backend = MESH_CASES[case]
+    ph = PhotonicsConfig(fidelity="mesh", mesh_backend=backend)
+    monkeypatch.setattr(runtime, "_CACHE", {})
+    _check_photonic_sync(jax_sync, case, peers, ph, bits, ef,
+                         _mesh8_module(peers, ONNModule, tonn.ONNConfig),
+                         capsys)

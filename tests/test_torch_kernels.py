@@ -282,7 +282,7 @@ def test_build_is_content_addressed_and_reuses_a_current_build(
     """A library named by the hash of its source is reused as it is: no
     compiler is needed when the build is current."""
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-    assert names == ["flash_attention", "flash_attention_bwd",
+    assert names == ["flash_attention", "flash_attention_bwd", "mesh_scan",
                      "onn_layer", "paged_attention", "pam4"]
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(_build, "_nvcc", lambda: pytest.fail("nvcc called"))

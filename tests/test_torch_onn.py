@@ -274,10 +274,11 @@ def test_exact_identity_module_is_the_oracle():
             jnp.asarray(a.numpy()), fidelity="onn")))
     with pytest.raises(ValueError, match="single PAM4 symbol"):
         ONNModule.exact_identity(bits=8, n_servers=4)
-    with pytest.raises(NotImplementedError, match="mesh fidelity"):
-        module.symbols(a, fidelity="mesh")
-    with pytest.raises(NotImplementedError, match="mesh fidelity"):
-        module.programs
+    # the mesh fidelity (ported since): the same codes through the
+    # meshes, which for the wire-exact weights hold no rotation
+    np.testing.assert_array_equal(
+        module.symbols(a, fidelity="mesh").numpy(), want.numpy())
+    assert all(p.u.n_rot == p.v.n_rot == 0 for p in module.programs)
     with pytest.raises(NotImplementedError, match="ONN training"):
         ONNModule.train(module.cfg, epochs=1)
 

@@ -248,13 +248,18 @@ def test_train_needs_cuda_unless_a_device_is_given(monkeypatch):
 @pytest.mark.parametrize("argv,what", [
     (["--ckpt-dir", "x"], "checkpointing"),
     (["--overlap"], "overlap"),
-    pytest.param(["--fidelity", "mesh", "--bits", "2"], "the mesh fidelity",
+    # taken since the mesh fidelity was ported (what = None)
+    pytest.param(["--fidelity", "mesh", "--bits", "2"], None,
                  id="argv2-fidelities"),
     (["--mesh", "2x2"], "tensor parallelism"),
     (["--sync", "cascade"], "cascade"),
     (["--sync", "ring"], "ring"),
 ])
 def test_train_names_what_is_not_ported(argv, what, capsys):
+    if what is None:
+        sync = train.sync_config(_opts("--steps", "1", *argv))
+        assert sync.photonics.fidelity == "mesh" and sync.bits == 2
+        return
     with pytest.raises(SystemExit) as e:
         train.main(["--device", "cpu", "--steps", "1", *argv])
     assert what in str(e.value)
@@ -263,9 +268,20 @@ def test_train_names_what_is_not_ported(argv, what, capsys):
 @pytest.mark.parametrize("flag", ["--mesh-backend", "--blk-b",
                                   "--theta-drift-std", "--shot-noise-std"])
 def test_train_names_the_mesh_slice_for_its_flags(flag):
-    with pytest.raises(SystemExit, match="the mesh slice"):
-        train.main(["--device", "cpu", "--steps", "1", "--fidelity", "onn",
-                    flag, "1"])
+    """The mesh fidelity's flags: --mesh-backend and --blk-b are taken with
+    --fidelity mesh (and, as in JAX, refused without it); the PhaseNoise
+    flags name the PhaseNoise slice, which is not ported yet."""
+    value = {"--mesh-backend": "pallas", "--blk-b": "64"}.get(flag, "0.01")
+    argv = ["--steps", "1", "--fidelity", "mesh", flag, value]
+    if flag in ("--theta-drift-std", "--shot-noise-std"):
+        with pytest.raises(SystemExit, match="the PhaseNoise slice"):
+            train.main(["--device", "cpu", *argv])
+        return
+    ph = train.sync_config(_opts(*argv)).photonics
+    assert (ph.mesh_backend, ph.blk_b) == (
+        ("pallas", 0) if flag == "--mesh-backend" else ("xla", 64))
+    with pytest.raises(SystemExit):
+        _opts("--fidelity", "onn", flag, value)
 
 
 def test_train_takes_fidelity_onn_and_refuses_what_jax_refuses(
@@ -289,10 +305,10 @@ def test_train_takes_fidelity_onn_and_refuses_what_jax_refuses(
 def test_trainer_at_fidelity_onn_bits_2_is_behavioral_and_matches_jax(
         monkeypatch):
     """Bits 2 resolves the exact identity ONN: two stacked peers train to
-    byte-identical losses and parameters at fidelities onn and
+    byte-identical losses and parameters at fidelities onn, mesh and
     behavioral; one peer through the CLI matches JAX make_train_step at
-    fidelity onn within TRAIN_TOL (narrow f32 model, error feedback on,
-    0.25 MiB buckets)."""
+    fidelities onn and mesh (pallas executor) within TRAIN_TOL (narrow
+    f32 model, error feedback on, 0.25 MiB buckets)."""
     monkeypatch.setattr(runtime, "_CACHE", {})
     jcfg, cfg = cfg_pair("narrow")
     jparams = jlm.init_params(jcfg, jl.ShardCtx(), jax.random.PRNGKey(1))
@@ -300,7 +316,7 @@ def test_trainer_at_fidelity_onn_bits_2_is_behavioral_and_matches_jax(
     data = tdata.SyntheticLM(tdata.DataConfig(vocab=cfg.vocab, seq_len=32,
                                               global_batch=4, seed=0))
     runs = {}
-    for fidelity in ("behavioral", "onn"):
+    for fidelity in ("behavioral", "onn", "mesh"):
         sync = SyncConfig(mode="optinc", bits=2, block=128,
                           error_feedback=True, bucket_bytes=2 ** 18,
                           photonics=PhotonicsConfig(fidelity=fidelity))
@@ -314,34 +330,41 @@ def test_trainer_at_fidelity_onn_bits_2_is_behavioral_and_matches_jax(
                 params, ostate, sstate, torch.from_numpy(data.batch(i)))
             losses.append(m["loss"].item())
         runs[fidelity] = losses, params
-    assert runs["onn"][0] == runs["behavioral"][0]
-    assert all(torch.equal(a, b) for a, b in zip(
-        leaves(runs["onn"][1]), leaves(runs["behavioral"][1])))
+    for fidelity in ("onn", "mesh"):
+        assert runs[fidelity][0] == runs["behavioral"][0]
+        assert all(torch.equal(a, b) for a, b in zip(
+            leaves(runs[fidelity][1]), leaves(runs["behavioral"][1])))
 
-    argv = ["--sync", "optinc", "--bits", "2", "--fidelity", "onn", "--mesh",
-            "1x1", "--steps", "4", "--lr", "1e-3", "--global-batch", "4",
-            "--seq-len", "32", "--bucket-mb", "0.25", "--block", "128",
-            "--error-feedback"]
-    recs = train.run(_opts(*argv), params=_port_params(jparams, cfg),
-                     cfg=cfg, out=io.StringIO())
-    mesh = MeshSpec().build()
-    jsync = JaxSyncConfig(mode="optinc", axes=("data",), bits=2, block=128,
-                          error_feedback=True, bucket_bytes=2 ** 18,
-                          photonics=JaxPhotonicsConfig(fidelity="onn"))
-    jopt = jadamw.AdamWConfig(lr=1e-3)
-    fn, _, _ = jsteps.make_train_step(jcfg, mesh, jsync, jopt)
-    fn = jax.jit(fn)
-    params, ostate = jparams, jadamw.adamw_init(jopt, jparams)
-    sstate = jsteps.init_sync_state(jcfg, mesh, jsync)
-    want = []
-    with jax.set_mesh(mesh):
-        for i in range(4):
-            params, ostate, sstate, metrics = fn(
-                params, ostate, sstate, {"tokens": jnp.asarray(data.batch(i))},
-                jax.random.PRNGKey(i))
-            want.append(float(metrics["loss"]))
-    np.testing.assert_allclose([r["loss"] for r in recs], want, rtol=0,
-                               atol=TRAIN_TOL)
+    for fidelity, backend in (("onn", "xla"), ("mesh", "pallas")):
+        argv = ["--sync", "optinc", "--bits", "2", "--fidelity", fidelity,
+                "--mesh", "1x1", "--steps", "4", "--lr", "1e-3",
+                "--global-batch", "4", "--seq-len", "32", "--bucket-mb",
+                "0.25", "--block", "128", "--error-feedback"]
+        if fidelity == "mesh":
+            argv += ["--mesh-backend", backend]
+        recs = train.run(_opts(*argv), params=_port_params(jparams, cfg),
+                         cfg=cfg, out=io.StringIO())
+        mesh = MeshSpec().build()
+        jsync = JaxSyncConfig(mode="optinc", axes=("data",), bits=2,
+                              block=128, error_feedback=True,
+                              bucket_bytes=2 ** 18,
+                              photonics=JaxPhotonicsConfig(
+                                  fidelity=fidelity, mesh_backend=backend))
+        jopt = jadamw.AdamWConfig(lr=1e-3)
+        fn, _, _ = jsteps.make_train_step(jcfg, mesh, jsync, jopt)
+        fn = jax.jit(fn)
+        params, ostate = jparams, jadamw.adamw_init(jopt, jparams)
+        sstate = jsteps.init_sync_state(jcfg, mesh, jsync)
+        want = []
+        with jax.set_mesh(mesh):
+            for i in range(4):
+                params, ostate, sstate, metrics = fn(
+                    params, ostate, sstate,
+                    {"tokens": jnp.asarray(data.batch(i))},
+                    jax.random.PRNGKey(i))
+                want.append(float(metrics["loss"]))
+        np.testing.assert_allclose([r["loss"] for r in recs], want, rtol=0,
+                                   atol=TRAIN_TOL)
 
 
 def test_parse_args_takes_the_jax_flag_names():
@@ -353,5 +376,11 @@ def test_parse_args_takes_the_jax_flag_names():
                              "1", "--smoke-config", "--fidelity", "onn"])
     assert isinstance(opts, argparse.Namespace) and opts.peers == 4
     assert opts.fidelity == "onn"
+    opts = train.parse_args(["--fidelity", "mesh", "--mesh-backend",
+                             "pallas", "--blk-b", "32"])
+    assert (opts.fidelity, opts.mesh_backend, opts.blk_b) == (
+        "mesh", "pallas", 32)
+    defaults = train.parse_args([])
+    assert (defaults.mesh_backend, defaults.blk_b) == ("xla", 0)
     with pytest.raises(SystemExit):
         train.parse_args(["--global-batch", "6", "--mesh", "4x1"])
