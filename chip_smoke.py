@@ -26,10 +26,14 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    2d. The ``mesh_scan_blocks`` kernel against its plain version on
    random Givens-programmed meshes of every width of the mesh path (4,
    64, 128, 256; B = 1, 2 and 16), both transposes, shared and blocked
-   x, a post_scale, 1000 ragged rows and two row tiles: bit for bit
-   without noise, within MESH_THETA_TOL with the theta drift; timed over
-   a full bucket at the path's two largest launches beside its plain
-   version and the dense f32 product of the same linear map.
+   x, a post_scale, 1000 ragged rows and two row tiles; then widths
+   that are not a multiple of 32 (9, 33, 100), 512 and 600, 777 rows, a
+   stack of meshes of different depths and an x off the vector
+   alignment: bit for bit without noise, within MESH_THETA_TOL with the
+   theta drift; timed over a full bucket at the path's two largest
+   launches beside its plain version and the dense f32 product of the
+   same linear map, and once with the drift.  Alone, for iterating on the kernel: ``python3 -c 'import
+   chip_smoke as c; c.check_mesh_kernel(c.card_line())'``.
 4. Trains paper_llama at full width (bf16) through the training entry
    point, ``--sync optinc --bits 8 --block 2048 --mesh 4x1`` (four
    data-parallel peers stacked on the card), global batch 32 x 512
@@ -610,17 +614,42 @@ def random_stack(m: int, blocks: int, seed: int):
                                for q in qs]), qs
 
 
-def mesh_bound(rows, blocks, layers, m, x_blocked):
-    """Least time of one launch: x read once (one slice per block when
-    blocked), the output written once, the (perm, ca, sa) stacks and the
-    diagonals read once, against 3 rows B L m f32 flops (one fma and one
-    product per update)."""
+def mesh_diagonal_products(rows, blocks, m, transpose, post_scale):
+    """The products a launch needs for its diagonals: one a wire a row,
+    two going forward with a post_scale (signs before the layers, the
+    scale after them; the transpose applies both after, as one)."""
+    both = post_scale is not None and not transpose
+    return rows * blocks * m * (2 if both else 1)
+
+
+def mesh_bound(rows, st, x_blocked, transpose, post_scale):
+    """Least time of one launch of the stack st: x read once (one slice
+    per block when blocked), the output written once, the (perm, ca, sa)
+    stacks and the diagonals read once, against the f32 flops the
+    function needs: 3 for each wire of each of the st.n_rot rotations (a
+    product and an fma) a row, and the diagonals' products.  Identity
+    slots (perm[w] = w, ca 1, sa 0) need none."""
+    blocks, layers, m = st.perm.shape
     x_rows = rows * blocks if x_blocked else rows
     nbytes = 4 * (x_rows * m + rows * blocks * m + 3 * blocks * layers * m
                   + 2 * blocks * m)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 3 * rows * blocks * layers * m / PEAK_FLOPS["float32"] * 1e3
+    flops = (6 * rows * st.n_rot
+             + mesh_diagonal_products(rows, blocks, m, transpose, post_scale))
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def mesh_instruction_floor(rows, st, transpose, post_scale):
+    """The ms of one launch of the stack st if it issued only what the
+    function needs: a product and an fma for each wire of each rotation
+    (2 instruction slots of a lane) and the diagonals' products, at the
+    H100 SXM's instruction rate (132 SMs x 4 schedulers x 32 lanes at
+    the 1.98 GHz boost clock)."""
+    blocks, _, m = st.perm.shape
+    slots = (4 * rows * st.n_rot
+             + mesh_diagonal_products(rows, blocks, m, transpose, post_scale))
+    return slots / (132 * 4 * 32 * 1.98e9) * 1e3
 
 
 def once_ms(fn, args) -> float:
@@ -639,62 +668,113 @@ def once_ms(fn, args) -> float:
     return start.elapsed_time(end)
 
 
-def check_mesh_kernel(card: str) -> dict:
-    """mesh_scan_blocks vs its plain version on the card: every width of
-    the mesh path, both transposes, shared and blocked x, a post_scale,
-    ragged rows, two row tiles, with and without the theta drift; then
-    timed at the main path's two largest launches."""
+def mixed_depth_stack(m: int, seed: int):
+    """Three programs of width m and different depths stacked (the
+    shallower padded with identity layers): a random orthogonal matrix,
+    one acting on the first m / 2 wires, one 2 x 2 rotation.  Returns
+    the stack on the CPU and the three depths."""
+    import numpy as np
+    from repro_torch.photonics import mesh, mzi
+    rng = np.random.default_rng(seed)
+    half = np.eye(m)
+    half[:m // 2, :m // 2] = np.linalg.qr(rng.normal(size=(m // 2,) * 2))[0]
+    few = np.eye(m)
+    few[:2, :2] = [[0.6, -0.8], [0.8, 0.6]]
+    meshes = [mesh.MZIMesh.compile(mzi.givens_decompose(q)) for q in (
+        np.linalg.qr(rng.normal(size=(m, m)))[0], half, few)]
+    return mesh._stack_meshes(meshes), [mh.depth for mh in meshes]
+
+
+def check_mesh_case(st, label, x, blocked, transpose, blk_b, post, g):
+    """One phase-2d case: the kernel bit for bit against its plain
+    version without noise; with the theta drift (std 0.05) within
+    MESH_THETA_TOL of max|y|, and moved by the drift.  Returns that
+    error."""
     import torch
     from repro_torch.kernels import mesh_scan, ref
-    from repro_torch.photonics import mesh
+    blocks = st.perm.shape[0]
+    kw = dict(x_block_axis=blocked, transpose=transpose, post_scale=post)
+    args = (st.signs, st.perm, st.ca, st.sa, x)
+    got = mesh_scan.mesh_scan_blocks(*args, blk_b=blk_b, **kw)
+    want = ref.mesh_scan_blocks_ref(*args, **kw)
+    seeds = torch.randint(0, 2 ** 32, (blocks,), generator=g).cuda()
+    got_t = mesh_scan.mesh_scan_blocks(*args, blk_b=blk_b, theta_std=0.05,
+                                       seeds=seeds, **kw)
+    want_t = ref.mesh_scan_blocks_ref(*args, theta_std=0.05, seeds=seeds,
+                                      **kw)
+    torch.cuda.synchronize()
+    same = torch.equal(got, want)
+    rel = ((got_t - want_t).abs().max() / want_t.abs().max()).item()
+    moved = (got_t - got).abs().max().item()
+    rows = x.shape[0]
+    print(f"mesh_scan_blocks {label} transpose={transpose} "
+          f"x_blocked={blocked} blk_b={blk_b} (tile "
+          f"{mesh_scan.row_tile(st.dim, rows, blk_b)}) post_scale="
+          f"{post is not None}: {rows} rows bit-equal {same}; theta_std "
+          f"0.05: max_abs_err / max|y| {rel:.3e} (tol {MESH_THETA_TOL:.0e}), "
+          f"drift moved the output by {moved:.3e}", flush=True)
+    if not (same and rel <= MESH_THETA_TOL and moved > 0):
+        raise AssertionError(f"mesh_scan_blocks {label} disagrees with its "
+                             f"plain version")
+    return rel
+
+
+def check_mesh_kernel(card: str) -> dict:
+    """mesh_scan_blocks vs its plain version on the card: every width of
+    the mesh path and widths that are not a multiple of 32 (9, 33, 100)
+    or above 256 (512, 600), both transposes, shared and blocked x, a
+    post_scale, row counts ragged against the block's rows, two row
+    tiles, a stack of meshes of different depths and an x the kernel
+    cannot load in vectors, with and without the theta drift; then timed at the main path's two
+    largest launches, and once with the drift."""
+    import torch
+    from repro_torch.kernels import mesh_scan, ref
 
     g = torch.Generator().manual_seed(SEED + 5)
     # (m, B): the widths and block counts of the approx and svd layers
     shapes = [(4, 16), (64, 2), (128, 2), (64, 1), (256, 1)]
-    stacks = {}
-    for i, (m, blocks) in enumerate(shapes):
+    # (m, B) not on the path: widths not a multiple of 32, and above 256
+    # (600: 32 wires a lane, the widest form)
+    more = [(9, 3), (33, 2), (100, 1), (512, 1), (600, 1)]
+    stacks = {}                          # label -> (stack, on the path)
+    for i, (m, blocks) in enumerate(shapes + more):
         st, _ = random_stack(m, blocks, SEED + 10 + i)
-        stacks[m, blocks] = st.to("cuda")
+        stacks[f"m={m} B={blocks} L={st.depth}"] = (st.to("cuda"),
+                                                    (m, blocks) in shapes)
         print(f"mesh_scan program m={m} B={blocks}: L={st.depth}, "
-              f"{st.n_rot} rotations", flush=True)
+              f"{st.n_rot} rotations, W={mesh_scan.lane_wires(m)} wires a "
+              f"lane, {mesh_scan.warp_rows(m)} rows a warp", flush=True)
+    mixed, depths = mixed_depth_stack(64, SEED + 30)
+    stacks[f"m=64 B=3 L={mixed.depth} (depths {depths})"] = (
+        mixed.to("cuda"), False)
     worst = 0.0
-    for (m, blocks), st in stacks.items():
+    n_cases = 0
+    for label, (st, on_path) in stacks.items():
+        m, blocks = st.dim, st.perm.shape[0]
+        # the path's cases: 1000 rows, tiles default and 24; the others:
+        # 777 rows (a multiple of no tile), tiles default and 8
+        rows, small = (1000, 24) if on_path else (777, 8)
         ps = (torch.randn((blocks, m), generator=g) + 1.0).cuda()
         for transpose in (False, True):
             for blocked in ((False, True) if blocks > 1 else (False,)):
-                shape = (1000, blocks, m) if blocked else (1000, m)
+                shape = (rows, blocks, m) if blocked else (rows, m)
                 x = torch.randn(shape, generator=g).cuda()
-                for blk_b in (0, 24):
-                    post = ps if blk_b else None
-                    kw = dict(x_block_axis=blocked, transpose=transpose,
-                              post_scale=post)
-                    args = (st.signs, st.perm, st.ca, st.sa, x)
-                    got = mesh_scan.mesh_scan_blocks(*args, blk_b=blk_b,
-                                                     **kw)
-                    want = ref.mesh_scan_blocks_ref(*args, **kw)
-                    seeds = torch.randint(0, 2 ** 32, (blocks,),
-                                          generator=g).cuda()
-                    got_t = mesh_scan.mesh_scan_blocks(
-                        *args, blk_b=blk_b, theta_std=0.05, seeds=seeds, **kw)
-                    want_t = ref.mesh_scan_blocks_ref(
-                        *args, theta_std=0.05, seeds=seeds, **kw)
-                    torch.cuda.synchronize()
-                    same = torch.equal(got, want)
-                    rel = ((got_t - want_t).abs().max()
-                           / want_t.abs().max()).item()
-                    moved = (got_t - got).abs().max().item()
-                    worst = max(worst, rel)
-                    print(f"mesh_scan_blocks m={m} B={blocks} L={st.depth} "
-                          f"transpose={transpose} x_blocked={blocked} "
-                          f"blk_b={blk_b} post_scale={post is not None}: "
-                          f"1000 rows bit-equal {same}; theta_std 0.05: "
-                          f"max_abs_err / max|y| {rel:.3e} (tol "
-                          f"{MESH_THETA_TOL:.0e}), drift moved the output "
-                          f"by {moved:.3e}", flush=True)
-                    if not (same and rel <= MESH_THETA_TOL and moved > 0):
-                        raise AssertionError(
-                            f"mesh_scan_blocks m={m} B={blocks} disagrees "
-                            f"with its plain version")
+                for blk_b in (0, small):
+                    worst = max(worst, check_mesh_case(
+                        st, label, x, blocked, transpose, blk_b,
+                        ps if blk_b else None, g))
+                    n_cases += 1
+    # x 4 bytes off the 16-byte alignment of a vector load
+    st = stacks[f"m=256 B=1 L={2 * 256 - 3}"][0]
+    for transpose in (False, True):
+        buf = torch.randn(777 * 256 + 1, generator=g).cuda()
+        x = buf[1:].view(777, 256)
+        worst = max(worst, check_mesh_case(
+            st, f"m=256 B=1 L={st.depth} x unaligned", x, False, transpose,
+            0, None, g))
+        n_cases += 1
+    print(f"mesh_scan_blocks: {n_cases} cases bit-equal without noise; "
+          f"theta drift worst {worst:.3e} of max|y|", flush=True)
 
     records = {}
     # the main path's largest launches over one bucket of rows: the V
@@ -742,14 +822,25 @@ def check_mesh_kernel(card: str) -> dict:
         else:
             lib_ms, _ = time_ms(lambda a: torch.matmul(a, mats[0].T), ins,
                                 iters=5)
-        bound, by = mesh_bound(BUCKET_ROWS, blocks, st.depth, m, blocked)
+        bound, by = mesh_bound(BUCKET_ROWS, st, blocked, transpose, post)
+        floor = mesh_instruction_floor(BUCKET_ROWS, st, transpose, post)
         print(f"mesh_scan_blocks {label} timing: kernel {ms:.3f} ms (host "
               f"{host_ms:.3f} ms), plain {plain_ms:.3f} ms, dense f32 "
               f"product ({'einsum' if blocked else 'matmul'}, TF32 off, "
               f"the same linear map in other arithmetic) {lib_ms:.3f} ms, "
               f"bound {bound:.3f} ms ({by}); kernel at "
-              f"{100 * bound / ms:.1f}% of its bound [{card}]", flush=True)
+              f"{100 * bound / ms:.1f}% of its bound, {100 * floor / ms:.1f}% "
+              f"of the {floor:.3f} ms instruction-rate floor of its "
+              f"rotations ({2 * st.n_rot} wire updates a row, "
+              f"{100 * 2 * st.n_rot / st.perm.numel():.1f}% of the B L m "
+              f"slots the kernel updates) [{card}]", flush=True)
         if label.startswith("svd"):
+            seeds = torch.randint(0, 2 ** 32, (blocks,), generator=g).cuda()
+            drift_ms, _ = time_ms(lambda a: mesh_scan.mesh_scan_blocks(
+                st.signs, st.perm, st.ca, st.sa, a, theta_std=0.05,
+                seeds=seeds, **kw), ins, iters=3)
+            print(f"mesh_scan_blocks {label} with the theta drift (std "
+                  f"0.05): kernel {drift_ms:.3f} ms [{card}]", flush=True)
             records["mesh_scan_blocks"] = dict(
                 name="mesh_scan_blocks", route="cuda",
                 source="src/repro_torch/csrc/mesh_scan.cu",

@@ -10,28 +10,58 @@ wrapper runs the plain version (``ref.mesh_scan_blocks_ref``); for CUDA
 tensors it launches the kernel (float32 only) or raises; any other
 device raises.
 
-``blk_b`` is the kernel's row tile, the rows one CUDA block holds in
-shared memory (0 = the default, ``DEFAULT_SMEM_BYTES`` of ping-pong
-buffers); it must be a multiple of 8 whose two buffers of blk_b x m f32
-fit the 227 KB a block may use, and it is clamped to the rows given, as
+The kernel keeps whole rows in registers: a lane holds ``lane_wires(m)``
+adjacent wires of ``warp_rows(m)`` rows, and a partner's value comes
+from the neighbouring wire or lane, so it takes only programs whose
+partners are neighbours and pair up, one alignment of pairs a layer
+(``check_program``: what Givens programming on adjacent planes gives);
+the wrapper refuses any other on every device.  It checks a program
+once: it holds the ``perm`` and ``sa`` of the last ``_CHECKED_MAX``
+programs checked (1 MiB a program at m 256, L 509; at most 64 MiB of
+such programs), so that their memory is not reused, under their
+addresses, shape and version counters.  A program
+changed in place through ``.data``, which counts no version, is not
+checked again: that is not supported.  The inputs must be finite: at a
+wire with no partner the kernel adds 0 times a neighbour, which is NaN
+where that neighbour is infinite and the plain version keeps the wire.
+
+``blk_b`` is the rows one CUDA block holds (0 = the default,
+``DEFAULT_WARPS`` warps): a multiple of 8 of at most ``MAX_WARPS`` warps
+of ``warp_rows(m)`` rows, clamped to the rows given rounded up to 8, as
 the JAX kernel clamps its batch tile.  The plain version has no tile,
 but the wrapper checks ``blk_b`` on every device alike.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
 
 from . import _build, ref
 
-DEFAULT_SMEM_BYTES = 64 * 1024   # shared memory of the default row tile
-MAX_SMEM_BYTES = 232448          # what one block may use on sm_90
-MAX_WIRES = 1024                 # one thread per wire and row group
+MAX_WARPS = 8         # warps a CUDA block may have
+DEFAULT_WARPS = 4     # warps of the default row tile
+MAX_WIRES = 1024      # 32 lanes of at most 32 wires
 
 _ARGTYPES = ([ctypes.c_void_p] * 8
              + [ctypes.c_longlong] + [ctypes.c_int] * 5
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_CHECKED_MAX = 64
+_checked: collections.OrderedDict = collections.OrderedDict()
+
+
+def lane_wires(m: int) -> int:
+    """Adjacent wires a lane holds: m / 32 rounded up to a power of 2."""
+    return 1 << max(0, -(-m // 32) - 1).bit_length()
+
+
+def warp_rows(m: int) -> int:
+    """Rows a warp holds in registers for a mesh of width m: 16, or
+    128 / lane_wires(m) above 8 wires a lane (csrc/mesh_scan.cu
+    warp_rows)."""
+    w = lane_wires(m)
+    return 16 if w <= 8 else 128 // w
 
 
 def row_tile(m: int, rows: int, blk_b: int = 0) -> int:
@@ -41,14 +71,59 @@ def row_tile(m: int, rows: int, blk_b: int = 0) -> int:
     if blk_b < 0 or blk_b % 8:
         raise ValueError(f"mesh_scan: blk_b must be a multiple of 8 (0 = "
                          f"default), got {blk_b}")
-    if 8 * blk_b * m > MAX_SMEM_BYTES:
+    most = MAX_WARPS * warp_rows(m)
+    if blk_b > most:
         raise ValueError(
             f"mesh_scan: blk_b={blk_b} rows of {m} wires need "
-            f"{8 * blk_b * m} bytes of shared memory, more than the "
-            f"{MAX_SMEM_BYTES} a block may use (at most "
-            f"{MAX_SMEM_BYTES // (8 * m) // 8 * 8} rows)")
-    tile = blk_b or max(8, DEFAULT_SMEM_BYTES // (8 * m) // 8 * 8)
+            f"{-(-blk_b // warp_rows(m))} warps of {warp_rows(m)} rows, more "
+            f"than the {MAX_WARPS} a block may have (at most {most} rows)")
+    tile = blk_b or DEFAULT_WARPS * warp_rows(m)
     return min(tile, -(-max(rows, 1) // 8) * 8)
+
+
+def check_program(perm: torch.Tensor, sa: torch.Tensor) -> None:
+    """Raise ValueError unless every partner is a neighbour (perm[w] in
+    {w - 1, w, w + 1}, inside 0 .. m - 1), partners pair up (perm is an
+    involution), every wire with no partner (perm[w] = w) has sa = 0 and
+    no layer pairs both even-aligned wires (2i, 2i + 1) and odd-aligned
+    ones (2i + 1, 2i + 2): what the kernel relies on.  ``perm`` and
+    ``sa`` are (..., L, m)."""
+    m = perm.shape[-1]
+    wire = torch.arange(m, device=perm.device)
+    step = perm.long() - wire
+    far = (step.abs() > 1) | (perm < 0) | (perm >= m)
+    if bool(far.any()):
+        raise ValueError(f"mesh_scan: every partner must be a neighbouring "
+                         f"wire (perm[w] in w-1, w, w+1), but "
+                         f"{int(far.sum())} of the program's entries are not")
+    unpaired = perm.long().gather(-1, perm.long()) != wire
+    if bool(unpaired.any()):
+        raise ValueError(f"mesh_scan: partners must pair up (perm[perm[w]] "
+                         f"= w), but {int(unpaired.sum())} do not")
+    alone = (step == 0) & (sa != 0)
+    if bool(alone.any()):
+        raise ValueError(f"mesh_scan: a wire with no partner (perm[w] = w) "
+                         f"must have sa = 0, but {int(alone.sum())} have not")
+    lower = (step == 1) & (wire % 2 == 0), (step == 1) & (wire % 2 == 1)
+    mixed = lower[0].any(-1) & lower[1].any(-1)
+    if bool(mixed.any()):
+        raise ValueError(f"mesh_scan: a layer must pair only even-aligned "
+                         f"wires (2i, 2i + 1) or only odd-aligned ones (2i + "
+                         f"1, 2i + 2), but {int(mixed.sum())} layers mix "
+                         f"them")
+
+
+def _check_once(perm, sa):
+    """``check_program`` once per program (see the module docstring)."""
+    key = (perm.device, tuple(perm.shape),
+           *((t.data_ptr(), t._version) for t in (perm, sa)))
+    if key in _checked:
+        _checked.move_to_end(key)
+        return
+    check_program(perm, sa)
+    _checked[key] = (perm, sa)
+    if len(_checked) > _CHECKED_MAX:
+        _checked.popitem(last=False)
 
 
 def _check(signs, perm, ca, sa, x, x_block_axis, post_scale, seeds,
@@ -119,13 +194,15 @@ def mesh_scan_blocks(signs: torch.Tensor, perm: torch.Tensor,
     -2 (``x_block_axis``), (..., B, m); returns (..., B, m): o_b @ x (o_b^T
     with ``transpose``) times ``post_scale`` (B, m) when given.
     ``theta_std`` > 0 turns on the theta drift, seeded per block from
-    ``seeds`` (B,) uint32.  All tensors contiguous, on one device."""
+    ``seeds`` (B,) uint32.  All tensors contiguous, on one device; the
+    program one ``check_program`` takes, and the values finite."""
     device = _check(signs, perm, ca, sa, x, x_block_axis, post_scale, seeds,
                     theta_std)
     n_blocks, n_layers, m = perm.shape
     batch_shape = x.shape[:-2] if x_block_axis else x.shape[:-1]
     rows = batch_shape.numel()
     tile = row_tile(m, rows, blk_b)
+    _check_once(perm, sa)
     if device.type == "cpu":
         return ref.mesh_scan_blocks_ref(
             signs, perm, ca, sa, x, x_block_axis=x_block_axis,

@@ -34,7 +34,9 @@ PARAM_SOURCES = ("auto", "exact", "results", "train")
 # values run the mesh_scan kernel (kernels/mesh_scan.py) for CUDA tensors
 # and its plain version for CPU tensors, and never the plain version on
 # the card.  The field stays so that configs round-trip with JAX, and
-# blk_b is that kernel's row tile (0 = its default).
+# blk_b is that kernel's row tile: the rows one CUDA block holds in its
+# warps' registers (a multiple of 8, at most 8 warps of 16 rows up to
+# 256 wires; 0 = its default of 4 warps).
 MESH_BACKENDS = ("xla", "pallas")
 
 

@@ -414,6 +414,128 @@ def test_exact_identity_mesh_symbols_skip_the_kernel(monkeypatch):
             jmodule.symbols(ja, fidelity="mesh", mesh_backend=backend)))
 
 
+# ------------------------------------ what the CUDA kernel relies on
+def _programs(m):
+    """A Givens program of a random orthogonal matrix, and a stack of it
+    with shallower ones (a 2 x 2 rotation, a half-width matrix) padded
+    with identity layers."""
+    full = mesh.MZIMesh.compile(mzi.givens_decompose(_orthogonal(m, m + 1)))
+    few = np.eye(m)
+    few[:2, :2] = [[0.6, -0.8], [0.8, 0.6]]
+    half = np.eye(m)
+    half[:m // 2, :m // 2] = _orthogonal(m // 2, m + 2)
+    parts = [full] + [mesh.MZIMesh.compile(mzi.givens_decompose(q))
+                      for q in (few, half)]
+    return full, mesh._stack_meshes(parts), [p.depth for p in parts]
+
+
+@pytest.mark.parametrize("m", [2, 4, 9, 64, 256])
+def test_programs_pair_neighbouring_wires(m):
+    """Every compiled program, and every identity-padded stack of
+    programs of different depths, pairs only neighbouring wires
+    (|perm[w] - w| <= 1), perm is an involution, and a wire with no
+    partner has ca = 1 and sa = 0 exactly: the kernel's partner by
+    shuffle and its identity slot rely on this."""
+    full, stack, depths = _programs(m)
+    assert full.depth == max(1, 2 * m - 3)
+    if m > 2:
+        assert len(set(depths)) > 1 and stack.depth == max(depths)
+    for st in (full, stack):
+        perm, ca, sa = st.perm.long(), st.ca, st.sa
+        wire = torch.arange(m)
+        assert ((perm - wire).abs() <= 1).all()
+        assert torch.equal(perm.gather(-1, perm), wire.expand_as(perm))
+        alone = perm == wire
+        assert (ca[alone] == 1).all() and (sa[alone] == 0).all()
+        assert int((~alone).sum()) == 2 * st.n_rot   # two wires a rotation
+        # no layer mixes pairs (2i, 2i + 1) with (2i + 1, 2i + 2): the
+        # kernel's two aligned forms take every layer as it is
+        assert _mixed_layers(st.perm) == 0
+        tk.check_program(st.perm, st.sa)
+
+
+def _mixed_program(m, n, seed):
+    """n rotations on random adjacent planes in random order: a mesh
+    whose greedy layers hold pairs of both alignments."""
+    rng = np.random.default_rng(seed)
+    rots = [(int(i), int(i) + 1, float(t)) for i, t in zip(
+        rng.integers(0, m - 1, n), rng.uniform(-np.pi, np.pi, n))]
+    signs = np.where(rng.random(m) < 0.5, -1.0, 1.0)
+    return mesh.MZIMesh.compile(mzi.MZIProgram(m, rots, signs))
+
+
+def _mixed_layers(perm):
+    m = perm.shape[-1]
+    low = torch.minimum(perm.long(), torch.arange(m))
+    paired = perm.long() != torch.arange(m)
+    return int(((paired & (low % 2 == 0)).any(-1)
+                & (paired & (low % 2 == 1)).any(-1)).sum())
+
+
+@pytest.mark.parametrize("m", [5, 9, 64])
+def test_check_program_refuses_layers_that_mix_alignments(m):
+    """A stack of a Givens program and a program whose layers mix both
+    pair alignments, which the kernel's two layer forms cannot take: the
+    wrapper refuses it on every device, and takes the Givens program
+    alone."""
+    givens = mesh.MZIMesh.compile(mzi.givens_decompose(_orthogonal(m, m + 3)))
+    st = mesh._stack_meshes([_mixed_program(m, 3 * m, m), givens])
+    assert _mixed_layers(st.perm) > 0
+    x = _t(np.random.default_rng(m).normal(size=(37, m)).astype(np.float32))
+    with pytest.raises(ValueError, match="mix them"):
+        tk.check_program(st.perm, st.sa)
+    for transpose in (False, True):
+        with pytest.raises(ValueError, match="mix them"):
+            tk.mesh_scan_blocks(st.signs, st.perm, st.ca, st.sa, x,
+                                transpose=transpose)
+    one = mesh._stack_meshes([givens])
+    assert tk.mesh_scan_blocks(one.signs, one.perm, one.ca, one.sa,
+                               x).shape == (37, 1, m)
+
+
+@pytest.mark.parametrize("m", [2, 4, 9, 64, 256])
+def test_check_program_refuses_what_the_kernel_cannot_take(m):
+    """The wrapper refuses, on every device, a program with a partner
+    that is not a neighbour or off the mesh, partners that do not pair
+    up, or a wire with no partner and sa != 0."""
+    _, stack, _ = _programs(m)
+    x = torch.ones((3, m))
+    assert tk.mesh_scan_blocks(stack.signs, stack.perm, stack.ca, stack.sa,
+                               x).shape == (3, stack.perm.shape[0], m)
+    bad = []
+    far = stack.perm.clone()
+    far[0, 0, 0] = m - 1 if m > 2 else -1      # not a neighbour / off
+    bad.append((far, stack.sa, "neighbouring"))
+    off = stack.perm.clone()
+    off[0, 0, m - 1] = m                        # past the last wire
+    bad.append((off, stack.sa, "neighbouring"))
+    if m > 2:
+        one_way = stack.perm.clone()            # wire 2 -> 1, 1 -> 1
+        one_way[0, -1, :3] = torch.tensor([0, 1, 1], dtype=torch.int32)
+        bad.append((one_way, stack.sa, "pair up"))
+    alone = stack.sa.clone()
+    ident = (stack.perm == torch.arange(m, dtype=torch.int32))
+    if ident.any():
+        alone[ident.nonzero()[0].unbind()] = 0.5
+        bad.append((stack.perm, alone, "no partner"))
+    for perm, sa, match in bad:
+        with pytest.raises(ValueError, match=match):
+            tk.check_program(perm, sa)
+        with pytest.raises(ValueError, match=match):
+            tk.mesh_scan_blocks(stack.signs, perm, stack.ca, sa, x)
+
+
+def test_lane_layout_of_every_width():
+    """W wires a lane (m / 32 rounded up to a power of two) and the rows
+    a warp holds (16, at most 128 values a lane) at every width the
+    kernel takes."""
+    for m, w, r in ((1, 1, 16), (4, 1, 16), (32, 1, 16), (33, 2, 16),
+                    (64, 2, 16), (100, 4, 16), (128, 4, 16), (129, 8, 16),
+                    (256, 8, 16), (512, 16, 8), (1024, 32, 4)):
+        assert (tk.lane_wires(m), tk.warp_rows(m)) == (w, r)
+        assert 32 * w >= m and (w == 1 or 16 * w < m) and w * r <= 128
+
+
 # ----------------------------------------------------------- the wrapper
 def test_wrapper_routes_cpu_to_the_plain_version_and_checks_its_inputs(
         monkeypatch):
@@ -446,7 +568,7 @@ def test_wrapper_routes_cpu_to_the_plain_version_and_checks_its_inputs(
         tk.mesh_scan_blocks(signs, perm, ca[:, :3], sa, x)
     with pytest.raises(ValueError, match="multiple of 8"):
         tk.mesh_scan_blocks(signs, perm, ca, sa, x, blk_b=12)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="8 a block may have"):
         tk.mesh_scan_blocks(signs, perm, ca, sa, x, blk_b=8 * 400)
     with pytest.raises(ValueError, match="needs per-block uint32 seeds"):
         tk.mesh_scan_blocks(signs, perm, ca, sa, x, theta_std=0.1)
@@ -454,6 +576,11 @@ def test_wrapper_routes_cpu_to_the_plain_version_and_checks_its_inputs(
         tk.mesh_scan_blocks(signs, perm, ca, sa, x.T.contiguous().T)
     with pytest.raises(ValueError, match="one CUDA device"):
         tk.mesh_scan_blocks(signs, perm, ca, sa, x.to("meta"))
-    assert tk.row_tile(256, 10 ** 6) == 32 and tk.row_tile(4, 10 ** 6) == 2048
+    # a warp holds 16 rows up to 8 wires a lane (m 256), 4 at m 1024; a
+    # block at most 8 warps, by default 4
+    assert tk.row_tile(256, 10 ** 6) == 64 and tk.row_tile(4, 10 ** 6) == 64
+    assert tk.row_tile(1024, 10 ** 6) == 16
     assert tk.row_tile(256, 10 ** 6, 112) == 112
     assert tk.row_tile(64, 5, 64) == 8
+    with pytest.raises(ValueError, match="at most 128 rows"):
+        tk.row_tile(256, 10 ** 6, 136)
