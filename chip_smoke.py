@@ -10,7 +10,15 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    without the log-sum-exp), flash backward, and the pam4 encode/decode
    pair (bit for bit, ties, zero blocks and ragged tails included);
    times each kernel, its plain version and a PyTorch yardstick where
-   one call computes the same function.
+   one call computes the same function.  The flash checks
+   (``check_flash_kernels``) cover every case in bf16, the tensor-core
+   kernels, and in f32, the CUDA-core kernels; they print each flash
+   kernel's registers, spills and HMMA count, run the backward twice for
+   bit-equal gradients, and time the forward at t 128, 256 and 512 (the
+   training shape) and the backward at t 512 beside SDPA, then both at
+   one sequence of 512 and at t 2048.  Alone, for
+   iterating on them: ``python3 -c 'import chip_smoke as c;
+   c.check_flash_kernels(c.card_line())'``.
 3. Serves paper_llama at full width (bf16) through ``ServeEngine``: 16
    staggered requests, then again with a pool small enough to force
    preemption.  Both serving kernels must have been launched by the serve
@@ -39,9 +47,11 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    data-parallel peers stacked on the card), global batch 32 x 512
    tokens, 30 steps: the loss must fall and the four training kernels
    (flash forward and backward, pam4 encode and decode) must have been
-   launched by the run (counts reset just before, read just after).
-   Step time p50/p99 and tokens/s; one step under ``torch.profiler``;
-   a short ``--sync psum`` run of the same config as a yardstick.
+   launched by the run (counts reset just before, read just after): the
+   flash pair once a layer and peer each step, pam4 once a bucket.
+   Step time p50/p99 and tokens/s; one step under ``torch.profiler``,
+   with the flash kernels' share of its device time; a short ``--sync
+   psum`` run of the same config as a yardstick.
    4b. The same config through the in-network ONN: ``--fidelity onn
    --bits 2`` (the exact identity ONN) for 10 steps must print the
    losses of ``--fidelity behavioral --bits 2`` and launch ``onn_layer``
@@ -234,23 +244,36 @@ def flash_case(b, h, hkv, hd, sq, skv, dtype, seed):
     return [t.transpose(1, 2) for t in (q, k, v)]
 
 
-def flash_bounds(b, h, hkv, hd, sq, skv, dtype):
+def flash_bounds(b, h, hkv, hd, sq, skv, dtype, lse=False):
     import torch
     item = torch.tensor([], dtype=dtype).element_size()
     pairs = sum(min(skv, r + (skv - sq) + 1) for r in range(sq))  # causal
     flops = 4 * b * h * pairs * hd
-    nbytes = (2 * b * h * sq * hd + 2 * b * hkv * skv * hd) * item
+    nbytes = ((2 * b * h * sq * hd + 2 * b * hkv * skv * hd) * item
+              + (4 * b * h * sq if lse else 0))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(dtype).split(".")[-1]] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def flash_bwd_bounds(b, h, hkv, hd, sq, skv, dtype):
+    import torch
+    item = torch.tensor([], dtype=dtype).element_size()
+    pairs = sum(min(skv, r + (skv - sq) + 1) for r in range(sq))  # causal
+    flops = 10 * b * h * pairs * hd      # S, dP, dV, dK, dQ: 2 * hd each
+    nbytes = ((4 * b * h * sq * hd + 4 * b * hkv * skv * hd) * item
+              + 4 * b * h * sq)          # q, o, dO, dq; k, v, dk, dv; lse
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[str(dtype).split(".")[-1]] * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def check_kernels(card: str) -> dict:
-    """Kernel vs plain on the card; returns the per-kernel record of the
-    main-path shape (paper_llama, bf16) with its timings."""
+    """The paged decode kernel vs plain on the card; returns its record
+    at the main-path shape (paper_llama, bf16) with its timings."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import attention, paged_attention, ref
+    from repro_torch.kernels import paged_attention, ref
 
     records = {}
     spread = [1, 15, 16, 17, 100, 128, 255, 256]      # page edges, 1..256
@@ -303,7 +326,108 @@ def check_kernels(card: str) -> dict:
             replaces="src/repro/kernels/paged_attention.py:108",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
             bound_by=by, library_ms=lib_ms)
+    return records
 
+
+def flash_build_report(card: str) -> None:
+    """Registers, spills and shared memory of every kernel of the two
+    flash sources (nvcc -Xptxas -v), and the HMMA instructions of each
+    where cuobjdump exists.  Raises if a head-dim-48 tensor-core kernel
+    spills."""
+    import re
+    import shutil
+    from repro_torch.kernels import _build
+
+    def tool(name):
+        found = Path("/usr/local/cuda/bin") / name
+        return shutil.which(name) or (str(found) if found.exists() else None)
+
+    paths = _build.build(["flash_attention", "flash_attention_bwd"])
+    filt, objdump = tool("cu++filt") or tool("c++filt"), tool("cuobjdump")
+    for name, path in sorted(paths.items()):
+        stats, fn = {}, None
+        for line in Path(str(path) + ".log").read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                fn = m.group(1)
+                stats[fn] = {}
+            elif fn and "spill" in line:
+                stats[fn]["spill"] = [int(x) for x in re.findall(
+                    r"(\d+) bytes spill", line)]
+            elif fn and "Used" in line:
+                stats[fn]["regs"] = int(re.search(r"Used (\d+) registers",
+                                                  line).group(1))
+                m = re.search(r"(\d+) bytes smem", line)
+                stats[fn]["smem"] = int(m.group(1)) if m else 0
+        hmma = {}
+        if objdump:
+            sass = subprocess.run([objdump, "-sass", str(path)],
+                                  capture_output=True, text=True,
+                                  timeout=300).stdout
+            fn = None
+            for line in sass.splitlines():
+                m = re.search(r"Function : (\w+)", line)
+                if m:
+                    fn = m.group(1)
+                    hmma[fn] = 0
+                elif fn and "HMMA" in line:
+                    hmma[fn] += 1
+        names = list(stats)
+        if filt and names:
+            out = subprocess.run([filt], input="\n".join(names),
+                                 capture_output=True, text=True,
+                                 timeout=60).stdout.splitlines()
+            if len(out) == len(names):
+                names = [short_kernel(n) for n in out]
+        for short, (fn, st) in zip(names, stats.items()):
+            spill = st.get("spill", [0, 0])
+            print(f"  {name}: {short}: {st.get('regs')} registers, "
+                  f"{spill[0]} bytes spill stores, {spill[1]} bytes spill "
+                  f"loads, {st.get('smem', 0)} bytes static smem; HMMA "
+                  f"{hmma.get(fn, 'not counted (no cuobjdump)')}",
+                  flush=True)
+            if "_mma_" in short and "<48>" in short and any(spill):
+                raise AssertionError(f"{short} spills registers: {spill}")
+    print(f"flash build report done [{card}]", flush=True)
+
+
+def kernel_split(fn, inputs, calls: int = 20) -> dict:
+    """Device us a call of each kernel that fn(*inputs[i]) launches, from
+    torch.profiler over ``calls`` calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn(*inputs[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fn(*inputs[i % len(inputs)])
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if e.device_type == DeviceType.CUDA and us > 0:
+            out[kernel_name(e.key)] = us / calls
+    return out
+
+
+def check_flash_kernels(card: str) -> dict:
+    """The flash forward (with and without the log-sum-exp) and backward
+    kernels vs their plain versions on the card, at the main paths'
+    shapes, GQA, the shifted mask, ragged tiles and every head dim, in
+    bf16 (the tensor-core kernels) and f32 (the CUDA-core kernels); the
+    backward twice for bit-equal gradients; timings beside SDPA and the
+    bound at the serve (t 128, 256) and training (t 512) shapes.  Returns
+    the records of the main shapes.  Alone, for iterating on the
+    kernels: ``python3 -c 'import chip_smoke as c;
+    c.check_flash_kernels(c.card_line())'``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import attention, ref
+
+    flash_build_report(card)
+    records = {}
     flash_cases = [
         # (label, b, h, hkv, hd, sq, skv, dtype)
         ("main", 8, 8, 8, 48, 128, 128, torch.bfloat16),
@@ -317,6 +441,12 @@ def check_kernels(card: str) -> dict:
         ("hd32", 2, 4, 4, 32, 50, 50, torch.float32),
         ("hd64", 2, 8, 2, 64, 96, 96, torch.bfloat16),
         ("hd128", 2, 8, 4, 128, 130, 130, torch.bfloat16),
+        # bf16 twins of the f32-only cases, for the tensor-core kernel
+        ("ragged_shift_bf16", 8, 8, 8, 48, 37, 203, torch.bfloat16),
+        ("hd16_bf16", 2, 4, 2, 16, 70, 70, torch.bfloat16),
+        ("hd32_bf16", 2, 4, 4, 32, 50, 50, torch.bfloat16),
+        # the training shape (one peer's batch of the training step)
+        ("t512", 8, 8, 8, 48, 512, 512, torch.bfloat16),
     ]
     for label, b, h, hkv, hd, sq, skv, dt in flash_cases:
         args = flash_case(b, h, hkv, hd, sq, skv, dt, SEED)
@@ -331,15 +461,20 @@ def check_kernels(card: str) -> dict:
         if not err <= tol:
             raise AssertionError(f"flash_attention {label} disagrees with "
                                  f"its plain version: {err} > {tol}")
-        if label not in ("main", "t256"):
+        if label not in ("main", "t256", "t512"):
             continue
+        # the training step calls the forward with the log-sum-exp
+        lse = label == "t512"
         ins = copies_for(args)
-        ms, host_ms = time_ms(attention.flash_attention, ins)
-        plain_ms, _ = time_ms(ref.attention_ref, ins, iters=20)
+        ms, host_ms = time_ms(lambda q, k, v: attention.flash_attention(
+            q, k, v, return_lse=lse), ins)
+        plain_ms, _ = time_ms(ref.attention_fwd_ref if lse
+                              else ref.attention_ref, ins, iters=20)
         lib_ms, _ = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
             q, k, v, is_causal=True), ins)
-        bound, by = flash_bounds(b, h, hkv, hd, sq, skv, dt)
-        print(f"flash_attention {label} timing: kernel {ms * 1e3:.2f} us "
+        bound, by = flash_bounds(b, h, hkv, hd, sq, skv, dt, lse)
+        print(f"flash_attention {label} timing{' (with lse)' if lse else ''}"
+              f": kernel {ms * 1e3:.2f} us "
               f"(wrapper call on the host {host_ms * 1e3:.2f} us), "
               f"plain {plain_ms * 1e3:.2f} us, sdpa {lib_ms * 1e3:.2f} us, "
               f"bound {bound * 1e3:.3f} us ({by}) [{card}]", flush=True)
@@ -350,7 +485,116 @@ def check_kernels(card: str) -> dict:
                 replaces="src/repro/kernels/attention.py:63",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=by, library_ms=lib_ms)
+
+    bwd_cases = [
+        # (label, b, h, hkv, hd, sq, skv, dtype)
+        ("main", 8, 8, 8, 48, 512, 512, torch.bfloat16),
+        ("f32", 8, 8, 8, 48, 512, 512, torch.float32),
+        ("gqa_hd16", 4, 8, 2, 16, 300, 300, torch.float32),
+        ("gqa_shift", 2, 4, 2, 64, 100, 173, torch.bfloat16),
+        ("hd32", 2, 4, 4, 32, 70, 70, torch.float32),
+        ("hd128", 2, 4, 2, 128, 129, 129, torch.bfloat16),
+        # bf16 twins of the f32-only cases, for the tensor-core kernels
+        ("gqa_hd16_bf16", 4, 8, 2, 16, 300, 300, torch.bfloat16),
+        ("hd32_bf16", 2, 4, 4, 32, 70, 70, torch.bfloat16),
+    ]
+    for label, b, h, hkv, hd, sq, skv, dt in bwd_cases:
+        q, k, v = flash_case(b, h, hkv, hd, sq, skv, dt, SEED)
+        g = torch.Generator().manual_seed(SEED + 1)
+        do = torch.randn((b, h, sq, hd), generator=g).to(dt).cuda()
+        o, lse = attention.flash_attention(q, k, v, return_lse=True)
+        o_ref, lse_ref = ref.attention_fwd_ref(q, k, v)
+        torch.cuda.synchronize()
+        f_err = (o.float() - o_ref.float()).abs().max().item()
+        l_err = (lse - lse_ref).abs().max().item()
+        tol = KERNEL_TOL[str(dt).split(".")[-1]]
+        if not (f_err <= tol and l_err <= KERNEL_TOL["float32"]):
+            raise AssertionError(f"flash forward with lse {label}: out "
+                                 f"{f_err}, lse {l_err}")
+        got = attention.flash_attention_bwd(q, k, v, o, lse, do)
+        want = ref.attention_bwd_ref(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        rel = max(((a.float() - w.float()).abs().max()
+                   / w.float().abs().max()).item() for a, w in zip(got, want))
+        btol = BWD_TOL[str(dt).split(".")[-1]]
+        print(f"flash_attention_bwd {label}: b={b} h={h} hkv={hkv} hd={hd} "
+              f"sq={sq} skv={skv} {dt}: max_abs_err / max|grad| {rel:.3e} "
+              f"(tol {btol:.0e}); forward with lse: out {f_err:.3e}, lse "
+              f"{l_err:.3e}", flush=True)
+        if not rel <= btol:
+            raise AssertionError(f"flash_attention_bwd {label} disagrees "
+                                 f"with its plain version: {rel} > {btol}")
+        if label != "main":
+            continue
+        again = attention.flash_attention_bwd(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        print(f"flash_attention_bwd main run twice: dq, dk, dv bit-equal "
+              f"{same}", flush=True)
+        if not same:
+            raise AssertionError("flash_attention_bwd is not deterministic")
+        ins = copies_for([q, k, v, o, lse, do])
+        ms, host_ms = time_ms(attention.flash_attention_bwd, ins)
+        plain_ms, _ = time_ms(ref.attention_bwd_ref, ins, iters=10)
+        lib_ms = sdpa_bwd_ms(ins)
+        bound, by = flash_bwd_bounds(b, h, hkv, hd, sq, skv, dt)
+        print(f"flash_attention_bwd main timing: kernel {ms * 1e3:.2f} us "
+              f"(host {host_ms * 1e3:.2f} us), plain {plain_ms * 1e3:.2f} "
+              f"us, sdpa backward {lib_ms * 1e3:.2f} us, bound "
+              f"{bound * 1e3:.3f} us ({by}) [{card}]", flush=True)
+        split = kernel_split(attention.flash_attention_bwd, ins)
+        print("flash_attention_bwd main, device us a call by kernel "
+              "(profiler): " + ", ".join(f"{n} {us:.2f}"
+                                         for n, us in split.items())
+              + f" [{card}]", flush=True)
+        records["flash_attention_bwd"] = dict(
+            name="flash_attention_bwd", route="cuda",
+            source="src/repro_torch/csrc/flash_attention_bwd.cu",
+            replaces="src/repro/kernels/attention.py:63",
+            max_abs_err=max((a.float() - w.float()).abs().max().item()
+                            for a, w in zip(got, want)),
+            ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+            library_ms=lib_ms)
+
+    # either side of the training shape: one sequence (a lone block on
+    # most SMs, so each tile step's latency shows) and t 2048 (enough
+    # tiles to fill the card: the products' rate shows)
+    for b, t in ((1, 512), (8, 2048)):
+        q, k, v = flash_case(b, 8, 8, 48, t, t, torch.bfloat16, SEED)
+        g = torch.Generator().manual_seed(SEED + 1)
+        do = torch.randn((b, 8, t, 48), generator=g).bfloat16().cuda()
+        o, lse = attention.flash_attention(q, k, v, return_lse=True)
+        ins = copies_for([q, k, v, o, lse, do])
+        fwd = time_ms(lambda q, k, v, *_: attention.flash_attention(
+            q, k, v, return_lse=True), ins)[0]
+        sdpa = time_ms(lambda q, k, v, *_: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), ins)[0]
+        bwd = time_ms(attention.flash_attention_bwd, ins)[0]
+        sdpa_bwd = sdpa_bwd_ms(ins)
+        shape = (b, 8, 8, 48, t, t, torch.bfloat16)
+        f_bound, b_bound = flash_bounds(*shape, True), flash_bwd_bounds(*shape)
+        print(f"flash at b={b} h=8 hd=48 t={t} bf16: forward with lse "
+              f"{fwd * 1e3:.2f} us (sdpa {sdpa * 1e3:.2f}, bound "
+              f"{f_bound[0] * 1e3:.3f} {f_bound[1]}), backward "
+              f"{bwd * 1e3:.2f} us (sdpa backward {sdpa_bwd * 1e3:.2f}, "
+              f"bound {b_bound[0] * 1e3:.3f} {b_bound[1]}) [{card}]",
+              flush=True)
     return records
+
+
+def sdpa_bwd_ms(ins) -> float:
+    """Device ms of the backward of PyTorch's SDPA alone on the (q, k, v,
+    o, lse, do) copies ins: its forward graph built once, the backward
+    replayed on it (the flash backward's yardstick)."""
+    import torch
+    import torch.nn.functional as F
+    sd_ins = []
+    for qq, kk, vv, _, _, dd in ins:
+        qq, kk, vv = (t.detach().requires_grad_() for t in (qq, kk, vv))
+        out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
+        sd_ins.append((out, qq, kk, vv, dd))
+    return time_ms(lambda out, qq, kk, vv, dd: torch.autograd.grad(
+        out, (qq, kk, vv), dd, retain_graph=True), sd_ins)[0]
 
 
 # ------------------------------------------ phase 2b: training kernels
@@ -385,25 +629,11 @@ def pam4_bound(nbytes):
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
-def flash_bwd_bounds(b, h, hkv, hd, sq, skv, dtype):
-    import torch
-    item = torch.tensor([], dtype=dtype).element_size()
-    pairs = sum(min(skv, r + (skv - sq) + 1) for r in range(sq))  # causal
-    flops = 10 * b * h * pairs * hd      # S, dP, dV, dK, dQ: 2 * hd each
-    nbytes = ((4 * b * h * sq * hd + 4 * b * hkv * skv * hd) * item
-              + 4 * b * h * sq)          # q, o, dO, dq; k, v, dk, dv; lse
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[str(dtype).split(".")[-1]] * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
 def check_training_kernels(card: str) -> dict:
-    """pam4 encode/decode and the flash backward (and the forward's lse)
-    vs their plain versions on the card; records of the training path's
-    shapes with timings."""
+    """pam4 encode/decode vs their plain versions on the card; records of
+    the training path's shapes with timings."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import attention, pam4, ref
+    from repro_torch.kernels import pam4, ref
 
     records = {}
     # a full 4 MiB bucket of 4 peers, and a ragged one
@@ -466,68 +696,6 @@ def check_training_kernels(card: str) -> dict:
                 ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                 library_ms=None)
 
-    bwd_cases = [
-        # (label, b, h, hkv, hd, sq, skv, dtype)
-        ("main", 8, 8, 8, 48, 512, 512, torch.bfloat16),
-        ("f32", 8, 8, 8, 48, 512, 512, torch.float32),
-        ("gqa_hd16", 4, 8, 2, 16, 300, 300, torch.float32),
-        ("gqa_shift", 2, 4, 2, 64, 100, 173, torch.bfloat16),
-        ("hd32", 2, 4, 4, 32, 70, 70, torch.float32),
-        ("hd128", 2, 4, 2, 128, 129, 129, torch.bfloat16),
-    ]
-    for label, b, h, hkv, hd, sq, skv, dt in bwd_cases:
-        q, k, v = flash_case(b, h, hkv, hd, sq, skv, dt, SEED)
-        g = torch.Generator().manual_seed(SEED + 1)
-        do = torch.randn((b, h, sq, hd), generator=g).to(dt).cuda()
-        o, lse = attention.flash_attention(q, k, v, return_lse=True)
-        o_ref, lse_ref = ref.attention_fwd_ref(q, k, v)
-        torch.cuda.synchronize()
-        f_err = (o.float() - o_ref.float()).abs().max().item()
-        l_err = (lse - lse_ref).abs().max().item()
-        tol = KERNEL_TOL[str(dt).split(".")[-1]]
-        if not (f_err <= tol and l_err <= KERNEL_TOL["float32"]):
-            raise AssertionError(f"flash forward with lse {label}: out "
-                                 f"{f_err}, lse {l_err}")
-        got = attention.flash_attention_bwd(q, k, v, o, lse, do)
-        want = ref.attention_bwd_ref(q, k, v, o, lse, do)
-        torch.cuda.synchronize()
-        rel = max(((a.float() - w.float()).abs().max()
-                   / w.float().abs().max()).item() for a, w in zip(got, want))
-        btol = BWD_TOL[str(dt).split(".")[-1]]
-        print(f"flash_attention_bwd {label}: b={b} h={h} hkv={hkv} hd={hd} "
-              f"sq={sq} skv={skv} {dt}: max_abs_err / max|grad| {rel:.3e} "
-              f"(tol {btol:.0e}); forward with lse: out {f_err:.3e}, lse "
-              f"{l_err:.3e}", flush=True)
-        if not rel <= btol:
-            raise AssertionError(f"flash_attention_bwd {label} disagrees "
-                                 f"with its plain version: {rel} > {btol}")
-        if label != "main":
-            continue
-        ins = copies_for([q, k, v, o, lse, do])
-        ms, host_ms = time_ms(attention.flash_attention_bwd, ins)
-        plain_ms, _ = time_ms(ref.attention_bwd_ref, ins, iters=10)
-        # yardstick: the backward of PyTorch's SDPA alone (its forward
-        # graph built once, the backward replayed on it)
-        sd_ins = []
-        for qq, kk, vv, _, _, dd in ins:
-            qq, kk, vv = (t.detach().requires_grad_() for t in (qq, kk, vv))
-            out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
-            sd_ins.append((out, qq, kk, vv, dd))
-        lib_ms, _ = time_ms(lambda out, qq, kk, vv, dd: torch.autograd.grad(
-            out, (qq, kk, vv), dd, retain_graph=True), sd_ins)
-        bound, by = flash_bwd_bounds(b, h, hkv, hd, sq, skv, dt)
-        print(f"flash_attention_bwd main timing: kernel {ms * 1e3:.2f} us "
-              f"(host {host_ms * 1e3:.2f} us), plain {plain_ms * 1e3:.2f} "
-              f"us, sdpa backward {lib_ms * 1e3:.2f} us, bound "
-              f"{bound * 1e3:.3f} us ({by}) [{card}]", flush=True)
-        records["flash_attention_bwd"] = dict(
-            name="flash_attention_bwd", route="cuda",
-            source="src/repro_torch/csrc/flash_attention_bwd.cu",
-            replaces="src/repro/kernels/attention.py:63",
-            max_abs_err=max((a.float() - w.float()).abs().max().item()
-                            for a, w in zip(got, want)),
-            ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-            library_ms=lib_ms)
     return records
 
 
@@ -890,6 +1058,22 @@ def pct(xs, q):
     return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
 
 
+def short_kernel(name: str) -> str:
+    """``flash_fwd_mma_kernel<48>`` of a demangled kernel name such as
+    ``void (anonymous namespace)::flash_fwd_mma_kernel<(int)48>(
+    __nv_bfloat16 const*, ...)`` (``<unnamed>::`` for cu++filt)."""
+    for part in ("(anonymous namespace)::", "<unnamed>::", "(int)"):
+        name = name.replace(part, "")
+    return name.removeprefix("void ").split("(")[0].strip()
+
+
+def kernel_name(key: str) -> str:
+    """``flash_fwd_mma_kernel`` of a profiler key such as ``void
+    (anonymous namespace)::flash_fwd_mma_kernel<48>(__nv_bfloat16 const*,
+    ...)``."""
+    return short_kernel(key).split("<")[0]
+
+
 def device_profile(prof, wall_s: float, card: str,
                    what: str = "serve window") -> dict:
     """Print the device's busy share of a profiled window (device time of
@@ -1049,6 +1233,12 @@ def train_full_width(card: str) -> dict:
             or launches["pam4_decode_dequantize"] != want_pam4):
         raise AssertionError(f"pam4 launches {launches}: want one encode and "
                              f"one decode per bucket, {want_pam4}")
+    want_flash = 30 * 4 * cfg.n_layers             # a layer and peer a step
+    if (launches["flash_attention"] != want_flash
+            or launches["flash_attention_bwd"] != want_flash):
+        raise AssertionError(f"flash launches {launches}: want one forward "
+                             f"and one backward per layer and peer, "
+                             f"{want_flash}")
 
     psum = train_run(["--sync", "psum"], 10)
     ptimes = [r["time_s"] for r in psum[3:]]
@@ -1057,8 +1247,17 @@ def train_full_width(card: str) -> dict:
           f" ms over steps 3-9; loss {psum[0]['loss']} -> {psum[-1]['loss']}"
           f" [{card}]", flush=True)
 
-    profile_train_step(card, SyncConfig(mode="optinc", bits=8, block=2048),
-                       "train step")
+    dev = profile_train_step(card, SyncConfig(mode="optinc", bits=8,
+                                              block=2048), "train step")
+    busy = sum(dev.values())
+    flash = {key: us for key, us in dev.items() if "flash" in key}
+    if busy:
+        print(f"flash kernels in the profiled train step: "
+              f"{sum(flash.values()) / 1e3:.3f} ms = "
+              f"{100 * sum(flash.values()) / busy:.2f}% of the device time ("
+              + ", ".join(f"{kernel_name(key)} {100 * us / busy:.2f}%"
+                          for key, us in sorted(flash.items()))
+              + f") [{card}]", flush=True)
     return launches
 
 
@@ -1600,12 +1799,15 @@ def main() -> int:
     print(f"built {sorted(paths)} in {time.perf_counter() - t:.1f} s",
           flush=True)
     for name, path in sorted(paths.items()):
+        if name.startswith("flash"):
+            continue                  # check_flash_kernels names each kernel
         log = Path(str(path) + ".log")
         for line in (log.read_text().splitlines() if log.exists() else []):
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
     records = check_kernels(card)
+    records.update(check_flash_kernels(card))
     records.update(check_training_kernels(card))
     records.update(check_onn_kernel(card))
     records.update(check_mesh_kernel(card))

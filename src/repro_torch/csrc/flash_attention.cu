@@ -1,37 +1,54 @@
 // Flash-attention prefill (forward) for Hopper (sm_90a).
 //
-// Replaces the TPU kernel repro/kernels/attention.py (flash_attention /
-// _flash_kernel), in the GQA-aware form of its twin
+// Replaces the TPU kernel src/repro/kernels/attention.py:63
+// (flash_attention / _flash_kernel), in the GQA-aware form of its twin
 // repro/models/layers.py:blocked_attention: online-softmax attention with
 // f32 m/l/acc, causal mask cols <= rows + (skv - sq), ragged mask
-// cols < skv, -1e30 for masked scores, output acc / max(l, 1e-30).
-//
-// What bounds it on the H100: at serving prefill shapes (hd 48, a few
-// hundred tokens) the work is ~4 * sq * skv * hd / 2 flops per head
-// against 4 * s * hd * itemsize bytes, i.e. tens of flops per byte --
-// below the bf16 tensor-core ridge, so the bound is bytes, and for long
-// prompts it becomes operations.  This first kernel computes in f32 on the
-// CUDA cores (no wgmma yet), so it runs far from either bound; the
-// numbers are in PERF.md.
-//
-// Design: one thread block per (64-row query tile, query head, batch row).
-// GQA is native: the block reads kv head = q head / rep, with no repeat.
-// The scaled Q tile stays in shared memory as f32; K/V tiles of 64 rows
-// stream through shared memory (widened to f32).  Two threads own each
-// query row: each scores 32 of the tile's 64 columns in registers, the
-// pair combines max and sum with one shuffle, writes its probabilities to
-// shared memory, and accumulates half of the row's head dims.  Tiles
-// wholly above the causal diagonal are never loaded; inside a tile the
-// causal and ragged masks score -1e30.  Rows past sq (the ragged query
-// tail) are computed on zero queries and not stored.  Shared rows are
-// padded by one float against bank conflicts.  Inputs may be strided
+// cols < skv, -1e30 for masked scores, output acc / max(l, 1e-30).  For
+// training it also writes each row's log-sum-exp m + log l (f32), which
+// the backward (flash_attention_bwd.cu) rebuilds the probabilities from;
+// serving passes a null pointer and writes none.  Inputs may be strided
 // (last dim contiguous), so the model's transposed views need no copy.
-// For training the kernel also writes each row's log-sum-exp m + log l
-// (f32), which the backward (flash_attention_bwd.cu) rebuilds the
-// probabilities from; serving passes a null pointer and writes none.
+//
+// What bounds it on the H100: at the model's shapes (hd 48, a few hundred
+// tokens) the work is 4 * hd flops per visible (row, column) pair against
+// 4 * s * hd * itemsize bytes a head, tens of flops per byte: below the
+// bf16 tensor-core ridge (~295), so the bound is bytes; long prompts
+// cross over to operations.  What keeps a kernel far from either is
+// feeding the tensor cores: S = Q K^T and O = P V are small products per
+// tile, so the loads, the softmax and the barriers between them decide.
+// Each tile step is a dependent chain (S, softmax, P V) run by one warp
+// a scheduler: with few tiles a block's chain of steps sets the time,
+// with many the mma.sync issue rate (PERF.md has the numbers).
+//
+// Design of the bf16 kernel (flash_fwd_mma_kernel), the path the model
+// runs: one block of four warps per (64-row query tile, query head, batch
+// row), each warp owning 16 query rows; GQA native (kv head = q head /
+// rep, no repeat).  The tile is the slowest grid index, so the heaviest
+// query tiles of every head start first.  The Q tile and the K/V tiles
+// stay bf16 in shared memory (rows padded against ldmatrix bank
+// conflicts, flash_mma.cuh), filled by 16-byte cp.async into three K/V
+// buffers, two copies in flight, so the next tiles' copies run under
+// this tile's products, with one barrier a tile.  A warp computes its
+// 16 x 64 block of S with mma.sync m16n8k16 (bf16 in, f32 sums; operands
+// by ldmatrix), scales it into the log2 domain (ex2 with log2(e) folded
+// into the scale), keeps the online softmax in registers (row max and sum
+// over the lane quad that shares a row, by shuffles), packs P to bf16
+// A fragments in registers (the C layout of S is the A layout of P) and
+// accumulates O += P V with V read by ldmatrix.trans.  Tiles wholly above
+// the causal diagonal are never loaded; masks are applied only in tiles
+// that cross the diagonal or the ragged end.  Query rows past sq are
+// computed on zero rows and not stored.
+//
+// f32 inputs keep the first kernel (flash_attention_kernel): f32 on the
+// CUDA cores, two threads a query row, K/V widened into f32 shared tiles.
+// It is exact enough for the card-vs-CPU f32 checks, which TF32 would
+// not be.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -181,6 +198,194 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------------------ bf16: tensor cores
+namespace fm = flash_mma;
+// K/V tile buffers: two copies in flight under a tile's products (three
+// read faster than two at t 256 and 512 on the H100)
+constexpr int kStages = 3;
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <int HD>
+constexpr size_t mma_smem_bytes() {
+  return (1 + 2 * kStages) * (size_t)fm::Tile<HD>::kBytes;  // Q, K, V
+}
+
+template <int HD>
+__global__ void __launch_bounds__(fm::kThreads)
+flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v,
+                     __nv_bfloat16* __restrict__ out,
+                     float* __restrict__ lse, int h, int hkv, int sq,
+                     int skv, long long qsb, long long qsh, long long qss,
+                     long long ksb, long long ksh, long long kss,
+                     long long vsb, long long vsh, long long vss,
+                     float scale) {
+  using Tl = fm::Tile<HD>;
+  constexpr int NB = HD / 8;               // 8-wide blocks of the head dim
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ks = qs + Tl::kElems;             // [kStages] tiles
+  __nv_bfloat16* vs = ks + kStages * Tl::kElems;   // [kStages] tiles
+
+  // the tile is the slowest grid index, so the heaviest tiles (most kv
+  // tiles) of every head start first and the light ones fill the tail
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * fm::kRows;
+  const int hq = blockIdx.x;
+  const int bi = blockIdx.y;
+  const int g = hq / (h / hkv);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int quad = lane >> 2, tq = lane & 3;
+  const int shift = skv - sq;
+  const __nv_bfloat16* kb = k + bi * ksb + g * ksh;
+  const __nv_bfloat16* vb = v + bi * vsb + g * vsh;
+
+  const int last_row = min(q0 + fm::kRows, sq) - 1;
+  const int kv_end = min(skv, last_row + shift + 1);
+  const int n_kv = (kv_end + fm::kRows - 1) / fm::kRows;
+
+  // K/V tile i goes to buffer i % kStages; kStages - 1 tiles in flight
+  auto issue = [&](int i) {
+    if (i < n_kv) {
+      const int buf = i % kStages;
+      fm::load_tile<HD>(ks + buf * Tl::kElems, kb, kss, i * fm::kRows, skv);
+      fm::load_tile<HD>(vs + buf * Tl::kElems, vb, vss, i * fm::kRows, skv);
+    }
+    fm::cp_async_commit();   // empty past the end: the count stays uniform
+  };
+  fm::load_tile<HD>(qs, q + bi * qsb + hq * qsh, qss, q0, sq);
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) issue(i);
+
+  const float sl2 = scale * fm::kLog2e;        // scores in log2 units
+  const int r_lo = q0 + 16 * warp + quad;  // this lane's rows r_lo, r_lo + 8
+  float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
+  float o[NB][4];
+#pragma unroll
+  for (int j = 0; j < NB; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+  for (int it = 0; it < n_kv; ++it) {
+    const int buf = it % kStages;
+    const int k0 = it * fm::kRows;
+    fm::cp_async_wait<kStages - 2>();   // tile it has landed
+    // ... for every thread, and every warp is done with tile it - 1,
+    // whose buffer the next copy refills
+    __syncthreads();
+    issue(it + kStages - 1);
+    const __nv_bfloat16* kt = ks + buf * Tl::kElems;
+    const __nv_bfloat16* vt = vs + buf * Tl::kElems;
+
+    float s[8][4];
+    fm::mma_abt_64<HD>(s, qs, 16 * warp, kt);
+
+    // mask only where the tile crosses the diagonal or the ragged end
+    const bool need_mask =
+        k0 + fm::kRows - 1 > q0 + shift || k0 + fm::kRows > skv;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * sl2;
+        if (need_mask) {
+          const int col = k0 + 8 * j + 2 * tq + (e & 1);
+          const int row = r_lo + 8 * (e >> 1);
+          if (col >= skv || col > row + shift) x = -1e30f;
+        }
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = fm::ex2(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = fm::ex2(s[j][e] - m[e >> 1]);
+        s[j][e] = p;
+        l[e >> 1] += p;          // this lane's columns; the quad sums last
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+    // O += P V: P from registers, V by ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t a[4];
+      fm::c_to_a(a, s[2 * kk], s[2 * kk + 1]);
+      fm::mma_a_bt<HD, NB>(o, a, vt, 16 * kk);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  const size_t base = ((size_t)bi * h + hq) * sq;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r_lo + 8 * r;
+    if (row >= sq) continue;
+    const float den = fmaxf(l[r], 1e-30f);
+    const float inv = 1.f / den;
+    __nv_bfloat16* orow = out + (base + row) * HD + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
+    if (lse != nullptr && tq == 0) lse[base + row] = m[r] * kLn2 + logf(den);
+  }
+}
+
+template <int HD>
+int launch_mma(const void* q, const void* k, const void* v, void* out,
+               float* lse, int b, int h, int hkv, int sq, int skv,
+               const long long* st, float scale, cudaStream_t stream) {
+  constexpr size_t smem = mma_smem_bytes<HD>();
+  auto kernel = flash_fwd_mma_kernel<HD>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid(h, b, (sq + fm::kRows - 1) / fm::kRows);
+  kernel<<<grid, fm::kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<__nv_bfloat16*>(out), lse, h, hkv, sq, skv, st[0], st[1],
+      st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale);
+  return (int)cudaGetLastError();
+}
+
+int dispatch_mma(const void* q, const void* k, const void* v, void* out,
+                 float* lse, int b, int h, int hkv, int sq, int skv, int hd,
+                 const long long* st, float scale, cudaStream_t s) {
+  switch (hd) {
+    case 16: return launch_mma<16>(q, k, v, out, lse, b, h, hkv, sq, skv, st, scale, s);
+    case 32: return launch_mma<32>(q, k, v, out, lse, b, h, hkv, sq, skv, st, scale, s);
+    case 48: return launch_mma<48>(q, k, v, out, lse, b, h, hkv, sq, skv, st, scale, s);
+    case 64: return launch_mma<64>(q, k, v, out, lse, b, h, hkv, sq, skv, st, scale, s);
+    case 128: return launch_mma<128>(q, k, v, out, lse, b, h, hkv, sq, skv, st, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// ------------------------------------------------ f32: CUDA cores
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, int b, int h, int hkv, int sq, int skv,
@@ -236,8 +441,12 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (dtype == 0)
     return dispatch_hd<float>(q, k, v, out, static_cast<float*>(lse), b, h,
                               hkv, sq, skv, hd, st, scale, s);
-  if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(q, k, v, out, static_cast<float*>(lse),
-                                      b, h, hkv, sq, skv, hd, st, scale, s);
+  if (dtype == 1) {
+    const void* ptrs[3] = {q, k, v};
+    if (!fm::rows_aligned(ptrs, 3, st, 9))
+      return (int)cudaErrorMisalignedAddress;
+    return dispatch_mma(q, k, v, out, static_cast<float*>(lse), b, h, hkv,
+                        sq, skv, hd, st, scale, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -3,8 +3,9 @@
 Each source is compiled by ``nvcc`` on its own into a shared library with
 a plain C interface, for Hopper only (``sm_90a``), and loaded with
 ``ctypes``.  Libraries land in ``build/kernels/`` at the root of the
-checkout, named by a hash of the source and the flags, so a build is
-reused until its source changes.  Nothing here runs at import: the first
+checkout, named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so a build is reused until one of them
+changes.  Nothing here runs at import: the first
 launch builds what it needs, and ``build()`` builds every source at once,
 one ``nvcc`` process per source, all started together.
 
@@ -40,10 +41,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where source ``csrc/<name>.cu`` builds to (content-addressed)."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{key[:16]}.so"
+    """Where source ``csrc/<name>.cu`` builds to (content-addressed: the
+    source, every shared header ``csrc/*.cuh`` and the flags)."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=None) -> dict:

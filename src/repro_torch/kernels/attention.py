@@ -27,6 +27,20 @@ _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
+_MAX_ROW_STRIDE = 1 << 24   # elements; flash_mma.cuh kMaxRowStride
+
+
+def _kernel_rows(t: torch.Tensor) -> torch.Tensor:
+    """t itself if the bf16 kernels can copy its rows by 16-byte loads
+    (data pointer and batch, head and row strides 16-byte aligned, row
+    stride below 2^24 elements), else a contiguous copy of it."""
+    item = t.element_size()
+    if (t.data_ptr() % 16 == 0 and t.stride(2) < _MAX_ROW_STRIDE
+            and all(s * item % 16 == 0 for s in t.stride()[:3])):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     return_lse: bool = False):
     """Causal multi-head GQA attention.  q: (b, h, sq, hd); k/v: (b, hkv,
@@ -35,7 +49,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     transposed views need no copy).  Query row r sees key columns c <= r + (skv -
     sq), which needs skv >= sq.  Returns (b, h, sq, hd) in q.dtype, and
     with ``return_lse`` also the per-row log-sum-exp of the scaled scores
-    (b, h, sq) f32, which the backward needs."""
+    (b, h, sq) f32, which the backward needs.  bf16 runs on the tensor
+    cores, whose kernel reads rows by 16-byte copies: a view whose rows
+    are not 16-byte aligned (or lie 2^24 elements apart or more) is
+    copied first."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(f"flash_attention wants 4-d q/k/v, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -66,6 +83,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{_HEAD_DIMS}, got {hd}")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("flash_attention needs each last dim contiguous")
+    if q.dtype == torch.bfloat16:
+        q, k, v = (_kernel_rows(t) for t in (q, k, v))
     out = torch.empty((b, h, sq, hd), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
@@ -91,7 +110,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     forward took them; do: (b, h, sq, hd) with its last dim contiguous;
     o: contiguous (b, h, sq, hd), lse: contiguous (b, h, sq) f32.
     Returns dq (b, h, sq, hd) and dk/dv (b, hkv, skv, hd), contiguous,
-    in the input dtype.  Deterministic: no atomics."""
+    in the input dtype.  Deterministic: no atomics.  bf16 runs on the
+    tensor cores and copies views its kernels cannot read in place, as
+    the forward does."""
     b, h, sq, hd = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     if (o.shape != q.shape or do.shape != q.shape or lse.shape != (b, h, sq)
@@ -120,6 +141,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             o.is_contiguous() and lse.is_contiguous()):
         raise ValueError("flash_attention_bwd needs q/k/v/do last dims "
                          "contiguous and o, lse contiguous")
+    if q.dtype == torch.bfloat16:
+        q, k, v, o, do = (_kernel_rows(t) for t in (q, k, v, o, do))
     dq = torch.empty((b, h, sq, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, hkv, skv, hd), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)

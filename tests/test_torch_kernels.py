@@ -198,6 +198,22 @@ def test_flash_wrapper_routes_cpu_to_plain_and_rejects_bad_input():
         attention.flash_attention(q.to("meta"), k.to("meta"), k.to("meta"))
 
 
+def test_flash_wrapper_copies_rows_the_bf16_kernels_cannot_read():
+    """The bf16 tensor-core kernels copy rows by 16-byte loads: a view
+    whose data pointer or strides break that alignment is handed to them
+    as a contiguous copy; an aligned strided view (the model's transposed
+    q/k/v) is passed as it is."""
+    x = torch.zeros((1, 8, 2, 16), dtype=torch.bfloat16).transpose(1, 2)
+    assert attention._kernel_rows(x) is x
+    buf = torch.arange(257, dtype=torch.float32).bfloat16()
+    off = buf[1:].view(1, 2, 8, 16)                 # 2 bytes off
+    wide = buf[:240].view(1, 2, 6, 20)[..., :16]    # 40-byte rows
+    for t in (off, wide):
+        got = attention._kernel_rows(t)
+        assert got is not t and got.is_contiguous()
+        assert got.data_ptr() % 16 == 0 and torch.equal(got, t)
+
+
 # ------------------------------------------------- flash backward
 # f32 gradients of O(1) inputs, both sides summing in f32 in other
 # orders (online vs straight softmax, the JAX scan's tiles): a few ulp
@@ -276,6 +292,121 @@ def test_flash_bwd_wrapper_rejects_bad_input():
         attention.flash_attention_bwd(*(a.to("meta") for a in args))
 
 
+# ------------------------------------ the tensor-core kernels' rounding
+# chip_smoke.py's bf16 tolerances (kernel vs plain on the card): forward
+# output max abs, backward max abs over the largest |gradient|, lse max
+# abs.  An emulation of the kernels' rounding must stay within a third
+# of each, so that a design whose rounding errs by more than that fails
+# here before it costs a chip run.
+CHIP_FWD_TOL, CHIP_BWD_TOL, CHIP_LSE_TOL = 2e-2, 3e-2, 2e-5
+LOG2E = 1.4426950408889634
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _emulated_fwd(q, k, v):
+    """The bf16 forward kernel's arithmetic on the CPU: f32 S = Q K^T of
+    the bf16 inputs, scaled after the product into log2 units, the
+    online softmax over 64-column tiles in f32, P rounded to bf16 before
+    P V.  Returns the f32 output before its bf16 cast, and the lse."""
+    b, h, sq, hd = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    rep = h // hkv
+    qf = q.float().reshape(b, hkv, rep, sq, hd)
+    kf, vf = k.float(), v.float()
+    rows = torch.arange(sq)[:, None] + (skv - sq)
+    m = torch.full((b, hkv, rep, sq, 1), -1e30)
+    l = torch.zeros((b, hkv, rep, sq, 1))
+    o = torch.zeros((b, hkv, rep, sq, hd))
+    for k0 in range(0, skv, 64):
+        s = torch.einsum("bgrqd,bgkd->bgrqk", qf, kf[:, :, k0:k0 + 64])
+        s = s * np.float32(hd ** -0.5 * LOG2E)
+        cols = torch.arange(k0, min(k0 + 64, skv))[None, :]
+        s = s.masked_fill(cols > rows, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + torch.einsum("bgrqk,bgkd->bgrqd", _bf16(p),
+                                     vf[:, :, k0:k0 + 64])
+        m = m_new
+    out = o / l.clamp_min(1e-30)
+    lse = m / np.float32(LOG2E) + torch.log(l.clamp_min(1e-30))
+    return out.reshape(b, h, sq, hd), lse.reshape(b, h, sq)
+
+
+def _emulated_bwd(q, k, v, o, lse, do):
+    """The bf16 backward kernels' arithmetic on the CPU: S and dP = dO V^T
+    in f32 from the bf16 inputs, P = exp2(S scale log2(e) - lse log2(e)),
+    dS = P (dP - D) in f32; P and dS rounded to bf16 before dV = P^T dO,
+    dK = scale dS^T Q and dQ = scale dS K."""
+    b, h, sq, hd = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    rep = h // hkv
+    qf = q.float().reshape(b, hkv, rep, sq, hd)
+    dof = do.float().reshape(b, hkv, rep, sq, hd)
+    s = torch.einsum("bgrqd,bgkd->bgrqk", qf, k.float())
+    l2 = lse.reshape(b, hkv, rep, sq, 1) * np.float32(LOG2E)
+    p = torch.exp2(s * np.float32(hd ** -0.5 * LOG2E) - l2)
+    rows = torch.arange(sq)[:, None] + (skv - sq)
+    p = p.masked_fill(torch.arange(skv)[None, :] > rows, 0.0)
+    dp = torch.einsum("bgrqd,bgkd->bgrqk", dof, v.float())
+    dsum = (dof * o.float().reshape(b, hkv, rep, sq, hd)).sum(-1,
+                                                                keepdim=True)
+    ds = _bf16(p * (dp - dsum))
+    dv = torch.einsum("bgrqk,bgrqd->bgkd", _bf16(p), dof)
+    dk = torch.einsum("bgrqk,bgrqd->bgkd", ds, qf) * np.float32(hd ** -0.5)
+    dq = torch.einsum("bgrqk,bgkd->bgrqd", ds, k.float()) * np.float32(
+        hd ** -0.5)
+    return dq.reshape(b, h, sq, hd), dk, dv
+
+
+def _bf16_case(b, h, hkv, hd, sq, skv, seed):
+    rng = np.random.default_rng(seed)
+    return [_t(rng.normal(size=s).astype(np.float32)).bfloat16()
+            for s in ((b, h, sq, hd), (b, hkv, skv, hd), (b, hkv, skv, hd),
+                      (b, h, sq, hd))]
+
+
+BF16_CASES = [
+    (1, 8, 8, 48, 512, 512),    # paper_llama's heads at the training length
+    (1, 8, 2, 48, 512, 512),    # GQA rep 4
+    (1, 8, 2, 48, 300, 512),    # GQA, fewer queries than keys (shifted)
+]
+
+
+@pytest.mark.parametrize("b,h,hkv,hd,sq,skv", BF16_CASES)
+def test_tensor_core_forward_rounding_fits_the_chip_tolerance(
+        b, h, hkv, hd, sq, skv):
+    """The forward's output in f32 before its bf16 cast (the cast alone
+    can flip one bf16 ulp, 7.8e-3 at |o| in [1, 2)) and its lse."""
+    q, k, v, _ = _bf16_case(b, h, hkv, hd, sq, skv, sq + hkv)
+    got, lse = _emulated_fwd(q, k, v)
+    want, want_lse = ref.attention_fwd_ref(q.float(), k.float(), v.float())
+    assert (got - want).abs().max().item() <= CHIP_FWD_TOL / 3
+    assert (lse - want_lse).abs().max().item() <= CHIP_LSE_TOL / 3
+
+
+@pytest.mark.parametrize("b,h,hkv,hd,sq,skv", BF16_CASES)
+def test_tensor_core_backward_rounding_fits_the_chip_tolerance(
+        b, h, hkv, hd, sq, skv):
+    """dq, dk, dv of the emulated kernels against attention_bwd_ref on
+    the same bf16 inputs, output and lse (max abs error over the largest
+    |gradient|, as chip_smoke.py compares the card's kernels), both in
+    f32 before the final bf16 cast, which alone can move a gradient by
+    2^-8 of its size."""
+    q, k, v, do = _bf16_case(b, h, hkv, hd, sq, skv, sq + hkv + 1)
+    o, lse = ref.attention_fwd_ref(q, k, v)
+    got = _emulated_bwd(q, k, v, o, lse, do)
+    want = ref.attention_bwd_ref(q.float(), k.float(), v.float(), o.float(),
+                                 lse, do.float())
+    for g, w, name in zip(got, want, "qkv"):
+        rel = ((g - w).abs().max() / w.abs().max()).item()
+        assert rel <= CHIP_BWD_TOL / 3, f"d{name}: {rel}"
+
+
 # ------------------------------------------------------------- build
 def test_build_is_content_addressed_and_reuses_a_current_build(
         tmp_path, monkeypatch):
@@ -293,6 +424,23 @@ def test_build_is_content_addressed_and_reuses_a_current_build(
         p.write_bytes(b"")
     assert _build.build() == paths
     assert _build.library_path(names[0]) == paths[names[0]]
+
+
+def test_build_key_covers_the_shared_headers(tmp_path, monkeypatch):
+    """Editing a header that a source includes (csrc/*.cuh) changes the
+    library path, so a stale build is never reused."""
+    assert (_build.CSRC / "flash_mma.cuh").exists()
+    for name in ("flash_attention.cu", "flash_mma.cuh"):
+        (tmp_path / name).write_bytes((_build.CSRC / name).read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.library_path("flash_attention")
+    assert _build.library_path("flash_attention") == before
+    header = tmp_path / "flash_mma.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    edited = _build.library_path("flash_attention")
+    assert edited != before
+    (tmp_path / "other.cuh").write_text("// a new header\n")
+    assert _build.library_path("flash_attention") not in (before, edited)
 
 
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):
