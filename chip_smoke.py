@@ -26,11 +26,20 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    The same window is then served a few more times for the spread of
    tokens/s and step times, and once under ``torch.profiler`` for the
    device's busy share and the device time of each kernel.
-   2c. The ``onn_layer`` kernel against its plain version at every
-   layer of the bits-8 ONN (4-64-128-256-128-64-4) and of the exact
-   identity ONN (1-4-1) over one full bucket of rows, and at a ragged
-   shape with a diagonal d != 1 and no ReLU; timed beside its plain
-   version and ``torch.addmm`` (+ ReLU) in f32 without TF32.
+   2c. The ``onn_layer`` kernel (``check_onn_kernel``): each kernel's
+   registers and spills; every layer of the bits-8 ONN
+   (4-64-128-256-128-64-4) and of the exact identity ONN (1-4-1) over
+   one full bucket of rows on the form the wrapper's plan picks, and
+   the edges of each form (rows 1, 127, 129, 1000; a partial k chunk;
+   masked columns; a ring that runs across row tiles; an x view off the
+   16-byte alignment; a ragged shape with d != 1), each against its
+   plain version, twice for identical bits and equal to the general
+   form; timed at every bucket shape beside the general form (the first
+   kernel), the plain version, one PyTorch call
+   (``torch._addmm_activation`` with its fused ReLU, ``torch.addmm`` for
+   the last layer) and ``addmm`` + ``relu``, all in f32 without TF32.
+   Alone: ``python3 -c 'import chip_smoke as c;
+   c.check_onn_kernel(c.card_line())'``.
    2d. The ``mesh_scan_blocks`` kernel against its plain version on
    random Givens-programmed meshes of every width of the mesh path (4,
    64, 128, 256; B = 1, 2 and 16), both transposes, shared and blocked
@@ -329,63 +338,87 @@ def check_kernels(card: str) -> dict:
     return records
 
 
+def _tool(name: str):
+    """A CUDA toolkit program on PATH or in /usr/local/cuda/bin, or None."""
+    import shutil
+    found = Path("/usr/local/cuda/bin") / name
+    return shutil.which(name) or (str(found) if found.exists() else None)
+
+
+def ptxas_stats(path) -> list:
+    """[(short name, mangled name, {"regs", "spill", "smem"})] of every
+    kernel in a library built by ``_build`` (its ``-Xptxas -v`` log),
+    demangled where cu++filt exists."""
+    import re
+    stats, fn = {}, None
+    for line in Path(str(path) + ".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+            stats[fn] = {"spill": [0, 0]}
+        elif fn and "spill" in line:
+            stats[fn]["spill"] = [int(x) for x in re.findall(
+                r"(\d+) bytes spill", line)]
+        elif fn and "Used" in line:
+            stats[fn]["regs"] = int(re.search(r"Used (\d+) registers",
+                                              line).group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            stats[fn]["smem"] = int(m.group(1)) if m else 0
+    names = list(stats)
+    filt = _tool("cu++filt") or _tool("c++filt")
+    if filt and names:
+        out = subprocess.run([filt], input="\n".join(names),
+                             capture_output=True, text=True,
+                             timeout=60).stdout.splitlines()
+        if len(out) == len(names):
+            names = [short_kernel(n) for n in out]
+    return [(short, fn, st) for short, (fn, st) in zip(names, stats.items())]
+
+
+def sass_counts(path, ops) -> dict:
+    """{mangled kernel name: {op: instructions}} for the SASS opcodes
+    ``ops`` (matched as prefixes) in a built library, or {} without
+    cuobjdump."""
+    import re
+    objdump = _tool("cuobjdump")
+    if not objdump:
+        return {}
+    sass = subprocess.run([objdump, "-sass", str(path)], capture_output=True,
+                          text=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = dict.fromkeys(ops, 0)
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)",
+                      line)
+        if fn and m:
+            for op in ops:
+                if m.group(1).startswith(op):
+                    counts[fn][op] += 1
+    return counts
+
+
 def flash_build_report(card: str) -> None:
     """Registers, spills and shared memory of every kernel of the two
     flash sources (nvcc -Xptxas -v), and the HMMA instructions of each
     where cuobjdump exists.  Raises if a head-dim-48 tensor-core kernel
     spills."""
-    import re
-    import shutil
     from repro_torch.kernels import _build
 
-    def tool(name):
-        found = Path("/usr/local/cuda/bin") / name
-        return shutil.which(name) or (str(found) if found.exists() else None)
-
     paths = _build.build(["flash_attention", "flash_attention_bwd"])
-    filt, objdump = tool("cu++filt") or tool("c++filt"), tool("cuobjdump")
     for name, path in sorted(paths.items()):
-        stats, fn = {}, None
-        for line in Path(str(path) + ".log").read_text().splitlines():
-            m = re.search(r"Compiling entry function '(\w+)'", line)
-            if m:
-                fn = m.group(1)
-                stats[fn] = {}
-            elif fn and "spill" in line:
-                stats[fn]["spill"] = [int(x) for x in re.findall(
-                    r"(\d+) bytes spill", line)]
-            elif fn and "Used" in line:
-                stats[fn]["regs"] = int(re.search(r"Used (\d+) registers",
-                                                  line).group(1))
-                m = re.search(r"(\d+) bytes smem", line)
-                stats[fn]["smem"] = int(m.group(1)) if m else 0
-        hmma = {}
-        if objdump:
-            sass = subprocess.run([objdump, "-sass", str(path)],
-                                  capture_output=True, text=True,
-                                  timeout=300).stdout
-            fn = None
-            for line in sass.splitlines():
-                m = re.search(r"Function : (\w+)", line)
-                if m:
-                    fn = m.group(1)
-                    hmma[fn] = 0
-                elif fn and "HMMA" in line:
-                    hmma[fn] += 1
-        names = list(stats)
-        if filt and names:
-            out = subprocess.run([filt], input="\n".join(names),
-                                 capture_output=True, text=True,
-                                 timeout=60).stdout.splitlines()
-            if len(out) == len(names):
-                names = [short_kernel(n) for n in out]
-        for short, (fn, st) in zip(names, stats.items()):
-            spill = st.get("spill", [0, 0])
+        hmma = sass_counts(path, ("HMMA",))
+        for short, fn, st in ptxas_stats(path):
+            spill = st["spill"]
+            count = (hmma[fn]["HMMA"] if fn in hmma
+                     else "not counted (no cuobjdump)")
             print(f"  {name}: {short}: {st.get('regs')} registers, "
                   f"{spill[0]} bytes spill stores, {spill[1]} bytes spill "
                   f"loads, {st.get('smem', 0)} bytes static smem; HMMA "
-                  f"{hmma.get(fn, 'not counted (no cuobjdump)')}",
-                  flush=True)
+                  f"{count}", flush=True)
             if "_mma_" in short and "<48>" in short and any(spill):
                 raise AssertionError(f"{short} spills registers: {spill}")
     print(f"flash build report done [{card}]", flush=True)
@@ -709,65 +742,275 @@ def onn_bound(rows, n, m):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def onn_build_report(card: str) -> list:
+    """Registers, spills and shared memory of every onn_layer kernel, and
+    the FFMA, 128-bit shared loads and cp.async copies of each where
+    cuobjdump exists.  Returns the wide-form kernels that spill."""
+    from repro_torch.kernels import _build
+    path = _build.build(["onn_layer"])["onn_layer"]
+    ops = ("FFMA", "LDS.128", "LDGSTS")
+    sass = sass_counts(path, ops)
+    spilling = []
+    for short, fn, st in ptxas_stats(path):
+        spill = st["spill"]
+        count = (", ".join(f"{op} {sass[fn][op]}" for op in ops)
+                 if fn in sass else "SASS not counted (no cuobjdump)")
+        print(f"  onn_layer: {short}: {st.get('regs')} registers, "
+              f"{spill[0]} bytes spill stores, {spill[1]} bytes spill loads, "
+              f"{st.get('smem', 0)} bytes static smem; {count} [{card}]",
+              flush=True)
+        if "wide" in short and any(spill):
+            spilling.append(short)
+    return spilling
+
+
+def onn_inputs(rows, n, m, random_d, g, offset=False):
+    """x (rows, n), w (m, n), d, b on the card; x a view 4 bytes past
+    the start of its buffer on the card when ``offset``."""
+    import torch
+    x = torch.randn((rows * n + offset,), generator=g).cuda()
+    x = x[int(offset):].view(rows, n)
+    w = torch.randn((m, n), generator=g) * (2.0 / n) ** 0.5
+    d = torch.randn((m,), generator=g) if random_d else torch.ones(m)
+    b = torch.randn((m,), generator=g) * 0.1
+    return [x] + [t.cuda() for t in (w, d, b)]
+
+
+def check_onn_case(label, x, w, d, b, relu, want_form=None):
+    """One phase-2c case: the wrapper's form against the plain version
+    within ONN_TOL of max|y|, twice for identical bits, and equal to the
+    general form (every form sums in one order).  Returns the form and
+    the max abs error."""
+    import torch
+    from repro_torch.kernels import onn_layer, ref
+    (rows, n), m = x.shape, w.shape[0]
+    y = torch.empty((rows, m), device="cuda")
+    form = onn_layer.plan(rows, n, m, x.data_ptr(), y.data_ptr(),
+                          onn_layer._sms(x.device.index)).form
+    got = onn_layer.onn_layer(x, w, d, b, relu)
+    again = onn_layer.onn_layer(x, w, d, b, relu)
+    general = onn_layer.onn_layer_general(x, w, d, b, relu)
+    want = ref.onn_layer_ref(x, w, d, b, relu)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    rel = err / max(want.abs().max().item(), 1e-30)
+    same = torch.equal(got.view(torch.int32), again.view(torch.int32))
+    as_general = torch.equal(got, general)
+    print(f"onn_layer {label}: rows={rows} n={n} m={m} relu={relu} form "
+          f"{form}: max_abs_err {err:.3e}, / max|y| {rel:.3e} (tol "
+          f"{ONN_TOL:.0e}); two calls bit-identical {same}; equal to the "
+          f"general form {as_general}", flush=True)
+    if not (rel <= ONN_TOL and same and as_general):
+        raise AssertionError(f"onn_layer {label} ({form} form) disagrees")
+    if want_form and form != want_form:
+        raise AssertionError(f"onn_layer {label}: form {form}, want "
+                             f"{want_form}")
+    return form, err
+
+
 def check_onn_kernel(card: str) -> dict:
-    """onn_layer vs its plain version on the card at the onn path's
-    shapes; the record of the widest bits-8 layer, with timings."""
+    """onn_layer on the card (phase 2c): every bits-8 layer and the exact
+    identity's two over one bucket, then the edges of each form (rows 1,
+    127, 129, 1000; a partial k chunk; masked columns; an x view off the
+    16-byte alignment; a ragged d != 1 layer), each against its plain
+    version, twice for identical bits and against the general form; then
+    at every bucket shape the form the wrapper picks, the general form
+    (the first kernel), the plain version, one PyTorch call
+    (``torch._addmm_activation`` with its fused ReLU, ``torch.addmm`` for
+    the last layer) and ``addmm`` + ``relu``, beside the bound.  Returns
+    the record of the widest bits-8 layer.  Alone: ``python3 -c 'import
+    chip_smoke as c; c.check_onn_kernel(c.card_line())'``."""
     import torch
     from repro_torch.kernels import onn_layer, ref
 
+    spilling = onn_build_report(card)
     g = torch.Generator().manual_seed(SEED + 3)
     dims = list(zip(ONN8_STRUCTURE[:-1], ONN8_STRUCTURE[1:]))
-    cases = [(f"bits8 {n}->{m}", BUCKET_ROWS, n, m, i < len(dims) - 1,
-              False) for i, (n, m) in enumerate(dims)]
-    cases += [("exact 1->4", BUCKET_ROWS, 1, 4, True, False),
-              ("exact 4->1", BUCKET_ROWS, 4, 1, False, False),
-              ("ragged d!=1", 1000, 37, 300, False, True)]
+    bucket = [(f"bits8 {n}->{m}", n, m, i < len(dims) - 1)
+              for i, (n, m) in enumerate(dims)]
+    bucket += [("exact 1->4", 1, 4, True), ("exact 4->1", 4, 1, False)]
+    edges = []
+    # (label, rows, n, m, random d, x off the alignment, the form wanted);
+    # up to 1000 rows there are fewer row tiles than blocks
+    for n, m, form in ((128, 256, "wide"), (256, 128, "wide"),
+                       (128, 64, "wide"), (4, 64, "fan_out"),
+                       (1, 4, "fan_out"), (4, 1, "fan_out"),
+                       (64, 4, "fan_in"), (64, 2, "fan_in")):
+        edges += [(f"edge {n}->{m}", rows, n, m, False, False, form)
+                  for rows in (1, 127, 129, 1000)]
+    edges += [("partial k chunk, masked columns", 1000, 36, 300, True,
+               False, "wide"),
+              ("partial k chunk, masked columns", 1000, 100, 12, True,
+               False, "wide"),
+              ("157 row tiles over 132 blocks", 20000, 64, 128, False,
+               False, "wide"),
+              ("x 4 bytes off", 1000, 128, 256, False, True, "general"),
+              ("ragged d!=1", 1000, 37, 300, True, False, "general")]
+    n_cases = 0
+    for label, rows, n, m, random_d, offset, form in edges:
+        x, w, d, b = onn_inputs(rows, n, m, random_d, g, offset)
+        check_onn_case(label, x, w, d, b, rows % 2 == 1, form)
+        n_cases += 1
+
     records = {}
-    for label, rows, n, m, relu, random_d in cases:
-        x = torch.randn((rows, n), generator=g).cuda()
-        w = (torch.randn((m, n), generator=g) * (2.0 / n) ** 0.5).cuda()
-        d = (torch.randn((m,), generator=g) if random_d
-             else torch.ones(m)).cuda()
-        b = (torch.randn((m,), generator=g) * 0.1).cuda()
-        got = onn_layer.onn_layer(x, w, d, b, relu)
-        want = ref.onn_layer_ref(x, w, d, b, relu)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        rel = err / want.abs().max().item()
-        print(f"onn_layer {label}: rows={rows} n={n} m={m} relu={relu}: "
-              f"max_abs_err {err:.3e}, / max|y| {rel:.3e} (tol "
-              f"{ONN_TOL:.0e})", flush=True)
-        if not rel <= ONN_TOL:
-            raise AssertionError(f"onn_layer {label} disagrees with its "
-                                 f"plain version: {rel} > {ONN_TOL}")
-        if rows != BUCKET_ROWS:
-            continue
+    for label, n, m, relu in bucket:
+        x, w, d, b = onn_inputs(BUCKET_ROWS, n, m, False, g)
+        form, err = check_onn_case(label, x, w, d, b, relu)
+        n_cases += 1
         ins = copies_for([x, w, d, b])
         ms, host_ms = time_ms(
             lambda *a: onn_layer.onn_layer(*a, relu=relu), ins)
+        general_ms, _ = time_ms(
+            lambda *a: onn_layer.onn_layer_general(*a, relu=relu), ins)
         plain_ms, _ = time_ms(
             lambda *a: ref.onn_layer_ref(*a, relu=relu), ins, iters=20)
 
-        def addmm(x, w, d, b):                 # d is 1 on these layers
+        def one_call(x, w, d, b):              # d is 1 on these layers
+            return (torch._addmm_activation(b, x, w.T) if relu
+                    else torch.addmm(b, x, w.T))
+
+        def addmm_relu(x, w, d, b):
             y = torch.addmm(b, x, w.T)
             return torch.relu(y) if relu else y
 
-        lib_ms, _ = time_ms(addmm, ins)
-        bound, by = onn_bound(rows, n, m)
-        print(f"onn_layer {label} timing: kernel {ms * 1e3:.2f} us (host "
-              f"{host_ms * 1e3:.2f} us), plain {plain_ms * 1e3:.2f} us, "
-              f"addmm{' + relu' if relu else ''} {lib_ms * 1e3:.2f} us, "
-              f"bound {bound * 1e3:.3f} us ({by}); kernel at "
-              f"{100 * bound / ms:.1f}% of its bound [{card}]", flush=True)
+        lib_ms, _ = time_ms(one_call, ins)
+        two_ms, _ = time_ms(addmm_relu, ins)
+        want = ref.onn_layer_ref(x, w, d, b, relu)
+        lib_err = ((one_call(x, w, d, b) - want).abs().max()
+                   / want.abs().max()).item()
+        bound, by = onn_bound(BUCKET_ROWS, n, m)
+        print(f"onn_layer {label} timing: {form} form {ms * 1e3:.2f} us "
+              f"(host {host_ms * 1e3:.2f} us), general form (the first "
+              f"kernel) {general_ms * 1e3:.2f} us, plain "
+              f"{plain_ms * 1e3:.2f} us, one call "
+              f"({'_addmm_activation' if relu else 'addmm'}, within "
+              f"{lib_err:.1e}) {lib_ms * 1e3:.2f} us, addmm"
+              f"{' + relu' if relu else ''} {two_ms * 1e3:.2f} us, bound "
+              f"{bound * 1e3:.3f} us ({by}); {form} form at "
+              f"{100 * bound / ms:.1f}% of its bound, general at "
+              f"{100 * bound / general_ms:.1f}% [{card}]", flush=True)
         if label == "bits8 128->256":
             records["onn_layer"] = dict(
                 name="onn_layer", route="cuda",
                 source="src/repro_torch/csrc/onn_layer.cu",
                 replaces="src/repro/kernels/onn_layer.py:38",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=by, library_ms=lib_ms)
-        del ins
+                max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms)
+        del ins, want
+    print(f"onn_layer: {n_cases} cases within {ONN_TOL:.0e} of max|y|, "
+          f"bit-identical twice and equal to the general form [{card}]",
+          flush=True)
+    if spilling:
+        raise AssertionError(f"wide-form kernels spill registers: "
+                             f"{spilling}")
     return records
+
+
+ISSUE_PROBE_CU = r"""
+// FFMA rate of a TM x 8 tile of register sums, 256 threads a block, one
+// block an SM: alone, and fed by the 128-bit shared loads the wide form
+// of onn_layer issues (TM + 8 a 4 k, each quarter warp reading 4 or 2
+// distinct 16-byte words, as there).
+#include <cstdio>
+#include <cuda_runtime.h>
+template <int TM, bool LOADS>
+__global__ void __launch_bounds__(256, 1) probe(int iters, float* sink) {
+  __shared__ float4 s[2048];
+  for (int i = threadIdx.x; i < 2048; i += blockDim.x)
+    s[i] = make_float4(1e-7f, 1e-7f, 1e-7f, 1e-7f);
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int xo = (lane & 3) * 9, wo = ((lane >> 2) & 1) * 36 + 1024;
+  float acc[TM][8];
+  float4 a[TM], v[8];
+  for (int i = 0; i < TM; ++i) {
+    a[i] = make_float4(threadIdx.x * 1e-3f, i, 1, 2);
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  }
+  for (int j = 0; j < 8; ++j) v[j] = make_float4(j * 1e-3f, 3, 4, 5);
+  for (int it = 0; it < iters; ++it) {
+    if (LOADS) {
+      const int o = it & 7;
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = s[xo + i * 36 + o];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = s[wo + j * 9 + o];
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i].x, v[j].x, acc[i][j]);
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i].y, v[j].y, acc[i][j]);
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i].z, v[j].z, acc[i][j]);
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i].w, v[j].w, acc[i][j]);
+  }
+  float sum = 0.f;
+  for (int i = 0; i < TM; ++i)
+    for (int j = 0; j < 8; ++j) sum += acc[i][j];
+  if (sum == 1.2345f) sink[0] = sum;
+}
+template <int TM, bool LOADS>
+void run(int sms, float* sink) {
+  const int iters = 20000 * 8 / TM;
+  cudaEvent_t e0, e1;
+  cudaEventCreate(&e0);
+  cudaEventCreate(&e1);
+  for (int rep = 0; rep < 2; ++rep) {
+    cudaEventRecord(e0);
+    probe<TM, LOADS><<<sms, 256>>>(iters, sink);
+    cudaEventRecord(e1);
+    cudaEventSynchronize(e1);
+    float ms;
+    cudaEventElapsedTime(&ms, e0, e1);
+    if (rep)
+      printf("%d x 8 tile, %s: %.1f TFLOP/s (%s)\n", TM,
+             LOADS ? "fed by 128-bit shared loads" : "registers only",
+             2.0 * TM * 8 * 4 * iters * 256.0 * sms / ms / 1e9,
+             cudaGetErrorString(cudaGetLastError()));
+  }
+}
+int main() {
+  int sms;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, 0);
+  float* sink;
+  cudaMalloc(&sink, 4);
+  run<8, false>(sms, sink);
+  run<8, true>(sms, sink);
+  run<16, true>(sms, sink);
+  return 0;
+}
+"""
+
+
+def onn_issue_probe(card: str) -> None:
+    """What bounds the wide form of onn_layer: the f32 FMA rate of an 8 x
+    8 (and 16 x 8) tile of register sums alone and fed by its 128-bit
+    shared loads, against the card's peak.  Not part of the run; alone:
+    ``python3 -c 'import chip_smoke as c; c.onn_issue_probe(c.card_line())'``."""
+    from repro_torch.kernels import _build
+    out_dir = _build.BUILD_DIR / "probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src, exe = out_dir / "issue_probe.cu", out_dir / "issue_probe"
+    src.write_text(ISSUE_PROBE_CU)
+    subprocess.run([_build._nvcc(), "-gencode",
+                    "arch=compute_90a,code=sm_90a", "-O3", "-o", str(exe),
+                    str(src)], check=True, timeout=300)
+    out = subprocess.run([str(exe)], check=True, capture_output=True,
+                         text=True, timeout=300).stdout
+    for line in out.splitlines():
+        tf = float(line.split(": ")[1].split()[0])
+        print(f"{line}; {100 * tf / (PEAK_FLOPS['float32'] / 1e12):.1f}% of "
+              f"the f32 peak [{card}]", flush=True)
 
 
 # ---------------------------------------------- phase 2d: mesh_scan
@@ -1799,8 +2042,8 @@ def main() -> int:
     print(f"built {sorted(paths)} in {time.perf_counter() - t:.1f} s",
           flush=True)
     for name, path in sorted(paths.items()):
-        if name.startswith("flash"):
-            continue                  # check_flash_kernels names each kernel
+        if name.startswith("flash") or name == "onn_layer":
+            continue                  # their checks name each kernel
         log = Path(str(path) + ".log")
         for line in (log.read_text().splitlines() if log.exists() else []):
             if "registers" in line or "spill" in line:

@@ -120,6 +120,152 @@ def test_onn_layer_wrapper_rejects_bad_input():
         onn_layer.onn_layer(x, u.to("meta"), d, b)
 
 
+# ------------------------------------------------------- onn_layer plan
+# Every layer of the ONN structures the port runs, and the form the plan
+# must give it with x and y 16-byte aligned.  n 512 and 1024: W's panel
+# of 64 columns does not fit in shared memory beside the ring.
+TABLE_I = [(4, 64, 128, 256, 128, 64, 4),
+           (4, 64, 128, 256, 512, 256, 128, 64, 4),
+           (4, 64, 128, 256, 512, 1024, 512, 256, 128, 64, 4),
+           (4, 64, 128, 256, 512, 256, 128, 64, 8)]
+STRUCTURES = ([runtime.default_structure(bits, k) for bits in (2, 4, 8)
+               for k in (1, 2, 3, 4)] + TABLE_I)
+WANT_FORM = {
+    (1, 4): "fan_out", (1, 64): "fan_out", (2, 64): "fan_out",
+    (3, 64): "fan_out", (4, 64): "fan_out",
+    (4, 1): "fan_out", (64, 2): "fan_in", (64, 4): "fan_in",
+    (64, 8): "fan_in",
+    (64, 128): "wide", (128, 256): "wide", (256, 128): "wide",
+    (128, 64): "wide", (256, 512): "wide", (512, 256): "general",
+    (512, 1024): "general", (1024, 512): "general"}
+# W's panel columns of the wide layers: 128 above 64 columns, else 64
+WANT_PANEL = {(64, 128): 128, (128, 256): 128, (256, 128): 128,
+              (128, 64): 64, (256, 512): 128}
+
+
+@pytest.mark.parametrize("structure", STRUCTURES, ids=str)
+def test_onn_layer_plan_gives_each_layer_its_form(structure):
+    for n, m in zip(structure[:-1], structure[1:]):
+        for rows in (1, 1000, 2 ** 20, 2 ** 26):
+            p = onn_layer.plan(rows, n, m, 1 << 20, 2 << 20)
+            assert p.form == WANT_FORM[(n, m)], (n, m)
+            assert 0 <= p.smem <= onn_layer.SMEM_MAX
+            assert 1 <= p.grid[0] <= onn_layer.GRID_X_MAX
+            assert 1 <= p.grid[1] <= onn_layer.GRID_Y_MAX
+            assert 1 <= p.threads <= onn_layer.THREADS
+            if p.form == "wide":
+                assert p.tile == WANT_PANEL[(n, m)]
+                assert p.smem == onn_layer.wide_smem(n, p.tile)
+                # persistent: at most one block a multiprocessor
+                assert p.grid[0] * p.grid[1] <= max(onn_layer.H100_SMS,
+                                                    p.grid[1])
+            elif p.form == "fan_in":
+                assert p.smem == onn_layer.fan_in_smem(n, m, p.tile)
+            elif p.form == "fan_out":
+                assert p.tile == (4 if m % 4 == 0 else 1)
+                assert p.threads % (m // p.tile) == 0
+
+
+@pytest.mark.parametrize("n,m,x_off,y_off,want,tile", [
+    (37, 300, 0, 0, "general", 128),    # n not a multiple of 4
+    (36, 30, 0, 0, "general", 128),     # m not a multiple of 4
+    (128, 256, 4, 0, "general", 128),   # x off the 16-byte alignment
+    (128, 256, 0, 8, "general", 128),   # y off it
+    (64, 4, 12, 0, "general", 256),     # fan-in reads x in 16-byte pieces
+    (3, 301, 0, 0, "general", 128),     # too many columns of one
+    (4, 64, 0, 4, "fan_out", 1),        # y off: a column a thread
+    (3, 6, 0, 0, "fan_out", 1),
+    (4, 64, 4, 0, "fan_out", 4),        # fan-out reads x by the word
+    (64, 4, 0, 4, "fan_in", 256 // 4),  # fan-in stores y by the word
+    (36, 300, 0, 0, "wide", 128),       # a partial k chunk, masked
+    (100, 12, 0, 0, "wide", 64)])       # columns
+def test_onn_layer_plan_sends_odd_shapes_and_views_to_general(
+        n, m, x_off, y_off, want, tile):
+    p = onn_layer.plan(1000, n, m, 4096 + x_off, 8192 + y_off)
+    assert (p.form, p.tile) == (want, tile)
+    if want == "general":
+        assert p == onn_layer.general_plan(1000, m)
+        assert p.grid == (-(-1000 // p.tile), -(-m // (
+            4 if m <= 8 else 64 if m <= 64 else 128)))
+
+
+def _ring_walk(p, rows, n, stages):
+    """A Python copy of the persistent blocks' loops in csrc/onn_layer.cu
+    (the loader's and the consumer's counters, one barrier an iteration):
+    the (row tile, column tile, k chunk) each block computes, in order,
+    after checking that every chunk it reads is the one its stage was
+    last loaded with, and that no load overwrites a stage not yet
+    read."""
+    bm = onn_layer.wide_rows(p.tile) if p.form == "wide" else p.tile
+    nk = -(-n // onn_layer.WIDE_BK) if p.form == "wide" else 1
+    tiles = -(-rows // bm)
+    seen = []
+    for by in range(p.grid[1]):
+        for bx in range(p.grid[0]):
+            slots = [None] * stages        # what each stage holds
+            read = [True] * stages         # read since it was loaded
+            ld = [bx, 0, 0]                # the loader's tile, chunk, stage
+
+            def load_next():
+                t, k, s = ld
+                if t < tiles:
+                    assert read[s], "a load overwrote an unread stage"
+                    slots[s], read[s] = (t, k), False
+                ld[1] += 1
+                if ld[1] == nk:
+                    ld[0], ld[1] = t + p.grid[0], 0
+                ld[2] = (s + 1) % stages
+
+            for _ in range(stages - 1):
+                load_next()
+            t, kc, stage = bx, 0, 0
+            while t < tiles:
+                load_next()        # after the barrier: stage - 1 is read
+                assert slots[stage] == (t, kc)
+                read[stage] = True
+                seen.append((t, by, kc))
+                stage = (stage + 1) % stages
+                kc += 1
+                if kc == nk:
+                    t, kc = t + p.grid[0], 0
+    return seen, tiles, nk
+
+
+@pytest.mark.parametrize("rows", [1, 127, 129, 1000, 2 ** 20])
+@pytest.mark.parametrize("n,m", [(128, 256), (128, 64), (36, 300),
+                                 (64, 4), (64, 1)])
+def test_onn_layer_persistent_walk_covers_each_tile_once(n, m, rows):
+    p = onn_layer.plan(rows, n, m, 0, 0)
+    assert p.form == ("wide" if m > 8 else "fan_in")
+    stages = (onn_layer.WIDE_STAGES if p.form == "wide"
+              else onn_layer.FAN_IN_STAGES)
+    seen, tiles, nk = _ring_walk(p, rows, n, stages)
+    col_tiles = -(-m // p.tile) if p.form == "wide" else 1
+    assert p.grid[1] == col_tiles and p.grid[0] <= tiles
+    assert sorted(seen) == [(t, c, k) for t in range(tiles)
+                            for c in range(col_tiles) for k in range(nk)]
+
+
+@pytest.mark.parametrize("rows", [1, 127, 129, 1000, 2 ** 20])
+@pytest.mark.parametrize("m", [1, 4, 12, 64, 1024])
+def test_onn_layer_fan_out_walk_covers_each_row_once(m, rows):
+    """The fan-out form's grid-stride loop: thread i of block bx starts
+    at row bx * per_pass + i // (m / cpt) and takes four rows a pass, a
+    grid's rows apart."""
+    p = onn_layer.plan(rows, 4, m, 0, 0)
+    groups = m // p.tile
+    per_pass = p.threads // groups
+    assert p.form == "fan_out" and p.threads <= onn_layer.THREADS
+    step = p.grid[0] * per_pass
+    counts = np.zeros(rows, np.int64)
+    for bx in range(p.grid[0]):
+        for rr in range(per_pass):
+            for r0 in range(bx * per_pass + rr, rows, 4 * step):
+                for r in range(r0, min(r0 + 4 * step, rows), step):
+                    counts[r] += 1
+    assert (counts == 1).all() and p.grid[0] <= -(-rows // per_pass)
+
+
 # ------------------------------------------------------------- encoding
 @pytest.mark.parametrize("k", [1, 2, 3, 4])
 @pytest.mark.parametrize("bits", [2, 4, 8])
