@@ -10,7 +10,16 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    without the log-sum-exp), flash backward, and the pam4 encode/decode
    pair (bit for bit, ties, zero blocks and ragged tails included);
    times each kernel, its plain version and a PyTorch yardstick where
-   one call computes the same function.  The flash checks
+   one call computes the same function.  The paged checks
+   (``check_kernels``) print each paged kernel's registers and spills,
+   cover one slot over every split, slots of length 0 among others (held
+   to zeros), all lengths 1, minitron_4b's heads (rep 3, hd 128) and the
+   mixed dtype pairs, run the main case twice for identical bits, and
+   time it beside gather + SDPA, the plain version, an empty kernel
+   launch and other split sizes.  The encode checks
+   (``check_training_kernels``) add views off the 16-byte alignment, a
+   row stride that is not a multiple of 4 and blocks of 1000 and 999,
+   and time encode beside a device ``copy_`` of the same bytes.  The flash checks
    (``check_flash_kernels``) cover every case in bf16, the tensor-core
    kernels, and in f32, the CUDA-core kernels; they print each flash
    kernel's registers, spills and HMMA count, run the backward twice for
@@ -25,7 +34,8 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    run (the launch counts are reset just before it and read just after).
    The same window is then served a few more times for the spread of
    tokens/s and step times, and once under ``torch.profiler`` for the
-   device's busy share and the device time of each kernel.
+   device's busy share, the device time of each kernel and the paged
+   kernels' share of it.
    2c. The ``onn_layer`` kernel (``check_onn_kernel``): each kernel's
    registers and spills; every layer of the bits-8 ONN
    (4-64-128-256-128-64-4) and of the exact identity ONN (1-4-1) over
@@ -57,7 +67,8 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    tokens, 30 steps: the loss must fall and the four training kernels
    (flash forward and backward, pam4 encode and decode) must have been
    launched by the run (counts reset just before, read just after): the
-   flash pair once a layer and peer each step, pam4 once a bucket.
+   flash pair once a layer and peer each step, pam4 once a bucket, and
+   every encode on a vector form (the count of each form is printed).
    Step time p50/p99 and tokens/s; one step under ``torch.profiler``,
    with the flash kernels' share of its device time; a short ``--sync
    psum`` run of the same config as a yardstick.
@@ -277,13 +288,31 @@ def flash_bwd_bounds(b, h, hkv, hd, sq, skv, dtype):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def paged_build_report(card: str) -> None:
+    """Registers, spills and shared memory of every kernel of the paged
+    source (nvcc -Xptxas -v)."""
+    from repro_torch.kernels import _build
+
+    path = _build.build(["paged_attention"])["paged_attention"]
+    for short, _, st in ptxas_stats(path):
+        spill = st["spill"]
+        print(f"  paged_attention: {short}: {st.get('regs')} registers, "
+              f"{spill[0]} bytes spill stores, {spill[1]} bytes spill loads, "
+              f"{st.get('smem', 0)} bytes static smem", flush=True)
+    print(f"paged build report done [{card}]", flush=True)
+
+
 def check_kernels(card: str) -> dict:
     """The paged decode kernel vs plain on the card; returns its record
-    at the main-path shape (paper_llama, bf16) with its timings."""
+    at the main-path shape (paper_llama, bf16) with its timings.  A slot
+    of length 0 is a pad row: the kernel writes zeros there (the plain
+    version the mean of its pages), so such rows are held to 0 and the
+    others to the plain version."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import paged_attention, ref
 
+    paged_build_report(card)
     records = {}
     spread = [1, 15, 16, 17, 100, 128, 255, 256]      # page edges, 1..256
     paged_cases = [
@@ -294,22 +323,48 @@ def check_kernels(card: str) -> dict:
         ("hd16", 4, 4, 2, 16, 4, [1, 3, 4, 5], torch.float32),
         ("hd64", 4, 8, 4, 64, 32, [1, 31, 33, 200], torch.bfloat16),
         ("hd128", 4, 8, 8, 128, 64, [1, 63, 64, 300], torch.float32),
+        # one slot over every split of the table
+        ("one slot", 1, 8, 8, 48, 16, [256], torch.bfloat16),
+        ("empty slots", 8, 8, 8, 48, 16, [0, 5, 0, 200, 17, 0, 64, 1],
+         torch.bfloat16),
+        ("all length 1", 8, 8, 8, 48, 16, [1] * 8, torch.bfloat16),
+        # minitron_4b's heads: rep 3 at hd 128
+        ("rep3", 4, 6, 2, 128, 16, [1, 17, 100, 256], torch.bfloat16),
+        # the mixed dtype pairs: f32 queries over bf16 pages and back
+        ("rep3 f32 q", 4, 6, 2, 128, 16, [0, 16, 33, 250], torch.float32),
+        ("gqa bf16 q", 8, 8, 2, 48, 16, spread, torch.bfloat16),
     ]
+    mixed = {"rep3 f32 q": torch.bfloat16, "gqa bf16 q": torch.float32}
     for label, b, h, hkv, hd, ps, lengths, dt in paged_cases:
         args = paged_case(b, h, hkv, hd, ps, lengths, dt, SEED)
+        if label in mixed:                     # the pool in the other dtype
+            args[1], args[2] = (t.to(mixed[label]) for t in args[1:3])
         got = paged_attention.paged_attention(*args).float()
         want = ref.paged_attention_ref(*args).float()
         torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        tol = KERNEL_TOL[str(dt).split(".")[-1]]
+        live = args[4] > 0
+        err = (got[live] - want[live]).abs().max().item()
+        pad = got[~live].abs().max().item() if (~live).any() else 0.0
+        tol = KERNEL_TOL[str(dt).split(".")[-1]]   # the output's dtype
+        p = paged_attention.plan(
+            b, h, hkv, ps, hd, args[3].shape[1], args[1].element_size(),
+            16, torch.cuda.get_device_properties(0).multi_processor_count)
         print(f"paged_attention {label}: b={b} h={h} hkv={hkv} hd={hd} "
               f"page={ps} lengths={lengths} {dt}: max_abs_err {err:.3e} "
-              f"(tol {tol:.0e})", flush=True)
-        if not err <= tol:
+              f"(tol {tol:.0e}), length-0 rows max |out| {pad:.1e}; split "
+              f"{p.split} x {p.n_splits}, {p.vec_bytes}-byte loads, "
+              f"{p.rows} rows a block", flush=True)
+        if not (err <= tol and pad == 0.0):
             raise AssertionError(f"paged_attention {label} disagrees with "
-                                 f"its plain version: {err} > {tol}")
+                                 f"its plain version: {err} > {tol} or a "
+                                 f"length-0 row is not 0 ({pad})")
         if label != "main":
             continue
+        again = paged_attention.paged_attention(*args).float()
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError("paged_attention main: two runs differ")
+        print("paged_attention main: two runs bit-identical", flush=True)
         ins = copies_for(args)
         ms, host_ms = time_ms(paged_attention.paged_attention, ins)
         plain_ms, _ = time_ms(ref.paged_attention_ref, ins, iters=20)
@@ -323,12 +378,23 @@ def check_kernels(card: str) -> dict:
             return F.scaled_dot_product_attention(q, kg, vg, attn_mask=mask)
 
         lib_ms, _ = time_ms(gather_sdpa, ins)
+        # the floor a launch sets, which a sub-microsecond bound cannot
+        # show: an empty kernel through the same harness
+        empty_ms, _ = time_ms(lambda *a: torch.cuda._sleep(0), ins)
         bound, by = paged_bounds(b, h, hkv, hd, ps, lengths, dt)
+        splits = {}
+        for split in (16, 32, 64, 128, 256):
+            splits[split], _ = time_ms(
+                lambda *a, s=split: paged_attention.paged_attention_with(
+                    *a, split=s), ins)
         print(f"paged_attention main timing: kernel {ms * 1e3:.2f} us "
               f"(wrapper call on the host {host_ms * 1e3:.2f} us), "
               f"plain {plain_ms * 1e3:.2f} us, gather + sdpa "
-              f"{lib_ms * 1e3:.2f} us, bound {bound * 1e3:.3f} us ({by}) "
-              f"[{card}]", flush=True)
+              f"{lib_ms * 1e3:.2f} us, empty kernel launch "
+              f"{empty_ms * 1e3:.2f} us, bound {bound * 1e3:.3f} us ({by}); "
+              f"by split: " + ", ".join(f"{s} {t * 1e3:.2f} us"
+                                        for s, t in splits.items())
+              + f" [{card}]", flush=True)
         records["paged_attention"] = dict(
             name="paged_attention", route="cuda",
             source="src/repro_torch/csrc/paged_attention.cu",
@@ -669,6 +735,32 @@ def check_training_kernels(card: str) -> dict:
     from repro_torch.kernels import pam4, ref
 
     records = {}
+    # encode of views the vector forms must read around: off the 16-byte
+    # alignment, a row stride not a multiple of 4, a block of 1000 (vector)
+    # and of 999 (scalar); each bit for bit against the plain version
+    for bits in (2, 4, 8):
+        for label, nb, block, tail in (("offset", 40, 2048, 1001),
+                                       ("ld", 40, 2048, 3),
+                                       ("block1000", 60, 1000, 7),
+                                       ("block999", 60, 999, 0)):
+            x, scale, _, u_ref, m = pam4_case(4, nb, block, tail, bits,
+                                              SEED + bits)
+            if label == "offset":              # one float past 16 bytes
+                buf = torch.empty(4 * m + 1, device="cuda")
+                x = buf[1:].view(4, m).copy_(x)
+            elif label == "ld":                # row stride m + 1 = 2 mod 4
+                x = torch.empty((4, m + 1), device="cuda")[:, :m].copy_(x)
+            form = pam4.encode_form(4, x.stride(0), block, x.data_ptr())
+            u = pam4.pam4_quantize_encode(x, scale, bits, block)
+            torch.cuda.synchronize()
+            same = torch.equal(u, u_ref)
+            print(f"pam4 encode {label} bits={bits}: 4 x {m} elements, "
+                  f"row stride {x.stride(0)}, pointer mod 16 "
+                  f"{x.data_ptr() % 16}, block {block}: {form} form, "
+                  f"bit-equal {same}", flush=True)
+            if not same:
+                raise AssertionError(f"pam4 encode {label} bits={bits} "
+                                     f"differs from its plain version")
     # a full 4 MiB bucket of 4 peers, and a ragged one
     for bits in (2, 4, 8):
         for label, nb, tail in (("bucket", 512, 0), ("ragged", 37, 1000)):
@@ -701,10 +793,17 @@ def check_training_kernels(card: str) -> dict:
                 a, s, 8, 2048), ins, iters=20)
             bound, by = pam4_bound(4 * x.numel() + 4 * u.numel()
                                    + 4 * scale.numel())
-            print(f"pam4_quantize_encode timing (4 x 512 x 2048, bits 8): "
-                  f"kernel {ms * 1e3:.2f} us (host {host_ms * 1e3:.2f} us), "
-                  f"plain {plain_ms * 1e3:.2f} us, bound {bound * 1e3:.3f} "
-                  f"us ({by}) [{card}]", flush=True)
+            # the reachable bandwidth: a device copy of the same bytes
+            # (not the same function, so not a library time)
+            dst = torch.empty_like(x)
+            copy_ms, _ = time_ms(lambda a, s: dst.copy_(a), ins)
+            print(f"pam4_quantize_encode timing (4 x 512 x 2048, bits 8, "
+                  f"{pam4.encode_form(4, x.stride(0), 2048, x.data_ptr())} "
+                  f"form): kernel {ms * 1e3:.2f} us (host "
+                  f"{host_ms * 1e3:.2f} us), plain {plain_ms * 1e3:.2f} us, "
+                  f"copy_ of the same bytes {copy_ms * 1e3:.2f} us, bound "
+                  f"{bound * 1e3:.3f} us ({by}), {100 * bound / ms:.1f}% of "
+                  f"it [{card}]", flush=True)
             records["pam4_quantize_encode"] = dict(
                 name="pam4_quantize_encode", route="cuda",
                 source="src/repro_torch/csrc/pam4.cu",
@@ -1395,7 +1494,18 @@ def serve_full_width(card: str) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         _, _, w = drive(e, prompts, 32, stagger=True)
         torch.cuda.synchronize()
-    device_profile(prof, w, card)
+    dev = device_profile(prof, w, card)
+    paged = [(kernel_name(ev.key), ev.count, dev[ev.key])
+             for ev in prof.key_averages()
+             if "paged_" in ev.key and dev.get(ev.key)]
+    if paged:
+        us = sum(u for _, _, u in paged)
+        print(f"paged_attention in the profiled serve window: device "
+              f"{us / 1e3:.3f} ms = {100 * us / sum(dev.values()):.2f}% of "
+              f"the device time, {100 * us / (w * 1e6):.2f}% of the wall ("
+              + ", ".join(f"{name} {n} calls {u / n:.2f} us/call"
+                          for name, n, u in paged) + f") [{card}]",
+              flush=True)
 
     tight = dataclasses.replace(serve, pages=1 + 30)   # + the null page
     eng2 = ServeEngine(cfg, tight, eng.params, device="cuda")
@@ -1447,11 +1557,18 @@ def train_full_width(card: str) -> dict:
     counters = _train_counters()
     for fn in counters.values():
         fn.launches = 0
+    encode = counters["pam4_quantize_encode"]
+    encode.forms = dict.fromkeys(encode.forms, 0)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     recs = train_run([], 30)
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
+    print(f"pam4 encode forms over the run's buckets: {encode.forms}",
+          flush=True)
+    if encode.forms["scalar"]:
+        raise AssertionError(f"a bucket of block 2048 took the scalar "
+                             f"encode form: {encode.forms}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [r["loss"] for r in recs]
     times = [r["time_s"] for r in recs[5:]]
@@ -2042,7 +2159,8 @@ def main() -> int:
     print(f"built {sorted(paths)} in {time.perf_counter() - t:.1f} s",
           flush=True)
     for name, path in sorted(paths.items()):
-        if name.startswith("flash") or name == "onn_layer":
+        if name.startswith("flash") or name in ("onn_layer",
+                                                 "paged_attention"):
             continue                  # their checks name each kernel
         log = Path(str(path) + ".log")
         for line in (log.read_text().splitlines() if log.exists() else []):

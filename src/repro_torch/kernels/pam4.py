@@ -7,6 +7,20 @@ For CPU tensors each wrapper runs its plain version
 (``ref.pam4_quantize_encode_ref`` / ``ref.pam4_decode_dequantize_ref``);
 for CUDA tensors it launches the kernel or raises; any other device
 raises.  Both are bit-exact with the plain versions.
+
+The encode kernel has three forms (``csrc/pam4.cu`` says how each
+works); ``encode_form`` picks one from the block size, the input's data
+pointer and its row stride alone:
+
+- ``aligned``: ``block % 4 == 0`` and every input row starts on 16 bytes
+  (pointer on 16 bytes, row stride a multiple of 4 or one row): a thread
+  owns 4 columns, one 16-byte load and one 16-byte store.
+- ``shifted``: ``block % 4 == 0``, an input row off the 16-byte
+  alignment: the same, with each thread's 4 values taken from the
+  aligned vectors around them by warp shuffle.
+- ``scalar``: any other block size, a thread an element.
+
+``pam4_quantize_encode.forms`` counts the launches of each form.
 """
 from __future__ import annotations
 
@@ -16,9 +30,11 @@ import torch
 
 from . import _build, ref
 
+ENCODE_FORMS = ("scalar", "aligned", "shifted")   # the C entry's ints
+
 _ENCODE_ARGTYPES = ([ctypes.c_void_p] * 3
                     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
-                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                    + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 _DECODE_ARGTYPES = ([ctypes.c_void_p] * 4
                     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
                     + [ctypes.c_int] * 4 + [ctypes.c_void_p])
@@ -46,6 +62,16 @@ def _on_card(what: str, *ts: torch.Tensor) -> bool:
     return True
 
 
+def encode_form(rows: int, ld: int, block: int, g_ptr: int) -> str:
+    """The encode kernel's form for ``rows`` input rows of stride ``ld``
+    floats from device address ``g_ptr``, in blocks of ``block``."""
+    if block % 4:
+        return "scalar"
+    if g_ptr % 16 == 0 and (rows == 1 or ld % 4 == 0):
+        return "aligned"
+    return "shifted"
+
+
 def pam4_quantize_encode(g: torch.Tensor, scale: torch.Tensor, bits: int,
                          block: int) -> torch.Tensor:
     """g: (rows, m) f32 with its last dim contiguous (a strided view of
@@ -67,14 +93,16 @@ def pam4_quantize_encode(g: torch.Tensor, scale: torch.Tensor, bits: int,
     u = torch.empty((rows, nb, block), dtype=torch.int32, device=g.device)
     if rows == 0 or m == 0:
         return u.fill_(2 ** (bits - 1) - 1)
+    form = encode_form(rows, g.stride(0), block, g.data_ptr())
     fn = _build.entry("pam4", "pam4_encode", _ENCODE_ARGTYPES)
     err = fn(g.data_ptr(), scale.data_ptr(), u.data_ptr(), rows, m,
-             g.stride(0), nb, block, bits,
+             g.stride(0), nb, block, bits, ENCODE_FORMS.index(form),
              torch.cuda.current_stream(g.device).cuda_stream)
     if err:
         raise RuntimeError(f"pam4_quantize_encode kernel launch failed "
-                           f"(cudaError {err})")
+                           f"({form} form, cudaError {err})")
     pam4_quantize_encode.launches += 1
+    pam4_quantize_encode.forms[form] += 1
     return u
 
 
@@ -125,4 +153,5 @@ def pam4_decode_dequantize(total: torch.Tensor, scale: torch.Tensor,
 
 
 pam4_quantize_encode.launches = 0
+pam4_quantize_encode.forms = dict.fromkeys(ENCODE_FORMS, 0)
 pam4_decode_dequantize.launches = 0

@@ -209,6 +209,45 @@ def test_pam4_wrappers_route_cpu_to_plain_and_reject_bad_input():
         pam4.pam4_decode_dequantize(tot[:, :-1], _t(scale), 8, 2, m)
 
 
+@pytest.mark.parametrize("rows,ld,block,ptr,form", [
+    (4, 1 << 20, 2048, 0x7f0000000000, "aligned"),   # a contiguous bucket
+    (4, 43_456_896, 2048, 0x7f0000000000 + 4 * (1 << 20), "aligned"),
+    (4, 80_919, 2048, 0x7f0000000004, "shifted"),    # one float off
+    (4, 81_918, 2048, 0x7f0000000000, "shifted"),    # stride 2 mod 4
+    (1, 81_918, 2048, 0x7f0000000000, "aligned"),    # one row: no stride
+    (1, 81_918, 2048, 0x7f0000000008, "shifted"),
+    (4, 60_000, 1000, 0x7f0000000000, "aligned"),    # block 1000 = 4 x 250
+    (4, 59_993, 1000, 0x7f0000000000, "shifted"),
+    (4, 59_940, 999, 0x7f0000000000, "scalar"),      # block not 4 k
+    (4, 4096, 2, 0x7f0000000000, "scalar"),
+    (4, 4096, 1, 0x7f0000000004, "scalar"),
+    (3, 4096, 4, 0x7f0000000000, "aligned"),
+])
+def test_pam4_encode_form_by_alignment_stride_and_block(rows, ld, block,
+                                                        ptr, form):
+    assert pam4.encode_form(rows, ld, block, ptr) == form
+
+
+def test_pam4_encode_takes_the_aligned_form_on_every_bucket_of_the_step():
+    """paper_llama's 4-peer gradient stack in 4 MiB buckets of block 2048:
+    every bucket view (and its contiguous error-feedback sum) starts on
+    16 bytes with a row stride a multiple of 4, so all 42 encodes take
+    the aligned vector form."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves
+    cfg = configs.get("paper_llama")
+    layout = bucketizer.make_layout([
+        (s, torch.float32) for s in leaves(lm.param_shapes(cfg))])
+    assert layout.n_buckets == 42
+    base = 0x7f0000000000                  # an allocation starts on 512 B
+    forms = {pam4.encode_form(4, layout.total, 2048, base + 4 * s)
+             for s, _ in layout.bounds}
+    forms |= {pam4.encode_form(4, e - s, 2048, base)
+              for s, e in layout.bounds}
+    assert forms == {"aligned"}
+
+
 # ----------------------------------------------------------- bucketizer
 def _tree(peers, rng, dtype=np.float32):
     return {"a": rng.normal(size=(peers, 3, 700)).astype(dtype),

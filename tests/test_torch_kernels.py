@@ -142,6 +142,125 @@ def test_paged_wrapper_routes_cpu_to_plain_and_rejects_bad_input():
         paged_attention.paged_attention(q[..., :8], kp, vp, table, lengths)
 
 
+# ------------------------------------ paged decode: the split plan
+PLAN_SHAPES = [
+    # (b, h, hkv, ps, hd, nb, itemsize)
+    (8, 8, 8, 16, 48, 16, 2),      # paper_llama serving (the main case)
+    (1, 8, 8, 16, 48, 16, 2),      # one slot: many splits
+    (64, 8, 8, 16, 48, 16, 2),     # a batch that fills the card alone
+    (4, 24, 8, 4, 128, 40, 2),     # minitron_4b's heads, rep 3
+    (2, 8, 2, 32, 64, 9, 4),       # rep 4, f32 pages
+    (3, 8, 8, 64, 128, 5, 4),      # f32 hd 128: 32 lanes a row
+]
+
+
+@pytest.mark.parametrize("b,h,hkv,ps,hd,nb,item", PLAN_SHAPES)
+def test_paged_plan_splits_cover_every_valid_position_once(b, h, hkv, ps,
+                                                           hd, nb, item):
+    """Each slot's splits partition [0, min(length, nb * page)): whole
+    pages, no position twice, none at or past the length, never more
+    splits than the grid has; the launch's other choices fit the row."""
+    p = paged_attention.plan(b, h, hkv, ps, hd, nb, item)
+    assert p.split % ps == 0 and p.split >= min(paged_attention.MIN_SPLIT,
+                                                nb * ps)
+    assert (p.n_splits - 1) * p.split < nb * ps <= p.n_splits * p.split
+    assert p.grid == (p.n_splits, hkv * p.row_chunks, b)
+    rep = h // hkv
+    assert p.rows in (1, 2, 4) and p.rows * p.row_chunks >= rep
+    assert (p.row_chunks - 1) * p.rows < rep
+    chunks = hd * item // p.vec_bytes
+    assert hd * item % p.vec_bytes == 0 and chunks <= p.group <= 32
+    assert p.group & (p.group - 1) == 0 and p.group < 2 * chunks
+    s = p.split
+    for length in sorted({0, 1, s - 1, s, s + 1, 2 * s - 1, nb * ps - 1,
+                          nb * ps, nb * ps + 7}):
+        ranges = paged_attention.split_ranges(length, nb, ps, s)
+        covered = [i for a, e in ranges for i in range(a, e)]
+        assert covered == list(range(min(length, nb * ps)))
+        assert len(ranges) <= p.n_splits
+        for k, (a, e) in enumerate(ranges):
+            assert a == k * s and a < e <= min(a + s, length)
+
+
+def test_paged_plan_main_case_and_refusals():
+    """paper_llama's decode (b 8, hkv 8, 16 pages of 16): 4 splits of 64
+    positions, 16-byte loads, 8 lanes a bf16 row of hd 48; minitron_4b
+    (rep 3, hd 128): 4 query rows a block.  Narrower loads where the
+    pools' pointers are not 16-byte aligned; a row of more than 32 chunks
+    is refused."""
+    p = paged_attention.plan(8, 8, 8, 16, 48, 16, 2)
+    assert (p.split, p.n_splits, p.vec_bytes, p.group, p.rows) == (
+        64, 4, 16, 8, 1)
+    p = paged_attention.plan(8, 24, 8, 16, 128, 16, 2)
+    assert (p.rows, p.row_chunks, p.vec_bytes, p.group) == (4, 1, 16, 16)
+    assert paged_attention.plan(8, 8, 8, 16, 48, 16, 2, align=8).group == 16
+    assert paged_attention.plan(8, 8, 8, 16, 48, 16, 2,
+                                align=4).vec_bytes == 4
+    with pytest.raises(ValueError, match="32 lane chunks"):
+        paged_attention.plan(8, 8, 8, 16, 48, 16, 2, align=2)
+    with pytest.raises(ValueError, match="32 lane chunks"):
+        paged_attention.plan(1, 1, 1, 16, 256, 4, 4)
+
+
+def _split_combine(q, kp, vp, table, lengths, split):
+    """The kernel's arithmetic in plain torch (f32): each split of each
+    slot's valid positions (``split_ranges``) gives its own softmax state
+    (m, l, acc); the valid splits are then merged in split order, M =
+    max m_i, l = sum l_i e^(m_i - M), o = sum acc_i e^(m_i - M) /
+    max(l, 1e-30).  A slot of length 0 has no split and gives zeros."""
+    b, h, _, hd = q.shape
+    hkv, ps = kp.shape[1], kp.shape[2]
+    nb = table.shape[1]
+    rep = h // hkv
+    kg = ref.paged_gather(kp, table).float()         # (b, hkv, nb*ps, hd)
+    vg = ref.paged_gather(vp, table).float()
+    qf = q.float().reshape(b, hkv, rep, hd) * hd ** -0.5
+    out = torch.zeros((b, hkv, rep, hd))
+    for i in range(b):
+        parts = []
+        for a, e in paged_attention.split_ranges(int(lengths[i]), nb, ps,
+                                                 split):
+            s = torch.einsum("grd,gkd->grk", qf[i], kg[i, :, a:e])
+            m = s.amax(-1, keepdim=True)
+            p = torch.exp(s - m)
+            parts.append((m, p.sum(-1, keepdim=True),
+                          torch.einsum("grk,gkd->grd", p, vg[i, :, a:e])))
+        if not parts:
+            continue
+        mm = torch.stack([m for m, _, _ in parts]).amax(0)
+        w = [torch.exp(m - mm) for m, _, _ in parts]
+        l = sum(li * wi for (_, li, _), wi in zip(parts, w))
+        acc = sum(ai * wi for (_, _, ai), wi in zip(parts, w))
+        out[i] = acc / l.clamp_min(1e-30)
+    return out.reshape(b, h, 1, hd).to(q.dtype)
+
+
+@pytest.mark.parametrize("pool_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pages", [1, 2, 0])      # 0: the whole table
+@pytest.mark.parametrize("h,hkv,hd,ps", PAGED_SHAPES[1:3])
+def test_paged_split_and_combine_matches_jax_kernel(h, hkv, hd, ps, pages,
+                                                    pool_dtype):
+    """The split-and-combine arithmetic against JAX's Pallas kernel
+    (interpret mode) at splits of one page, two pages and the whole
+    table, with a poisoned null page and a slot of length 0 among valid
+    ones (zeros here; nothing reads it)."""
+    q, kp, vp, table, lengths = _paged_case(h, hkv, hd, ps, seed=7)
+    lengths[1] = 0
+    table[1] = 0
+    kp[0], vp[0] = 1e4, -1e4
+    nb = table.shape[1]
+    split = (pages or nb) * ps
+    jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[pool_dtype]
+    tdt = getattr(torch, pool_dtype)
+    got = _split_combine(_t(q), _t(kp).to(tdt), _t(vp).to(tdt), _t(table),
+                         _t(lengths), split).numpy()
+    kernel, _ = _jax_paged(q, kp, vp, table, lengths, jdt)
+    live = lengths > 0
+    np.testing.assert_allclose(got[live], kernel[live], atol=PAGED_TOL,
+                               rtol=0)
+    assert not got[~live].any()
+
+
 # ------------------------------------------------------- flash prefill
 @pytest.mark.parametrize("hd,sq,skv", [(16, 64, 64), (48, 64, 64),
                                        (16, 32, 64)])
