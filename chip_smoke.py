@@ -16,17 +16,25 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    to zeros), all lengths 1, minitron_4b's heads (rep 3, hd 128) and the
    mixed dtype pairs, run the main case twice for identical bits, and
    time it beside gather + SDPA, the plain version, an empty kernel
-   launch and other split sizes.  The encode checks
-   (``check_training_kernels``) add views off the 16-byte alignment, a
-   row stride that is not a multiple of 4 and blocks of 1000 and 999,
-   and time encode beside a device ``copy_`` of the same bytes.  The flash checks
-   (``check_flash_kernels``) cover every case in bf16, the tensor-core
-   kernels, and in f32, the CUDA-core kernels; they print each flash
-   kernel's registers, spills and HMMA count, run the backward twice for
-   bit-equal gradients, and time the forward at t 128, 256 and 512 (the
-   training shape) and the backward at t 512 beside SDPA, then both at
-   one sequence of 512 and at t 2048.  Alone, for
-   iterating on them: ``python3 -c 'import chip_smoke as c;
+   launch and other split sizes.  The pam4 checks
+   (``check_training_kernels``) print each pam4 kernel's registers and
+   spills, add encodes of views off the 16-byte alignment, a row stride
+   that is not a multiple of 4 and blocks of 1000 and 999, and every
+   decode form (one line a case, with its form) at bits 2, 4 and 8: sums
+   of n = 1 to 4 peers with Q(mean) ties and zero blocks, ragged tails, 4
+   rows with m % 4 != 0, and the error-feedback form with bases off 16
+   bytes or of a row stride 2 mod 4; they time encode, and decode at its
+   two main-path shapes (one bucket's Q(mean); the error-feedback term
+   of 4 peers from bucket views of a full peer stack), each beside a
+   device ``copy_`` of the same bytes.  Alone: ``python3 -c 'import
+   chip_smoke as c; c.check_training_kernels(c.card_line())'``.  The
+   flash checks (``check_flash_kernels``) cover every case in bf16, the
+   tensor-core kernels, and in f32, the CUDA-core kernels; they print
+   each flash kernel's registers, spills and HMMA count, run the backward
+   twice for bit-equal gradients, and time the forward at t 128, 256 and
+   512 (the training shape) and the backward at t 512 beside SDPA, then
+   both at one sequence of 512 and at t 2048.  Alone, for iterating on
+   them: ``python3 -c 'import chip_smoke as c;
    c.check_flash_kernels(c.card_line())'``.
 3. Serves paper_llama at full width (bf16) through ``ServeEngine``: 16
    staggered requests, then again with a pool small enough to force
@@ -67,15 +75,18 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    tokens, 30 steps: the loss must fall and the four training kernels
    (flash forward and backward, pam4 encode and decode) must have been
    launched by the run (counts reset just before, read just after): the
-   flash pair once a layer and peer each step, pam4 once a bucket, and
-   every encode on a vector form (the count of each form is printed).
+   flash pair once a layer and peer each step, pam4 once a bucket, every
+   encode on a vector form and every decode on the aligned one (the
+   count of each form is printed).
    Step time p50/p99 and tokens/s; one step under ``torch.profiler``,
-   with the flash kernels' share of its device time; a short ``--sync
-   psum`` run of the same config as a yardstick.
+   with the flash and pam4 kernels' shares of its device time; a short
+   ``--sync psum`` run of the same config as a yardstick.
    4b. The same config through the in-network ONN: ``--fidelity onn
    --bits 2`` (the exact identity ONN) for 10 steps must print the
    losses of ``--fidelity behavioral --bits 2`` and launch ``onn_layer``
-   2 x 42 times a step; ``--fidelity onn --bits 8`` with a seeded ONN of
+   2 x 42 times a step (in every run pam4 encode and decode once a
+   bucket, each decode on the aligned form); ``--fidelity onn --bits 8``
+   with a seeded ONN of
    the default structure (installed with ``runtime.put_module``) for 5
    steps must give finite losses and 6 x 42 launches a step.  Step
    times, and one profiled step at each bit width.
@@ -85,8 +96,8 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    at ``--bits 8`` with a seeded Table I row 1 ONN (layers 1-6
    approximated) for 3 steps on ``--mesh-backend pallas`` and 1 on
    ``xla`` (the same step-0 loss), 6 x 42 launches a step; the default
-   ONN (no approximated layer) for 2 steps, 12 x 42 a step.  Step
-   times, peak memory, one profiled step.
+   ONN (no approximated layer) for 2 steps, 12 x 42 a step; pam4 as in
+   4b.  Step times, peak memory, one profiled step.
 5. Card vs plain end to end: the f32 model with the same weights served
    through the kernels on the card and through the plain path on the
    CPU; teacher-forced logits must agree, greedy tokens must agree up to
@@ -728,13 +739,147 @@ def pam4_bound(nbytes):
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
+def pam4_sums_case(rows, n, nb, block, tail, bits, seed):
+    """``rows`` sums of ``n`` peers' codes in ``nb`` blocks of ``block``
+    (the last ``tail`` columns pad), with exact Q(mean) ties (total = n k
+    + n / 2, ties at even n) and two zero blocks (scale at the f32-tiny
+    floor); its scale and m."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    levels = 2 ** (bits - 1) - 1
+    total = torch.randint(0, 2 * levels + 1, (rows, n, nb * block),
+                          generator=g, dtype=torch.int32).sum(
+                              1, dtype=torch.int32)
+    k = torch.arange(64, dtype=torch.int32) % (2 * levels)
+    total[:, block:block + 64] = n * k + n // 2
+    scale = torch.rand(nb, generator=g) * 4 + 0.01
+    scale[[0, nb // 2]] = torch.finfo(torch.float32).tiny
+    return total.cuda(), scale.cuda(), nb * block - tail
+
+
+def view_copy(x, how: str):
+    """x (rows, m) copied into a view on the card: ``contiguous``;
+    ``offset``, one float past 16 bytes; ``ld``, a row stride 2 mod 4."""
+    import torch
+    rows, m = x.shape
+    if how == "offset":
+        return torch.empty(rows * m + 1, device="cuda")[1:].view(
+            rows, m).copy_(x)
+    if how == "ld":
+        ld = m + ((2 - m) % 4 or 4)
+        return torch.empty((rows, ld), device="cuda")[:, :m].copy_(x)
+    return x.clone()
+
+
+# decode cases without a base, each at n = 1, 2, 3 and 4: (label, rows,
+# blocks, block, pad columns, the form decode_form must pick)
+PAM4_DECODE_CASES = (("bucket", 1, 512, 2048, 0, "aligned"),
+                     ("ragged", 1, 37, 2048, 1001, "aligned"),
+                     ("rows4 ragged", 4, 37, 2048, 1001, "scalar"),
+                     ("rows4 block1000", 4, 60, 1000, 8, "aligned"),
+                     ("rows4 block999", 4, 60, 999, 0, "scalar"))
+# with a base (error feedback: n = 1, the base the rows' own gradients,
+# which the plain version's exact f64 difference needs): (label, rows,
+# blocks, block, pad columns, base view, form)
+PAM4_DECODE_BASE_CASES = (
+    ("ef", 4, 40, 2048, 1000, "contiguous", "aligned"),
+    ("ef offset", 4, 40, 2048, 1000, "offset", "scalar"),
+    ("ef ld", 4, 40, 2048, 1000, "ld", "scalar"),
+    ("ef one row offset", 1, 37, 2048, 1001, "offset", "scalar"),
+    ("ef one row ragged", 1, 37, 2048, 1001, "contiguous", "aligned"),
+    ("ef rows4 ragged", 4, 37, 2048, 1001, "contiguous", "scalar"),
+    ("ef block1000 ld", 4, 60, 1000, 8, "ld", "scalar"),
+    ("ef block999 offset", 4, 60, 999, 0, "offset", "scalar"))
+
+
+def decode_and_form(*args):
+    """pam4_decode_dequantize(*args) on the card and the form it took."""
+    from repro_torch.kernels import pam4
+    before = dict(pam4.pam4_decode_dequantize.forms)
+    out = pam4.pam4_decode_dequantize(*args)
+    after = pam4.pam4_decode_dequantize.forms
+    return out, next(f for f in after if after[f] != before[f])
+
+
+def check_pam4_decode(bits: int) -> None:
+    """Every decode form bit for bit against the plain version at
+    ``bits``; each case prints its form."""
+    import torch
+    from repro_torch.kernels import ref
+
+    def check(total, scale, n, m, base):
+        out, form = decode_and_form(total, scale, bits, n, m, base)
+        plain = ref.pam4_decode_dequantize_ref(total, scale, bits, n, m, base)
+        torch.cuda.synchronize()
+        return form, torch.equal(out, plain)
+
+    for label, rows, nb, block, tail, want in PAM4_DECODE_CASES:
+        results = []
+        for n in (1, 2, 3, 4):
+            total, scale, m = pam4_sums_case(rows, n, nb, block, tail, bits,
+                                             SEED + 10 * bits + n)
+            results.append(check(total, scale, n, m, None))
+        forms = {f for f, _ in results}
+        print(f"pam4 decode {label} bits={bits} n=1,2,3,4: {rows} x {m} "
+              f"sums in blocks of {block}, no base: {sorted(forms)} form, "
+              f"bit-equal {[same for _, same in results]}", flush=True)
+        if forms != {want} or not all(same for _, same in results):
+            raise AssertionError(f"pam4 decode {label} bits={bits}: forms "
+                                 f"{forms} (want {want}), {results}")
+    for label, rows, nb, block, tail, how, want in PAM4_DECODE_BASE_CASES:
+        x, scale, _, u, m = pam4_case(rows, nb, block, tail, bits,
+                                      SEED + bits)
+        base = view_copy(x, how)
+        form, same = check(u.reshape(rows, -1), scale, 1, m, base)
+        print(f"pam4 decode {label} bits={bits} n=1: {rows} x {m} in blocks "
+              f"of {block}, base row stride {base.stride(0)}, pointer mod 16 "
+              f"{base.data_ptr() % 16}: {form} form, bit-equal {same}",
+              flush=True)
+        if form != want or not same:
+            raise AssertionError(f"pam4 decode {label} bits={bits}: {form} "
+                                 f"form (want {want}), bit-equal {same}")
+
+
+def pam4_decode_timing_inputs():
+    """The decode's two shapes on the main path at bits 8, as rotated
+    inputs: (scale, m, [(sums of 4, None)] for the Q(mean) decode of one
+    bucket, [(codes, base)] for the error-feedback decode of 4 peers,
+    each base a bucket view of a full paper_llama peer stack)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves
+    x, scale, total, u, m = pam4_case(4, 512, 2048, 0, 8, SEED + 8)
+    n_params = sum(math.prod(s) for s in leaves(lm.param_shapes(
+        configs.get("paper_llama"))))
+    stack = torch.empty((4, n_params), device="cuda")
+    ef = []
+    for k in range(6):                   # 6 x 32 MiB: past the 50 MB L2
+        base = stack[:, k * m:(k + 1) * m]
+        base.copy_(x)
+        ef.append((u.reshape(4, -1).clone(), base))
+    return scale, m, [(t, None) for t, in copies_for([total])], ef
+
+
+def pam4_copy_ms(nbytes: int) -> float:
+    """Device ms of a ``copy_`` of nbytes / 2 into nbytes / 2 (the bytes
+    a decode moves), sources rotated past the L2."""
+    import torch
+    src = torch.empty(nbytes // 8, device="cuda")
+    dst = torch.empty_like(src)
+    return time_ms(lambda a: dst.copy_(a), copies_for([src]))[0]
+
+
 def check_training_kernels(card: str) -> dict:
     """pam4 encode/decode vs their plain versions on the card; records of
     the training path's shapes with timings."""
     import torch
-    from repro_torch.kernels import pam4, ref
+    from repro_torch.kernels import _build, pam4, ref
 
     records = {}
+    for short, _, st in ptxas_stats(_build.build(["pam4"])["pam4"]):
+        print(f"pam4 {short}: {st.get('regs')} registers, spills "
+              f"{st['spill']} bytes (stores, loads)", flush=True)
     # encode of views the vector forms must read around: off the 16-byte
     # alignment, a row stride not a multiple of 4, a block of 1000 (vector)
     # and of 999 (scalar); each bit for bit against the plain version
@@ -745,11 +890,8 @@ def check_training_kernels(card: str) -> dict:
                                        ("block999", 60, 999, 0)):
             x, scale, _, u_ref, m = pam4_case(4, nb, block, tail, bits,
                                               SEED + bits)
-            if label == "offset":              # one float past 16 bytes
-                buf = torch.empty(4 * m + 1, device="cuda")
-                x = buf[1:].view(4, m).copy_(x)
-            elif label == "ld":                # row stride m + 1 = 2 mod 4
-                x = torch.empty((4, m + 1), device="cuda")[:, :m].copy_(x)
+            if label in ("offset", "ld"):
+                x = view_copy(x, label)
             form = pam4.encode_form(4, x.stride(0), block, x.data_ptr())
             u = pam4.pam4_quantize_encode(x, scale, bits, block)
             torch.cuda.synchronize()
@@ -761,6 +903,7 @@ def check_training_kernels(card: str) -> dict:
             if not same:
                 raise AssertionError(f"pam4 encode {label} bits={bits} "
                                      f"differs from its plain version")
+        check_pam4_decode(bits)
     # a full 4 MiB bucket of 4 peers, and a ragged one
     for bits in (2, 4, 8):
         for label, nb, tail in (("bucket", 512, 0), ("ragged", 37, 1000)):
@@ -810,25 +953,55 @@ def check_training_kernels(card: str) -> dict:
                 replaces="src/repro/kernels/pam4.py:40", max_abs_err=0.0,
                 ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                 library_ms=None)
-            ins = copies_for([total, scale])
-            ms, host_ms = time_ms(lambda t, s: pam4.pam4_decode_dequantize(
-                t, s, 8, 4, m), ins)
-            plain_ms, _ = time_ms(lambda t, s: ref.pam4_decode_dequantize_ref(
-                t, s, 8, 4, m), ins, iters=20)
-            bound, by = pam4_bound(4 * total.numel() + 4 * m
-                                   + 4 * scale.numel())
-            print(f"pam4_decode_dequantize timing (512 x 2048 sums of 4, "
-                  f"bits 8): kernel {ms * 1e3:.2f} us (host "
-                  f"{host_ms * 1e3:.2f} us), plain {plain_ms * 1e3:.2f} us, "
-                  f"bound {bound * 1e3:.3f} us ({by}) [{card}]", flush=True)
-            records["pam4_decode_dequantize"] = dict(
+    records["pam4_decode_dequantize"] = time_pam4_decode(card)
+    return records
+
+
+def time_pam4_decode(card: str) -> dict:
+    """The decode at its two main-path shapes (bits 8), each beside a
+    device ``copy_`` of the same bytes, the reachable rate (not the same
+    function, so not a library time); returns the main case's record."""
+    import torch
+    from repro_torch.kernels import pam4, ref
+    scale, m, main_ins, ef_ins = pam4_decode_timing_inputs()
+    width = main_ins[0][0].shape[1]
+    cases = (("Q(mean): 1 x 512 x 2048 sums of 4", main_ins, 4,
+              4 * width + 4 * m),
+             (f"error feedback: 4 x 512 x 2048 codes, n 1, base a bucket "
+              f"view of row stride {ef_ins[0][1].stride(0)}", ef_ins, 1,
+              4 * 4 * width + 2 * 4 * 4 * m))
+    record = None
+    for label, ins, n, nbytes in cases:
+        def decode(t, b, n=n):
+            return pam4.pam4_decode_dequantize(t, scale, 8, n, m, b)
+
+        def plain(t, b, n=n):
+            return ref.pam4_decode_dequantize_ref(t, scale, 8, n, m, b)
+
+        t, b = ins[0]
+        out, form = decode_and_form(t, scale, 8, n, m, b)
+        same = torch.equal(out, plain(t, b))
+        ms, host_ms = time_ms(decode, ins)
+        plain_ms, _ = time_ms(plain, ins, iters=20)
+        copy_ms = pam4_copy_ms(nbytes)
+        bound, by = pam4_bound(nbytes + 4 * scale.numel())
+        print(f"pam4_decode_dequantize timing ({label}, bits 8, {form} "
+              f"form, bit-equal {same}): kernel {ms * 1e3:.2f} us (host "
+              f"{host_ms * 1e3:.2f} us), plain {plain_ms * 1e3:.2f} us, "
+              f"copy_ of the same bytes {copy_ms * 1e3:.2f} us, bound "
+              f"{bound * 1e3:.3f} us ({by}), {100 * bound / ms:.1f}% of it "
+              f"[{card}]", flush=True)
+        if not same or form != "aligned":
+            raise AssertionError(f"pam4 decode {label}: {form} form, "
+                                 f"bit-equal {same}")
+        if record is None:
+            record = dict(
                 name="pam4_decode_dequantize", route="cuda",
                 source="src/repro_torch/csrc/pam4.cu",
                 replaces="src/repro/kernels/pam4.py:64", max_abs_err=0.0,
                 ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                 library_ms=None)
-
-    return records
+    return record
 
 
 # ---------------------------------------------- phase 2c: onn_layer
@@ -1404,7 +1577,8 @@ def short_kernel(name: str) -> str:
     """``flash_fwd_mma_kernel<48>`` of a demangled kernel name such as
     ``void (anonymous namespace)::flash_fwd_mma_kernel<(int)48>(
     __nv_bfloat16 const*, ...)`` (``<unnamed>::`` for cu++filt)."""
-    for part in ("(anonymous namespace)::", "<unnamed>::", "(int)"):
+    for part in ("(anonymous namespace)::", "<unnamed>::", "(int)",
+                 "(bool)"):
         name = name.replace(part, "")
     return name.removeprefix("void ").split("(")[0].strip()
 
@@ -1558,17 +1732,20 @@ def train_full_width(card: str) -> dict:
     for fn in counters.values():
         fn.launches = 0
     encode = counters["pam4_quantize_encode"]
-    encode.forms = dict.fromkeys(encode.forms, 0)
+    decode = counters["pam4_decode_dequantize"]
+    for fn in (encode, decode):
+        fn.forms = dict.fromkeys(fn.forms, 0)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     recs = train_run([], 30)
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
-    print(f"pam4 encode forms over the run's buckets: {encode.forms}",
-          flush=True)
-    if encode.forms["scalar"]:
-        raise AssertionError(f"a bucket of block 2048 took the scalar "
-                             f"encode form: {encode.forms}")
+    print(f"pam4 forms over the run's buckets: encode {encode.forms}, "
+          f"decode {decode.forms}", flush=True)
+    if encode.forms["scalar"] or decode.forms["aligned"] != decode.launches:
+        raise AssertionError(f"a bucket of block 2048 left the aligned "
+                             f"form: encode {encode.forms}, decode "
+                             f"{decode.forms}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [r["loss"] for r in recs]
     times = [r["time_s"] for r in recs[5:]]
@@ -1617,6 +1794,14 @@ def train_full_width(card: str) -> dict:
               f"{100 * sum(flash.values()) / busy:.2f}% of the device time ("
               + ", ".join(f"{kernel_name(key)} {100 * us / busy:.2f}%"
                           for key, us in sorted(flash.items()))
+              + f") [{card}]", flush=True)
+        pam4_us = {short_kernel(key): us for key, us in dev.items()
+                   if "pam4" in key}
+        print(f"pam4 kernels in the profiled train step: "
+              f"{sum(pam4_us.values()):.1f} us = "
+              f"{100 * sum(pam4_us.values()) / busy:.2f}% of the device time"
+              f" (" + ", ".join(f"{key} {us:.1f} us" for key, us in
+                                sorted(pam4_us.items()))
               + f") [{card}]", flush=True)
     return launches
 
@@ -1669,17 +1854,25 @@ def train_onn_full_width(card: str):
     n_buckets = expected_buckets(4 * sum(
         math.prod(s) for s in leaves(lm.param_shapes(cfg))))
     counters = dict(_train_counters(), onn_layer=onn_layer.onn_layer)
+    decode = counters["pam4_decode_dequantize"]
 
     def run(argv, steps):
         for fn in counters.values():
             fn.launches = 0
+        decode.forms = dict.fromkeys(decode.forms, 0)
         recs = train_run(argv, steps)
         launches = {name: fn.launches for name, fn in counters.items()}
+        print(f"  {' '.join(argv)}: pam4 decode forms {decode.forms}",
+              flush=True)
         idle = [name for name, n in launches.items()
                 if n == 0 and name != "onn_layer"]
-        if idle or launches["pam4_quantize_encode"] != n_buckets * steps:
+        if (idle or launches["pam4_quantize_encode"] != n_buckets * steps
+                or launches["pam4_decode_dequantize"] != n_buckets * steps
+                or decode.forms["aligned"] != n_buckets * steps):
             raise AssertionError(f"launches {launches} of {argv}: every "
-                                 f"training kernel, pam4 once per bucket")
+                                 f"training kernel, pam4 encode and decode "
+                                 f"once per bucket, aligned: "
+                                 f"{decode.forms}")
         return recs, launches
 
     runs = {fid: run(["--bits", "2", "--fidelity", fid], 10)
@@ -1772,19 +1965,26 @@ def train_mesh_full_width(card: str, behavioral_losses) -> dict:
         math.prod(s) for s in leaves(lm.param_shapes(cfg))))
     counters = dict(_train_counters(), onn_layer=onn_layer.onn_layer,
                     mesh_scan_blocks=mesh_scan.mesh_scan_blocks)
+    decode = counters["pam4_decode_dequantize"]
 
     def run(argv, steps):
         for fn in counters.values():
             fn.launches = 0
+        decode.forms = dict.fromkeys(decode.forms, 0)
         recs = train_run(["--fidelity", "mesh"] + argv, steps)
         launches = {name: fn.launches for name, fn in counters.items()}
+        print(f"  --fidelity mesh {' '.join(argv)}: pam4 decode forms "
+              f"{decode.forms}", flush=True)
         idle = [name for name, n in launches.items()
                 if n == 0 and name not in ("onn_layer", "mesh_scan_blocks")]
         if (idle or launches["pam4_quantize_encode"] != n_buckets * steps
+                or launches["pam4_decode_dequantize"] != n_buckets * steps
+                or decode.forms["aligned"] != n_buckets * steps
                 or launches["onn_layer"]):
             raise AssertionError(f"launches {launches} of {argv}: every "
-                                 f"training kernel, pam4 once per bucket, "
-                                 f"no onn_layer")
+                                 f"training kernel, pam4 encode and decode "
+                                 f"once per bucket (decode aligned: "
+                                 f"{decode.forms}), no onn_layer")
         losses = [r["loss"] for r in recs]
         times = [r["time_s"] for r in recs]
         print(f"train paper_llama bf16 --sync optinc --fidelity mesh "
@@ -1862,6 +2062,7 @@ def card_vs_plain_training(card: str) -> None:
     import torch
     from repro_torch.collectives.bucketizer import make_layout
     from repro_torch.collectives.engine import SyncConfig, sync_flat
+    from repro_torch.kernels import pam4
     from repro_torch.launch import steps as tsteps
     from repro_torch.models import lm
     from repro_torch.models.config import ModelConfig
@@ -1897,7 +2098,10 @@ def card_vs_plain_training(card: str) -> None:
         if res_gpu is None:
             res_gpu = torch.zeros_like(f_gpu)
             res_cpu = res_gpu.cpu()
+        decode = pam4.pam4_decode_dequantize
+        decode.forms = dict.fromkeys(decode.forms, 0)
         out_gpu, new_res_gpu = sync_flat(f_gpu, layout.bounds, sync, res_gpu)
+        forms = dict(decode.forms)
         out_cpu, new_res_cpu = sync_flat(f_gpu.cpu(), layout.bounds, sync,
                                          res_gpu.cpu())
         same = (torch.equal(out_gpu.cpu(), out_cpu),
@@ -1908,7 +2112,8 @@ def card_vs_plain_training(card: str) -> None:
               f"pre-sync gradients max_abs_err / max|leaf| {grad_err:.3e} "
               f"(tol {TRAIN_GRAD_TOL:.0e}); the card's stack synced on the "
               f"CPU: synced bit-equal {same[0]}, residuals bit-equal "
-              f"{same[1]} [{card}]", flush=True)
+              f"{same[1]}; the card's pam4 decode forms {forms} [{card}]",
+              flush=True)
         if not (loss_err <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_TOL
                 and all(same)):
             raise AssertionError("card vs plain training disagrees")
@@ -2159,7 +2364,7 @@ def main() -> int:
     print(f"built {sorted(paths)} in {time.perf_counter() - t:.1f} s",
           flush=True)
     for name, path in sorted(paths.items()):
-        if name.startswith("flash") or name in ("onn_layer",
+        if name.startswith("flash") or name in ("onn_layer", "pam4",
                                                  "paged_attention"):
             continue                  # their checks name each kernel
         log = Path(str(path) + ".log")

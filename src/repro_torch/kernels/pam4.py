@@ -20,7 +20,19 @@ pointer and its row stride alone:
   aligned vectors around them by warp shuffle.
 - ``scalar``: any other block size, a thread an element.
 
-``pam4_quantize_encode.forms`` counts the launches of each form.
+The decode kernel has two forms; ``decode_form`` picks one from the
+shape, the base's row stride and the three data pointers:
+
+- ``aligned``: ``block % 4 == 0``, the sums and every output row on 16
+  bytes (one row, or ``m % 4 == 0``), and no base or every base row on
+  16 bytes: a thread owns 4 columns, one 16-byte load of sums (and of
+  base) and one 16-byte store.  Every decode of the training step takes
+  it.
+- ``scalar``: any other case (a base view off 16 bytes among them), a
+  thread an element.
+
+``pam4_quantize_encode.forms`` and ``pam4_decode_dequantize.forms`` count
+the launches of each form.
 """
 from __future__ import annotations
 
@@ -30,14 +42,14 @@ import torch
 
 from . import _build, ref
 
-ENCODE_FORMS = ("scalar", "aligned", "shifted")   # the C entry's ints
+FORMS = ("scalar", "aligned", "shifted")   # the C entries' ints
 
 _ENCODE_ARGTYPES = ([ctypes.c_void_p] * 3
                     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
                     + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 _DECODE_ARGTYPES = ([ctypes.c_void_p] * 4
                     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
-                    + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                    + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
 def _check_scale(scale: torch.Tensor, m: int, block: int, what: str):
@@ -72,6 +84,19 @@ def encode_form(rows: int, ld: int, block: int, g_ptr: int) -> str:
     return "shifted"
 
 
+def decode_form(rows: int, m: int, ld: int, block: int,
+                base_ptr: int | None, out_ptr: int, total_ptr: int) -> str:
+    """The decode kernel's form for ``rows`` output rows of ``m`` columns
+    at device address ``out_ptr``, sums at ``total_ptr`` in blocks of
+    ``block``, and a base of row stride ``ld`` floats at ``base_ptr``
+    (None: no base)."""
+    if block % 4 or total_ptr % 16 or out_ptr % 16 or (rows > 1 and m % 4):
+        return "scalar"
+    if base_ptr is not None and (base_ptr % 16 or (rows > 1 and ld % 4)):
+        return "scalar"
+    return "aligned"
+
+
 def pam4_quantize_encode(g: torch.Tensor, scale: torch.Tensor, bits: int,
                          block: int) -> torch.Tensor:
     """g: (rows, m) f32 with its last dim contiguous (a strided view of
@@ -96,7 +121,7 @@ def pam4_quantize_encode(g: torch.Tensor, scale: torch.Tensor, bits: int,
     form = encode_form(rows, g.stride(0), block, g.data_ptr())
     fn = _build.entry("pam4", "pam4_encode", _ENCODE_ARGTYPES)
     err = fn(g.data_ptr(), scale.data_ptr(), u.data_ptr(), rows, m,
-             g.stride(0), nb, block, bits, ENCODE_FORMS.index(form),
+             g.stride(0), nb, block, bits, FORMS.index(form),
              torch.cuda.current_stream(g.device).cuda_stream)
     if err:
         raise RuntimeError(f"pam4_quantize_encode kernel launch failed "
@@ -140,18 +165,23 @@ def pam4_decode_dequantize(total: torch.Tensor, scale: torch.Tensor,
     out = torch.empty((rows, m), dtype=torch.float32, device=total.device)
     if rows == 0 or m == 0:
         return out
+    ld = 0 if base is None else base.stride(0)
+    base_ptr = None if base is None else base.data_ptr()
+    form = decode_form(rows, m, ld, block, base_ptr, out.data_ptr(),
+                       total.data_ptr())
     fn = _build.entry("pam4", "pam4_decode", _DECODE_ARGTYPES)
-    err = fn(total.data_ptr(), scale.data_ptr(),
-             None if base is None else base.data_ptr(), out.data_ptr(), rows,
-             m, 0 if base is None else base.stride(0), nb, block, bits, n,
+    err = fn(total.data_ptr(), scale.data_ptr(), base_ptr, out.data_ptr(),
+             rows, m, ld, nb, block, bits, n, FORMS.index(form),
              torch.cuda.current_stream(total.device).cuda_stream)
     if err:
         raise RuntimeError(f"pam4_decode_dequantize kernel launch failed "
-                           f"(cudaError {err})")
+                           f"({form} form, cudaError {err})")
     pam4_decode_dequantize.launches += 1
+    pam4_decode_dequantize.forms[form] += 1
     return out
 
 
 pam4_quantize_encode.launches = 0
-pam4_quantize_encode.forms = dict.fromkeys(ENCODE_FORMS, 0)
+pam4_quantize_encode.forms = dict.fromkeys(FORMS, 0)
 pam4_decode_dequantize.launches = 0
+pam4_decode_dequantize.forms = dict.fromkeys(FORMS[:2], 0)

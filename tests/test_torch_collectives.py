@@ -197,6 +197,7 @@ def test_pam4_wrappers_route_cpu_to_plain_and_reject_bad_input():
                                                       m))
     assert (pam4.pam4_quantize_encode.launches,
             pam4.pam4_decode_dequantize.launches) == before
+    assert not any(pam4.pam4_decode_dequantize.forms.values())
     with pytest.raises(TypeError, match="float32"):
         pam4.pam4_quantize_encode(_t(g).double(), _t(scale), 8, block)
     with pytest.raises(ValueError, match="scales for"):
@@ -207,6 +208,9 @@ def test_pam4_wrappers_route_cpu_to_plain_and_reject_bad_input():
         pam4.pam4_decode_dequantize(tot.long(), _t(scale), 8, 2, m)
     with pytest.raises(ValueError, match="whole number"):
         pam4.pam4_decode_dequantize(tot[:, :-1], _t(scale), 8, 2, m)
+
+
+_A = 0x7f0000000000                        # an allocation starts on 512 B
 
 
 @pytest.mark.parametrize("rows,ld,block,ptr,form", [
@@ -232,7 +236,7 @@ def test_pam4_encode_takes_the_aligned_form_on_every_bucket_of_the_step():
     """paper_llama's 4-peer gradient stack in 4 MiB buckets of block 2048:
     every bucket view (and its contiguous error-feedback sum) starts on
     16 bytes with a row stride a multiple of 4, so all 42 encodes take
-    the aligned vector form."""
+    the aligned vector form, and so do the 42 decodes in both forms."""
     from repro_torch import configs
     from repro_torch.models import lm
     from repro_torch.tree import leaves
@@ -240,12 +244,75 @@ def test_pam4_encode_takes_the_aligned_form_on_every_bucket_of_the_step():
     layout = bucketizer.make_layout([
         (s, torch.float32) for s in leaves(lm.param_shapes(cfg))])
     assert layout.n_buckets == 42
-    base = 0x7f0000000000                  # an allocation starts on 512 B
+    base = _A
     forms = {pam4.encode_form(4, layout.total, 2048, base + 4 * s)
              for s, _ in layout.bounds}
     forms |= {pam4.encode_form(4, e - s, 2048, base)
               for s, e in layout.bounds}
     assert forms == {"aligned"}
+    # decode: the Q(mean) sums (one row) and the error-feedback codes (4
+    # rows, the base the contiguous bucket plus residual the trainer
+    # passes, or the bucket view itself), every array a fresh allocation
+    qmean = {pam4.decode_form(1, e - s, 0, 2048, None, base, base)
+             for s, e in layout.bounds}
+    ef = {pam4.decode_form(4, e - s, e - s, 2048, base, base, base)
+          for s, e in layout.bounds}
+    ef |= {pam4.decode_form(4, e - s, layout.total, 2048, base + 4 * s, base,
+                            base)
+           for s, e in layout.bounds}
+    assert qmean == ef == {"aligned"}
+
+
+@pytest.mark.parametrize("rows,m,ld,block,base,out,total,form", [
+    (1, 1 << 20, 0, 2048, None, _A, _A, "aligned"),     # Q(mean), a bucket
+    (1, 465_280, 0, 2048, None, _A, _A, "aligned"),     # the last bucket
+    (1, 74_775, 0, 2048, None, _A, _A, "aligned"),      # one row, m % 4 3
+    (4, 74_775, 0, 2048, None, _A, _A, "scalar"),       # rows off 16 bytes
+    (4, 1 << 20, 43_456_896, 2048, _A + 4 * (1 << 20), _A, _A, "aligned"),
+    (4, 80_920, 80_920, 2048, _A, _A, _A, "aligned"),   # base contiguous
+    (4, 80_920, 80_920, 2048, _A + 4, _A, _A, "scalar"),    # a float off
+    (4, 80_920, 80_922, 2048, _A, _A, _A, "scalar"),    # stride 2 mod 4
+    (1, 74_775, 74_775, 2048, _A + 8, _A, _A, "scalar"),
+    (1, 74_775, 74_777, 2048, _A, _A, _A, "aligned"),   # one row: no stride
+    (4, 74_775, 74_775, 2048, _A, _A, _A, "scalar"),
+    (4, 59_992, 0, 1000, None, _A, _A, "aligned"),      # block 1000 = 4 x 250
+    (4, 59_992, 59_994, 1000, _A, _A, _A, "scalar"),
+    (4, 59_940, 0, 999, None, _A, _A, "scalar"),        # block not 4 k
+    (1, 59_940, 59_940, 999, _A + 4, _A, _A, "scalar"),
+    (1, 1 << 20, 0, 2048, None, _A, _A + 4, "scalar"),  # sums off 16 bytes
+    (1, 1 << 20, 0, 2048, None, _A + 8, _A, "scalar"),  # output off
+])
+def test_pam4_decode_form_by_alignment_stride_and_block(rows, m, ld, block,
+                                                        base, out, total,
+                                                        form):
+    assert pam4.decode_form(rows, m, ld, block, base, out, total) == form
+
+
+@pytest.mark.parametrize("view", ["offset", "ld"])
+@pytest.mark.parametrize("bits", BITS)
+def test_pam4_decode_of_a_base_view_matches_the_jax_local_error(bits, view):
+    """The error-feedback decode through the wrapper (its plain version on
+    the CPU) of a base one float past 16 bytes, or with a row stride 2 mod
+    4 (the views that take the scalar form on the card), bit for bit
+    against ``_quantized_sync``'s local term, per peer."""
+    g, scale, m, block = _encode_case(bits)
+    peers = g.shape[0]
+    if view == "offset":
+        base = torch.empty(peers * m + 1)[1:].view(peers, m)
+    else:
+        base = torch.empty(peers, m + 2)[:, :m]
+    base.copy_(_t(g))
+    assert pam4.decode_form(peers, m, base.stride(0), block,
+                            base.data_ptr(), _A, _A) == "scalar"
+    u = pam4.pam4_quantize_encode(base, _t(scale), bits, block)
+    err = pam4.pam4_decode_dequantize(u.reshape(peers, -1), _t(scale), bits,
+                                      1, m, base)
+    cfg = JaxSyncConfig(bits=bits, block=block)
+    for p in range(peers):
+        _, jq, jsafe, _ = jbackends._encode(jnp.asarray(g[p]),
+                                            jnp.asarray(scale), cfg)
+        np.testing.assert_array_equal(err[p].numpy(), np.asarray(
+            _jax_local_error(jnp.asarray(g[p]), jq, jsafe, bits, m)))
 
 
 # ----------------------------------------------------------- bucketizer
