@@ -81,23 +81,46 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    Step time p50/p99 and tokens/s; one step under ``torch.profiler``,
    with the flash and pam4 kernels' shares of its device time; a short
    ``--sync psum`` run of the same config as a yardstick.
+   4d. (run before 4b) The paper's scenario-1 ONN trained on the card
+   (``photonics.training``: 4-64-128-256-128-64-4, layers 1-6
+   approximated, bits 8, N 4, K 4, the full 28,561-sample grid, 3000
+   epochs, stage 2 from 2400): once in the paper's project mode as
+   ``examples/quickstart.py --scenario1`` does, once in cayley mode
+   through ``runtime.get_module(params='train')``.  For each: seconds,
+   first and last loss, the accuracy through the plain path, the
+   ``onn_layer`` kernel and the ``mesh_scan`` kernel (both backends), the
+   error histogram, and the paper's 1.0 and Table II's worst row beside
+   it; a kernel path's count of exact samples may differ from the plain
+   path's only by the samples within ONN_MARGIN of a threshold.  The ONN
+   with the higher onn_layer accuracy is installed (``put_module``) for
+   4b, 4c and 4e.  Alone (it prints the chosen ONN): ``python3 -c
+   'import chip_smoke as c; c.trained_onn_full_width(c.card_line())'``.
    4b. The same config through the in-network ONN: ``--fidelity onn
    --bits 2`` (the exact identity ONN) for 10 steps must print the
    losses of ``--fidelity behavioral --bits 2`` and launch ``onn_layer``
    2 x 42 times a step (in every run pam4 encode and decode once a
    bucket, each decode on the aligned form); ``--fidelity onn --bits 8``
-   with a seeded ONN of
-   the default structure (installed with ``runtime.put_module``) for 5
-   steps must give finite losses and 6 x 42 launches a step.  Step
+   through the trained ONN for 10 steps beside phase 4's first 10
+   behavioral losses, 6 x 42 launches a step, and the share of one
+   bucket's codes that differ from behavioral Q(mean); if the ONN is
+   exact on the whole grid, the losses must be behavioral's.  Step
    times, and one profiled step at each bit width.
    4c. The same config through the ONN's MZI meshes (``--fidelity
    mesh``): at ``--bits 2`` for 10 steps the losses of the behavioral
    run and no ``mesh_scan`` launch (the exact identity has no rotation);
-   at ``--bits 8`` with a seeded Table I row 1 ONN (layers 1-6
-   approximated) for 3 steps on ``--mesh-backend pallas`` and 1 on
-   ``xla`` (the same step-0 loss), 6 x 42 launches a step; the default
-   ONN (no approximated layer) for 2 steps, 12 x 42 a step; pam4 as in
-   4b.  Step times, peak memory, one profiled step.
+   at ``--bits 8`` through the trained Table I row 1 ONN for 3 steps on
+   ``--mesh-backend pallas`` and 1 on ``xla`` (the same step-0 loss),
+   6 x 42 launches a step, beside phase 4's losses; a seeded ONN of the
+   default structure (no approximated layer) for 2 steps, 12 x 42 a
+   step, for its timing; pam4 as in 4b.  Step times, peak memory, one
+   profiled step.
+   4e. PhaseNoise through the trained ONN, ``--fidelity mesh --bits 8
+   --theta-drift-std 0.02 --shot-noise-std 0.01``: 3 steps on pallas,
+   whose 6 x 42 mesh launches a step must all take the kernel's drift
+   branch (``mesh_scan_blocks.branches``), the same 3 steps again with
+   the same seed for the same losses, 1 step on xla (the drift in tensor
+   ops, no drift launch); step times and losses beside the clean run's;
+   then ``--bits 2`` with the same stds for 8 steps beside behavioral.
 5. Card vs plain end to end: the f32 model with the same weights served
    through the kernels on the card and through the plain path on the
    CPU; teacher-forced logits must agree, greedy tokens must agree up to
@@ -1305,20 +1328,30 @@ def mesh_diagonal_products(rows, blocks, m, transpose, post_scale):
     return rows * blocks * m * (2 if both else 1)
 
 
-def mesh_bound(rows, st, x_blocked, transpose, post_scale):
+# operations of the theta drift for one (layer, wire, block), counted
+# from its plain version (kernels/ref.py): the counter and its two mix32
+# hashes 21 integer operations, the two uniforms 7, Box-Muller 6, the
+# symmetrised eps 6, its cos and sin 2, the rotated (ca, sa) 6
+DRIFT_OPS = 48
+
+
+def mesh_bound(rows, st, x_blocked, transpose, post_scale, drift=False):
     """Least time of one launch of the stack st: x read once (one slice
     per block when blocked), the output written once, the (perm, ca, sa)
     stacks and the diagonals read once, against the f32 flops the
     function needs: 3 for each wire of each of the st.n_rot rotations (a
     product and an fma) a row, and the diagonals' products.  Identity
-    slots (perm[w] = w, ca 1, sa 0) need none."""
+    slots (perm[w] = w, ca 1, sa 0) need none.  With ``drift``, the
+    theta drift's DRIFT_OPS once per layer, wire and block, as the JAX
+    kernel draws its field (once, not once a row tile)."""
     blocks, layers, m = st.perm.shape
     x_rows = rows * blocks if x_blocked else rows
     nbytes = 4 * (x_rows * m + rows * blocks * m + 3 * blocks * layers * m
                   + 2 * blocks * m)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     flops = (6 * rows * st.n_rot
-             + mesh_diagonal_products(rows, blocks, m, transpose, post_scale))
+             + mesh_diagonal_products(rows, blocks, m, transpose, post_scale)
+             + (DRIFT_OPS * blocks * layers * m if drift else 0))
     t_ops = flops / PEAK_FLOPS["float32"] * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
@@ -1522,8 +1555,14 @@ def check_mesh_kernel(card: str) -> dict:
             drift_ms, _ = time_ms(lambda a: mesh_scan.mesh_scan_blocks(
                 st.signs, st.perm, st.ca, st.sa, a, theta_std=0.05,
                 seeds=seeds, **kw), ins, iters=3)
+            d_bound, d_by = mesh_bound(BUCKET_ROWS, st, blocked, transpose,
+                                       post, drift=True)
             print(f"mesh_scan_blocks {label} with the theta drift (std "
-                  f"0.05): kernel {drift_ms:.3f} ms [{card}]", flush=True)
+                  f"0.05): kernel {drift_ms:.3f} ms, bound {d_bound:.3f} ms "
+                  f"({d_by}; the rotations and {DRIFT_OPS} operations a "
+                  f"layer, wire and block for the drift); kernel at "
+                  f"{100 * d_bound / drift_ms:.1f}% of its bound [{card}]",
+                  flush=True)
             records["mesh_scan_blocks"] = dict(
                 name="mesh_scan_blocks", route="cuda",
                 source="src/repro_torch/csrc/mesh_scan.cu",
@@ -1717,8 +1756,9 @@ def train_run(argv, steps: int):
     return recs
 
 
-def train_full_width(card: str) -> dict:
-    """Returns the launch count of each training kernel in the run."""
+def train_full_width(card: str):
+    """Returns the launch count of each training kernel in the run and
+    the run's losses."""
     import torch
     from repro_torch import configs
     from repro_torch.collectives.bucketizer import expected_buckets
@@ -1803,7 +1843,7 @@ def train_full_width(card: str) -> dict:
               f" (" + ", ".join(f"{key} {us:.1f} us" for key, us in
                                 sorted(pam4_us.items()))
               + f") [{card}]", flush=True)
-    return launches
+    return launches, losses
 
 
 def profile_train_step(card: str, sync, what: str) -> dict:
@@ -1836,10 +1876,48 @@ def profile_train_step(card: str, sync, what: str) -> dict:
     return device_profile(prof, w, card, what)
 
 
-def train_onn_full_width(card: str):
+def first_bucket_codes():
+    """The 4 peers' B-bit codes of the first bucket of phase 4's step-0
+    gradients (paper_llama, seed SEED, --bits 8 --block 2048): (4,
+    1,048,576) int32 on the card."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.collectives import backends
+    from repro_torch.collectives.bucketizer import make_layout
+    from repro_torch.collectives.engine import SyncConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves
+
+    cfg = configs.get("paper_llama")
+    sync = SyncConfig(mode="optinc", bits=8, block=2048)
+    layout = make_layout([(shape, lm.torch_dtype(cfg)) for shape in
+                          leaves(lm.param_shapes(cfg))], sync.bucket_bytes)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=512,
+                                  global_batch=32, seed=SEED))
+    _, flat = tsteps.peer_grad_stack(
+        cfg, lm.init_params(cfg, SEED, "cuda"),
+        torch.from_numpy(data.batch(0)).cuda(), 4, layout.total)
+    s, e = layout.bounds[0]
+    x = flat[:, s:e].contiguous()
+    return backends._encode(x, backends._shared_scale(x, sync),
+                            sync).reshape(4, -1)
+
+
+def codes_off_behavioral(module, u, fidelity, backend="xla") -> float:
+    """Share of the averaged codes of ``u`` (first_bucket_codes) that the
+    pipeline through ``module`` gives other than behavioral Q(mean)."""
+    from repro_torch.photonics import encoding, pipeline
+    got = pipeline.level_pipeline(module, 8, fidelity=fidelity,
+                                  mesh_backend=backend).run(u).data
+    return (got != encoding.qmean(u)).float().mean().item()
+
+
+def train_onn_full_width(card: str, behavioral8, onn):
     """Phase 4b: the onn fidelity at full width; returns the launch
-    counts of the bits-8 run and the losses of the behavioral bits-2
-    run."""
+    counts of the bits-8 run through the trained ONN (phase 4d's pick,
+    ``onn``) and the losses of the behavioral bits-2 run."""
     import torch
     from repro_torch import configs
     from repro_torch.collectives.bucketizer import expected_buckets
@@ -1847,7 +1925,6 @@ def train_onn_full_width(card: str):
     from repro_torch.kernels import onn_layer
     from repro_torch.models import lm
     from repro_torch.photonics import PhotonicsConfig, runtime
-    from repro_torch.photonics.module import ONNModule
     from repro_torch.tree import leaves
 
     cfg = configs.get("paper_llama")
@@ -1896,24 +1973,31 @@ def train_onn_full_width(card: str):
                              f"{runs['behavioral'][1]}: want {want} and 0")
 
     ph = PhotonicsConfig(fidelity="onn")
-    runtime.put_module(ph, 8, 4, ONNModule.init(
-        runtime.onn_config(ph, 8, 4), SEED))
+    runtime.put_module(ph, 8, 4, onn["module"])
     torch.cuda.reset_peak_memory_stats()
-    recs, launches = run(["--bits", "8", "--fidelity", "onn"], 5)
+    recs, launches = run(["--bits", "8", "--fidelity", "onn"], 10)
+    got = [r["loss"] for r in recs]
     times = [r["time_s"] for r in recs[1:]]
+    share = codes_off_behavioral(onn["module"], onn["codes"], "onn")
+    dl = max(abs(a - b) for a, b in zip(got, behavioral8))
     print(f"train paper_llama bf16 --sync optinc --bits 8 --fidelity onn "
-          f"(seeded ONN {ONN8_STRUCTURE}) --mesh 4x1, 5 steps: loss "
-          f"{[r['loss'] for r in recs]}; step p50 "
-          f"{pct(times, 0.5) * 1e3:.3f} ms p99 {pct(times, 0.99) * 1e3:.3f}"
-          f" ms over steps 1-4; first step {recs[0]['time_s'] * 1e3:.3f} ms;"
-          f" launches {launches}; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB [{card}]",
-          flush=True)
-    if not all(math.isfinite(r["loss"]) for r in recs):
-        raise AssertionError(f"non-finite losses at bits 8: {recs}")
-    if launches["onn_layer"] != 6 * n_buckets * 5:
+          f"(the trained {onn['label']} ONN, onn_layer accuracy "
+          f"{onn['onn_acc']:.7f}) --mesh 4x1, 10 steps: loss {got}; phase "
+          f"4 behavioral {behavioral8[:10]}; max |dloss| {dl:.5f}; codes of "
+          f"one bucket (step 0, bucket 0) off behavioral Q(mean) "
+          f"{100 * share:.4f}%; step p50 {pct(times, 0.5) * 1e3:.3f} ms p99 "
+          f"{pct(times, 0.99) * 1e3:.3f} ms over steps 1-9; first step "
+          f"{recs[0]['time_s'] * 1e3:.3f} ms; launches {launches}; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB "
+          f"[{card}]", flush=True)
+    if not all(math.isfinite(x) for x in got):
+        raise AssertionError(f"non-finite losses at bits 8: {got}")
+    if onn["onn_acc"] == 1.0 and (got != behavioral8[:10] or share):
+        raise AssertionError("an ONN exact on the whole input grid must "
+                             "give behavioral's losses bit for bit")
+    if launches["onn_layer"] != 6 * n_buckets * 10:
         raise AssertionError(f"onn_layer launches {launches['onn_layer']}: "
-                             f"want {6 * n_buckets * 5}")
+                             f"want {6 * n_buckets * 10}")
     for bits in (2, 8):
         dev = profile_train_step(
             card, SyncConfig(mode="optinc", bits=bits, block=2048,
@@ -1948,16 +2032,16 @@ def mesh_launches(programs) -> list:
             for p in programs]
 
 
-def train_mesh_full_width(card: str, behavioral_losses) -> dict:
-    """Phase 4c: the mesh fidelity at full width; returns the launch
-    counts of the bits-8 run through the Table I row 1 ONN."""
-    import torch
+def mesh_run(card: str, argv, steps: int, label: str = ""):
+    """Records of ``steps`` steps of ``--fidelity mesh`` + argv, with each
+    training kernel's launches and the mesh kernel's branches counted
+    from 0 over the run; raises unless pam4 encodes and decodes once a
+    bucket (decode aligned), every training kernel ran and onn_layer did
+    not.  Returns (losses, step seconds, launches, branches)."""
     from repro_torch import configs
     from repro_torch.collectives.bucketizer import expected_buckets
-    from repro_torch.collectives.engine import SyncConfig
     from repro_torch.kernels import mesh_scan, onn_layer
     from repro_torch.models import lm
-    from repro_torch.photonics import PhotonicsConfig, runtime
     from repro_torch.tree import leaves
 
     cfg = configs.get("paper_llama")
@@ -1966,93 +2050,334 @@ def train_mesh_full_width(card: str, behavioral_losses) -> dict:
     counters = dict(_train_counters(), onn_layer=onn_layer.onn_layer,
                     mesh_scan_blocks=mesh_scan.mesh_scan_blocks)
     decode = counters["pam4_decode_dequantize"]
+    blocks = mesh_scan.mesh_scan_blocks
+    for fn in counters.values():
+        fn.launches = 0
+    decode.forms = dict.fromkeys(decode.forms, 0)
+    blocks.branches = dict.fromkeys(blocks.branches, 0)
+    recs = train_run(["--fidelity", "mesh"] + argv, steps)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    branches = dict(blocks.branches)
+    print(f"  --fidelity mesh {' '.join(argv)}: pam4 decode forms "
+          f"{decode.forms}; mesh_scan branches {branches}", flush=True)
+    idle = [name for name, n in launches.items()
+            if n == 0 and name not in ("onn_layer", "mesh_scan_blocks")]
+    if (idle or launches["pam4_quantize_encode"] != n_buckets * steps
+            or launches["pam4_decode_dequantize"] != n_buckets * steps
+            or decode.forms["aligned"] != n_buckets * steps
+            or launches["onn_layer"]):
+        raise AssertionError(f"launches {launches} of {argv}: every "
+                             f"training kernel, pam4 encode and decode "
+                             f"once per bucket (decode aligned: "
+                             f"{decode.forms}), no onn_layer")
+    losses = [r["loss"] for r in recs]
+    times = [r["time_s"] for r in recs]
+    print(f"train paper_llama bf16 --sync optinc --fidelity mesh "
+          f"{' '.join(argv)} --mesh 4x1{label}, {steps} steps: loss "
+          f"{losses}; step times ms {[round(t * 1e3, 3) for t in times]}; "
+          f"launches {launches} [{card}]", flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite losses: {losses}")
+    return losses, times, launches, branches
 
-    def run(argv, steps):
-        for fn in counters.values():
-            fn.launches = 0
-        decode.forms = dict.fromkeys(decode.forms, 0)
-        recs = train_run(["--fidelity", "mesh"] + argv, steps)
-        launches = {name: fn.launches for name, fn in counters.items()}
-        print(f"  --fidelity mesh {' '.join(argv)}: pam4 decode forms "
-              f"{decode.forms}", flush=True)
-        idle = [name for name, n in launches.items()
-                if n == 0 and name not in ("onn_layer", "mesh_scan_blocks")]
-        if (idle or launches["pam4_quantize_encode"] != n_buckets * steps
-                or launches["pam4_decode_dequantize"] != n_buckets * steps
-                or decode.forms["aligned"] != n_buckets * steps
-                or launches["onn_layer"]):
-            raise AssertionError(f"launches {launches} of {argv}: every "
-                                 f"training kernel, pam4 encode and decode "
-                                 f"once per bucket (decode aligned: "
-                                 f"{decode.forms}), no onn_layer")
-        losses = [r["loss"] for r in recs]
-        times = [r["time_s"] for r in recs]
-        print(f"train paper_llama bf16 --sync optinc --fidelity mesh "
-              f"{' '.join(argv)} --mesh 4x1, {steps} steps: loss {losses}; "
-              f"step times ms {[round(t * 1e3, 3) for t in times]}; "
-              f"launches {launches} [{card}]", flush=True)
-        return losses, times, launches
 
-    losses, times, launches = run(["--bits", "2"], 10)
+def train_mesh_full_width(card: str, behavioral_bits2, behavioral8,
+                          onn) -> tuple:
+    """Phase 4c: the mesh fidelity at full width; returns the launch
+    counts and the losses and step times of the bits-8 pallas run
+    through the trained Table I row 1 ONN (phase 4d's pick)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.collectives.bucketizer import expected_buckets
+    from repro_torch.collectives.engine import SyncConfig
+    from repro_torch.models import lm
+    from repro_torch.photonics import PhotonicsConfig, runtime
+    from repro_torch.tree import leaves
+
+    cfg = configs.get("paper_llama")
+    n_buckets = expected_buckets(4 * sum(
+        math.prod(s) for s in leaves(lm.param_shapes(cfg))))
+    losses, times, launches, _ = mesh_run(card, ["--bits", "2"], 10)
     print(f"  --fidelity mesh --bits 2: step p50 "
           f"{pct(times[3:], 0.5) * 1e3:.3f} ms p99 "
           f"{pct(times[3:], 0.99) * 1e3:.3f} ms over steps 3-9 [{card}]",
           flush=True)
-    if losses != behavioral_losses or launches["mesh_scan_blocks"]:
+    if losses != behavioral_bits2 or launches["mesh_scan_blocks"]:
         raise AssertionError(f"--fidelity mesh --bits 2: losses {losses} vs "
-                             f"behavioral {behavioral_losses}, "
+                             f"behavioral {behavioral_bits2}, "
                              f"{launches['mesh_scan_blocks']} mesh_scan "
                              f"launches (want equal losses and 0)")
 
     ph = PhotonicsConfig(fidelity="mesh")
+    trained = onn["module"]
+    label = f"trained {onn['label']} Table I row 1 (approx 1-6)"
     results = {}
-    for label, approx, backend, steps in (
-            ("Table I row 1 (approx 1-6)", APPROX_LAYERS, "pallas", 3),
-            ("Table I row 1 (approx 1-6)", APPROX_LAYERS, "xla", 1),
-            ("default (no approx)", (), "pallas", 2)):
-        if backend == "pallas":
-            module = seeded_onn(ph, approx, SEED + 6)
-            t = time.perf_counter()
-            launches_of = mesh_launches(module.programs)
-            print(f"mesh ONN {label}: Givens programming "
-                  f"{time.perf_counter() - t:.3f} s on the host; per layer, "
-                  f"(blocks, wires, depth) of each launch {launches_of} "
-                  f"[{card}]", flush=True)
-            per_bucket = sum(len(layer) for layer in launches_of)
-            runtime.put_module(ph, 8, 4, module)
+    # the seeded default ONN (no approximated layer) is kept for its
+    # timing: two SVD meshes a layer, up to 256 wires and 509 layers
+    for what, module, backend, steps in (
+            (label, trained, "pallas", 3),
+            (label, trained, "xla", 1),
+            ("seeded default (no approx)",
+             seeded_onn(ph, (), SEED + 6), "pallas", 2)):
+        t = time.perf_counter()
+        launches_of = mesh_launches(module.programs)
+        print(f"mesh ONN {what}: Givens programming "
+              f"{time.perf_counter() - t:.3f} s on the host (0 if done "
+              f"before); per layer, (blocks, wires, depth) of each launch "
+              f"{launches_of} [{card}]", flush=True)
+        per_bucket = sum(len(layer) for layer in launches_of)
+        runtime.put_module(ph, 8, 4, module)
         torch.cuda.reset_peak_memory_stats()
-        losses, times, launches = run(["--bits", "8", "--mesh-backend",
-                                       backend], steps)
+        losses, times, launches, _ = mesh_run(
+            card, ["--bits", "8", "--mesh-backend", backend], steps,
+            f" ({what})")
         peak = torch.cuda.max_memory_allocated() / 1e9
         rest = times[1:] or times
-        print(f"  {label}, --mesh-backend {backend}: first step "
+        print(f"  {what}, --mesh-backend {backend}: first step "
               f"{times[0] * 1e3:.3f} ms, p50 of the rest "
-              f"{pct(rest, 0.5) * 1e3:.3f} ms; peak memory {peak:.3f} GB "
-              f"[{card}]", flush=True)
+              f"{pct(rest, 0.5) * 1e3:.3f} ms; peak memory {peak:.3f} GB; "
+              f"phase 4 behavioral losses {behavioral8[:steps]} [{card}]",
+              flush=True)
         want = per_bucket * n_buckets * steps
-        if (launches["mesh_scan_blocks"] != want
-                or not all(math.isfinite(x) for x in losses)):
-            raise AssertionError(f"{label} {backend}: mesh_scan launches "
+        if launches["mesh_scan_blocks"] != want:
+            raise AssertionError(f"{what} {backend}: mesh_scan launches "
                                  f"{launches['mesh_scan_blocks']} (want "
-                                 f"{want}), losses {losses}")
-        results[label, backend] = losses, launches
-    pallas, xla = (results["Table I row 1 (approx 1-6)", b][0]
-                   for b in ("pallas", "xla"))
+                                 f"{want})")
+        results[what, backend] = losses, times, launches
+    pallas, xla = (results[label, b][0] for b in ("pallas", "xla"))
+    share = codes_off_behavioral(trained, onn["codes"], "mesh", "pallas")
+    print(f"  {label}: codes of one bucket (step 0, bucket 0) off "
+          f"behavioral Q(mean) through the meshes {100 * share:.4f}%; max "
+          f"|dloss| against phase 4 behavioral over 3 steps "
+          f"{max(abs(a - b) for a, b in zip(pallas, behavioral8)):.5f} "
+          f"[{card}]", flush=True)
     if xla[0] != pallas[0]:
         raise AssertionError(f"step-0 loss xla {xla[0]} != pallas "
                              f"{pallas[0]}")
 
-    runtime.put_module(ph, 8, 4, seeded_onn(ph, APPROX_LAYERS, SEED + 6))
+    runtime.put_module(ph, 8, 4, trained)
     dev = profile_train_step(
         card, SyncConfig(mode="optinc", bits=8, block=2048,
                          photonics=PhotonicsConfig(fidelity="mesh",
                                                    mesh_backend="pallas")),
-        "train step --fidelity mesh --bits 8 (Table I row 1)")
+        f"train step --fidelity mesh --bits 8 ({label})")
     mesh_us = sum(us for k, us in dev.items() if "mesh_scan" in k)
     print(f"  mesh_scan: {mesh_us:.1f} us of the step's device time, "
           f"{100 * mesh_us / max(sum(dev.values()), 1e-9):.2f}% [{card}]",
           flush=True)
-    return results["Table I row 1 (approx 1-6)", "pallas"][1]
+    losses, times, launches = results[label, "pallas"]
+    return launches, losses, times
+
+
+# ----------------------------------------- phase 4d: the trained ONN
+# The paper's scenario 1 (examples/quickstart.py --scenario1): B 8, N 4,
+# K 4, 4-64-128-256-128-64-4 with layers 1-6 approximated, the full
+# 13^4 = 28,561-sample input grid, 3000 epochs (stage 2 from 2400)
+SCENARIO1_TRAIN = dict(epochs=3000, e1=2400, lr=1e-2, proj_every=200)
+# the paper's Table II, worst accuracy row (approximated layers 3-6 of
+# scenario 4; src/repro/photonics/error_model.py:34)
+TABLE_II_WORST = 0.9998891
+
+
+class captured_histories:
+    """Collects the history of every ``training.train`` call made inside
+    the ``with`` block (``ONNModule.train`` returns only the module)."""
+
+    def __enter__(self):
+        from repro_torch.photonics import training
+        self.histories, self._train = [], training.train
+
+        def spy(*args, **kw):
+            params, history = self._train(*args, **kw)
+            self.histories.append(history)
+            return params, history
+
+        training.train = spy
+        return self.histories
+
+    def __exit__(self, *exc):
+        from repro_torch.photonics import training
+        training.train = self._train
+
+
+def onn_accuracies(card: str, label: str, module, a, t) -> dict:
+    """The accuracy of a trained scenario-1 ONN on the whole input grid
+    through the plain path (``training.accuracy``), the ``onn_layer``
+    kernel (``symbols(a, 'onn')``) and the ``mesh_scan`` kernel (both
+    backends), and its error histogram.  Raises if a kernel path's count
+    of exact samples differs from the plain path's by more than the
+    samples whose plain analog output lies within ONN_MARGIN of a PAM4
+    threshold."""
+    import torch
+    from repro_torch.photonics import training
+    n = len(a)
+    a_gpu, t_gpu = torch.from_numpy(a).cuda(), torch.from_numpy(t).cuda()
+    plain = training.accuracy(module.params, a, t, module.cfg, device="cuda")
+    with torch.no_grad():
+        analog = training.apply_onn(module.params_on("cuda"), a_gpu,
+                                    module.cfg)
+    thr = torch.tensor([0.5, 1.5, 2.5], device="cuda")
+    near = int(((analog[..., None] - thr).abs() <= ONN_MARGIN).any(-1)
+               .any(-1).sum())
+
+    def exact(sym):
+        return int((sym == t_gpu).all(-1).sum())
+
+    got = {"onn_layer": exact(module.symbols(a_gpu, "onn"))}
+    t0 = time.perf_counter()
+    module.programs_on("cuda")
+    programming = time.perf_counter() - t0
+    for backend in ("xla", "pallas"):
+        got[f"mesh_scan {backend}"] = exact(module.symbols(
+            a_gpu, "mesh", mesh_backend=backend))
+    hist = training.error_histogram(module.params, a, t, module.cfg,
+                                    device="cuda")
+    print(f"trained ONN {label}: accuracy over the {n} samples, plain "
+          f"path {plain:.7f}; " + ", ".join(
+              f"{k} {v / n:.7f}" for k, v in got.items())
+          + f"; {near} samples within {ONN_MARGIN} of a threshold; error "
+          f"histogram {dict(sorted(hist.items()))}; paper 1.0 "
+          f"{'met' if plain == 1.0 else 'NOT met'}, Table II's worst row "
+          f"{TABLE_II_WORST}: {'at or above' if plain >= TABLE_II_WORST else 'BELOW'}; "
+          f"Givens programming {programming:.3f} s on the host [{card}]",
+          flush=True)
+    for k, v in got.items():
+        if abs(v - round(plain * n)) > near:
+            raise AssertionError(f"{label}: {k} accuracy {v / n} differs "
+                                 f"from the plain path's {plain} by more "
+                                 f"than the {near} near-threshold samples")
+    return {"plain": plain, "onn_acc": got["onn_layer"] / n,
+            "mesh_acc": got["mesh_scan pallas"] / n}
+
+
+def trained_onn_full_width(card: str) -> dict:
+    """Phase 4d: trains the paper's scenario-1 ONN on the card twice, in
+    the paper's project mode as examples/quickstart.py does and in
+    cayley mode through ``runtime.get_module(params='train')``; prints
+    each one's seconds, losses and accuracies by path.  Returns the one
+    with the higher onn_layer accuracy (project on a tie) as {"module",
+    "label", "onn_acc", "codes"}, codes those of first_bucket_codes."""
+    import torch
+    from repro_torch.photonics import (PhotonicsConfig, dataset, runtime,
+                                       training)
+    from repro_torch.photonics.module import ONNModule
+    from repro_torch.photonics.onn import ONNConfig
+
+    cfg = ONNConfig(structure=ONN8_STRUCTURE, approx_layers=APPROX_LAYERS,
+                    bits=8, n_servers=4, k_inputs=4)
+    a, t = dataset.full_dataset(cfg)
+    picks = []
+    for mode in ("project", "cayley"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "project":
+            params, hist = training.train(
+                cfg, training.TrainConfig(**SCENARIO1_TRAIN), a, t,
+                eval_every=200, device="cuda")
+            module = ONNModule.from_params(cfg, params)
+        else:
+            ph = PhotonicsConfig(fidelity="onn", params="train",
+                                 train_epochs=SCENARIO1_TRAIN["epochs"],
+                                 approx_layers=APPROX_LAYERS)
+            with captured_histories() as hists:
+                module = runtime.get_module(ph, 8, 4)
+            (hist,) = hists
+            if module.cfg != cfg:
+                raise AssertionError(f"params='train' built {module.cfg}")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        evals = [(h["epoch"], h["acc"]) for h in hist if "acc" in h]
+        print(f"phase 4d: scenario-1 ONN {ONN8_STRUCTURE} (approx 1-6, "
+              f"bits 8, N 4, K 4, {len(a)} samples), mode {mode}: "
+              f"{len(hist)} epochs in {secs:.3f} s ({1e3 * secs / len(hist):.3f}"
+              f" ms an epoch); loss {hist[0]['loss']:.6e} -> "
+              f"{hist[-1]['loss']:.6e}; stage 2 from epoch "
+              f"{next((h['epoch'] for h in hist if h['stage'] == 2), None)};"
+              f" accuracy at the evaluations {evals} [{card}]", flush=True)
+        acc = onn_accuracies(card, mode, module, a, t)
+        picks.append((acc["onn_acc"], mode == "project", mode, module))
+    onn_acc, _, label, module = max(picks, key=lambda p: p[:2])
+    print(f"phase 4d: installing the {label} ONN (onn_layer accuracy "
+          f"{onn_acc:.7f}) for phases 4b, 4c and 4e", flush=True)
+    return {"module": module, "label": label, "onn_acc": onn_acc,
+            "codes": first_bucket_codes()}
+
+
+# ------------------------------------------------ phase 4e: PhaseNoise
+NOISE_ARGV = ["--theta-drift-std", "0.02", "--shot-noise-std", "0.01"]
+
+
+def train_noise_full_width(card: str, onn, clean_losses, clean_times,
+                           behavioral_bits2) -> int:
+    """Phase 4e: the trained ONN's bits-8 mesh steps with thermal drift
+    and shot noise: pallas (the kernel's drift branch, 6 x 42 launches a
+    step) for 3 steps, again with the same seed (the same losses), and
+    xla (the drift in tensor ops, no drift launch) for 1; then bits 2
+    with the same stds for 8 steps beside behavioral.  Returns the drift
+    launches of the first pallas run."""
+    from repro_torch import configs
+    from repro_torch.collectives.bucketizer import expected_buckets
+    from repro_torch.models import lm
+    from repro_torch.photonics import PhotonicsConfig, runtime
+    from repro_torch.tree import leaves
+
+    cfg = configs.get("paper_llama")
+    n_buckets = expected_buckets(4 * sum(
+        math.prod(s) for s in leaves(lm.param_shapes(cfg))))
+    runtime.put_module(PhotonicsConfig(fidelity="mesh"), 8, 4,
+                       onn["module"])
+    per_step = 6 * n_buckets
+    runs = {}
+    for name, backend, steps in (("pallas", "pallas", 3),
+                                 ("pallas again", "pallas", 3),
+                                 ("xla", "xla", 1)):
+        losses, times, launches, branches = mesh_run(
+            card, ["--bits", "8", "--mesh-backend", backend] + NOISE_ARGV,
+            steps, f" (trained {onn['label']} ONN, PhaseNoise)")
+        want = ({"clean": 0, "theta_drift": per_step * steps}
+                if backend == "pallas"
+                else {"clean": per_step * steps, "theta_drift": 0})
+        if branches != want:
+            raise AssertionError(f"{name}: mesh_scan branches {branches}, "
+                                 f"want {want}")
+        runs[name] = losses, times, branches
+        print(f"  PhaseNoise {name}: step times ms "
+              f"{[round(x * 1e3, 3) for x in times]} (clean "
+              f"{[round(x * 1e3, 3) for x in clean_times[:steps]]}); loss "
+              f"{losses} (clean {clean_losses[:steps]}); max |dloss| "
+              f"{max(abs(a - b) for a, b in zip(losses, clean_losses)):.5f}"
+              f" [{card}]", flush=True)
+    if runs["pallas"][0] != runs["pallas again"][0]:
+        raise AssertionError(f"the same seed gave other losses: "
+                             f"{runs['pallas'][0]} vs "
+                             f"{runs['pallas again'][0]}")
+    losses, times, _, branches = mesh_run(
+        card, ["--bits", "2", "--mesh-backend", "pallas"] + NOISE_ARGV, 8,
+        " (exact identity, PhaseNoise: shot noise only)")
+    if branches["theta_drift"] or branches["clean"]:
+        raise AssertionError(f"bits 2 launched the mesh kernel: {branches}")
+    print(f"  PhaseNoise --bits 2, 8 steps: loss {losses}; behavioral "
+          f"{behavioral_bits2[:8]}; max |dloss| "
+          f"{max(abs(a - b) for a, b in zip(losses, behavioral_bits2)):.5f}"
+          f" (ties at k + 0.5 of the 4-peer average may fall either way "
+          f"under the shot noise) [{card}]", flush=True)
+    return runs["pallas"][2]["theta_drift"]
+
+
+def trained_onn_and_noise(card: str) -> None:
+    """Phases 4d and 4e alone (build included): the scenario-1 ONN
+    trained twice, then the clean bits-8 pallas mesh steps and bits-2
+    mesh steps that phase 4e prints its noisy runs beside."""
+    from repro_torch.kernels import _build
+    from repro_torch.photonics import PhotonicsConfig, runtime
+    _build.build()
+    onn = trained_onn_full_width(card)
+    runtime.put_module(PhotonicsConfig(fidelity="mesh"), 8, 4,
+                       onn["module"])
+    losses, times, _, _ = mesh_run(
+        card, ["--bits", "8", "--mesh-backend", "pallas"], 3)
+    bits2, _, _, _ = mesh_run(card, ["--bits", "2"], 8)
+    train_noise_full_width(card, onn, losses, times, bits2)
 
 
 def card_vs_plain_training(card: str) -> None:
@@ -2380,14 +2705,22 @@ def main() -> int:
     launches = serve_full_width(card)
     for name in launches:
         records[name]["launches"] = launches[name]
-    train_launches = train_full_width(card)
+    train_launches, behavioral8 = train_full_width(card)
     for name in ("flash_attention_bwd", "pam4_quantize_encode",
                  "pam4_decode_dequantize"):
         records[name]["launches"] = train_launches[name]
-    onn_launches, behavioral_bits2 = train_onn_full_width(card)
+    onn = trained_onn_full_width(card)
+    onn_launches, behavioral_bits2 = train_onn_full_width(card, behavioral8,
+                                                          onn)
     records["onn_layer"]["launches"] = onn_launches["onn_layer"]
-    records["mesh_scan_blocks"]["launches"] = train_mesh_full_width(
-        card, behavioral_bits2)["mesh_scan_blocks"]
+    mesh_launches_, clean_losses, clean_times = train_mesh_full_width(
+        card, behavioral_bits2, behavioral8, onn)
+    records["mesh_scan_blocks"]["launches"] = mesh_launches_[
+        "mesh_scan_blocks"]
+    drift = train_noise_full_width(card, onn, clean_losses, clean_times,
+                                   behavioral_bits2)
+    print(f"mesh_scan_blocks theta-drift launches on the PhaseNoise path: "
+          f"{drift} in 3 pallas steps [{card}]", flush=True)
     card_vs_plain(card)
     card_vs_plain_training(card)
 

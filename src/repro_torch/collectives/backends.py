@@ -27,14 +27,19 @@ dequantizes the averaged codes with the pam4 decode kernel at n = 1
 (Q(mean) of one code is the code), as the behavioral path dequantizes
 its code sums.
 
+At fidelity 'mesh' with noise stds set, the pipeline runs the PhaseNoise
+model (``photonics.pipeline.PhaseNoise``) from a key folded off the
+bucket's sync key (``_noise_key``), so every step and bucket draws its
+own noise.
+
 Not ported yet (later slices, ROADMAP.md): the ring and cascade
-backends, Table-II error injection (``error_layers``) and the mesh
-fidelity's PhaseNoise model.
+backends and Table-II error injection (``error_layers``).
 """
 from __future__ import annotations
 
 import torch
 
+from .. import prng
 from ..kernels.pam4 import pam4_decode_dequantize, pam4_quantize_encode
 from ..photonics import pipeline as ph_pipeline
 from ..photonics import runtime as ph_runtime
@@ -96,20 +101,37 @@ def _finish(total: torch.Tensor, n: int, u: torch.Tensor, x: torch.Tensor,
     return out, _decode(u, scale, cfg, 1, m, base=x)
 
 
-def _photonic_sync(x: torch.Tensor, cfg):
+def _noise_key(key, noise):
+    """The level key seeding PhaseNoise, folded off the bucket's sync
+    key (as JAX folds it, leaving the raw key to Table-II injection).  A
+    noisy run without a step key would train noise-free in silence, so
+    that combination raises."""
+    if noise is None:
+        return None
+    if key is None:
+        raise ValueError(
+            "PhotonicsConfig noise (theta_drift_std/shot_noise_std > 0) "
+            "needs a per-step sync key; pass key= to sync_flat or "
+            "sync_gradients")
+    return prng.fold_in(key, 1)
+
+
+def _photonic_sync(x: torch.Tensor, cfg, key=None):
     """The hardware-in-the-loop OptINC path (fidelity 'onn' or 'mesh'):
     the B-bit codes of the N peers run one ``photonics.pipeline`` level
-    instead of the integer Q(mean)."""
+    instead of the integer Q(mean), with the PhaseNoise model when the
+    config sets a noise std."""
     n = x.shape[0]
     ph = cfg.photonics
-    module = ph_runtime.get_module(ph, cfg.bits, n)
+    module = ph_runtime.get_module(ph, cfg.bits, n, x.device)
     scale = _shared_scale(x, cfg)
     u = _encode(x, scale, cfg)
+    noise = ph_pipeline.PhaseNoise.from_config(ph)
     pipe = ph_pipeline.level_pipeline(module, cfg.bits,
                                       fidelity=ph.fidelity,
                                       mesh_backend=ph.mesh_backend,
-                                      blk_b=ph.blk_b)
-    u_avg = pipe.run(u.reshape(n, -1)).data
+                                      noise=noise, blk_b=ph.blk_b)
+    u_avg = pipe.run(u.reshape(n, -1), key=_noise_key(key, noise)).data
     return _finish(u_avg, 1, u, x, scale, cfg)
 
 
@@ -117,7 +139,7 @@ class PsumBackend:
     """Exact all-reduce mean over the peers (reference)."""
     name = "psum"
 
-    def sync(self, x, cfg):
+    def sync(self, x, cfg, key=None):
         return x.sum(dim=0) / x.shape[0], None
 
     def bytes_on_wire(self, nbytes: float, n: int, bits: int) -> float:
@@ -139,9 +161,11 @@ class OptincBackend:
     through the ONN (the module docstring has the steps)."""
     name = "optinc"
 
-    def sync(self, x, cfg):
+    def sync(self, x, cfg, key=None):
+        """One bucket (N, elems); ``key`` is the bucket's sync key, which
+        only the PhaseNoise model draws from."""
         if cfg.photonics.fidelity != "behavioral":
-            return _photonic_sync(x, cfg)
+            return _photonic_sync(x, cfg, key)
         scale = _shared_scale(x, cfg)
         u = _encode(x, scale, cfg)
         total = u.sum(dim=0, dtype=torch.int32)

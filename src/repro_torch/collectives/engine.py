@@ -8,6 +8,9 @@ bytes / bucket_bytes)) launches per step.  This is the barrier path of
 the JAX engine; its ``lax.scan`` over full buckets is a Python loop
 here, bit-exact with it since the per-bucket math is the same.
 
+A per-step sync key (``prng``) is split into one key per bucket, as
+the JAX engine splits it; only the photonic noise draws from it.
+
 Error feedback (beyond the paper) is a per-peer f32 residual over the
 concatenated-leaf space, (N, total): it is added to the gradient stack
 before quantization and replaced by each peer's quantization error.
@@ -18,6 +21,7 @@ import dataclasses
 
 import torch
 
+from .. import prng
 from ..photonics.config import PhotonicsConfig
 from ..tree import leaves as tree_leaves
 from ..tree import unflatten
@@ -34,8 +38,6 @@ _LATER = {
     "ring": "the ring backend (the ring/cascade slice)",
     "cascade": "the cascade backend (the ring/cascade slice)",
 }
-_PHASE_NOISE = ("the PhaseNoise model of the mesh fidelity (the PhaseNoise "
-                "slice: a per-step sync key, theta drift and shot noise)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,11 +73,12 @@ class SyncConfig:
         if not isinstance(ph, PhotonicsConfig):
             raise TypeError(f"SyncConfig.photonics must be a "
                             f"PhotonicsConfig, got {ph!r}")
-        for knob in ("theta_drift_std", "shot_noise_std"):
-            if getattr(ph, knob) > 0:
-                raise NotImplementedError(
-                    f"PhotonicsConfig.{knob}={getattr(ph, knob)!r}: "
-                    f"{_PHASE_NOISE} is not ported yet")
+        if ((ph.theta_drift_std > 0 or ph.shot_noise_std > 0)
+                and ph.fidelity != "mesh"):
+            raise ValueError(
+                f"--theta-drift-std/--shot-noise-std model the emulated MZI "
+                f"mesh (PhaseNoise) and only apply to --fidelity mesh; got "
+                f"--fidelity {ph.fidelity}")
         if ph.fidelity != "behavioral" and self.mode != "optinc":
             raise ValueError(
                 f"--fidelity {ph.fidelity} is a photonic-backend knob (the "
@@ -90,10 +93,11 @@ def residual_size(leaves) -> int:
 
 
 def sync_flat(flat: torch.Tensor, bounds, cfg: SyncConfig,
-              residual: torch.Tensor | None = None):
+              residual: torch.Tensor | None = None, key=None):
     """Sync an (N, total) f32 gradient stack bucket by bucket.
 
-    ``bounds``: the layout's (start, end) bucket slices.  Returns
+    ``bounds``: the layout's (start, end) bucket slices; ``key``: the
+    step's sync key (``prng``), split into one key a bucket.  Returns
     ``(synced, new_residual)``: the (total,) average every peer
     receives and, when ``cfg.error_feedback`` and the backend reports a
     quantization error, the (N, total) residual for the next step (None
@@ -102,11 +106,13 @@ def sync_flat(flat: torch.Tensor, bounds, cfg: SyncConfig,
     ef = cfg.error_feedback and residual is not None
     synced = flat.new_empty(flat.shape[1])
     errs = []
-    for s, e in bounds:
+    keys = ([None] * len(bounds) if key is None
+            else prng.split(key, len(bounds)))
+    for (s, e), k in zip(bounds, keys):
         x = flat[:, s:e]
         if ef:
             x = x + residual[:, s:e]
-        synced[s:e], err = backend.sync(x, cfg)
+        synced[s:e], err = backend.sync(x, cfg, k)
         errs.append(err)
     new_residual = None
     if cfg.error_feedback and errs and all(e is not None for e in errs):
@@ -115,14 +121,15 @@ def sync_flat(flat: torch.Tensor, bounds, cfg: SyncConfig,
 
 
 def sync_gradients(grads, cfg: SyncConfig,
-                   residual: torch.Tensor | None = None):
+                   residual: torch.Tensor | None = None, key=None):
     """Synchronize (average) ``grads`` over the peers.
 
     ``grads``: a dict (walked in sorted-key order, like
     ``jax.tree.flatten``) or list of tensors, each with a leading peer
     dim N.  Returns ``(synced, new_residual)``: ``synced`` has the
     structure of ``grads`` without the peer dim (every peer receives
-    the same average), ``new_residual`` is as ``sync_flat``'s."""
+    the same average), ``new_residual`` is as ``sync_flat``'s; ``key``
+    is the step's sync key."""
     is_dict = isinstance(grads, dict)
     leaves = tree_leaves(grads) if is_dict else list(grads)
     if not leaves:
@@ -131,6 +138,7 @@ def sync_gradients(grads, cfg: SyncConfig,
     layout = make_layout([(l.shape[1:], l.dtype) for l in leaves],
                          cfg.bucket_bytes)
     flat = torch.cat([l.reshape(n, -1).float() for l in leaves], dim=1)
-    synced, new_residual = sync_flat(flat, layout.bounds, cfg, residual)
+    synced, new_residual = sync_flat(flat, layout.bounds, cfg, residual,
+                                     key)
     out = unbucketize([synced], layout)
     return (unflatten(grads, out) if is_dict else out), new_residual

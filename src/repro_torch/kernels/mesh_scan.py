@@ -25,6 +25,10 @@ checked again: that is not supported.  The inputs must be finite: at a
 wire with no partner the kernel adds 0 times a neighbour, which is NaN
 where that neighbour is infinite and the plain version keeps the wire.
 
+``mesh_scan_blocks.launches`` counts the kernel's launches and
+``mesh_scan_blocks.branches`` splits them into those without and with
+the theta drift ("clean", "theta_drift").
+
 ``blk_b`` is the rows one CUDA block holds (0 = the default,
 ``DEFAULT_WARPS`` warps): a multiple of 8 of at most ``MAX_WARPS`` warps
 of ``warp_rows(m)`` rows, clamped to the rows given rounded up to 8, as
@@ -228,10 +232,13 @@ def mesh_scan_blocks(signs: torch.Tensor, perm: torch.Tensor,
         raise RuntimeError(f"mesh_scan_blocks kernel launch failed "
                            f"(cudaError {err})")
     mesh_scan_blocks.launches += 1
+    mesh_scan_blocks.branches["theta_drift" if theta_std > 0.0
+                              else "clean"] += 1
     return out
 
 
 mesh_scan_blocks.launches = 0
+mesh_scan_blocks.branches = {"clean": 0, "theta_drift": 0}
 
 
 def mesh_scan(signs: torch.Tensor, perm: torch.Tensor, ca: torch.Tensor,

@@ -64,18 +64,20 @@ def peer_grad_stack(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
 def make_train_step(cfg: ModelConfig, peers: int, sync: SyncConfig,
                     opt: AdamWConfig, device="cuda"):
-    """Returns ``step(params, opt_state, sync_state, tokens) -> (params,
-    opt_state, sync_state, metrics)``; tokens: (B, t + 1) on ``device``
-    with B a multiple of ``peers``; metrics: {"loss", "grad_norm"}."""
+    """Returns ``step(params, opt_state, sync_state, tokens, key=None) ->
+    (params, opt_state, sync_state, metrics)``; tokens: (B, t + 1) on
+    ``device`` with B a multiple of ``peers``; ``key``: the step's sync
+    key (``prng``; the PhotonicsConfig noise needs one); metrics:
+    {"loss", "grad_norm"}."""
     shapes = leaves(lm.param_shapes(cfg))
     layout = make_layout([(s, lm.torch_dtype(cfg)) for s in shapes],
                          sync.bucket_bytes)
 
-    def step(params, opt_state, sync_state, tokens):
+    def step(params, opt_state, sync_state, tokens, key=None):
         losses, flat = peer_grad_stack(cfg, params, tokens.to(device), peers,
                                        layout.total)
         synced, residual = sync_flat(flat, layout.bounds, sync,
-                                     sync_state.get("rep"))
+                                     sync_state.get("rep"), key)
         if sync.error_feedback:
             sync_state = {"rep": residual if residual is not None
                           else torch.zeros_like(flat)}

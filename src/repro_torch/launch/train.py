@@ -21,6 +21,15 @@ averaged by the OptINC collective (or psum).
       --sync optinc --bits 2 --fidelity mesh --mesh-backend pallas \\
       --mesh 4x1 --global-batch 32 --seq-len 512 --steps 10
 
+  # thermal drift and shot noise on the emulated mesh (the PhaseNoise
+  # model; --mesh-backend pallas draws the drift in the mesh_scan kernel,
+  # xla perturbs the programmed coefficients before it; the bits-2 exact
+  # identity has no rotation, so there only the shot noise acts)
+  PYTHONPATH=src python -m repro_torch.launch.train --arch paper_llama \\
+      --sync optinc --bits 2 --fidelity mesh --mesh-backend pallas \\
+      --theta-drift-std 0.02 --shot-noise-std 0.01 --mesh 4x1 \\
+      --global-batch 32 --seq-len 512 --steps 10
+
   # a CPU smoke run (the plain versions of the kernels)
   PYTHONPATH=src python -m repro_torch.launch.train --arch paper_llama \\
       --smoke-config --sync optinc --mesh 2x1 --global-batch 4 \\
@@ -32,7 +41,8 @@ exits with an error naming the piece that is not ported yet.  The run
 is on CUDA unless ``--device`` says otherwise, and raises when there is
 no CUDA device.  Parameters are seeded from ``--seed`` with a
 ``torch.Generator`` (not ``jax.random``): ``run(opts, params=...)``
-takes parameters carried across from JAX instead.
+takes parameters carried across from JAX instead.  Step i's sync key is
+``prng.fold_in(prng.PRNGKey(seed + 1), i)``, the JAX session's key tree.
 """
 from __future__ import annotations
 
@@ -43,7 +53,7 @@ import time
 
 import torch
 
-from .. import configs
+from .. import configs, prng
 from ..collectives.bucketizer import DEFAULT_BUCKET_BYTES
 from ..collectives.engine import SyncConfig
 from ..data.pipeline import DataConfig, SyntheticLM
@@ -58,10 +68,6 @@ _NOT_PORTED = {
     "--spec": "the RunSpec surface (repro.api)",
     "--pods": "the cascade backend and its pod axis",
     "--overlap": "streaming overlap",
-    "--theta-drift-std": "the mesh fidelity's PhaseNoise model (the "
-                         "PhaseNoise slice)",
-    "--shot-noise-std": "the mesh fidelity's PhaseNoise model (the "
-                        "PhaseNoise slice)",
     "--error-layers": "Table-II error injection",
     "--sparse-residuals": "checkpointing (checkpoint/ckpt.py)",
     "--fsdp": "FSDP",
@@ -104,6 +110,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--blk-b", type=int, default=0,
                     help="mesh_scan kernel row tile (multiple of 8; 0 = "
                          "default)")
+    ap.add_argument("--theta-drift-std", type=float, default=0.0,
+                    help="PhaseNoise: thermal drift std (rad) on every "
+                         "programmed MZI phase (fidelity=mesh)")
+    ap.add_argument("--shot-noise-std", type=float, default=0.0,
+                    help="PhaseNoise: additive noise std on the mesh's "
+                         "analog outputs (fidelity=mesh)")
     ap.add_argument("--error-feedback", action="store_true")
     ap.add_argument("--mesh", default="1x1",
                     help="DPxTP: DP peers stacked on one card; TP must be 1")
@@ -133,7 +145,9 @@ def parse_args(argv=None) -> argparse.Namespace:
         ap.error(f"global batch {opts.global_batch} must split over {dp} "
                  f"peers")
     for flag, set_ in (("--mesh-backend", opts.mesh_backend != "xla"),
-                       ("--blk-b", opts.blk_b != 0)):
+                       ("--blk-b", opts.blk_b != 0),
+                       ("--theta-drift-std", opts.theta_drift_std != 0.0),
+                       ("--shot-noise-std", opts.shot_noise_std != 0.0)):
         if set_ and opts.fidelity != "mesh":
             ap.error(f"{flag} only applies to --fidelity mesh; got "
                      f"--fidelity {opts.fidelity}")
@@ -149,7 +163,9 @@ def sync_config(opts: argparse.Namespace) -> SyncConfig:
                       photonics=PhotonicsConfig(
                           fidelity=opts.fidelity,
                           mesh_backend=opts.mesh_backend,
-                          blk_b=opts.blk_b))
+                          blk_b=opts.blk_b,
+                          theta_drift_std=opts.theta_drift_std,
+                          shot_noise_std=opts.shot_noise_std))
 
 
 def _device(name) -> torch.device:
@@ -189,12 +205,16 @@ def run(opts: argparse.Namespace, params=None, cfg=None, out=None) -> list:
     opt_state = adamw_init(opt, params)
     sync_state = init_sync_state(cfg, opts.peers, sync, device)
     step_fn = make_train_step(cfg, opts.peers, sync, opt, device)
+    # per-step keys are folded from a base key, as the JAX session folds
+    # them, so step i sees the same key in any run
+    base_key = prng.PRNGKey(opts.seed + 1)
     history = []
     for step in range(opts.steps):
         t0 = time.perf_counter()
         tokens = torch.from_numpy(data.batch(step)).to(device)
         params, opt_state, sync_state, metrics = step_fn(
-            params, opt_state, sync_state, tokens)
+            params, opt_state, sync_state, tokens,
+            prng.fold_in(base_key, step))
         loss = float(metrics["loss"])          # waits for the device
         record = {"step": step, "loss": round(loss, 5),
                   "time_s": round(time.perf_counter() - t0, 6)}

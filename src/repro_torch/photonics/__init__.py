@@ -15,24 +15,27 @@ split by layer as in the JAX package:
   config.py       PhotonicsConfig: the runtime fidelity knob
   pipeline.py     SyncPipeline: Encode -> Preprocess -> MeshApply ->
                   Readout -> Decode, the photonic reduction the optinc
-                  backend runs
+                  backend runs, and the PhaseNoise model of the meshes
   runtime.py      cached ONN resolution for the collective engine
+  dataset.py      ONN training data: the full input grid, samples of it
+  training.py     hardware-aware ONN training (paper III-B)
 
-Not ported yet (ROADMAP.md): the PhaseNoise model, ONN training
-(``training``, ``dataset``), ``error_model`` and ``cascade``.
+Not ported yet (ROADMAP.md): ``error_model`` and ``cascade``.
 """
-from . import approx, area, encoding, mesh, mzi, onn, pipeline
+from . import (approx, area, dataset, encoding, mesh, mzi, onn, pipeline,
+               training)
 from .config import FIDELITIES, MESH_BACKENDS, PARAM_SOURCES, PhotonicsConfig
 from .mesh import MZIMesh
 from .module import ONNModule
 from .onn import ONNConfig, Transceiver
-from .pipeline import SyncPipeline, level_pipeline
+from .pipeline import PhaseNoise, SyncPipeline, level_pipeline
 from .runtime import get_module, put_module, warmup
 
 __all__ = [
     "PhotonicsConfig", "FIDELITIES", "MESH_BACKENDS", "PARAM_SOURCES",
     "ONNConfig", "ONNModule", "Transceiver", "MZIMesh",
-    "SyncPipeline", "level_pipeline",
+    "PhaseNoise", "SyncPipeline", "level_pipeline",
     "get_module", "put_module", "warmup",
-    "approx", "area", "encoding", "mesh", "mzi", "onn", "pipeline",
+    "approx", "area", "dataset", "encoding", "mesh", "mzi", "onn",
+    "pipeline", "training",
 ]

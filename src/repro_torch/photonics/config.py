@@ -54,14 +54,13 @@ class PhotonicsConfig:
                  and one ONN input (bits <= 2, k_inputs == 1)
       'results'  results/scenario1*_params.pkl (written by the JAX
                  package's ``examples/quickstart.py --onn --scenario1``)
-      'train'    hardware-aware training at resolve time (not ported)
+      'train'    hardware-aware training at resolve time
       'auto'     exact if possible, else results, else an error with
                  guidance
 
     ``mesh_backend`` and ``blk_b`` belong to the mesh fidelity (see
     ``MESH_BACKENDS``); ``theta_drift_std`` and ``shot_noise_std`` to its
-    PhaseNoise model, which is not ported yet
-    (``collectives.engine.SyncConfig`` refuses them).
+    PhaseNoise model (``pipeline.PhaseNoise``).
     """
     fidelity: str = "behavioral"
     structure: tuple = ()          # () = auto from bits/k_inputs

@@ -21,14 +21,19 @@ adjacent-plane programs this approaches the optimal ~2m-3 layer depth.
 
 The programs are plain dataclasses of CPU tensors, compiled once;
 ``to(device)`` copies one to a device (``module.ONNModule.programs_on``
-does that once per device).  ``backend`` (``PhotonicsConfig.
-mesh_backend``) is validated and otherwise has no effect: both values run
-the one kernel (``config.MESH_BACKENDS``).  A program with zero
-rotations skips the kernel: every layer is an identity, the scan would
-compute 1 * y + 0 * y[perm] = y bit for bit, so only the diagonals are
-applied, as in the JAX executor.  The PhaseNoise model (theta drift and
-shot noise drawn per step) is not ported; the kernel's theta drift is,
-and ``kernels.mesh_scan`` takes its seeds.
+does that once per device).  A program with zero rotations skips the
+kernel: every layer is an identity, the scan would compute 1 * y + 0 *
+y[perm] = y bit for bit, so only the diagonals are applied, as in the
+JAX executor.
+
+``backend`` (``PhotonicsConfig.mesh_backend``) picks the PhaseNoise
+model of the JAX executor it names; both run the one kernel
+(``config.MESH_BACKENDS``).  With ``noise`` and a key, 'pallas' turns on
+the kernel's in-kernel theta drift (``theta_std`` and uint32 seeds taken
+from the key), and 'xla' drifts the (L, m) ``ca``/``sa`` stacks with
+``PhaseNoise.perturb`` in tensor ops before a launch without drift.
+Shot noise lands on the output of either, and is all a mesh without
+rotations takes.  Keys split and fold as JAX's do (``prng``).
 """
 from __future__ import annotations
 
@@ -37,16 +42,36 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import prng
 from ..kernels.mesh_scan import mesh_scan, mesh_scan_blocks
 from .config import MESH_BACKENDS
 from .encoding import f32_reciprocal
 from .mzi import MZIProgram
 
 
-def _check_backend(backend: str | None) -> None:
-    if (backend or "xla") not in MESH_BACKENDS:
+def _check_backend(backend: str | None) -> str:
+    backend = backend or "xla"
+    if backend not in MESH_BACKENDS:
         raise ValueError(f"mesh backend must be one of {MESH_BACKENDS}, "
                          f"got {backend!r}")
+    return backend
+
+
+def _noise_keys(noise, key):
+    """(theta key, shot key), or (None, None) without noise or key."""
+    if noise is not None and noise.enabled and key is not None:
+        return tuple(prng.split(key))
+    return None, None
+
+
+def _drift_seeds(noise, k_theta, n: int, device):
+    """The kernel's drift arguments: (theta_std, n uint32 seeds taken
+    from ``k_theta``), or (0.0, None) when there is no drift."""
+    if k_theta is None or noise.theta_drift_std <= 0.0:
+        return 0.0, None
+    return noise.theta_drift_std, torch.tensor(prng.bits32(k_theta, n),
+                                               dtype=torch.int64,
+                                               device=device)
 
 
 def _schedule_layers(rotations, m):
@@ -122,18 +147,30 @@ class MZIMesh:
     def apply(self, x: torch.Tensor, transpose: bool = False,
               backend: str | None = None,
               post_scale: torch.Tensor | None = None,
-              blk_b: int = 0) -> torch.Tensor:
+              noise=None, key=None, blk_b: int = 0) -> torch.Tensor:
         """o @ x (or o^T @ x when ``transpose``) over the last axis, times
         the diagonal epilogue ``post_scale`` when given: one launch of
-        the ``mesh_scan`` kernel with ``blk_b`` its row tile."""
-        _check_backend(backend)
+        the ``mesh_scan`` kernel with ``blk_b`` its row tile.  ``noise``
+        (a ``pipeline.PhaseNoise``) + ``key`` inject the theta drift and
+        shot noise as the executor ``backend`` models them (module
+        docstring)."""
+        backend = _check_backend(backend)
+        k_theta, k_shot = _noise_keys(noise, key)
         if self.n_rot == 0:
             y = x.to(self.ca.dtype) * self.signs
-            return y if post_scale is None else y * post_scale
-        return mesh_scan(self.signs, self.perm, self.ca, self.sa,
-                         x.to(self.ca.dtype).contiguous(),
-                         transpose=transpose, post_scale=post_scale,
-                         blk_b=blk_b)
+            if post_scale is not None:
+                y = y * post_scale
+            return y if k_shot is None else noise.shot(k_shot, y)
+        ca, sa, theta_std, seed = self.ca, self.sa, 0.0, None
+        if backend == "pallas":
+            theta_std, seed = _drift_seeds(noise, k_theta, 1, x.device)
+        elif k_theta is not None:
+            ca, sa = noise.perturb(k_theta, self.perm, ca, sa)
+        y = mesh_scan(self.signs, self.perm, ca, sa,
+                      x.to(self.ca.dtype).contiguous(), transpose=transpose,
+                      post_scale=post_scale, blk_b=blk_b,
+                      theta_std=theta_std, seed=seed)
+        return y if k_shot is None else noise.shot(k_shot, y)
 
     def matrix(self) -> torch.Tensor:
         """Rebuild the dense orthogonal matrix (``mzi.reconstruct``)."""
@@ -172,21 +209,47 @@ def _stack_meshes(meshes) -> MZIMesh:
 def _apply_stacked(stacked: MZIMesh, x: torch.Tensor, x_block_axis: bool,
                    backend: str | None = None,
                    post_scale: torch.Tensor | None = None,
-                   blk_b: int = 0) -> torch.Tensor:
+                   noise=None, key=None, blk_b: int = 0) -> torch.Tensor:
     """Apply a stacked mesh over its block axis: ONE launch of
     ``mesh_scan_blocks``.  ``x`` is shared across blocks (tall layers) or
     carries its own block axis at -2 (wide layers); ``post_scale``
     (B, dim) is each block's diagonal epilogue.  Returns (..., B, dim).
-    A stack with zero rotations in all its blocks skips the kernel."""
-    _check_backend(backend)
+    A stack with zero rotations in all its blocks skips the kernel.
+
+    With ``noise`` and ``key``: 'pallas' draws the theta drift in-kernel
+    from per-block seeds and the shot noise over the whole output, as
+    the JAX kernel path does; 'xla' gives every block its own key, as
+    JAX's vmap over the per-block apply does, and each block's key its
+    own drift of the block's stacks and its own shot noise."""
+    backend = _check_backend(backend)
     x = x.to(stacked.ca.dtype)
+    n_blocks = stacked.signs.shape[0]
+    k_theta, k_shot = _noise_keys(noise, key)
     if stacked.n_rot == 0:
         y = (x if x_block_axis else x[..., None, :]) * stacked.signs
-        return y if post_scale is None else y * post_scale
-    return mesh_scan_blocks(stacked.signs, stacked.perm, stacked.ca,
-                            stacked.sa, x.contiguous(),
-                            x_block_axis=x_block_axis, post_scale=post_scale,
-                            blk_b=blk_b)
+        if post_scale is not None:
+            y = y * post_scale
+        return y if k_shot is None else noise.shot(k_shot, y)
+    ca, sa, theta_std, seeds = stacked.ca, stacked.sa, 0.0, None
+    block_keys = []
+    if backend == "pallas":
+        theta_std, seeds = _drift_seeds(noise, k_theta, n_blocks, x.device)
+    elif k_theta is not None:
+        block_keys = [prng.split(k) for k in prng.split(key, n_blocks)]
+        if noise.theta_drift_std > 0.0:
+            g = torch.stack([prng.normal(kt, stacked.perm.shape[1:],
+                                         ca.dtype, ca.device)
+                             for kt, _ in block_keys])
+            ca, sa = noise.perturb_with(g, stacked.perm, ca, sa)
+    y = mesh_scan_blocks(stacked.signs, stacked.perm, ca, sa, x.contiguous(),
+                         x_block_axis=x_block_axis, post_scale=post_scale,
+                         blk_b=blk_b, theta_std=theta_std, seeds=seeds)
+    if backend == "pallas":
+        return y if k_shot is None else noise.shot(k_shot, y)
+    if block_keys and noise.shot_noise_std > 0.0:
+        y = torch.stack([noise.shot(ks, y[..., b, :])
+                         for b, (_, ks) in enumerate(block_keys)], dim=-2)
+    return y
 
 
 # ---------------- compiled ONN hardware programs (layer level) ----------------
@@ -212,14 +275,16 @@ class SVDLayerProgram:
                                    b=self.b.to(device))
 
     def apply(self, x: torch.Tensor, backend: str | None = None,
-              blk_b: int = 0) -> torch.Tensor:
+              noise=None, key=None, blk_b: int = 0) -> torch.Tensor:
+        kv, ku = (None, None) if key is None else prng.split(key)
         m, _ = self.shape
         k = self.sigma.shape[0]
-        z = self.v.apply(x, transpose=True, backend=backend,
-                         blk_b=blk_b)[..., :k] * self.sigma
+        z = self.v.apply(x, transpose=True, backend=backend, noise=noise,
+                         key=kv, blk_b=blk_b)[..., :k] * self.sigma
         if m > k:
             z = torch.cat([z, z.new_zeros(z.shape[:-1] + (m - k,))], dim=-1)
-        return self.u.apply(z, backend=backend, blk_b=blk_b) + self.b
+        return self.u.apply(z, backend=backend, noise=noise, key=ku,
+                            blk_b=blk_b) + self.b
 
 
 @dataclasses.dataclass
@@ -240,18 +305,19 @@ class ApproxLayerProgram:
                                    d=self.d.to(device), b=self.b.to(device))
 
     def apply(self, x: torch.Tensor, backend: str | None = None,
-              blk_b: int = 0) -> torch.Tensor:
+              noise=None, key=None, blk_b: int = 0) -> torch.Tensor:
         # the Sigma_a diagonal rides as the kernel's fused epilogue
         m, n = self.shape
         s = min(m, n)
         if m >= n:
             ys = _apply_stacked(self.meshes, x, x_block_axis=False,
                                 backend=backend, post_scale=self.d,
-                                blk_b=blk_b)
+                                noise=noise, key=key, blk_b=blk_b)
             return ys.reshape(x.shape[:-1] + (m,)) + self.b
         ys = _apply_stacked(self.meshes, x.reshape(x.shape[:-1] + (n // s, s)),
                             x_block_axis=True, backend=backend,
-                            post_scale=self.d, blk_b=blk_b)
+                            post_scale=self.d, noise=noise, key=key,
+                            blk_b=blk_b)
         # the block sum one block after another, as XLA reduces it
         y = ys[..., 0, :]
         for j in range(1, ys.shape[-2]):
@@ -288,18 +354,21 @@ def compile_hardware(hw, dtype=torch.float32) -> list:
 
 
 def apply_hardware(programs, a: torch.Tensor, cfg,
-                   backend: str | None = None, blk_b: int = 0
-                   ) -> torch.Tensor:
+                   backend: str | None = None, noise=None, key=None,
+                   blk_b: int = 0) -> torch.Tensor:
     """Forward pass through the compiled MZI meshes, the fast counterpart
     of ``onn.apply_hardware`` (the numpy oracle).  The input scaling is
     the product with the reciprocal of ``in_scale``, as XLA compiles the
-    JAX division (f32), and a plain division in f64."""
+    JAX division (f32), and a plain division in f64.  ``noise`` + ``key``
+    thread the PhaseNoise model into every layer's meshes (one key per
+    layer, folded off ``key``)."""
     dt = programs[0].b.dtype
     x = a.to(dt)
     x = x * f32_reciprocal(cfg.in_scale) if dt == torch.float32 \
         else x / cfg.in_scale
     for li, prog in enumerate(programs):
-        x = prog.apply(x, backend=backend, blk_b=blk_b)
+        k = None if key is None else prng.fold_in(key, li)
+        x = prog.apply(x, backend=backend, noise=noise, key=k, blk_b=blk_b)
         if li < len(programs) - 1:
             x = torch.relu(x)
     return x * cfg.out_scale

@@ -15,8 +15,9 @@ The parameters and the compiled programs are kept on the CPU, as the JAX
 module keeps numpy; the first use on a device copies them there once
 (``params_on``, ``programs_on``).  ``programs`` Givens-programs the
 meshes at its first call and caches them (``runtime`` calls it when it
-resolves a module for the mesh fidelity).  ONN training (``train``) is
-not ported yet and raises.
+resolves a module for the mesh fidelity).  ``train`` runs the
+hardware-aware training of ``training.py`` on a device (CUDA unless the
+caller says otherwise) and keeps the result on the CPU.
 """
 from __future__ import annotations
 
@@ -86,10 +87,22 @@ class ONNModule:
 
     @classmethod
     def train(cls, cfg: ONNConfig, epochs: int, seed: int = 0,
-              samples: int = 0, **train_kw) -> "ONNModule":
-        raise NotImplementedError(
-            "ONN training (photonics/training.py and dataset.py) is not "
-            "ported yet")
+              samples: int = 0, device=None, **train_kw) -> "ONNModule":
+        """Hardware-aware training (cayley mode: constraint-exact) on
+        ``device`` (CUDA by default), over the full input grid or
+        ``samples`` samples of it."""
+        from . import dataset, training
+        if samples:
+            a, t = dataset.sampled_dataset(
+                cfg, np.random.default_rng(seed), samples)
+        else:
+            a, t = dataset.full_dataset(cfg)
+        tcfg = training.TrainConfig(
+            epochs=epochs, e1=int(epochs * 0.8), mode="cayley", seed=seed,
+            **train_kw)
+        params, _ = training.train(cfg, tcfg, a, t, eval_every=0,
+                                   device=device)
+        return cls.from_params(cfg, params)
 
     # ------------------------------------------------------ fidelities
     def params_on(self, device) -> list:
@@ -128,22 +141,31 @@ class ONNModule:
         return self._programs_on[key]
 
     def apply_mesh(self, a: torch.Tensor, backend: str | None = None,
-                   blk_b: int = 0) -> torch.Tensor:
+                   noise=None, key=None, blk_b: int = 0) -> torch.Tensor:
         """Forward pass through the phase-programmed mesh emulator on a's
         device.  ``backend`` is ``PhotonicsConfig.mesh_backend`` (both
-        values run the ``mesh_scan`` kernel) and ``blk_b`` its row tile."""
+        values run the ``mesh_scan`` kernel) and ``blk_b`` its row tile;
+        ``noise`` + ``key`` inject the PhaseNoise model (pipeline.py)."""
         return mesh_mod.apply_hardware(self.programs_on(a.device), a,
                                        self.cfg, backend=backend,
-                                       blk_b=blk_b)
+                                       noise=noise, key=key, blk_b=blk_b)
 
     def symbols(self, a: torch.Tensor, fidelity: str = "onn",
-                mesh_backend: str | None = None,
+                mesh_backend: str | None = None, noise=None, key=None,
                 blk_b: int = 0) -> torch.Tensor:
         """Analog forward pass + transceiver readout -> PAM4 symbols."""
-        out = (self.apply_mesh(a, backend=mesh_backend, blk_b=blk_b)
+        out = (self.apply_mesh(a, backend=mesh_backend, noise=noise,
+                               key=key, blk_b=blk_b)
                if fidelity == "mesh" else self.apply(a))
         return self.transceiver.readout(out)
 
     # ------------------------------------------------------ diagnostics
+    def accuracy(self, a, tgt, device=None) -> float:
+        """``training.accuracy`` of the parameters on ``device`` (CUDA by
+        default): the dense forward pass, not a kernel."""
+        from . import training
+        return training.accuracy(self.params, a, tgt, self.cfg,
+                                 device=device)
+
     def area_ratio(self) -> float:
         return onn_mod.area_ratio(self.cfg)

@@ -64,10 +64,13 @@ def init_params(cfg: ONNConfig, seed: int = 0, device="cuda") -> list:
 
 
 def params_from_jax(params, device="cuda") -> list:
-    """The JAX package's ONN parameters (a list of {"w", "b"}, numpy or
-    anything ``np.asarray`` takes) as f32 tensors on ``device``."""
-    return [{k: torch.from_numpy(np.array(layer[k], np.float32)).to(device)
-             for k in ("w", "b")} for layer in params]
+    """The JAX package's ONN parameters as f32 tensors on ``device``: a
+    list of dense layers {"w", "b"} and, from ``training.init_params`` in
+    cayley mode, constrained layers {"p", "d", "b", "shape"} (numpy or
+    anything ``np.asarray`` takes; "shape" stays a tuple)."""
+    return [{k: tuple(v) if k == "shape" else
+             torch.from_numpy(np.array(v, np.float32)).to(device)
+             for k, v in layer.items()} for layer in params]
 
 
 def apply(params, a: torch.Tensor, cfg: ONNConfig) -> torch.Tensor:

@@ -13,18 +13,17 @@ dimension:
     MeshApply   the in-network ONN: the trained dense forward ('onn'),
                 one ``onn_layer`` launch per layer, or the phase-
                 programmed MZI mesh emulator ('mesh'), one ``mesh_scan``
-                launch per mesh stack
+                launch per mesh stack, with the PhaseNoise model on the
+                programmed thetas and the analog outputs
     Readout     transceiver decision stage; with ``emit_carry`` the
                 eq.-10 decimal part d = analog value - decoded value
                 leaves the level as ``Carry.frac``
     Decode      PAM4 symbols -> offset-binary integer codes
 
-Each stage is a frozen dataclass with ``apply(carry) -> carry``; a
-``SyncPipeline`` runs them in order.  The optinc backend runs ONE
-pipeline per bucket.  The JAX stages also take a key for the mesh
-fidelity's PhaseNoise model; PhaseNoise is not ported yet (its slice
-threads a per-step key through the stages), so the port's stages take
-none and the mesh emulator runs noise-free.
+Each stage is a frozen dataclass with ``apply(carry, key) -> carry``; a
+``SyncPipeline`` folds a per-stage key off the level key
+(``prng.fold_in``) and runs the stages in order.  The optinc backend
+runs ONE pipeline per bucket.
 
 Preprocess divides by N as the compiled JAX step does, by multiplying
 with the f32 reciprocal of N (XLA's rewrite of a division by a
@@ -37,6 +36,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import prng
 from .encoding import (f32_reciprocal, group_symbols, pam4_decode,
                        pam4_encode, symbol_value)
 
@@ -47,6 +47,78 @@ class Carry(NamedTuple):
     frac: torch.Tensor | None = None  # decimal carry d, in value units
 
 
+# --------------------------------------------------------------- noise
+
+@dataclasses.dataclass(frozen=True)
+class PhaseNoise:
+    """Thermal drift + shot noise on the emulated MZI mesh.
+
+    ``theta_drift_std`` perturbs every programmed phase theta -> theta +
+    eps with one eps ~ N(0, std) PER ROTATION and apply (an MZI has one
+    thermal phase shifter, so its two wires rotate coherently);
+    ``shot_noise_std`` adds white photodetector noise to the analog
+    outputs after the optical path.  Both draw from the key threaded
+    through ``MZIMesh.apply`` (derived from the per-step sync key), so
+    the noise is reproducible.  A zero std turns its term off: the
+    noise-free arithmetic runs unchanged, bit for bit.
+    """
+    theta_drift_std: float = 0.0
+    shot_noise_std: float = 0.0
+
+    @property
+    def enabled(self) -> bool:
+        return self.theta_drift_std > 0.0 or self.shot_noise_std > 0.0
+
+    @classmethod
+    def from_config(cls, ph) -> "PhaseNoise | None":
+        """PhotonicsConfig -> PhaseNoise, or None when both stds are 0."""
+        noise = cls(theta_drift_std=ph.theta_drift_std,
+                    shot_noise_std=ph.shot_noise_std)
+        return noise if noise.enabled else None
+
+    def perturb(self, key, perm: torch.Tensor, ca: torch.Tensor,
+                sa: torch.Tensor):
+        """Drift the (..., L, m) coefficient stacks of a compiled mesh
+        with one gaussian per wire drawn from ``key`` on their device
+        (``perturb_with`` has the arithmetic)."""
+        if self.theta_drift_std <= 0.0 or key is None:
+            return ca, sa
+        return self.perturb_with(
+            prng.normal(key, perm.shape, ca.dtype, ca.device), perm, ca, sa)
+
+    def perturb_with(self, g: torch.Tensor, perm: torch.Tensor,
+                     ca: torch.Tensor, sa: torch.Tensor):
+        """The drift of ``perturb`` for given gaussians ``g`` (perm's
+        shape).  A rotation on wires (i, j) stores ca = cos(theta) on
+        both wires and sa = -+ sin(theta); symmetrizing the per-wire
+        gaussians over the partner permutation gives one delta per
+        rotation, and the antisymmetric sign(wire - partner) turns the
+        per-wire update
+            ca' = ca cos(eps) - sa sin(eps)
+            sa' = sa cos(eps) + ca sin(eps)
+        into a coherent theta -> theta + delta on both wires.  Untouched
+        wires (perm == self) get eps = 0 exactly, so identity padding
+        stays identity."""
+        perm = perm.long()
+        # (g_i + g_j)/sqrt(2) of two iid N(0,1) draws is N(0,1) again, so
+        # the per-rotation drift really has std = theta_drift_std
+        delta = (0.5 ** 0.5) * (g + torch.gather(g, -1, perm))
+        wires = torch.arange(perm.shape[-1], device=perm.device)
+        sign = torch.sign(wires - perm).to(ca.dtype)
+        eps = self.theta_drift_std * delta * sign
+        ce, se = torch.cos(eps), torch.sin(eps)
+        return ca * ce - sa * se, sa * ce + ca * se
+
+    def shot(self, key, y: torch.Tensor) -> torch.Tensor:
+        """Additive photodetector noise on the analog mesh outputs."""
+        if self.shot_noise_std <= 0.0 or key is None:
+            return y
+        return y + self.shot_noise_std * prng.normal(key, y.shape, y.dtype,
+                                                     y.device)
+
+
+# --------------------------------------------------------------- stages
+
 @dataclasses.dataclass(frozen=True)
 class Encode:
     """Offset-binary integer codes (N, L) -> grouped unit-P input values
@@ -55,7 +127,7 @@ class Encode:
     bits: int
     k_inputs: int
 
-    def apply(self, carry: Carry) -> Carry:
+    def apply(self, carry: Carry, key=None) -> Carry:
         sym = pam4_encode(carry.data, self.bits)
         vals = group_symbols(sym, self.bits, self.k_inputs).float()
         if carry.frac is not None:
@@ -69,7 +141,7 @@ class Preprocess:
     the peer dimension times f32(1/N).  The grouped values are small
     integers, so the f32 sum is exact in any order."""
 
-    def apply(self, carry: Carry) -> Carry:
+    def apply(self, carry: Carry, key=None) -> Carry:
         n = carry.data.shape[0]
         return Carry(carry.data.sum(dim=0) * f32_reciprocal(n))
 
@@ -77,17 +149,20 @@ class Preprocess:
 @dataclasses.dataclass(frozen=True)
 class MeshApply:
     """The in-network ONN: the dense forward pass ('onn') or the MZI mesh
-    emulator ('mesh'; ``mesh_backend`` is validated and both values run
-    the ``mesh_scan`` kernel, with ``blk_b`` its row tile)."""
+    emulator ('mesh'; both ``mesh_backend`` values run the ``mesh_scan``
+    kernel, with ``blk_b`` its row tile), with the PhaseNoise model
+    injected into ``MZIMesh.apply``."""
     module: object                  # ONNModule
     fidelity: str = "onn"
     mesh_backend: str | None = None
+    noise: PhaseNoise | None = None
     blk_b: int = 0                  # mesh kernel row tile (0 = default)
 
-    def apply(self, carry: Carry) -> Carry:
+    def apply(self, carry: Carry, key=None) -> Carry:
         if self.fidelity == "mesh":
             return Carry(self.module.apply_mesh(
-                carry.data, backend=self.mesh_backend, blk_b=self.blk_b))
+                carry.data, backend=self.mesh_backend, noise=self.noise,
+                key=key, blk_b=self.blk_b))
         return Carry(self.module.apply(carry.data))
 
 
@@ -100,7 +175,7 @@ class Readout:
     transceiver: object             # onn.Transceiver
     emit_carry: bool = False
 
-    def apply(self, carry: Carry) -> Carry:
+    def apply(self, carry: Carry, key=None) -> Carry:
         sym = self.transceiver.readout(carry.data)
         frac = None
         if self.emit_carry:
@@ -113,7 +188,7 @@ class Decode:
     """PAM4 symbols -> offset-binary integer codes; an outgoing carry
     stays attached."""
 
-    def apply(self, carry: Carry) -> Carry:
+    def apply(self, carry: Carry, key=None) -> Carry:
         return Carry(pam4_decode(carry.data), carry.frac)
 
 
@@ -122,16 +197,21 @@ class SyncPipeline:
     """An ordered stage tuple for ONE reduction level of the fabric."""
     stages: tuple
 
-    def run(self, data: torch.Tensor,
+    def run(self, data: torch.Tensor, key=None,
             frac: torch.Tensor | None = None) -> Carry:
+        """Thread ``Carry(data, frac)`` through the stages.  Each stage
+        receives its own key (folded off ``key`` by stage index), so
+        stage-level randomness (PhaseNoise) is reproducible per level."""
         carry = Carry(data, frac)
-        for stage in self.stages:
-            carry = stage.apply(carry)
+        for i, stage in enumerate(self.stages):
+            carry = stage.apply(carry,
+                                None if key is None else prng.fold_in(key, i))
         return carry
 
 
 def level_pipeline(module, bits: int, fidelity: str = "onn",
                    mesh_backend: str | None = None,
+                   noise: PhaseNoise | None = None,
                    emit_carry: bool = False, blk_b: int = 0) -> SyncPipeline:
     """The Encode -> Preprocess -> MeshApply -> Readout -> Decode pipeline
     of one reduction level over the stacked peers."""
@@ -139,7 +219,7 @@ def level_pipeline(module, bits: int, fidelity: str = "onn",
         Encode(bits=bits, k_inputs=module.cfg.k_inputs),
         Preprocess(),
         MeshApply(module=module, fidelity=fidelity,
-                  mesh_backend=mesh_backend, blk_b=blk_b),
+                  mesh_backend=mesh_backend, noise=noise, blk_b=blk_b),
         Readout(transceiver=module.transceiver, emit_carry=emit_carry),
         Decode(),
     ))

@@ -17,9 +17,14 @@ for the mesh fidelity, the compiled programs) on the run's device.
 
 Trained parameters come from the JAX package's pickles
 (``results/scenario1*_params.pkl``, written by ``examples/quickstart.py
---onn --scenario1``).  They hold a ``repro.photonics.onn.ONNConfig``;
+--onn --scenario1``), or from training at resolve time
+(``params='train'``: ``ONNModule.train`` on the device the caller names,
+CUDA by default).  A pickle holds a ``repro.photonics.onn.ONNConfig``;
 ``_load_results`` maps that class to this package's ``ONNConfig`` while
-it unpickles, and imports nothing of ``repro`` or ``jax``.
+it unpickles, and imports nothing of ``repro`` or ``jax``.  This package
+never writes those pickles: the JAX package would read one back and
+unpickle this package's ``ONNConfig``, which imports torch.  Install a
+module trained here with ``put_module``.
 """
 from __future__ import annotations
 
@@ -118,7 +123,8 @@ def _load_results(cfg: ONNConfig, adopt_structure: bool) -> ONNModule | None:
     return None
 
 
-def _build(ph: PhotonicsConfig, bits: int, n_servers: int) -> ONNModule:
+def _build(ph: PhotonicsConfig, bits: int, n_servers: int,
+           device=None) -> ONNModule:
     cfg = onn_config(ph, bits, n_servers)
     exact_ok = (num_symbols(bits) == 1 and cfg.k_inputs == 1
                 and not ph.structure)
@@ -135,11 +141,10 @@ def _build(ph: PhotonicsConfig, bits: int, n_servers: int) -> ONNModule:
                 f"(run `python examples/quickstart.py --onn --scenario1` "
                 f"to produce one)")
     if ph.params == "train" or (ph.params == "auto" and ph.train_epochs > 0):
-        raise NotImplementedError(
-            "photonics params='train': ONN training (photonics/training.py "
-            "and dataset.py) is not ported yet; train with the JAX package "
-            "(`python examples/quickstart.py --onn --scenario1`) and load "
-            "its pickle with params='results'")
+        if ph.train_epochs <= 0:
+            raise ValueError("photonics params='train' needs train_epochs>0")
+        return ONNModule.train(cfg, epochs=ph.train_epochs, seed=ph.seed,
+                               device=device)
     raise ValueError(
         f"cannot resolve an ONN for fidelity={ph.fidelity!r} at bits={bits}: "
         f"no trained params found.  Use --bits 2 (built-in exact identity "
@@ -157,11 +162,13 @@ def _cache_key(ph: PhotonicsConfig, bits: int, n_servers: int):
             bits, n_servers)
 
 
-def get_module(ph: PhotonicsConfig, bits: int, n_servers: int) -> ONNModule:
-    """The cached ONNModule for one (photonics, bits, N) scenario."""
+def get_module(ph: PhotonicsConfig, bits: int, n_servers: int,
+               device=None) -> ONNModule:
+    """The cached ONNModule for one (photonics, bits, N) scenario; a
+    module that has to be trained trains on ``device`` (CUDA when None)."""
     key = _cache_key(ph, bits, n_servers)
     if key not in _CACHE:
-        module = _build(ph, bits, n_servers)
+        module = _build(ph, bits, n_servers, device)
         if ph.fidelity == "mesh":
             module.programs  # Givens-program the meshes once, eagerly
         _CACHE[key] = module
@@ -178,11 +185,12 @@ def warmup(sync_cfg, n_servers: int, device=None) -> ONNModule | None:
     """Resolve the ONN for a SyncConfig eagerly (None for behavioral) and,
     given a device, put what its fidelity applies there: the weights, or
     the compiled mesh programs (programmed here if a module installed
-    with ``put_module`` has not been yet)."""
+    with ``put_module`` has not been yet).  A module with
+    ``params='train'`` trains on that device (CUDA when None)."""
     ph = getattr(sync_cfg, "photonics", None)
     if ph is None or ph.fidelity == "behavioral":
         return None
-    module = get_module(ph, sync_cfg.bits, n_servers)
+    module = get_module(ph, sync_cfg.bits, n_servers, device)
     if ph.fidelity == "mesh":
         module.programs_on("cpu" if device is None else device)
     elif device is not None:

@@ -367,20 +367,21 @@ def test_registry_and_config_reject_what_is_not_ported():
                      (dict(mode="cascade"), "cascade"),
                      (dict(overlap=True), "overlap"),
                      (dict(error_layers=(3, 4)), "Table-II"),
-                     (dict(photonics=PhotonicsConfig(
-                         fidelity="mesh", theta_drift_std=0.01)),
-                      "the PhaseNoise slice"),
-                     (dict(photonics=PhotonicsConfig(
-                         fidelity="mesh", shot_noise_std=0.01)),
-                      "the PhaseNoise slice"),
                      (dict(sparse_residuals=True), "checkpoint")):
         with pytest.raises(NotImplementedError, match=what):
             engine.SyncConfig(**kw)
-    # the mesh fidelity, its executor and its row tile are taken
+    # the mesh fidelity, its executor, its row tile and (since the
+    # PhaseNoise slice) its noise stds are taken
     for ph in (PhotonicsConfig(fidelity="mesh"),
                PhotonicsConfig(fidelity="mesh", mesh_backend="pallas"),
-               PhotonicsConfig(fidelity="mesh", blk_b=64)):
+               PhotonicsConfig(fidelity="mesh", blk_b=64),
+               PhotonicsConfig(fidelity="mesh", theta_drift_std=0.01),
+               PhotonicsConfig(fidelity="mesh", shot_noise_std=0.01)):
         assert engine.SyncConfig(photonics=ph).photonics == ph
+    for knob in ("theta_drift_std", "shot_noise_std"):
+        with pytest.raises(ValueError, match="only apply to --fidelity mesh"):
+            engine.SyncConfig(photonics=PhotonicsConfig(
+                fidelity="onn", **{knob: 0.01}))
     with pytest.raises(ValueError, match="photonic-backend knob"):
         engine.SyncConfig(mode="psum",
                           photonics=PhotonicsConfig(fidelity="onn"))

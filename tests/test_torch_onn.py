@@ -425,8 +425,10 @@ def test_exact_identity_module_is_the_oracle():
     np.testing.assert_array_equal(
         module.symbols(a, fidelity="mesh").numpy(), want.numpy())
     assert all(p.u.n_rot == p.v.n_rot == 0 for p in module.programs)
-    with pytest.raises(NotImplementedError, match="ONN training"):
-        ONNModule.train(module.cfg, epochs=1)
+    # ONN training (ported since): the same cfg trains on the CPU
+    trained = ONNModule.train(module.cfg, epochs=1, device="cpu")
+    assert trained.cfg == module.cfg
+    assert [l["w"].shape for l in trained.params] == [(4, 1), (1, 4)]
 
 
 # -------------------------------------------------------------- pipeline
@@ -474,7 +476,8 @@ def test_runtime_refuses_untrained_wide_bits(monkeypatch, clean_cache):
     with pytest.raises(ValueError, match="no matching pickle"):
         runtime._build(config.PhotonicsConfig(fidelity="onn",
                                               params="results"), 8, 4)
-    with pytest.raises(NotImplementedError, match="ONN training"):
+    # params='train' (ported since) needs a budget, as in JAX
+    with pytest.raises(ValueError, match="train_epochs>0"):
         runtime._build(config.PhotonicsConfig(fidelity="onn",
                                               params="train"), 8, 4)
     m = runtime.get_module(config.PhotonicsConfig(fidelity="onn"), 2, 3)

@@ -267,21 +267,32 @@ def test_train_names_what_is_not_ported(argv, what, capsys):
 
 @pytest.mark.parametrize("flag", ["--mesh-backend", "--blk-b",
                                   "--theta-drift-std", "--shot-noise-std"])
-def test_train_names_the_mesh_slice_for_its_flags(flag):
-    """The mesh fidelity's flags: --mesh-backend and --blk-b are taken with
-    --fidelity mesh (and, as in JAX, refused without it); the PhaseNoise
-    flags name the PhaseNoise slice, which is not ported yet."""
+def test_train_names_the_mesh_slice_for_its_flags(flag, capsys):
+    """The mesh fidelity's flags: --mesh-backend, --blk-b and the
+    PhaseNoise stds are taken with --fidelity mesh (and, as in JAX,
+    refused without it); a noisy run trains on the CPU, its losses a
+    function of --seed."""
     value = {"--mesh-backend": "pallas", "--blk-b": "64"}.get(flag, "0.01")
     argv = ["--steps", "1", "--fidelity", "mesh", flag, value]
-    if flag in ("--theta-drift-std", "--shot-noise-std"):
-        with pytest.raises(SystemExit, match="the PhaseNoise slice"):
-            train.main(["--device", "cpu", *argv])
-        return
     ph = train.sync_config(_opts(*argv)).photonics
+    field = flag[2:].replace("-", "_")
+    assert getattr(ph, field) == type(getattr(ph, field))(value)
     assert (ph.mesh_backend, ph.blk_b) == (
-        ("pallas", 0) if flag == "--mesh-backend" else ("xla", 64))
+        "pallas" if flag == "--mesh-backend" else "xla",
+        64 if flag == "--blk-b" else 0)
     with pytest.raises(SystemExit):
         _opts("--fidelity", "onn", flag, value)
+    if flag in ("--theta-drift-std", "--shot-noise-std"):
+        runs = []
+        for seed in ("0", "0", "1"):
+            assert train.main(["--device", "cpu", "--arch", "minitron_4b",
+                               "--smoke-config", "--bits", "2", "--mesh",
+                               "2x1", "--global-batch", "4", "--seq-len",
+                               "16", "--steps", "2", "--seed", seed,
+                               "--fidelity", "mesh", flag, "0.3"]) == 0
+            runs.append([json.loads(line)["loss"] for line in
+                         capsys.readouterr().out.splitlines()])
+        assert runs[0] == runs[1] and all(map(np.isfinite, runs[2]))
 
 
 def test_train_takes_fidelity_onn_and_refuses_what_jax_refuses(
