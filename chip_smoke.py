@@ -81,6 +81,22 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    Step time p50/p99 and tokens/s; one step under ``torch.profiler``,
    with the flash and pam4 kernels' shares of its device time; a short
    ``--sync psum`` run of the same config as a yardstick.
+   4f. Sessions (``repro_torch.api``), the same config with
+   ``--error-feedback`` and a temporary ``--ckpt-dir`` under build/
+   (deleted after): (a) a TrainSession runs 10 steps, checkpointing
+   every 5; (b) another runs 5, and a fresh one with ``--resume
+   --sparse-residuals`` must start at step 5, give (a)'s losses for steps
+   5-9 bit for bit and launch the flash and pam4 kernels (counts reset
+   just before, read just after); the seconds of one save (waited on)
+   and of a resuming session, and the bytes of ``arrays.npz``, dense and
+   block-sparse; (c) a ServeSession with ``ckpt.resume`` serves (a)'s
+   step-9 checkpoint: ``generate`` on 8 seeded prompts (8-128 tokens)
+   x 32 new tokens must give a ServeEngine's greedy tokens on the same
+   parameters and launch flash and ``paged_attention``; (d) a ServeEngine
+   with ``reload_every=1`` serves while (b) trains and checkpoints step
+   10: the swap to step 10 must be seen, and the requests admitted after
+   it must get a fresh engine's tokens.  Alone: ``python3 -c 'import
+   chip_smoke as c; c.sessions_full_width(c.card_line())'``.
    4d. (run before 4b) The paper's scenario-1 ONN trained on the card
    (``photonics.training``: 4-64-128-256-128-64-4, layers 1-6
    approximated, bits 8, N 4, K 4, the full 28,561-sample grid, 3000
@@ -1757,8 +1773,8 @@ def train_run(argv, steps: int):
 
 
 def train_full_width(card: str):
-    """Returns the launch count of each training kernel in the run and
-    the run's losses."""
+    """Returns the launch count of each training kernel in the run, the
+    run's losses and its p50 step time in ms."""
     import torch
     from repro_torch import configs
     from repro_torch.collectives.bucketizer import expected_buckets
@@ -1843,7 +1859,7 @@ def train_full_width(card: str):
               f" (" + ", ".join(f"{key} {us:.1f} us" for key, us in
                                 sorted(pam4_us.items()))
               + f") [{card}]", flush=True)
-    return launches, losses
+    return launches, losses, p50 * 1e3
 
 
 def profile_train_step(card: str, sync, what: str) -> dict:
@@ -2167,6 +2183,215 @@ def train_mesh_full_width(card: str, behavioral_bits2, behavioral8,
           flush=True)
     losses, times, launches = results[label, "pallas"]
     return launches, losses, times
+
+
+# ---------------------------------------------------- phase 4f: sessions
+# phase 4's config through repro_torch.api, with error feedback on
+SESSION_ARGS = ["--arch", "paper_llama", "--sync", "optinc", "--bits", "8",
+                "--block", "2048", "--mesh", "4x1", "--global-batch", "32",
+                "--seq-len", "512", "--error-feedback", "--ckpt-every", "5"]
+
+
+def _session_spec(ckpt_dir, steps: int, *extra):
+    from repro_torch.api import RunSpec
+    return RunSpec.from_args(SESSION_ARGS + ["--ckpt-dir", str(ckpt_dir),
+                                             "--steps", str(steps),
+                                             *extra])
+
+
+def _quiet_session(spec):
+    """A TrainSession on the card that checkpoints every ckpt.every steps
+    and prints nothing a step."""
+    from repro_torch import api
+    return api.TrainSession(spec, [api.PeriodicCheckpoint(spec.ckpt.every)],
+                            device="cuda")
+
+
+def _npz_bytes(direc, step: int) -> int:
+    return (Path(direc) / f"step_{step}" / "arrays.npz").stat().st_size
+
+
+def _serve_tokens(eng, prompts, new_tokens: int) -> list:
+    """Each prompt's greedy tokens from ``eng``, drained in order."""
+    rids = [eng.submit(p, new_tokens) for p in prompts]
+    while eng.has_work():
+        eng.step()
+    return [eng.results[r] for r in rids]
+
+
+def sessions_full_width(card: str, phase4_p50_ms=None) -> None:
+    """Phase 4f: checkpoint, resume, ServeSession and hot reload of the
+    full-width paper_llama run through ``repro_torch.api``, in a
+    temporary checkpoint directory under build/ that is deleted after.
+
+    (a) a TrainSession runs 10 steps of SESSION_ARGS (checkpoints at 4
+    and 9); (b) a second directory runs 5, then a fresh TrainSession with
+    --resume (and --sparse-residuals, so its checkpoints are block-sparse)
+    must start at step 5 and give (a)'s losses for steps 5-9 bit for bit,
+    launching the flash and pam4 kernels; the seconds of one save
+    (waited on) and one load and the bytes of arrays.npz, dense and
+    sparse; (c) a ServeSession with ckpt.resume serves (a)'s step-9
+    checkpoint: generate on 8 seeded prompts x 32 new tokens must give
+    the greedy tokens of a ServeEngine on the same parameters (prompts of
+    8-128 tokens, powers of two, one at a time on both paths, so both pad
+    and batch them alike: the bf16 results are the same bits) and launch
+    flash and paged_attention; (d) a ServeEngine with reload_every=1
+    serves from (b)'s directory while (b) trains step 10 and checkpoints
+    it: the swap must be seen, and requests admitted after it must get a
+    fresh engine's tokens on the step-10 parameters."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.api import RunSpec
+    from repro_torch.kernels import attention, paged_attention
+    from repro_torch.serving.engine import ServeEngine
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="ckpt-4f-", dir=ROOT / "build"))
+    counters = _train_counters()
+    t_phase = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        sess_a = _quiet_session(_session_spec(root / "a", 10))
+        recs_a = sess_a.run()
+        times = [r["time_s"] for r in recs_a[1:]]
+        print(f"4f (a) TrainSession paper_llama bf16, {' '.join(SESSION_ARGS)}"
+              f": 10 steps in {time.perf_counter() - t0:.3f} s with its "
+              f"construction, loss {recs_a[0]['loss']} -> "
+              f"{recs_a[-1]['loss']}; step p50 {pct(times, 0.5) * 1e3:.3f} "
+              f"ms p99 {pct(times, 0.99) * 1e3:.3f} ms over steps 1-9 "
+              f"(phase 4, no error feedback: p50 "
+              f"{'not run' if phase4_p50_ms is None else f'{phase4_p50_ms:.3f} ms'}"
+              f"); step ms {[round(t * 1e3, 3) for t in times]} (a "
+              f"background save runs over steps 5 on) [{card}]", flush=True)
+
+        # (b) stop after 5 steps, resume in a fresh session
+        _quiet_session(_session_spec(root / "b", 5)).run()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        sess_b = _quiet_session(_session_spec(root / "b", 11, "--resume",
+                                              "--sparse-residuals"))
+        resume_s = time.perf_counter() - t0
+        if sess_b.step != 5:
+            raise AssertionError(f"the resumed session starts at step "
+                                 f"{sess_b.step}, not 5")
+        sess_b.run(n_steps=5)
+        launches = {name: fn.launches for name, fn in counters.items()}
+        got = [sess_b.losses[s] for s in range(5, 10)]
+        want = [sess_a.losses[s] for s in range(5, 10)]
+        print(f"4f (b) resumed at step {min(sess_b.losses)}: losses 5-9 "
+              f"{got}, uninterrupted {want}; launches in the resumed run "
+              f"{launches} [{card}]", flush=True)
+        if got != want:
+            raise AssertionError(f"resumed losses {got} != uninterrupted "
+                                 f"{want}")
+        for name, n in launches.items():
+            if n == 0:
+                raise AssertionError(f"{name} was not launched by the "
+                                     f"resumed run")
+
+        # checkpoint costs: one save waited on, one load (the resume),
+        # dense (a) and block-sparse (b)
+        for label, sess, direc in (("dense", sess_a, root / "a"),
+                                   ("sparse", sess_b, root / "b")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sess.save_checkpoint(9)
+            sess.mgr.wait()
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            _quiet_session(dataclasses.replace(
+                sess.spec, ckpt=dataclasses.replace(sess.spec.ckpt,
+                                                    resume=True)))
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            _quiet_session(dataclasses.replace(
+                sess.spec, ckpt=dataclasses.replace(sess.spec.ckpt,
+                                                    resume=False)))
+            torch.cuda.synchronize()
+            fresh_s = time.perf_counter() - t0
+            print(f"4f checkpoint ({label} residuals) of step 9: save "
+                  f"{save_s:.3f} s (waited on), arrays.npz "
+                  f"{_npz_bytes(direc, 9)} bytes; a resuming TrainSession "
+                  f"{load_s:.3f} s against a fresh one {fresh_s:.3f} s "
+                  f"[{card}]", flush=True)
+        print(f"4f the first resume (dense checkpoint of step 4) took "
+              f"{resume_s:.3f} s [{card}]", flush=True)
+
+        # (c) ServeSession from (a)'s step-9 checkpoint
+        serve_args = ["--page-size", "16", "--max-active", "1",
+                      "--max-seq", "256"]
+        sspec = _session_spec(root / "a", 10, "--resume", *serve_args)
+        rng = np.random.default_rng(SEED)
+        prompts = [rng.integers(0, 32000, (int(n),)).tolist() for n in
+                   rng.choice([8, 16, 32, 64, 128], size=8)]
+        attention.flash_attention.launches = 0
+        paged_attention.paged_attention.launches = 0
+        t0 = time.perf_counter()
+        serve = api.ServeSession(sspec, device="cuda")
+        if serve.params_step != 9:
+            raise AssertionError(f"ServeSession serves step "
+                                 f"{serve.params_step}, not 9")
+        tokens = [serve.generate(np.asarray([p]), 32, max_seq=256)[0]
+                  .tolist() for p in prompts]
+        gen_s = time.perf_counter() - t0
+        slaunches = {"flash_attention": attention.flash_attention.launches,
+                     "paged_attention":
+                         paged_attention.paged_attention.launches}
+        ref = _serve_tokens(ServeEngine.from_spec(sspec, params=serve.params,
+                                                  device="cuda"), prompts, 32)
+        same = sum(a == b for a, b in zip(tokens, ref))
+        print(f"4f (c) ServeSession from checkpoint step 9: 8 prompts of "
+              f"{[len(p) for p in prompts]} tokens x 32 in {gen_s:.3f} s "
+              f"with its construction; launches {slaunches}; {same}/8 token "
+              f"streams equal to the ServeEngine's [{card}]", flush=True)
+        if same != 8:
+            raise AssertionError(f"ServeSession tokens {tokens} != the "
+                                 f"engine's {ref}")
+        for name, n in slaunches.items():
+            if n == 0:
+                raise AssertionError(f"{name} was not launched by the "
+                                     f"ServeSession")
+
+        # (d) hot reload while (b) trains step 10
+        hspec = _session_spec(root / "b", 11, "--resume", "--page-size",
+                              "16", "--max-seq", "256", "--reload-every",
+                              "1")
+        eng = ServeEngine.from_spec(hspec, device="cuda")
+        before = eng.params_step
+        first = eng.submit(prompts[0], 32)
+        for _ in range(4):
+            eng.step()
+        sess_b.run(n_steps=1)                 # step 10, checkpointed
+        while eng.has_work():
+            eng.step()
+        if len(eng.results[first]) != 32:
+            raise AssertionError("the request in flight over the swap did "
+                                 "not finish")
+        after = _serve_tokens(eng, prompts[1:5], 32)
+        fresh = ServeEngine.from_spec(hspec, device="cuda")
+        ref = _serve_tokens(fresh, prompts[1:5], 32)
+        print(f"4f (d) hot reload: params step {before} -> "
+              f"{eng.params_step} mid-serve (fresh engine: step "
+              f"{fresh.params_step}); {sum(a == b for a, b in zip(after, ref))}"
+              f"/4 post-swap token streams equal to the fresh engine's "
+              f"[{card}]", flush=True)
+        if (before, eng.params_step, fresh.params_step) != (9, 10, 10):
+            raise AssertionError(f"hot reload saw steps {before} -> "
+                                 f"{eng.params_step} (fresh "
+                                 f"{fresh.params_step}), want 9 -> 10")
+        if after != ref:
+            raise AssertionError(f"post-swap tokens {after} != the fresh "
+                                 f"engine's {ref}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"4f took {time.perf_counter() - t_phase:.3f} s [{card}]",
+          flush=True)
 
 
 # ----------------------------------------- phase 4d: the trained ONN
@@ -2705,10 +2930,11 @@ def main() -> int:
     launches = serve_full_width(card)
     for name in launches:
         records[name]["launches"] = launches[name]
-    train_launches, behavioral8 = train_full_width(card)
+    train_launches, behavioral8, train_p50_ms = train_full_width(card)
     for name in ("flash_attention_bwd", "pam4_quantize_encode",
                  "pam4_decode_dequantize"):
         records[name]["launches"] = train_launches[name]
+    sessions_full_width(card, train_p50_ms)
     onn = trained_onn_full_width(card)
     onn_launches, behavioral_bits2 = train_onn_full_width(card, behavioral8,
                                                           onn)

@@ -1,0 +1,120 @@
+"""Spec -> step-builder bridge (counterpart of ``repro.api.build``, the
+part with a torch meaning).
+
+TrainSession and ServeSession build their steps here, so the train
+step, the sync-state initializer and the serving steps never disagree
+on the state structure.  JAX's ``param_specs``, ``sync_state_specs``
+and ``decode_cache_specs`` are PartitionSpecs for shard_map and get no
+twin: the port's peers are one stacked dimension on one device, and its
+decode cache is a paged pool with a fixed block table
+(``new_decode_cache``).
+"""
+from __future__ import annotations
+
+import torch
+
+from ..launch import steps
+from ..models import lm
+from ..serving import kv_pool
+from .spec import RunSpec
+
+
+def _cfg(spec: RunSpec, cfg):
+    return cfg if cfg is not None else spec.model_config()
+
+
+def warmup_photonics(spec: RunSpec, device=None):
+    """Resolve the in-network ONN for spec's photonic fidelity eagerly
+    (None for 'behavioral') and put what it applies on ``device``, so a
+    slow params source ('train') or a missing one fails before the step
+    loop."""
+    from ..photonics import runtime
+    return runtime.warmup(spec.resolved_sync(), spec.mesh.dp, device)
+
+
+def _wire(spec: RunSpec, cfg):
+    from ..collectives import get_backend
+    sync = spec.resolved_sync()
+    nbytes = 2 * _cfg(spec, cfg).param_count()      # bf16 gradient bytes
+    return get_backend(sync.mode), sync, nbytes, spec.mesh.pods * spec.mesh.dp
+
+
+def modeled_time_on_wire(spec: RunSpec, cfg=None, overlap=None) -> float:
+    """Analytic per-step wire-occupancy seconds of spec's sync scenario
+    (the backend's ``time_on_wire``: line-rate transfer + per-bucket
+    fabric reconfiguration, pipelined when overlap is on).  ``overlap``
+    overrides ``spec.sync.overlap``; pure arithmetic."""
+    backend, sync, nbytes, n = _wire(spec, cfg)
+    ov = sync.overlap if overlap is None else overlap
+    return backend.time_on_wire(nbytes, n, sync.bits, overlap=ov,
+                                bucket_bytes=sync.bucket_bytes)
+
+
+def modeled_bytes_on_wire(spec: RunSpec, cfg=None) -> float:
+    """Analytic per-step optical-wire bytes of spec's sync scenario (the
+    backend's ``bytes_on_wire`` over N = pods * dp peers)."""
+    backend, sync, nbytes, n = _wire(spec, cfg)
+    return backend.bytes_on_wire(nbytes, n, sync.bits)
+
+
+def build_train_step(spec: RunSpec, cfg=None, device="cuda"):
+    """step(params, opt_state, sync_state, tokens, key) -> (params,
+    opt_state, sync_state, metrics) over ``spec.mesh.dp`` stacked peers
+    (``launch.steps.make_train_step``; JAX returns it with its shard_map
+    specs)."""
+    return steps.make_train_step(_cfg(spec, cfg), spec.mesh.dp,
+                                 spec.resolved_sync(), spec.optim, device)
+
+
+def init_sync_state(spec: RunSpec, cfg=None, device="cuda") -> dict:
+    """Zero sync_state matching build_train_step ({} when error feedback
+    is off, else {"rep": (dp, n_params)})."""
+    return steps.init_sync_state(_cfg(spec, cfg), spec.mesh.dp,
+                                 spec.resolved_sync(), device)
+
+
+def build_prefill_step(spec: RunSpec, cfg=None):
+    """step(params, tokens, lengths=None) -> (logits (b, V) f32 at each
+    row's last valid position, prefill cache) through
+    ``lm.batched_prefill_step`` (attention: the flash forward kernel).
+    ``lengths`` None = every row is whole."""
+    cfg = _cfg(spec, cfg)
+
+    def step(params, tokens, lengths=None):
+        if lengths is None:
+            lengths = torch.full((tokens.shape[0],), tokens.shape[1],
+                                 dtype=torch.int32, device=tokens.device)
+        return lm.batched_prefill_step(cfg, params, tokens, lengths)
+    return step
+
+
+def new_decode_cache(spec: RunSpec, cfg, batch: int, max_seq: int,
+                     device) -> dict:
+    """A decode cache for ``batch`` sequences of up to ``max_seq``
+    tokens: a paged pool (``spec.serve.page_size``, ``kv_dtype``) in
+    which sequence i owns the ``ceil(max_seq / page_size)`` pages of row
+    i of a fixed block table (page 0 is the null page)."""
+    ps = spec.serve.page_size
+    nb = -(-max_seq // ps)
+    pool = kv_pool.init_pool(cfg, 1 + batch * nb, ps,
+                             kv_dtype=spec.serve.kv_dtype, device=device)
+    table = (1 + torch.arange(batch * nb, dtype=torch.int32,
+                              device=device)).reshape(batch, nb)
+    return {"pool": pool, "page_table": table}
+
+
+def build_decode_step(spec: RunSpec, cfg=None):
+    """step(params, cache, token (b, 1), pos) -> (logits (b, V) f32,
+    cache): every row's token at position ``pos`` through
+    ``lm.paged_decode_step`` (attention: the paged_attention kernel);
+    the pool is written in place."""
+    cfg = _cfg(spec, cfg)
+
+    def step(params, cache, token, pos: int):
+        lengths = torch.full((token.shape[0],), pos, dtype=torch.int32,
+                             device=token.device)
+        logits, pool = lm.paged_decode_step(cfg, params, cache["pool"],
+                                            cache["page_table"], lengths,
+                                            token)
+        return logits, {**cache, "pool": pool}
+    return step

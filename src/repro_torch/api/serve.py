@@ -1,0 +1,113 @@
+"""ServeSession: prefill + decode + KV-cache management behind one object
+(counterpart of ``repro.api.serve``).
+
+Parameters come from (in order of precedence): the ``params`` argument,
+the spec's checkpoint directory when ``ckpt.resume`` is set (serve a
+trained run), or a fresh seeded init — the ``serving.reload`` resolution
+the continuous-batching ServeEngine uses too.
+
+The port has one decode path, the paged kernel's.  JAX's session decodes
+over a contiguous cache in plain jnp; here the session's cache is a
+paged pool in which each sequence owns ``ceil(max_seq / page_size)``
+pages through a fixed block table (``build.new_decode_cache``).
+``generate`` runs one prefill over the whole prompt batch
+(``lm.batched_prefill_step``: the flash forward kernel), scatters its KV
+into the pages and decodes greedily through ``lm.paged_decode_step``
+(the paged_attention kernel).  JAX's token-by-token replay exists for
+its flash-decode seq-sharded cache and has no twin:
+``seq_shard_cache=True`` is refused.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import device as device_util
+from ..serving import kv_pool
+from ..serving import reload as serving_reload
+from . import build
+from .spec import RunSpec, SpecError
+
+
+class ServeSession:
+    def __init__(self, spec: RunSpec, params=None, *, device=None, cfg=None,
+                 seq_shard_cache: bool = False):
+        if seq_shard_cache:
+            raise SpecError("seq_shard_cache: the flash-decode seq-sharded "
+                            "cache is not ported (the port decodes over "
+                            "one paged pool on one device)")
+        spec.validate()
+        self.spec = spec
+        self.device = device_util.resolve(device, "ServeSession")
+        self.cfg = cfg if cfg is not None else spec.model_config()
+        if not kv_pool.supports_paged(self.cfg):
+            raise NotImplementedError(
+                f"ServeSession covers the dense-attention families; "
+                f"{self.cfg.name} (ssm/enc-dec/moe) is not ported")
+        if params is not None:
+            self.params, self.params_step = params, None
+        else:
+            self.params, self.params_step = serving_reload.resolve_params(
+                spec, self.cfg, self.device)
+        self._prefill = build.build_prefill_step(spec, self.cfg)
+        self._decode = build.build_decode_step(spec, self.cfg)
+
+    def _tokens(self, tokens) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
+                               device=self.device)
+
+    # ------------------------------------------------------------ serving
+    @torch.inference_mode()
+    def prefill(self, tokens):
+        """(logits (b, V) f32 at the last position, prefill cache
+        {"layers": {"k","v": (L, b, kvl, t, hd)}}) for a prompt batch."""
+        return self._prefill(self.params, self._tokens(tokens))
+
+    def new_cache(self, batch: int, max_seq: int) -> dict:
+        """An empty paged decode cache for ``batch`` sequences of up to
+        ``max_seq`` tokens."""
+        return build.new_decode_cache(self.spec, self.cfg, batch, max_seq,
+                                      self.device)
+
+    @torch.inference_mode()
+    def decode(self, cache, token, pos: int):
+        """One decode step of every row at position ``pos``; the cache's
+        pool is written in place.  Returns (logits (b, V) f32, cache)."""
+        return self._decode(self.params, cache, self._tokens(token), pos)
+
+    def engine(self):
+        """A continuous-batching ServeEngine over this session's spec and
+        params (paged KV pool, per-request scheduling)."""
+        from ..serving.engine import ServeEngine
+        return ServeEngine.from_spec(self.spec, params=self.params,
+                                     device=self.device, cfg=self.cfg)
+
+    @torch.inference_mode()
+    def generate(self, prompts, gen_len: int, max_seq: int | None = None):
+        """Greedy decode: one prefill over the prompt batch, its KV
+        scattered into each row's pages, then argmax sampling one token
+        per decode step.  Returns (batch, gen_len) int64 token ids."""
+        prompts = self._tokens(prompts)
+        batch, prompt_len = prompts.shape
+        max_seq = max_seq or prompt_len + gen_len
+        assert max_seq >= prompt_len + gen_len, (max_seq, prompt_len, gen_len)
+        ps = self.spec.serve.page_size
+        t_pad = -(-prompt_len // ps) * ps      # whole pages for the scatter
+        cache = self.new_cache(batch, max(max_seq, t_pad))
+        padded = torch.zeros((batch, t_pad), dtype=torch.int64,
+                             device=self.device)
+        padded[:, :prompt_len] = prompts
+        lengths = torch.full((batch,), prompt_len, dtype=torch.int32,
+                             device=self.device)
+        logits, pre = self._prefill(self.params, padded, lengths)
+        kv_pool.write_prompts(cache["pool"], pre,
+                              cache["page_table"][:, :t_pad // ps], lengths)
+        vocab = self.cfg.vocab
+        tok = logits[:, :vocab].argmax(-1)[:, None]
+        out = [tok]
+        for i in range(gen_len - 1):
+            logits, cache = self._decode(self.params, cache, tok,
+                                         prompt_len + i)
+            tok = logits[:, :vocab].argmax(-1)[:, None]
+            out.append(tok)
+        return torch.cat(out, dim=1)

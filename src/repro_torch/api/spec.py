@@ -1,0 +1,513 @@
+"""Declarative run description (counterpart of ``repro.api.spec``).
+
+A ``RunSpec`` is a frozen, JSON-serializable description of ONE scenario
+(model x peers x sync backend x optimizer x data x checkpointing x
+serving).  ``launch/train.py`` builds one from its flags (or a JSON file)
+and hands it to ``TrainSession``; ``ServeSession`` serves one.
+
+Its JSON keys are the JAX package's, so a JAX checkpoint's
+``extra.run_spec`` parses here and one written here parses in JAX.
+Fields the port does not run yet are taken when they hold their
+defaults and refused by name otherwise (``validate``).
+
+``MeshSpec`` keeps JAX's fields, but ``build()``/``ctx()`` (a jax Mesh
+and a ShardCtx) have no torch meaning: here ``MeshSpec.dp`` is the
+number of data-parallel peers stacked on one device.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import pathlib
+
+from ..collectives.engine import SyncConfig
+from ..data.pipeline import DataConfig
+from ..elastic.config import ElasticConfig
+from ..optim.adamw import AdamWConfig
+from ..photonics.config import FIDELITIES, MESH_BACKENDS
+from ..serving.config import ServeConfig
+
+# the JAX package's sync backends; ring and cascade are refused by name
+SYNC_MODES = ("cascade", "optinc", "psum", "ring")
+
+
+class SpecError(ValueError):
+    """A RunSpec is malformed, internally inconsistent, or asks for what
+    the port does not run yet."""
+
+
+class SpecMismatchError(SpecError):
+    """--resume found a checkpoint written by an incompatible RunSpec."""
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshSpec:
+    """The JAX device-mesh description.  In the port ``dp`` is the
+    number of stacked peers; the other fields must keep their defaults
+    (``RunSpec.validate``)."""
+    dp: int = 1
+    tp: int = 1
+    pods: int = 1
+    fsdp: bool = False
+    seq_parallel: bool = False
+    remat_groups: int = 0
+
+    def __post_init__(self):
+        if min(self.dp, self.tp, self.pods) < 1:
+            raise SpecError(f"mesh sizes must be >= 1: {self}")
+        if self.remat_groups < 0:
+            raise SpecError(f"remat_groups must be >= 0: {self}")
+
+    @property
+    def shape(self) -> tuple:
+        return ((self.pods, self.dp, self.tp) if self.pods > 1
+                else (self.dp, self.tp))
+
+
+@dataclasses.dataclass(frozen=True)
+class CheckpointConfig:
+    dir: str = ""          # "" = checkpointing off
+    every: int = 50        # save every N steps (and on stop / final step)
+    keep: int = 3          # retained checkpoints
+    resume: bool = False   # restart from the newest valid checkpoint
+
+
+def _from_dict(cls, d):
+    """Rebuild a (possibly nested) frozen config dataclass from JSON data,
+    coercing lists back to tuples and rejecting unknown keys loudly."""
+    if not isinstance(d, dict):
+        raise SpecError(f"{cls.__name__} must be a JSON object, got {d!r}")
+    fields = {f.name: f for f in dataclasses.fields(cls)}
+    unknown = sorted(set(d) - set(fields))
+    if unknown:
+        raise SpecError(f"unknown {cls.__name__} key(s): {unknown} "
+                        f"(known: {sorted(fields)})")
+    kw = {}
+    for name, val in d.items():
+        default = fields[name].default
+        if dataclasses.is_dataclass(default) and isinstance(val, dict):
+            val = _from_dict(type(default), val)
+        elif isinstance(default, tuple) and isinstance(val, list):
+            val = tuple(val)
+        kw[name] = val
+    try:
+        return cls(**kw)
+    except (TypeError, ValueError, NotImplementedError) as e:
+        # config dataclasses validate in __post_init__ (an unknown
+        # fidelity, a sync field not ported yet): spec errors too
+        raise SpecError(f"invalid {cls.__name__}: {e}")
+
+
+@dataclasses.dataclass(frozen=True)
+class RunSpec:
+    """One fully-specified scenario. Frozen + JSON round-trippable."""
+    arch: str = "paper_llama"
+    smoke: bool = False                 # use the arch's reduced SMOKE config
+    mesh: MeshSpec = MeshSpec()
+    sync: SyncConfig = SyncConfig()
+    optim: AdamWConfig = AdamWConfig()
+    # vocab 0 = the model's vocab; --seed feeds both seeds
+    data: DataConfig = DataConfig(vocab=0, seed=0)
+    ckpt: CheckpointConfig = CheckpointConfig()
+    serve: ServeConfig = ServeConfig()
+    elastic: ElasticConfig = ElasticConfig()
+    steps: int = 100
+    seed: int = 0
+    watchdog: float = 3.0               # straggler threshold (x median)
+    log: str = ""                       # JSONL metrics file ("" = stdout only)
+
+    # ------------------------------------------------ resolution helpers
+    def model_config(self):
+        from .. import configs
+        try:
+            return (configs.get_smoke(self.arch) if self.smoke
+                    else configs.get(self.arch))
+        except ValueError as e:
+            raise SpecError(str(e))
+
+    def resolved_data(self, cfg=None) -> DataConfig:
+        if self.data.vocab:
+            return self.data
+        cfg = cfg if cfg is not None else self.model_config()
+        return dataclasses.replace(self.data, vocab=cfg.vocab)
+
+    def resolved_sync(self) -> SyncConfig:
+        """Sync axes canonicalized to the mesh's DP axes."""
+        axes = (("pod", "data") if self.mesh.pods > 1 else ("data",))
+        return dataclasses.replace(self.sync, axes=axes)
+
+    def _refuse_unported(self) -> None:
+        """Name each field the port does not run yet, and the slice that
+        brings it.  (SyncConfig refuses its own: ring and cascade,
+        overlap, error_layers.)"""
+        m, e = self.mesh, self.elastic
+        for bad, what in (
+                (m.tp > 1, f"mesh.tp={m.tp} (--mesh DPxTP): tensor "
+                           f"parallelism (the FSDP/TP slice)"),
+                (m.pods > 1, f"mesh.pods={m.pods} (--pods): the cascade "
+                             f"backend and its pod axis (the ring/cascade "
+                             f"slice)"),
+                (m.fsdp, "mesh.fsdp (--fsdp): FSDP (the FSDP/TP slice)"),
+                (m.seq_parallel, "mesh.seq_parallel (--seq-parallel): "
+                                 "sequence parallelism (the FSDP/TP slice)"),
+                (m.remat_groups > 0, "mesh.remat_groups (--remat-groups): "
+                                     "rematerialization groups (the "
+                                     "FSDP/TP slice)"),
+                (e.enabled, "elastic.enabled (--elastic): elastic "
+                            "membership (the elastic slice)"),
+                ((e.dir, e.heartbeat_s, e.timeout_s) != ("", 1.0, 0.0),
+                 "elastic.dir/heartbeat_s/timeout_s (--members-dir, "
+                 "--heartbeat-s): elastic membership (the elastic slice)"),
+                (e.evict_after > 0, "elastic.evict_after (--evict-after): "
+                                    "the watchdog's escalation to elastic "
+                                    "membership (the elastic slice)"),
+                (self.optim.moment_dtype != "float32",
+                 f"optim.moment_dtype={self.optim.moment_dtype!r}: bf16 "
+                 f"AdamW moments")):
+            if bad:
+                raise SpecError(f"{what} is not ported yet")
+
+    def validate(self) -> "RunSpec":
+        self.model_config()
+        self._refuse_unported()
+        if self.steps < 1:
+            raise SpecError(f"steps must be >= 1, got {self.steps}")
+        ph = self.sync.photonics
+        if ph.mesh_backend != "xla" and ph.fidelity != "mesh":
+            raise SpecError(
+                f"--mesh-backend {ph.mesh_backend} selects the MZI-emulator "
+                f"executor and only applies to --fidelity mesh; got "
+                f"--fidelity {ph.fidelity}")
+        if ph.blk_b != 0 and ph.fidelity != "mesh":
+            raise SpecError(
+                f"--blk-b tiles the MZI-emulator kernel's rows and only "
+                f"applies to --fidelity mesh; got --fidelity {ph.fidelity}")
+        if self.sync.sparse_residuals and not self.sync.error_feedback:
+            raise SpecError("--sparse-residuals compresses the checkpointed "
+                            "error-feedback residuals and needs "
+                            "--error-feedback")
+        dp_total = self.mesh.pods * self.mesh.dp
+        if self.data.global_batch % dp_total:
+            raise SpecError(f"global_batch {self.data.global_batch} not "
+                            f"divisible by pods*dp = {dp_total}")
+        if self.ckpt.resume and not self.ckpt.dir:
+            raise SpecError("ckpt.resume requires ckpt.dir")
+        if self.serve.max_seq < self.serve.page_size:
+            raise SpecError(f"serve.max_seq ({self.serve.max_seq}) must be "
+                            f">= serve.page_size ({self.serve.page_size})")
+        if self.serve.top_k and self.serve.temperature == 0:
+            raise SpecError("--top-k samples from the softmax and needs "
+                            "--temperature > 0 (temperature 0 = greedy)")
+        if self.serve.reload_every and not self.ckpt.dir:
+            raise SpecError("--reload-every polls the checkpoint directory "
+                            "and needs --ckpt-dir")
+        return self
+
+    # ------------------------------------------------ JSON round-trip
+    def to_json_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def to_json(self, indent: int | None = 1) -> str:
+        return json.dumps(self.to_json_dict(), indent=indent)
+
+    @classmethod
+    def from_json_dict(cls, d: dict) -> "RunSpec":
+        return _from_dict(cls, d)
+
+    @classmethod
+    def from_json(cls, text: str) -> "RunSpec":
+        return cls.from_json_dict(json.loads(text))
+
+    def save(self, path) -> None:
+        pathlib.Path(path).write_text(self.to_json())
+
+    @classmethod
+    def load(cls, path) -> "RunSpec":
+        try:
+            text = pathlib.Path(path).read_text()
+        except OSError as e:
+            raise SpecError(f"cannot read spec file {path}: {e}")
+        try:
+            return cls.from_json(text)
+        except json.JSONDecodeError as e:
+            raise SpecError(f"spec file {path} is not valid JSON: {e}")
+
+    # ------------------------------------------------ resume compatibility
+    def state_fingerprint(self) -> dict:
+        """The spec fields that determine checkpoint state CONTENT (the
+        shapes and meaning of the saved arrays): they must match across
+        any resume."""
+        return {"arch": self.arch, "smoke": self.smoke,
+                "moment_dtype": self.optim.moment_dtype,
+                "error_feedback": self.sync.error_feedback}
+
+    def shape_fingerprint(self) -> dict:
+        """The spec fields that determine only the state's placement: in
+        the port, the peer count ``mesh.dp`` (the residuals' rows)."""
+        return {"mesh": dataclasses.asdict(self.mesh)}
+
+    def compat_fingerprint(self) -> dict:
+        return {**self.state_fingerprint(), **self.shape_fingerprint()}
+
+    # ------------------------------------------------ CLI surface
+    @staticmethod
+    def add_args(ap: argparse.ArgumentParser) -> None:
+        """The JAX train-style CLI (every JAX flag; ``validate`` refuses
+        what the port does not run) plus ``--block``, the port's flag for
+        ``sync.block``.  Absent flags leave the base spec untouched."""
+        ap.add_argument("--spec", help="RunSpec JSON file (flags override)")
+        ap.add_argument("--arch", help="architecture id (repro_torch.configs)")
+        ap.add_argument("--smoke-config", action="store_true",
+                        help="use the arch's reduced SMOKE config")
+        ap.add_argument("--sync", choices=SYNC_MODES,
+                        help="gradient-sync backend (ring, cascade: not "
+                             "ported)")
+        ap.add_argument("--bucket-mb", type=float,
+                        help="fused gradient-bucket size in MiB")
+        ap.add_argument("--block", type=int,
+                        help="quantization block (0 = one scale a bucket)")
+        ap.add_argument("--pods", type=int, help="pod (level-2) axis size")
+        ap.add_argument("--bits", type=int, help="OptINC bit width B")
+        ap.add_argument("--overlap", action="store_true",
+                        help="streaming overlap (not ported)")
+        ap.add_argument("--fidelity", choices=FIDELITIES,
+                        help="optinc emulation depth: behavioral Q(mean) | "
+                             "trained dense ONN | MZI mesh emulator")
+        ap.add_argument("--mesh-backend", choices=MESH_BACKENDS,
+                        help="fidelity=mesh executor; both run the "
+                             "mesh_scan kernel in the port")
+        ap.add_argument("--blk-b", type=int,
+                        help="mesh_scan kernel row tile (multiple of 8; 0 "
+                             "= default)")
+        ap.add_argument("--theta-drift-std", type=float,
+                        help="PhaseNoise: thermal drift std (rad) on every "
+                             "programmed MZI phase (fidelity=mesh)")
+        ap.add_argument("--shot-noise-std", type=float,
+                        help="PhaseNoise: additive noise std on the mesh's "
+                             "analog outputs (fidelity=mesh)")
+        ap.add_argument("--error-layers",
+                        help="Table II key, e.g. '3,4,5,6' (not ported)")
+        ap.add_argument("--error-feedback", action="store_true")
+        ap.add_argument("--sparse-residuals", action="store_true",
+                        help="checkpoint error-feedback residuals "
+                             "block-sparsely (only blocks with nonzero "
+                             "carry)")
+        ap.add_argument("--fsdp", action="store_true", help="not ported")
+        ap.add_argument("--seq-parallel", action="store_true",
+                        help="not ported")
+        ap.add_argument("--remat-groups", type=int, help="not ported")
+        ap.add_argument("--steps", type=int)
+        ap.add_argument("--global-batch", type=int)
+        ap.add_argument("--seq-len", type=int)
+        ap.add_argument("--lr", type=float)
+        ap.add_argument("--mesh", help="DPxTP, e.g. 4x1: DP peers stacked "
+                                       "on one device; TP must be 1")
+        ap.add_argument("--ckpt-dir")
+        ap.add_argument("--ckpt-every", type=int)
+        ap.add_argument("--ckpt-keep", type=int)
+        ap.add_argument("--resume", action="store_true")
+        ap.add_argument("--elastic", action="store_true", help="not ported")
+        ap.add_argument("--heartbeat-s", type=float, help="elastic")
+        ap.add_argument("--allow-reshard", action="store_true",
+                        help="permit --resume onto a different peer count "
+                             "(params and optimizer reloaded, "
+                             "error-feedback residuals re-zeroed)")
+        ap.add_argument("--members-dir", help="elastic")
+        ap.add_argument("--evict-after", type=int, help="elastic")
+        ap.add_argument("--watchdog", type=float,
+                        help="straggler threshold (x the rolling median "
+                             "step time; 0 = off)")
+        ap.add_argument("--seed", type=int)
+        ap.add_argument("--log", help="JSONL metrics file")
+        ap.add_argument("--page-size", type=int,
+                        help="serving: tokens per paged-KV page")
+        ap.add_argument("--max-active", type=int,
+                        help="serving: concurrently decoding sequences")
+        ap.add_argument("--max-queue", type=int,
+                        help="serving: queued-request cap")
+        ap.add_argument("--max-seq", type=int,
+                        help="serving: per-sequence cache capacity")
+        ap.add_argument("--max-new-tokens", type=int,
+                        help="serving: default per-request generation budget")
+        ap.add_argument("--stop-token", type=int,
+                        help="serving: end-of-sequence token id (-1 = none)")
+        ap.add_argument("--temperature", type=float,
+                        help="serving: sampling temperature (0 = greedy)")
+        ap.add_argument("--top-k", type=int,
+                        help="serving: sample from the k best logits")
+        ap.add_argument("--serve-pages", type=int,
+                        help="serving: physical KV pool size in pages "
+                             "(0 = auto)")
+        ap.add_argument("--reload-every", type=int,
+                        help="serving: poll --ckpt-dir for newer params "
+                             "every N engine steps (hot-swap; 0 = off)")
+        ap.add_argument("--decode-backend", choices=("gather", "paged"),
+                        help="serving: JAX's decode path; both run the "
+                             "paged kernel in the port")
+        ap.add_argument("--kv-dtype", choices=("auto", "f32", "bf16"),
+                        help="serving: KV pool storage dtype")
+
+    @classmethod
+    def from_args(cls, argv=None, description: str | None = None) -> "RunSpec":
+        ap = argparse.ArgumentParser(
+            description=description, argument_default=argparse.SUPPRESS,
+            formatter_class=argparse.RawDescriptionHelpFormatter)
+        cls.add_args(ap)
+        return cls.from_cli_dict(vars(ap.parse_args(argv)))
+
+    @classmethod
+    def from_cli_dict(cls, ns: dict) -> "RunSpec":
+        """The validated spec of parsed (present-only) flags: the --spec
+        file or the defaults, with the other flags laid over it."""
+        ns = dict(ns)
+        base = cls.load(ns.pop("spec")) if "spec" in ns else cls()
+        return base.apply_cli(ns).validate()
+
+    def apply_cli(self, ns: dict) -> "RunSpec":
+        """Overlay a dict of (present-only) CLI args onto this spec."""
+        ns = dict(ns)
+        mesh_kw, sync_kw, opt_kw = {}, {}, {}
+        data_kw, ckpt_kw, top_kw = {}, {}, {}
+        if "arch" in ns:
+            top_kw["arch"] = ns.pop("arch")
+        if "smoke_config" in ns:
+            top_kw["smoke"] = ns.pop("smoke_config")
+        if "mesh" in ns:
+            raw = ns.pop("mesh")
+            try:
+                mesh_kw["dp"], mesh_kw["tp"] = (int(x) for x in raw.split("x"))
+            except ValueError:
+                raise SpecError(f"--mesh must be DPxTP (e.g. 4x1): {raw!r}")
+        pods = ns.pop("pods", 0)
+        if pods > 0:
+            mesh_kw["pods"] = pods
+        for k in ("fsdp", "seq_parallel", "remat_groups"):
+            if k in ns:
+                mesh_kw[k] = ns.pop(k)
+        for k, field in (("sync", "mode"), ("bits", "bits"),
+                         ("block", "block"), ("overlap", "overlap"),
+                         ("error_feedback", "error_feedback"),
+                         ("sparse_residuals", "sparse_residuals")):
+            if k in ns:
+                sync_kw[field] = ns.pop(k)
+        ph_kw = {k: ns.pop(k) for k in ("fidelity", "mesh_backend", "blk_b",
+                                        "theta_drift_std", "shot_noise_std")
+                 if k in ns}
+        if "bucket_mb" in ns:
+            sync_kw["bucket_bytes"] = int(ns.pop("bucket_mb") * 2 ** 20)
+        if "error_layers" in ns:
+            raw = ns.pop("error_layers")
+            sync_kw["error_layers"] = (tuple(int(x) for x in raw.split(","))
+                                       if raw else ())
+        if "lr" in ns:
+            opt_kw["lr"] = ns.pop("lr")
+        if "seq_len" in ns:
+            data_kw["seq_len"] = ns.pop("seq_len")
+        if "global_batch" in ns:
+            data_kw["global_batch"] = ns.pop("global_batch")
+        if "seed" in ns:
+            top_kw["seed"] = data_kw["seed"] = ns.pop("seed")
+        for k, field in (("ckpt_dir", "dir"), ("ckpt_every", "every"),
+                         ("ckpt_keep", "keep"), ("resume", "resume")):
+            if k in ns:
+                ckpt_kw[field] = ns.pop(k)
+        serve_kw = {k: ns.pop(k) for k in (
+            "page_size", "max_active", "max_queue", "max_seq",
+            "max_new_tokens", "stop_token", "temperature", "top_k",
+            "reload_every", "decode_backend", "kv_dtype") if k in ns}
+        if "serve_pages" in ns:
+            serve_kw["pages"] = ns.pop("serve_pages")
+        elastic_kw = {}
+        for k, field in (("elastic", "enabled"), ("heartbeat_s", "heartbeat_s"),
+                         ("allow_reshard", "allow_reshard"),
+                         ("members_dir", "dir"),
+                         ("evict_after", "evict_after")):
+            if k in ns:
+                elastic_kw[field] = ns.pop(k)
+        for k in ("steps", "watchdog", "log"):
+            if k in ns:
+                top_kw[k] = ns.pop(k)
+        if ns:
+            raise SpecError(f"unhandled CLI key(s): {sorted(ns)}")
+        try:
+            if ph_kw:
+                sync_kw["photonics"] = dataclasses.replace(
+                    self.sync.photonics, **ph_kw)
+            return dataclasses.replace(
+                self,
+                mesh=dataclasses.replace(self.mesh, **mesh_kw),
+                sync=dataclasses.replace(self.sync, **sync_kw),
+                optim=dataclasses.replace(self.optim, **opt_kw),
+                data=dataclasses.replace(self.data, **data_kw),
+                ckpt=dataclasses.replace(self.ckpt, **ckpt_kw),
+                serve=dataclasses.replace(self.serve, **serve_kw),
+                elastic=dataclasses.replace(self.elastic, **elastic_kw),
+                **top_kw)
+        except SpecError:
+            raise
+        except (ValueError, NotImplementedError) as e:
+            # a config dataclass refused a value (or a field the port
+            # does not run yet) in __post_init__
+            raise SpecError(str(e))
+
+
+@dataclasses.dataclass(frozen=True)
+class ResumeCompat:
+    """Structured verdict of a checkpoint-vs-run spec comparison.
+
+    ``verdict``:
+      * ``"exact"``        — fingerprints identical; bit-exact restore.
+      * ``"reshardable"``  — state fields match, only ``mesh`` differs
+        (in the port: the peer count); restorable with params and the
+        optimizer reloaded and the residuals re-zeroed.
+      * ``"incompatible"`` — state fields differ; the saved arrays do
+        not describe this run's state.
+    """
+    verdict: str                      # exact | reshardable | incompatible
+    state_diff: tuple = ()            # differing state_fingerprint keys
+    shape_diff: tuple = ()            # differing shape_fingerprint keys
+    detail: str = ""                  # human-readable field-by-field diff
+
+    @property
+    def ok(self) -> bool:
+        return self.verdict != "incompatible"
+
+
+def _diff(a: dict, b: dict) -> tuple:
+    return tuple(k for k in b if a.get(k) != b[k])
+
+
+def check_resume_compat(saved: RunSpec, current: RunSpec) -> ResumeCompat:
+    """Pure comparison; never raises (``validate_resume_compat``
+    enforces)."""
+    state = _diff(saved.state_fingerprint(), current.state_fingerprint())
+    shape = _diff(saved.shape_fingerprint(), current.shape_fingerprint())
+    sa, sb = saved.compat_fingerprint(), current.compat_fingerprint()
+    detail = "; ".join(f"{k}: checkpoint={sa.get(k)!r} vs run={sb[k]!r}"
+                       for k in state + shape)
+    verdict = ("incompatible" if state
+               else "reshardable" if shape else "exact")
+    return ResumeCompat(verdict=verdict, state_diff=state, shape_diff=shape,
+                        detail=detail)
+
+
+def validate_resume_compat(saved: RunSpec, current: RunSpec,
+                           allow_reshard: bool = False) -> ResumeCompat:
+    """Enforce resume compatibility and return the verdict:
+    ``incompatible`` always raises SpecMismatchError, ``reshardable``
+    raises unless ``allow_reshard`` (``--allow-reshard``)."""
+    compat = check_resume_compat(saved, current)
+    if compat.verdict == "incompatible":
+        raise SpecMismatchError(
+            f"checkpoint was written by an incompatible RunSpec "
+            f"({compat.detail}). Start a fresh run (drop --resume / change "
+            f"--ckpt-dir) or match the checkpointed spec.")
+    if compat.verdict == "reshardable" and not allow_reshard:
+        raise SpecMismatchError(
+            f"checkpoint was written on a different mesh shape "
+            f"({compat.detail}). Pass --allow-reshard to resume via the "
+            f"compatible-reshard path (global state re-placed onto the new "
+            f"mesh; error-feedback residuals re-bucketized), or match the "
+            f"checkpointed mesh.")
+    return compat

@@ -12,4 +12,9 @@ packages.
 Ported: ``bucketizer`` (layout, flatten, (un)bucketize), ``registry``,
 ``backends`` (psum, and optinc at fidelities 'behavioral' and 'onn')
 and ``engine`` (SyncConfig, the barrier ``sync_gradients`` with
-error-feedback residuals)."""
+error-feedback residuals, their checkpoint layout and block-sparse
+packing)."""
+from .engine import (SyncConfig, is_packed_residuals, pack_residuals,
+                     residuals_from_jax, residuals_to_jax, sync_gradients,
+                     unpack_residuals)
+from .registry import available_backends, get_backend, register_backend

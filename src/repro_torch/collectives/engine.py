@@ -14,11 +14,15 @@ the JAX engine splits it; only the photonic noise draws from it.
 Error feedback (beyond the paper) is a per-peer f32 residual over the
 concatenated-leaf space, (N, total): it is added to the gradient stack
 before quantization and replaced by each peer's quantization error.
+A checkpoint stores it in the JAX package's layout (``residuals_to_jax``
+and ``residuals_from_jax``, the one place that maps the two), and with
+``SyncConfig.sparse_residuals`` block-sparsely (``pack_residuals``).
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from .. import prng
@@ -32,8 +36,6 @@ from .registry import get_backend
 # what SyncConfig still rejects, and the later slice that brings it
 _LATER = {
     "overlap": "streaming overlap (the overlap slice)",
-    "sparse_residuals": "block-sparse residual checkpoints (the "
-                        "checkpoint slice)",
     "error_layers": "Table-II error injection (the error-model slice)",
     "ring": "the ring backend (the ring/cascade slice)",
     "cascade": "the cascade backend (the ring/cascade slice)",
@@ -43,20 +45,24 @@ _LATER = {
 @dataclasses.dataclass(frozen=True)
 class SyncConfig:
     mode: str = "optinc"            # psum | optinc
+    # the JAX mesh axes to sync over; the port's peers are one stacked
+    # dimension, so this only keeps a JAX spec's sync object whole
+    axes: tuple = ("data",)
     bits: int = 8                    # OptINC gradient bit width B
     block: int = 2048                # quantization block size (0 = global)
     error_layers: tuple = ()         # Table II key; () = ideal ONN only
     error_feedback: bool = False     # beyond-paper residual accumulation
     bucket_bytes: int = DEFAULT_BUCKET_BYTES  # fused-bucket wire payload
     overlap: bool = False            # streaming dispatch: not ported
-    sparse_residuals: bool = False   # sparse checkpoints: not ported
+    # checkpoint the residuals block-sparsely (only the blocks with a
+    # nonzero carry; pack_residuals), the runtime state stays dense
+    sparse_residuals: bool = False
     # emulation fidelity of the optinc backend: behavioral | onn (the
     # trained dense ONN inside the collective) | mesh (its MZI meshes)
     photonics: PhotonicsConfig = PhotonicsConfig()
 
     def __post_init__(self):
         for field, bad in (("overlap", self.overlap),
-                           ("sparse_residuals", self.sparse_residuals),
                            ("error_layers", bool(self.error_layers))):
             if bad:
                 raise NotImplementedError(
@@ -90,6 +96,93 @@ def residual_size(leaves) -> int:
     """Length of one peer's error-feedback residual for a leaf list
     (tensors, meta ones included): the concatenated element count."""
     return sum(l.numel() for l in leaves)
+
+
+# ------------------ the residuals in a checkpoint ------------------
+#
+# The port keeps {"rep": (N, total)}, one row a peer.  The JAX package
+# keeps {"rep": (N * total,), "fsdp": (0,)}: device d's local residual is
+# slice d of "rep" (sharded over 'data'), and "fsdp" is the empty FSDP
+# leaf group.  Row-major flattening maps one onto the other.
+
+def residuals_to_jax(state: dict) -> dict:
+    """The port's sync state in the JAX layout (views, no copy)."""
+    if not state:
+        return {}
+    rep = state["rep"]
+    return {"rep": rep.reshape(-1), "fsdp": rep.new_zeros((0,))}
+
+
+def residuals_from_jax(state: dict, peers: int) -> dict:
+    """A JAX-layout sync state (tensors) as the port's (peers, total)
+    rows; the FSDP group must be empty (FSDP is not ported)."""
+    if not state:
+        return {}
+    fsdp = state.get("fsdp")
+    if fsdp is not None and fsdp.numel():
+        raise ValueError(f"the checkpoint holds {fsdp.numel()} FSDP "
+                         f"residuals; FSDP is not ported")
+    rep = state["rep"]
+    if rep.ndim != 1 or rep.numel() % peers:
+        raise ValueError(f"residual vector of shape {tuple(rep.shape)} does "
+                         f"not split over {peers} peers")
+    return {"rep": rep.reshape(peers, -1)}
+
+
+# ------------------- block-sparse residual checkpointing -------------------
+#
+# With ``SyncConfig.sparse_residuals`` a checkpoint stores, per residual
+# vector, only the blocks with a nonzero carry: {"idx", "val", "shape"},
+# ``shape`` = (size, block).  The round trip is lossless.  The functions
+# take and give host numpy arrays, as the JAX ones do.
+
+RESIDUAL_BLOCK = 4096  # f32 elements per stored block (16 KiB)
+
+
+def _host(vec) -> np.ndarray:
+    if torch.is_tensor(vec):
+        vec = vec.detach().cpu().numpy()
+    return np.asarray(vec, np.float32).reshape(-1)
+
+
+def pack_residuals(state: dict, block: int = RESIDUAL_BLOCK) -> dict:
+    """Dense sync state ({name: 1-D f32}) -> block-sparse host form."""
+    packed = {}
+    for name, vec in state.items():
+        v = _host(vec)
+        n = v.size
+        nb = -(-n // block) if n else 0
+        full = np.zeros((nb * block,), np.float32)
+        full[:n] = v
+        blocks = full.reshape(nb, block)
+        idx = np.flatnonzero(np.any(blocks != 0.0, axis=1)).astype(np.int32)
+        packed[name] = {"idx": idx, "val": blocks[idx],
+                        "shape": np.array([n, block], np.int64)}
+    return packed
+
+
+def unpack_residuals(packed: dict) -> dict:
+    """Block-sparse checkpoint form -> dense numpy sync state."""
+    state = {}
+    for name, entry in packed.items():
+        n, block = (int(x) for x in np.asarray(entry["shape"]))
+        nb = -(-n // block) if n else 0
+        full = np.zeros((nb * block,), np.float32)
+        idx = np.asarray(entry["idx"], np.int64)
+        if idx.size:
+            full.reshape(nb, block)[idx] = np.asarray(entry["val"],
+                                                      np.float32)
+        state[name] = full[:n]
+    return state
+
+
+def is_packed_residuals(tree) -> bool:
+    """True when a checkpointed sync subtree is in the block-sparse form
+    (each entry an {"idx", "val", "shape"} dict) rather than dense
+    vectors; resume takes either form whatever the current flag."""
+    return bool(tree) and all(
+        isinstance(v, dict) and set(v) == {"idx", "val", "shape"}
+        for v in tree.values())
 
 
 def sync_flat(flat: torch.Tensor, bounds, cfg: SyncConfig,

@@ -47,3 +47,30 @@ class ModelConfig:
     @property
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    def param_count(self) -> int:
+        """Approximate total parameters (for roofline MODEL_FLOPS)."""
+        d, v, L = self.d_model, self.vocab, self.n_layers
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        if self.ssm == "xlstm":
+            per = 8 * d * d  # qkv+gates+out and up/down projections
+            return emb + L * per
+        attn = d * (self.n_heads * self.hd) * 2 + d * (self.n_kv_heads * self.hd) * 2
+        if self.mla:
+            attn = (d * self.q_lora_rank + self.q_lora_rank * self.n_heads * (self.hd + self.qk_rope_dim)
+                    + d * (self.kv_lora_rank + self.qk_rope_dim)
+                    + self.kv_lora_rank * self.n_heads * self.hd * 2
+                    + self.n_heads * self.hd * d)
+        dense_ff = 3 * d * self.d_ff
+        if self.moe:
+            moe_ff = 3 * d * self.moe_d_ff * (self.n_experts + self.n_shared_experts)
+            n_moe = L - self.first_dense_layers
+            ff_total = self.first_dense_layers * dense_ff + n_moe * moe_ff
+        else:
+            ff_total = L * dense_ff
+        if self.ssm == "mamba2":
+            n_attn = L // self.attn_every if self.attn_every else 0
+            n_ssm = L - n_attn
+            per_ssm = 2 * d * 2 * d + 2 * d * d  # in-proj (x,z) + out-proj, ~Mamba2
+            return emb + n_ssm * per_ssm + n_attn * (attn + dense_ff) + ff_total * 0
+        return emb + L * attn + ff_total

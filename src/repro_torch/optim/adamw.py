@@ -25,11 +25,18 @@ class AdamWConfig:
     eps: float = 1e-8
     weight_decay: float = 0.1
     clip_norm: float = 1.0
+    # JAX's bf16-moment option; the port keeps f32 moments only
+    # (RunSpec.validate refuses "bfloat16", adamw_init raises on it)
+    moment_dtype: str = "float32"
 
 
 def adamw_init(cfg: AdamWConfig, params: dict) -> dict:
     """f32 moments (the JAX ``moment_dtype`` option, bf16 moments, is not
     ported) and step 0."""
+    if cfg.moment_dtype != "float32":
+        raise NotImplementedError(
+            f"AdamWConfig.moment_dtype={cfg.moment_dtype!r}: bf16 AdamW "
+            f"moments are not ported yet")
     def zeros(p):
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 

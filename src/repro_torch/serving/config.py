@@ -14,17 +14,21 @@ class ServeConfig:
     ``ceil(max_seq / page_size)`` blocks wide.  ``pages`` sizes the shared
     physical KV pool (0 = auto: every slot can hold a full max_seq plus
     the reserved null page — no preemption possible; smaller values admit
-    optimistically and preempt under pressure).
+    optimistically and preempt under pressure).  ``reload_every`` polls
+    ``ckpt.dir`` for a newer checkpoint every N engine steps (hot-swap,
+    ``serving.reload``).
+
+    ``decode_backend`` is the JAX decode attention path, 'gather' or
+    'paged'.  The port has one executor: both values attend over the
+    pool in place through ``kernels.paged_attention`` (the paged kernel
+    for CUDA tensors, its plain version for CPU tensors), as both
+    ``--mesh-backend`` values run the one ``mesh_scan`` kernel.  The
+    field stays so that a JAX spec round-trips.
 
     ``kv_dtype`` is the pool storage dtype: 'auto' follows the model
     dtype, 'bf16' halves pool bytes and page-read traffic (attention
     still accumulates f32), 'f32' stores full precision regardless of
     model dtype.
-
-    Two fields of the JAX ServeConfig are absent: ``reload_every``
-    (checkpoint hot-swap is not ported) and ``decode_backend`` (decode
-    attention always reads the pool in place through
-    ``kernels.paged_attention``, the JAX 'paged' backend).
     """
     page_size: int = 16       # tokens per KV page
     max_active: int = 8       # concurrently decoding sequences (slots)
@@ -35,9 +39,14 @@ class ServeConfig:
     temperature: float = 0.0  # 0 = greedy argmax
     top_k: int = 0            # sample from the k best logits (0 = full vocab)
     pages: int = 0            # physical KV pool size in pages (0 = auto)
+    reload_every: int = 0     # hot-swap poll period in engine steps (0 = off)
+    decode_backend: str = "gather"  # 'gather' | 'paged': both the kernel
     kv_dtype: str = "auto"    # KV pool storage: 'auto' | 'f32' | 'bf16'
 
     def __post_init__(self):
+        if self.decode_backend not in ("gather", "paged"):
+            raise ValueError(f"serve.decode_backend must be 'gather' or "
+                             f"'paged', got {self.decode_backend!r}")
         if self.kv_dtype not in ("auto", "f32", "bf16"):
             raise ValueError(f"serve.kv_dtype must be 'auto', 'f32' or "
                              f"'bf16', got {self.kv_dtype!r}")
@@ -46,7 +55,7 @@ class ServeConfig:
             if getattr(self, name) < 1:
                 raise ValueError(f"serve.{name} must be >= 1, "
                                  f"got {getattr(self, name)}")
-        for name in ("temperature", "top_k", "pages"):
+        for name in ("temperature", "top_k", "pages", "reload_every"):
             if getattr(self, name) < 0:
                 raise ValueError(f"serve.{name} must be >= 0, "
                                  f"got {getattr(self, name)}")

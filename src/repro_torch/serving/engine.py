@@ -17,15 +17,21 @@ table; their outputs are discarded.
 On the card, prefill attention runs the flash kernel and decode attention
 the paged kernel, each ``n_layers`` times a call.  The engine runs on ``"cuda"`` unless the caller passes another
 device; it never falls back to the CPU by itself.
+
+``ServeEngine.from_spec`` builds one from a RunSpec: parameters through
+``reload.resolve_params`` and, with ``ckpt.dir`` and
+``serve.reload_every``, a ``reload.ParamReloader`` polled every
+``reload_every`` steps, between steps.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .. import device as device_util
 from ..models import lm
 from ..models.config import ModelConfig
-from . import kv_pool
+from . import kv_pool, reload
 from .config import ServeConfig
 from .scheduler import Scheduler, Sequence
 
@@ -43,12 +49,7 @@ def sample_seed(seed: int, rid: int, position: int) -> int:
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, serve: ServeConfig, params=None, *,
                  device=None, seed: int = 0):
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "ServeEngine runs on CUDA by default and no CUDA device "
-                    "is available; pass device='cpu' to serve on the CPU")
-            device = "cuda"
+        device = device_util.resolve(device, "ServeEngine")
         if not kv_pool.supports_paged(cfg):
             raise NotImplementedError(
                 f"paged serving covers the dense-attention families; "
@@ -68,6 +69,28 @@ class ServeEngine:
         self.sched = Scheduler(serve, kv_pool.PageAllocator(n_pages))
         self.results: dict = {}      # rid -> list of generated token ids
         self.max_observed_active = 0
+        self.step_count = 0
+        self.params_step = None      # checkpoint step of the params
+        self.reloader = None
+
+    @classmethod
+    def from_spec(cls, spec, params=None, *, device=None, cfg=None):
+        """The engine of a RunSpec (``spec.serve``, ``spec.seed``):
+        ``params``, else the checkpoint when ``ckpt.resume`` is set, else
+        a seeded init; hot-swaps newer checkpoints every
+        ``serve.reload_every`` steps when ``ckpt.dir`` is set."""
+        spec.validate()
+        device = device_util.resolve(device, "ServeEngine")
+        cfg = cfg if cfg is not None else spec.model_config()
+        step = None
+        if params is None:
+            params, step = reload.resolve_params(spec, cfg, device)
+        eng = cls(cfg, spec.serve, params, device=device, seed=spec.seed)
+        eng.params_step = step
+        if spec.ckpt.dir and spec.serve.reload_every > 0:
+            eng.reloader = reload.ParamReloader(spec, cfg, device,
+                                                current_step=step)
+        return eng
 
     # -------------------------------------------------------------- intake
     def submit(self, prompt, max_new_tokens=None) -> int:
@@ -85,6 +108,14 @@ class ServeEngine:
         """Advance every active sequence by one token.  Returns the list
         of (rid, token) pairs emitted this step (prefill first-tokens of
         newly admitted sequences included)."""
+        self.step_count += 1
+        if (self.reloader is not None
+                and self.step_count % self.scfg.reload_every == 0):
+            swapped = self.reloader.poll()
+            if swapped is not None:
+                self.params, self.params_step = swapped
+                print(f"hot-swapped params to checkpoint step "
+                      f"{self.params_step}", flush=True)
         emitted = []
         admitted = self.sched.admit()
         if admitted:

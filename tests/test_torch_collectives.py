@@ -366,10 +366,13 @@ def test_registry_and_config_reject_what_is_not_ported():
     for kw, what in ((dict(mode="ring"), "ring"),
                      (dict(mode="cascade"), "cascade"),
                      (dict(overlap=True), "overlap"),
-                     (dict(error_layers=(3, 4)), "Table-II"),
-                     (dict(sparse_residuals=True), "checkpoint")):
+                     (dict(error_layers=(3, 4)), "Table-II")):
         with pytest.raises(NotImplementedError, match=what):
             engine.SyncConfig(**kw)
+    # block-sparse residual checkpoints are taken since the checkpoint
+    # slice, and the JAX mesh axes are kept for the spec's JSON
+    sc = engine.SyncConfig(sparse_residuals=True, error_feedback=True)
+    assert sc.sparse_residuals and sc.axes == ("data",)
     # the mesh fidelity, its executor, its row tile and (since the
     # PhaseNoise slice) its noise stds are taken
     for ph in (PhotonicsConfig(fidelity="mesh"),

@@ -36,15 +36,12 @@ def _torch_threads():
 
 
 # -------------------------------------------------------------- config
-# JAX fields the port leaves out: hot-swap is not ported, and decode
-# always runs the paged kernel (the JAX 'paged' backend).
-NOT_PORTED = ("reload_every", "decode_backend")
-
-
 def test_serve_config_is_a_copy_of_jax():
+    """Every JAX field, hot-swap's reload_every and decode_backend
+    included (both decode backends run the paged kernel in the port)."""
     jf = [(f.name, f.default) for f in dataclasses.fields(JaxServeConfig)]
     tf = [(f.name, f.default) for f in dataclasses.fields(ServeConfig)]
-    assert tf == [f for f in jf if f[0] not in NOT_PORTED]
+    assert tf == jf
     for kw in (dict(), dict(page_size=4, max_seq=30, max_active=3),
                dict(page_size=16, max_seq=256, pages=41)):
         j, t = JaxServeConfig(**kw), ServeConfig(**kw)
@@ -54,12 +51,13 @@ def test_serve_config_is_a_copy_of_jax():
                        (dict(temperature=-1.0), "temperature"),
                        (dict(kv_dtype="fp8"), "kv_dtype"),
                        (dict(pages=-1), "pages"),
-                       (dict(stop_token=-2), "stop_token")):
+                       (dict(stop_token=-2), "stop_token"),
+                       (dict(reload_every=-1), "reload_every"),
+                       (dict(decode_backend="flash"), "decode_backend")):
         with pytest.raises(ValueError, match=match):
             ServeConfig(**bad)
-    for name in NOT_PORTED:
-        with pytest.raises(TypeError, match=name):
-            ServeConfig(**{name: getattr(JaxServeConfig(), name)})
+        with pytest.raises(ValueError, match=match):
+            JaxServeConfig(**bad)
 
 
 # ----------------------------------------------------- allocator, sched
