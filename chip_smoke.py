@@ -137,6 +137,23 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    the same seed for the same losses, 1 step on xla (the drift in tensor
    ops, no drift launch); step times and losses beside the clean run's;
    then ``--bits 2`` with the same stds for 8 steps beside behavioral.
+   4g. The other sync modes on phase 4's config (``sync_modes_full_width``;
+   alone: ``python3 -c 'import chip_smoke as c;
+   c.sync_modes_alone(c.card_line())'``), each run with the launch
+   counts reset just before it and read just after: ``--sync ring``
+   (10 steps, no pam4 launch) equal to phase 4's psum losses bit for
+   bit; ``--sync cascade --pods 2 --mesh 2x1`` (10 steps) equal to
+   phase 4's first 10 optinc losses bit for bit; the paper's 16-server
+   cascade, ``--pods 4 --mesh 4x1`` (5 steps), whose loss must fall;
+   the photonic cascade at ``--bits 2``, ``--fidelity onn`` and
+   ``mesh`` (10 steps each), equal to the behavioral cascade's losses
+   bit for bit, with 4 ``onn_layer`` launches a bucket at onn and no
+   ``mesh_scan`` launch; ``--error-layers 3,4,5,6`` (10 steps, twice for
+   the same losses) with the Table-II hits within INJECT_SIGMAS of their
+   binomial expectation; and ``--overlap --error-feedback`` against the
+   barrier path in turns (10 steps each, barrier, overlap, overlap,
+   barrier): the same losses bit for bit and buckets launched before the
+   last peer's backward ended.  Step p50 and peak memory of each run.
 5. Card vs plain end to end: the f32 model with the same weights served
    through the kernels on the card and through the plain path on the
    CPU; teacher-forced logits must agree, greedy tokens must agree up to
@@ -150,7 +167,12 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    codes bit for bit away from the PAM4 decision thresholds (fidelity
    onn over the whole stack, fidelity mesh over MESH_ELEMS elements
    through the Table I row 1 ONN, whose mesh outputs must also match
-   the dense ONN of the same projected weights).
+   the dense ONN of the same projected weights).  Then a 4-peer narrow
+   gradient stack of the card synced on the card and on the CPU, two
+   steps with error feedback, bit for bit: the ring at 4 peers, at 3 and
+   over 2 pods of 2, the behavioral cascade over 2 pods, the photonic
+   cascade at bits 2, Table-II injection on one fixed draw, and the
+   card's streaming ``BucketStream`` against the CPU's barrier path.
 
 Every phase raises on failure, so the script exits non-zero without the
 last line.  The line before the last is a JSON object of per-kernel
@@ -160,6 +182,7 @@ imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -1761,15 +1784,27 @@ def _train_counters():
             "pam4_decode_dequantize": pam4.pam4_decode_dequantize}
 
 
-def train_run(argv, steps: int):
-    """Records of ``steps`` steps of the training entry point."""
+def train_run(argv, steps: int, callbacks=()):
+    """``steps`` steps of the training entry point on TRAIN_ARGV + argv:
+    its records (checked against the printed lines) and its losses whole
+    (the records round them to 5 digits)."""
+    from repro_torch.api.callbacks import Callback
     from repro_torch.launch import train
-    buf = io.StringIO()
+
+    class WholeLosses(Callback):
+        def __init__(self):
+            self.losses = []
+
+        def on_step(self, session, record):
+            self.losses.append(session.losses[record["step"]])
+
+    buf, whole = io.StringIO(), WholeLosses()
     recs = train.run(train.parse_args(TRAIN_ARGV + argv
-                                      + ["--steps", str(steps)]), out=buf)
+                                      + ["--steps", str(steps)]), out=buf,
+                     callbacks=[whole, *callbacks])
     if [json.loads(line) for line in buf.getvalue().splitlines()] != recs:
         raise AssertionError("the printed step records differ")
-    return recs
+    return recs, whole.losses
 
 
 def train_full_width(card: str):
@@ -1793,7 +1828,7 @@ def train_full_width(card: str):
         fn.forms = dict.fromkeys(fn.forms, 0)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    recs = train_run([], 30)
+    recs, full = train_run([], 30)
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
     print(f"pam4 forms over the run's buckets: encode {encode.forms}, "
@@ -1833,7 +1868,7 @@ def train_full_width(card: str):
                              f"and one backward per layer and peer, "
                              f"{want_flash}")
 
-    psum = train_run(["--sync", "psum"], 10)
+    psum, psum_full = train_run(["--sync", "psum"], 10)
     ptimes = [r["time_s"] for r in psum[3:]]
     print(f"yardstick --sync psum, same config, 10 steps: step p50 "
           f"{pct(ptimes, 0.5) * 1e3:.3f} ms p99 {pct(ptimes, 0.99) * 1e3:.3f}"
@@ -1859,7 +1894,8 @@ def train_full_width(card: str):
               f" (" + ", ".join(f"{key} {us:.1f} us" for key, us in
                                 sorted(pam4_us.items()))
               + f") [{card}]", flush=True)
-    return launches, losses, p50 * 1e3
+    return launches, losses, p50 * 1e3, {"optinc": full[:10],
+                                          "psum": psum_full}
 
 
 def profile_train_step(card: str, sync, what: str) -> dict:
@@ -1953,7 +1989,7 @@ def train_onn_full_width(card: str, behavioral8, onn):
         for fn in counters.values():
             fn.launches = 0
         decode.forms = dict.fromkeys(decode.forms, 0)
-        recs = train_run(argv, steps)
+        recs = train_run(argv, steps)[0]
         launches = {name: fn.launches for name, fn in counters.items()}
         print(f"  {' '.join(argv)}: pam4 decode forms {decode.forms}",
               flush=True)
@@ -2071,7 +2107,7 @@ def mesh_run(card: str, argv, steps: int, label: str = ""):
         fn.launches = 0
     decode.forms = dict.fromkeys(decode.forms, 0)
     blocks.branches = dict.fromkeys(blocks.branches, 0)
-    recs = train_run(["--fidelity", "mesh"] + argv, steps)
+    recs = train_run(["--fidelity", "mesh"] + argv, steps)[0]
     launches = {name: fn.launches for name, fn in counters.items()}
     branches = dict(blocks.branches)
     print(f"  --fidelity mesh {' '.join(argv)}: pam4 decode forms "
@@ -2392,6 +2428,194 @@ def sessions_full_width(card: str, phase4_p50_ms=None) -> None:
         shutil.rmtree(root, ignore_errors=True)
     print(f"4f took {time.perf_counter() - t_phase:.3f} s [{card}]",
           flush=True)
+
+
+# ------------------------------------------------- phase 4g: sync modes
+# the Table-II hits of a step's draws lie within this many binomial
+# standard deviations of p_error times the codes drawn
+INJECT_SIGMAS = 5
+
+
+def sync_modes_full_width(card: str, base=None) -> dict:
+    """Phase 4g: every --sync mode of the JAX package on phase 4's config
+    (paper_llama bf16, global batch 32 x 512).  ``base``: phase 4's
+    {"optinc": its first 10 losses, "psum": its 10 psum losses}, run
+    here when None.  Returns the runs' launch counts by label."""
+    import torch
+    from repro_torch.api.callbacks import Callback
+    from repro_torch.collectives.bucketizer import expected_buckets
+    from repro_torch.kernels import mesh_scan, onn_layer
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.photonics import error_model
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+    spec = train.parse_args(TRAIN_ARGV).spec
+    nb = expected_buckets(4 * sum(math.prod(s) for s in leaves(
+        lm.param_shapes(spec.model_config()))), spec.sync.bucket_bytes)
+    counters = dict(_train_counters(), onn_layer=onn_layer.onn_layer,
+                    mesh_scan_blocks=mesh_scan.mesh_scan_blocks)
+    if base is None:
+        base = {"optinc": train_run([], 10)[1],
+                "psum": train_run(["--sync", "psum"], 10)[1]}
+    out = {}
+
+    def run(label, argv, steps, ef=False, callbacks=()):
+        gc.collect()                 # the earlier runs' tensors, for the peak
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        recs, losses = train_run(argv, steps, callbacks)
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        times = [r["time_s"] for r in recs[1:]]
+        p50 = pct(times, 0.5) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        print(f"4g {label} ({' '.join(argv)}): {steps} steps in {wall:.3f} "
+              f"s, step p50 {p50:.3f} ms over steps 1-{steps - 1}, peak "
+              f"memory {peak:.3f} GB; losses {losses}; launches {launches} "
+              f"[{card}]", flush=True)
+        want = (steps * nb, steps * nb * (2 if ef else 1))
+        got = (launches["pam4_quantize_encode"],
+               launches["pam4_decode_dequantize"])
+        if "ring" not in label and got != want:
+            raise AssertionError(f"{label}: pam4 encode/decode {got}, want "
+                                 f"{want} (one encode and one decode a "
+                                 f"bucket, two decodes with feedback)")
+        for name in ("flash_attention", "flash_attention_bwd"):
+            if launches[name] == 0:
+                raise AssertionError(f"{label}: {name} was not launched")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{label}: non-finite losses {losses}")
+        out[label] = launches
+        return losses, launches, p50
+
+    # the ring, the paper's baseline, beside psum.  The two sum each f32
+    # gradient in another order, but the last-bit differences do not reach
+    # the bf16 weights: the losses are psum's bit for bit (every run on
+    # the H100 so far), which a ring that gets 1/N or a chunk wrong would
+    # break.  Phase 5 holds the ring's own f32 arithmetic against the
+    # CPU plain path bit for bit, and the CPU tests against JAX.
+    ring, launches, ring_p50 = run("ring", ["--sync", "ring"], 10)
+    err = max(abs(a - b) for a, b in zip(ring, base["psum"]))
+    print(f"4g ring vs psum losses: max_abs_err {err:.3e}, bit-equal "
+          f"{ring == base['psum']}", flush=True)
+    if ring != base["psum"] or launches["pam4_quantize_encode"]:
+        raise AssertionError("4g: the ring's losses are not psum's, or it "
+                             "ran a pam4 kernel")
+
+    # the behavioral cascade over 2 pods of 2: optinc over 4, bit for bit
+    casc, _, _ = run("cascade pods 2", ["--sync", "cascade", "--pods", "2",
+                                        "--mesh", "2x1"], 10)
+    print(f"4g cascade --pods 2 --mesh 2x1 losses bit-equal to phase 4's "
+          f"optinc --mesh 4x1: {casc == base['optinc']}", flush=True)
+    if casc != base["optinc"]:
+        raise AssertionError("4g: the cascade's losses are not optinc's")
+
+    # the paper's 16-server scenario: 4 pods of 4, 2 rows a peer
+    c16, _, c16_p50 = run("cascade pods 4", ["--sync", "cascade", "--pods",
+                                             "4", "--mesh", "4x1"], 5)
+    if not c16[-1] < c16[0]:
+        raise AssertionError(f"4g: the 16-peer cascade's loss did not fall: "
+                             f"{c16}")
+
+    # the photonic cascade at bits 2 (exact identity ONN at both levels)
+    pods2 = ["--sync", "cascade", "--pods", "2", "--mesh", "2x1", "--bits",
+             "2"]
+    beh2, _, _ = run("cascade bits 2", pods2, 10)
+    for fid in ("onn", "mesh"):
+        got, launches, _ = run(f"cascade {fid} bits 2",
+                               pods2 + ["--fidelity", fid], 10)
+        want_onn = 4 * nb * 10 if fid == "onn" else 0
+        print(f"4g cascade --fidelity {fid} --bits 2: losses bit-equal to "
+              f"behavioral {got == beh2}; onn_layer {launches['onn_layer']} "
+              f"(want {want_onn}), mesh_scan_blocks "
+              f"{launches['mesh_scan_blocks']} (want 0)", flush=True)
+        if (got != beh2 or launches["onn_layer"] != want_onn
+                or launches["mesh_scan_blocks"]):
+            raise AssertionError(f"4g: the photonic cascade at {fid}")
+
+    # Table II row (3, 4, 5, 6) injected into the averaged codes
+    tally = {"hits": 0, "drawn": 0, "codes": 0, "changed": 0}
+    inject_with = error_model.inject_with
+
+    def counting(u_avg, hit, which, spec, bits):
+        got = inject_with(u_avg, hit, which, spec, bits)
+        tally["hits"] += int(hit.sum())
+        tally["drawn"] += hit.numel()
+        tally["codes"] += int(hit.sum()) * u_avg.shape[0]
+        tally["changed"] += int((got != u_avg).sum())
+        return got
+
+    inj_argv = ["--error-layers", "3,4,5,6"]
+    error_model.inject_with = counting
+    try:
+        inj, _, inj_p50 = run("injection", inj_argv, 10)
+        per_step = {k: v / 10 for k, v in tally.items()}
+        inj2, _, _ = run("injection again", inj_argv, 10)
+    finally:
+        error_model.inject_with = inject_with
+    p = error_model.TABLE_II[(3, 4, 5, 6)].p_error
+    mean = p * per_step["drawn"] * 10
+    sd = (per_step["drawn"] * 10 * p * (1 - p)) ** 0.5
+    hits = per_step["hits"] * 10
+    err = max(abs(a - b) for a, b in zip(inj, base["optinc"]))
+    print(f"4g injection (Table II (3, 4, 5, 6), p_error {p:.7f}): "
+          f"{per_step['hits']:.1f} hits a step in {per_step['drawn']:.0f} "
+          f"codes drawn (one draw of a quarter bucket for its 4 shards), "
+          f"{per_step['codes']:.1f} codes injected a step of "
+          f"{4 * per_step['drawn']:.0f}, {per_step['changed']:.1f} changed "
+          f"after the clip; 10 steps: {hits:.0f} hits against "
+          f"{mean:.1f} +- {INJECT_SIGMAS} x {sd:.1f}; losses beside phase "
+          f"4's: max_abs_diff {err:.3e}; the same seed again gives the same "
+          f"losses {inj == inj2}", flush=True)
+    if abs(hits - mean) > INJECT_SIGMAS * sd or inj != inj2 or hits == 0:
+        raise AssertionError("4g: Table-II injection")
+
+    # streaming overlap against the barrier path, error feedback on
+    class Early(Callback):
+        def __init__(self):
+            self.early, self.order = [], None
+
+        def on_step_end(self, session, record):
+            stream = session._step_fn.last_stream
+            self.early.append(stream.early)
+            self.order = list(stream.order)
+
+    # in turns (barrier, overlap, overlap, barrier), so both see the host
+    # alike
+    runs, early = {}, Early()
+    for label in ("barrier", "overlap", "overlap again", "barrier again"):
+        over = label.startswith("overlap")
+        runs[label] = run(label, ["--error-feedback"]
+                          + (["--overlap"] if over else []), 10, ef=True,
+                          callbacks=[early] if over else [])
+    bar, _, bar_p50 = runs["barrier"]
+    ovl, _, ovl_p50 = runs["overlap"]
+    same = all(r[0] == bar for r in runs.values())
+    print(f"4g overlap: losses of all four runs bit-equal {same}; buckets "
+          f"launched before the last peer's backward ended, per step "
+          f"{early.early} of {nb}; the last step's launch order "
+          f"{early.order}; step p50 (ms) barrier "
+          f"{runs['barrier'][2]:.3f}, overlap {runs['overlap'][2]:.3f}, "
+          f"overlap {runs['overlap again'][2]:.3f}, barrier "
+          f"{runs['barrier again'][2]:.3f} [{card}]", flush=True)
+    if not same or min(early.early) <= 0:
+        raise AssertionError("4g: overlap")
+    print(f"4g step p50 (ms): ring {ring_p50:.3f}, 16-peer cascade "
+          f"{c16_p50:.3f}, injection {inj_p50:.3f}, barrier+feedback "
+          f"{bar_p50:.3f}, overlap+feedback {ovl_p50:.3f}; phase 4g took "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return out
+
+
+def sync_modes_alone(card: str) -> None:
+    """Phase 4g alone, the kernels built first."""
+    from repro_torch.kernels import _build
+    _build.build()
+    sync_modes_full_width(card)
 
 
 # ----------------------------------------- phase 4d: the trained ONN
@@ -2814,6 +3038,102 @@ def card_vs_plain_mesh_sync(card: str, f_gpu, bounds) -> None:
         raise AssertionError("card vs plain mesh sync at bits 8")
 
 
+def card_vs_plain_sync_modes(card: str) -> None:
+    """The sync modes of phase 4g card vs CPU: a narrow f32 gradient
+    stack of 4 peers computed on the card, synced on the card and
+    through the plain versions on the CPU, two steps with error feedback
+    and a sync key; the synced gradients and residuals must be bit-equal
+    for the ring at 4 peers, at 3 and over 2 pods of 2, the behavioral
+    cascade over 2 pods, the photonic cascade at bits 2 (onn), Table-II
+    injection on one fixed draw (the same on both devices) and the
+    streaming dispatch (the card's ``BucketStream`` on its side stream,
+    fed the leaves back to front, against the CPU's barrier path)."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.collectives.bucketizer import make_layout
+    from repro_torch.collectives.engine import (BucketStream, SyncConfig,
+                                                sync_flat)
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models import lm
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.photonics import PhotonicsConfig, error_model
+    from repro_torch.tree import leaves
+
+    cfg = ModelConfig(name="paper-llama-narrow", family="dense", n_layers=2,
+                      d_model=128, n_heads=8, n_kv_heads=8, d_ff=512,
+                      vocab=512, dtype="float32")
+    params = lm.init_params(cfg, SEED, "cuda")
+    kw = dict(block=2048, error_feedback=True, bucket_bytes=2 ** 20)
+    layout = make_layout([(s, torch.float32) for s in
+                          leaves(lm.param_shapes(cfg))], kw["bucket_bytes"])
+    g = torch.Generator().manual_seed(SEED + 5)
+    stacks = []
+    for _ in range(2):
+        tok = torch.randint(0, cfg.vocab, (8, 129), generator=g).cuda()
+        stacks.append(tsteps.peer_grad_stack(cfg, params, tok, 4,
+                                             layout.total)[1])
+
+    def fixed_draws(key, shape, spec, device="cpu"):
+        gen = torch.Generator().manual_seed(key & 0xFFFFFFFF)
+        hit = torch.rand(tuple(shape), generator=gen) < 0.01
+        which = torch.randint(0, len(spec.values), tuple(shape),
+                              generator=gen)
+        return hit.to(device), which.to(device)
+
+    cases = {
+        "ring 4 peers": (SyncConfig(mode="ring", **kw), 4, 1),
+        "ring 3 peers": (SyncConfig(mode="ring", **kw), 3, 1),
+        "ring 2 pods of 2": (SyncConfig(mode="ring", axes=("pod", "data"),
+                                        **kw), 4, 2),
+        "cascade pods 2, bits 8": (SyncConfig(mode="cascade",
+                                              axes=("pod", "data"), **kw),
+                                   4, 2),
+        "cascade onn pods 2, bits 2": (SyncConfig(
+            mode="cascade", axes=("pod", "data"), bits=2,
+            photonics=PhotonicsConfig(fidelity="onn"), **kw), 4, 2),
+        "injection (3, 4, 5, 6), bits 8": (SyncConfig(
+            mode="optinc", error_layers=(3, 4, 5, 6), **kw), 4, 1),
+        "overlap": (SyncConfig(mode="optinc", overlap=True, **kw), 4, 1),
+    }
+    draws = error_model.draws
+    error_model.draws = fixed_draws
+    try:
+        for label, (sync, peers, pods) in cases.items():
+            res_g = torch.zeros((peers, layout.total), device="cuda")
+            res_c = res_g.cpu()
+            same, ok = [], True
+            for step, f in enumerate(stacks):
+                f = f[:peers].contiguous()
+                key = prng.fold_in(prng.PRNGKey(SEED + 1), step)
+                if sync.overlap:
+                    stream = BucketStream(layout, sync, f, res_g, key, pods)
+                    for i in reversed(range(len(layout.sizes))):
+                        stream.leaf_ready(i)
+                    out_g, new_g = stream.finish()
+                else:
+                    out_g, new_g = sync_flat(f, layout.bounds, sync, res_g,
+                                             key, pods)
+                out_c, new_c = sync_flat(f.cpu(), layout.bounds, sync, res_c,
+                                         key, pods)
+                pair = (torch.equal(out_g.cpu(), out_c),
+                        (new_g is None and new_c is None)
+                        or torch.equal(new_g.cpu(), new_c))
+                same.append(pair)
+                ok = ok and all(pair)
+                if new_g is not None:
+                    res_g, res_c = new_g, new_c
+            extra = (f", {stream.early} of {layout.n_buckets} buckets "
+                     f"launched before the last leaf" if sync.overlap
+                     else "")
+            print(f"card vs plain sync, {label} ({layout.total} elements, "
+                  f"{layout.n_buckets} buckets, 2 steps): (synced, "
+                  f"residuals) bit-equal {same}{extra} [{card}]", flush=True)
+            if not ok:
+                raise AssertionError(f"card vs plain sync: {label}")
+    finally:
+        error_model.draws = draws
+
+
 # ----------------------------------------- phase 5: card vs plain, f32
 def teacher_forced_logits(cfg, params, prompts, forced, device):
     """Logits of prefill + every decode step, feeding ``forced`` tokens
@@ -2930,11 +3250,12 @@ def main() -> int:
     launches = serve_full_width(card)
     for name in launches:
         records[name]["launches"] = launches[name]
-    train_launches, behavioral8, train_p50_ms = train_full_width(card)
+    train_launches, behavioral8, train_p50_ms, base = train_full_width(card)
     for name in ("flash_attention_bwd", "pam4_quantize_encode",
                  "pam4_decode_dequantize"):
         records[name]["launches"] = train_launches[name]
     sessions_full_width(card, train_p50_ms)
+    sync_modes_full_width(card, base)
     onn = trained_onn_full_width(card)
     onn_launches, behavioral_bits2 = train_onn_full_width(card, behavioral8,
                                                           onn)
@@ -2949,6 +3270,7 @@ def main() -> int:
           f"{drift} in 3 pallas steps [{card}]", flush=True)
     card_vs_plain(card)
     card_vs_plain_training(card)
+    card_vs_plain_sync_modes(card)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

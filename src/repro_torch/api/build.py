@@ -24,19 +24,26 @@ def _cfg(spec: RunSpec, cfg):
 
 
 def warmup_photonics(spec: RunSpec, device=None):
-    """Resolve the in-network ONN for spec's photonic fidelity eagerly
-    (None for 'behavioral') and put what it applies on ``device``, so a
+    """Resolve the in-network ONN(s) for spec's photonic fidelity eagerly
+    (None for 'behavioral') and put what they apply on ``device``, so a
     slow params source ('train') or a missing one fails before the step
-    loop."""
+    loop: the ONN for all pods * dp peers, and for the cascade also the
+    level-0 ONN of a pod's dp peers."""
     from ..photonics import runtime
-    return runtime.warmup(spec.resolved_sync(), spec.mesh.dp, device)
+    sync, m = spec.resolved_sync(), spec.mesh
+    module = runtime.warmup(sync, m.peers, device)
+    if module is not None and sync.mode == "cascade":
+        runtime.warmup(sync, m.dp, device)
+    return module
 
 
 def _wire(spec: RunSpec, cfg):
+    """(backend, sync, bf16 gradient bytes, N, the cascade's n1)."""
     from ..collectives import get_backend
     sync = spec.resolved_sync()
     nbytes = 2 * _cfg(spec, cfg).param_count()      # bf16 gradient bytes
-    return get_backend(sync.mode), sync, nbytes, spec.mesh.pods * spec.mesh.dp
+    kw = {"n1": spec.mesh.dp} if sync.mode == "cascade" else {}
+    return get_backend(sync.mode), sync, nbytes, spec.mesh.peers, kw
 
 
 def modeled_time_on_wire(spec: RunSpec, cfg=None, overlap=None) -> float:
@@ -44,32 +51,34 @@ def modeled_time_on_wire(spec: RunSpec, cfg=None, overlap=None) -> float:
     (the backend's ``time_on_wire``: line-rate transfer + per-bucket
     fabric reconfiguration, pipelined when overlap is on).  ``overlap``
     overrides ``spec.sync.overlap``; pure arithmetic."""
-    backend, sync, nbytes, n = _wire(spec, cfg)
+    backend, sync, nbytes, n, kw = _wire(spec, cfg)
     ov = sync.overlap if overlap is None else overlap
     return backend.time_on_wire(nbytes, n, sync.bits, overlap=ov,
-                                bucket_bytes=sync.bucket_bytes)
+                                bucket_bytes=sync.bucket_bytes, **kw)
 
 
 def modeled_bytes_on_wire(spec: RunSpec, cfg=None) -> float:
     """Analytic per-step optical-wire bytes of spec's sync scenario (the
-    backend's ``bytes_on_wire`` over N = pods * dp peers)."""
-    backend, sync, nbytes, n = _wire(spec, cfg)
-    return backend.bytes_on_wire(nbytes, n, sync.bits)
+    backend's ``bytes_on_wire`` over N = pods * dp peers, with the
+    cascade's level-1 split n1 = dp)."""
+    backend, sync, nbytes, n, kw = _wire(spec, cfg)
+    return backend.bytes_on_wire(nbytes, n, sync.bits, **kw)
 
 
 def build_train_step(spec: RunSpec, cfg=None, device="cuda"):
     """step(params, opt_state, sync_state, tokens, key) -> (params,
-    opt_state, sync_state, metrics) over ``spec.mesh.dp`` stacked peers
+    opt_state, sync_state, metrics) over the ``pods * dp`` stacked peers
     (``launch.steps.make_train_step``; JAX returns it with its shard_map
     specs)."""
-    return steps.make_train_step(_cfg(spec, cfg), spec.mesh.dp,
-                                 spec.resolved_sync(), spec.optim, device)
+    return steps.make_train_step(_cfg(spec, cfg), spec.mesh.peers,
+                                 spec.resolved_sync(), spec.optim, device,
+                                 pods=spec.mesh.pods)
 
 
 def init_sync_state(spec: RunSpec, cfg=None, device="cuda") -> dict:
     """Zero sync_state matching build_train_step ({} when error feedback
-    is off, else {"rep": (dp, n_params)})."""
-    return steps.init_sync_state(_cfg(spec, cfg), spec.mesh.dp,
+    is off, else {"rep": (pods * dp, n_params)})."""
+    return steps.init_sync_state(_cfg(spec, cfg), spec.mesh.peers,
                                  spec.resolved_sync(), device)
 
 

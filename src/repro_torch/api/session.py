@@ -55,7 +55,7 @@ class TrainSession:
         self.device = device_util.resolve(device, "TrainSession")
         self.spec = spec
         self.cfg = cfg if cfg is not None else spec.model_config()
-        self.peers = spec.mesh.dp
+        self.peers = spec.mesh.peers      # pods * dp, peer p = pod * dp + d
         self.sync = spec.resolved_sync()
         self.callbacks = (list(callbacks) if callbacks is not None
                           else default_callbacks(spec))

@@ -11,8 +11,9 @@ Fields the port does not run yet are taken when they hold their
 defaults and refused by name otherwise (``validate``).
 
 ``MeshSpec`` keeps JAX's fields, but ``build()``/``ctx()`` (a jax Mesh
-and a ShardCtx) have no torch meaning: here ``MeshSpec.dp`` is the
-number of data-parallel peers stacked on one device.
+and a ShardCtx) have no torch meaning: here ``MeshSpec.pods *
+MeshSpec.dp`` is the number of data-parallel peers stacked on one
+device, ``pods`` of ``dp`` each.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ from ..optim.adamw import AdamWConfig
 from ..photonics.config import FIDELITIES, MESH_BACKENDS
 from ..serving.config import ServeConfig
 
-# the JAX package's sync backends; ring and cascade are refused by name
+# the JAX package's sync backends
 SYNC_MODES = ("cascade", "optinc", "psum", "ring")
 
 
@@ -43,9 +44,9 @@ class SpecMismatchError(SpecError):
 
 @dataclasses.dataclass(frozen=True)
 class MeshSpec:
-    """The JAX device-mesh description.  In the port ``dp`` is the
-    number of stacked peers; the other fields must keep their defaults
-    (``RunSpec.validate``)."""
+    """The JAX device-mesh description.  In the port ``pods * dp`` is the
+    number of stacked peers (``pods`` is the cascade's level-2 axis);
+    the other fields must keep their defaults (``RunSpec.validate``)."""
     dp: int = 1
     tp: int = 1
     pods: int = 1
@@ -63,6 +64,11 @@ class MeshSpec:
     def shape(self) -> tuple:
         return ((self.pods, self.dp, self.tp) if self.pods > 1
                 else (self.dp, self.tp))
+
+    @property
+    def peers(self) -> int:
+        """The data-parallel peers stacked on the device, pods * dp."""
+        return self.pods * self.dp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,9 +99,9 @@ def _from_dict(cls, d):
         kw[name] = val
     try:
         return cls(**kw)
-    except (TypeError, ValueError, NotImplementedError) as e:
+    except (TypeError, ValueError) as e:
         # config dataclasses validate in __post_init__ (an unknown
-        # fidelity, a sync field not ported yet): spec errors too
+        # fidelity or sync mode, a Table-II key): spec errors too
         raise SpecError(f"invalid {cls.__name__}: {e}")
 
 
@@ -139,15 +145,11 @@ class RunSpec:
 
     def _refuse_unported(self) -> None:
         """Name each field the port does not run yet, and the slice that
-        brings it.  (SyncConfig refuses its own: ring and cascade,
-        overlap, error_layers.)"""
+        brings it."""
         m, e = self.mesh, self.elastic
         for bad, what in (
                 (m.tp > 1, f"mesh.tp={m.tp} (--mesh DPxTP): tensor "
                            f"parallelism (the FSDP/TP slice)"),
-                (m.pods > 1, f"mesh.pods={m.pods} (--pods): the cascade "
-                             f"backend and its pod axis (the ring/cascade "
-                             f"slice)"),
                 (m.fsdp, "mesh.fsdp (--fsdp): FSDP (the FSDP/TP slice)"),
                 (m.seq_parallel, "mesh.seq_parallel (--seq-parallel): "
                                  "sequence parallelism (the FSDP/TP slice)"),
@@ -173,7 +175,22 @@ class RunSpec:
         self._refuse_unported()
         if self.steps < 1:
             raise SpecError(f"steps must be >= 1, got {self.steps}")
+        if (self.sync.mode == "cascade" and self.mesh.pods < 2
+                and not (self.elastic.enabled or self.elastic.allow_reshard)):
+            # a resharded resume may shrink a cascade to one pod (it
+            # degrades to its one-level form), so the two-pod floor only
+            # binds static topologies
+            raise SpecError("--sync cascade needs a level-2 'pod' axis "
+                            "(mesh.pods >= 2, e.g. --pods 2)")
         ph = self.sync.photonics
+        if (ph.fidelity != "behavioral" and self.sync.mode == "cascade"
+                and self.sync.bits > 2):
+            raise SpecError(
+                f"the photonic cascade carries the eq.-10 decimal part on "
+                f"the least-significant unit-P group, which is only on the "
+                f"ONN's grid for bits <= 2; got --bits {self.sync.bits} "
+                f"with --sync cascade --fidelity {ph.fidelity} (use "
+                f"--fidelity behavioral for wider widths)")
         if ph.mesh_backend != "xla" and ph.fidelity != "mesh":
             raise SpecError(
                 f"--mesh-backend {ph.mesh_backend} selects the MZI-emulator "
@@ -244,7 +261,8 @@ class RunSpec:
 
     def shape_fingerprint(self) -> dict:
         """The spec fields that determine only the state's placement: in
-        the port, the peer count ``mesh.dp`` (the residuals' rows)."""
+        the port, the peer grid ``mesh.pods`` x ``mesh.dp`` (the
+        residuals' rows)."""
         return {"mesh": dataclasses.asdict(self.mesh)}
 
     def compat_fingerprint(self) -> dict:
@@ -261,16 +279,19 @@ class RunSpec:
         ap.add_argument("--smoke-config", action="store_true",
                         help="use the arch's reduced SMOKE config")
         ap.add_argument("--sync", choices=SYNC_MODES,
-                        help="gradient-sync backend (ring, cascade: not "
-                             "ported)")
+                        help="gradient-sync backend")
         ap.add_argument("--bucket-mb", type=float,
                         help="fused gradient-bucket size in MiB")
         ap.add_argument("--block", type=int,
                         help="quantization block (0 = one scale a bucket)")
-        ap.add_argument("--pods", type=int, help="pod (level-2) axis size")
+        ap.add_argument("--pods", type=int,
+                        help="pod (level-2) axis size (0 = auto: 2 for "
+                             "--sync cascade, else 1)")
         ap.add_argument("--bits", type=int, help="OptINC bit width B")
         ap.add_argument("--overlap", action="store_true",
-                        help="streaming overlap (not ported)")
+                        help="stream gradient buckets in readiness order "
+                             "so the sync overlaps the rest of the "
+                             "backward (bit-exact vs off)")
         ap.add_argument("--fidelity", choices=FIDELITIES,
                         help="optinc emulation depth: behavioral Q(mean) | "
                              "trained dense ONN | MZI mesh emulator")
@@ -287,7 +308,8 @@ class RunSpec:
                         help="PhaseNoise: additive noise std on the mesh's "
                              "analog outputs (fidelity=mesh)")
         ap.add_argument("--error-layers",
-                        help="Table II key, e.g. '3,4,5,6' (not ported)")
+                        help="Table II key, e.g. '3,4,5,6': inject the "
+                             "ONN's errors into the averaged codes")
         ap.add_argument("--error-feedback", action="store_true")
         ap.add_argument("--sparse-residuals", action="store_true",
                         help="checkpoint error-feedback residuals "
@@ -379,9 +401,7 @@ class RunSpec:
                 mesh_kw["dp"], mesh_kw["tp"] = (int(x) for x in raw.split("x"))
             except ValueError:
                 raise SpecError(f"--mesh must be DPxTP (e.g. 4x1): {raw!r}")
-        pods = ns.pop("pods", 0)
-        if pods > 0:
-            mesh_kw["pods"] = pods
+        pods = ns.pop("pods", None)
         for k in ("fsdp", "seq_parallel", "remat_groups"):
             if k in ns:
                 mesh_kw[k] = ns.pop(k)
@@ -430,6 +450,11 @@ class RunSpec:
                 top_kw[k] = ns.pop(k)
         if ns:
             raise SpecError(f"unhandled CLI key(s): {sorted(ns)}")
+        mode = sync_kw.get("mode", self.sync.mode)
+        if pods is not None and pods > 0:
+            mesh_kw["pods"] = pods
+        elif mode == "cascade" and mesh_kw.get("pods", self.mesh.pods) < 2:
+            mesh_kw["pods"] = 2     # absent or 0: cascade needs its pod axis
         try:
             if ph_kw:
                 sync_kw["photonics"] = dataclasses.replace(
@@ -446,9 +471,8 @@ class RunSpec:
                 **top_kw)
         except SpecError:
             raise
-        except (ValueError, NotImplementedError) as e:
-            # a config dataclass refused a value (or a field the port
-            # does not run yet) in __post_init__
+        except ValueError as e:
+            # a config dataclass refused a value in __post_init__
             raise SpecError(str(e))
 
 

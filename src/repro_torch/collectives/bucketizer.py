@@ -6,9 +6,12 @@ as ``jax.tree.flatten`` walks a dict), then sliced at fixed
 last one may be short.  The layout is static (shapes and dtypes only).
 
 The engine applies the same layout to the peers' stacked gradients: an
-(N, total) matrix whose buckets are column slices.  The streaming helpers
-(``bucket_segments``, ``leaf_segments``, ``launch_order``) belong to the
-overlap engine, which is not ported yet.
+(N, total) matrix whose buckets are column slices.  For the streaming
+(overlap) engine the layout also answers, from shapes alone, which leaf
+slices each bucket fuses and back (``bucket_segments``,
+``leaf_segments``), and in which order buckets become ready when the
+backward emits leaf gradients in a given order (``emission_order``,
+``launch_order``).
 """
 from __future__ import annotations
 
@@ -57,6 +60,76 @@ def make_layout(leaves, bucket_bytes: int = DEFAULT_BUCKET_BYTES
     return BucketLayout(shapes=tuple(shapes), dtypes=tuple(dtypes),
                         sizes=sizes, total=total, bucket_elems=bucket_elems,
                         bounds=bounds)
+
+
+def bucket_segments(layout: BucketLayout) -> tuple:
+    """Per-bucket leaf coverage: one tuple a bucket of ``(leaf_idx,
+    start, stop)`` triples, ``[start, stop)`` the LEAF-LOCAL flat slice
+    the bucket fuses.  The triples of bucket b tile ``layout.bounds[b]``
+    of the concat space; a zero-size leaf appears in no bucket."""
+    segs, offsets, off = [], [], 0
+    for sz in layout.sizes:
+        offsets.append(off)
+        off += sz
+    for s, e in layout.bounds:
+        cur = []
+        for i, (lo, sz) in enumerate(zip(offsets, layout.sizes)):
+            a, b = max(s, lo), min(e, lo + sz)
+            if a < b:
+                cur.append((i, a - lo, b - lo))
+        segs.append(tuple(cur))
+    return tuple(segs)
+
+
+def leaf_segments(layout: BucketLayout) -> tuple:
+    """The transpose of ``bucket_segments``: per leaf, ``(bucket_idx,
+    start, stop)`` triples in bucket order, ``[start, stop)`` the
+    BUCKET-LOCAL slice holding that part of the leaf.  A zero-size leaf
+    gets an empty tuple."""
+    per_leaf = [[] for _ in layout.sizes]
+    for b, seg in enumerate(bucket_segments(layout)):
+        off = 0
+        for i, a, t in seg:
+            per_leaf[i].append((b, off, off + (t - a)))
+            off += t - a
+        assert layout.bounds[b][0] + off == layout.bounds[b][1]
+    return tuple(tuple(p) for p in per_leaf)
+
+
+def _ranks(layout: BucketLayout, readiness) -> tuple:
+    n = len(layout.sizes)
+    if readiness is None:
+        return tuple(n - 1 - i for i in range(n))
+    if len(readiness) != n:
+        raise ValueError(
+            f"readiness must rank every leaf: got {len(readiness)} ranks "
+            f"for {n} leaves")
+    return tuple(readiness)
+
+
+def emission_order(layout: BucketLayout, readiness=None) -> tuple:
+    """The leaves in the order the backward emits their gradients
+    (``readiness`` as in ``launch_order``, ties by descending leaf
+    index): an ``engine.BucketStream`` told of the leaves in this order
+    launches the buckets in ``launch_order``."""
+    ranks = _ranks(layout, readiness)
+    return tuple(sorted(range(len(ranks)), key=lambda i: (ranks[i], -i)))
+
+
+def launch_order(layout: BucketLayout, readiness=None) -> tuple:
+    """Bucket dispatch schedule for the streaming engine.
+
+    ``readiness`` ranks each leaf by when its gradient leaves the
+    backward (lower = earlier); by default the backward runs back to
+    front, so ``readiness[i] = n_leaves - 1 - i``.  A bucket is ready
+    when its latest leaf is; buckets go in ready order, ties broken by
+    descending bucket index, so the default schedule is the reversed
+    bucket order."""
+    readiness = _ranks(layout, readiness)
+    segs = bucket_segments(layout)
+    ready = [max((readiness[i] for i, _, _ in seg), default=0)
+             for seg in segs]
+    return tuple(sorted(range(len(segs)), key=lambda b: (ready[b], -b)))
 
 
 def flatten_concat(leaves) -> torch.Tensor:

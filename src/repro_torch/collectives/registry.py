@@ -4,12 +4,14 @@
 A backend owns ONE bucket's synchronization over the stacked peers plus
 the analytic wire models:
 
-  sync(x, cfg) -> (synced, local_err | None)
-      ``x`` is an (N, elems) f32 bucket, one row per peer.  ``synced``
-      is the (elems,) average every peer receives; ``local_err`` is each
-      peer's quantization error, (N, elems), for error feedback, or None
-      for exact backends.  (The JAX ``sync`` also takes a key for
-      Table-II error injection, which is not ported.)
+  sync(x, cfg, key=None) -> (synced, local_err | None)
+      ``x`` is a (*peers, elems) f32 bucket with one leading dimension a
+      sync axis of ``cfg.axes``: (N, elems) over ('data',), (pods, dp,
+      elems) over ('pod', 'data').  ``synced`` is the (elems,) average
+      every peer receives; ``local_err`` is each peer's quantization
+      error, (N, elems) with peer p = pod * dp + d, for error feedback,
+      or None for exact backends.  ``key`` is the bucket's sync key
+      (PhaseNoise, Table-II injection).
 
   bytes_on_wire(nbytes, n, bits) -> float
   time_on_wire(nbytes, n, bits, overlap=False, bucket_bytes=...) -> float

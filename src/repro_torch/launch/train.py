@@ -1,7 +1,8 @@
 """Training entry point of the port (counterpart of
 ``repro.launch.train``), a thin client of ``repro_torch.api``:
 data-parallel training over N peers stacked on one card, gradients
-averaged by the OptINC collective (or psum).
+averaged by the OptINC collective, its two-level cascade, a ring
+all-reduce or psum.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch paper_llama \\
       --sync optinc --bits 8 --block 2048 --mesh 4x1 --global-batch 32 \\
@@ -29,6 +30,23 @@ averaged by the OptINC collective (or psum).
       --sync optinc --bits 2 --fidelity mesh --mesh-backend pallas \\
       --theta-drift-std 0.02 --shot-noise-std 0.01 --mesh 4x1 \\
       --global-batch 32 --seq-len 512 --steps 10
+
+  # the paper's baseline, a ring all-reduce; the two-level carry cascade
+  # over 2 pods of 2 peers (--pods 0 or absent: 2 for cascade), through
+  # the behavioral Q(mean) or (bits 2) the emulated fabric; 4 pods of 4
+  # peers is the paper's 16-server scenario
+  PYTHONPATH=src python -m repro_torch.launch.train --arch paper_llama \\
+      --sync ring --mesh 4x1 --global-batch 32 --seq-len 512 --steps 10
+  PYTHONPATH=src python -m repro_torch.launch.train --arch paper_llama \\
+      --sync cascade --pods 2 --mesh 2x1 --bits 8 --global-batch 32 \\
+      --seq-len 512 --steps 10 [--bits 2 --fidelity onn|mesh]
+
+  # Table II error injection into the averaged codes (the Fig. 7a
+  # method), and streaming overlap of the sync with the backward
+  PYTHONPATH=src python -m repro_torch.launch.train --arch paper_llama \\
+      --sync optinc --mesh 4x1 --error-layers 3,4,5,6 --steps 10
+  PYTHONPATH=src python -m repro_torch.launch.train --arch paper_llama \\
+      --sync optinc --mesh 4x1 --overlap --error-feedback --steps 10
 
   # checkpoint every 5 steps (params, AdamW state and the error-feedback
   # residuals, in the JAX package's format), stop, and resume exactly
@@ -88,14 +106,17 @@ def sync_config(opts: argparse.Namespace):
     return opts.spec.resolved_sync()
 
 
-def run(opts: argparse.Namespace, params=None, cfg=None, out=None) -> list:
+def run(opts: argparse.Namespace, params=None, cfg=None, out=None,
+        callbacks=()) -> list:
     """Train ``opts.spec`` through a TrainSession; prints (to ``out``,
     stdout when None) and returns one record per step.  ``params`` (on
     the run's device) replaces the seeded init and ``cfg`` the model
-    config of ``--arch`` (tests train an f32 copy)."""
+    config of ``--arch`` (tests train an f32 copy); ``callbacks`` run
+    after the default ones."""
     try:
-        session = TrainSession(opts.spec, default_callbacks(opts.spec, out),
-                               device=opts.device, params=params, cfg=cfg)
+        session = TrainSession(opts.spec, default_callbacks(opts.spec, out)
+                               + list(callbacks), device=opts.device,
+                               params=params, cfg=cfg)
     except (ValueError, NotImplementedError) as e:
         # a bad spec, a mismatched checkpoint, or an ONN that cannot be
         # resolved (with the JAX guidance): before the first step

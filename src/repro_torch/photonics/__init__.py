@@ -19,11 +19,11 @@ split by layer as in the JAX package:
   runtime.py      cached ONN resolution for the collective engine
   dataset.py      ONN training data: the full input grid, samples of it
   training.py     hardware-aware ONN training (paper III-B)
-
-Not ported yet (ROADMAP.md): ``error_model`` and ``cascade``.
+  cascade.py      the two-level carry cascade (paper III-C, eq. 8-10)
+  error_model.py  Table-II error injection (the Fig. 7a method)
 """
-from . import (approx, area, dataset, encoding, mesh, mzi, onn, pipeline,
-               training)
+from . import (approx, area, cascade, dataset, encoding, error_model, mesh,
+               mzi, onn, pipeline, training)
 from .config import FIDELITIES, MESH_BACKENDS, PARAM_SOURCES, PhotonicsConfig
 from .mesh import MZIMesh
 from .module import ONNModule
@@ -36,6 +36,6 @@ __all__ = [
     "ONNConfig", "ONNModule", "Transceiver", "MZIMesh",
     "PhaseNoise", "SyncPipeline", "level_pipeline",
     "get_module", "put_module", "warmup",
-    "approx", "area", "dataset", "encoding", "mesh", "mzi", "onn",
-    "pipeline", "training",
+    "approx", "area", "cascade", "dataset", "encoding", "error_model",
+    "mesh", "mzi", "onn", "pipeline", "training",
 ]

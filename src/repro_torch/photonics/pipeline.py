@@ -23,7 +23,10 @@ dimension:
 Each stage is a frozen dataclass with ``apply(carry, key) -> carry``; a
 ``SyncPipeline`` folds a per-stage key off the level key
 (``prng.fold_in``) and runs the stages in order.  The optinc backend
-runs ONE pipeline per bucket.
+runs ONE pipeline per bucket; the cascade runs two: level 0 with
+``emit_carry`` over the (dp, pods * L) codes, each pod's dp peers
+reduced at once with the pods side by side along the code axis, then
+level 1 over the (pods, L) level-0 codes with their carry.
 
 Preprocess divides by N as the compiled JAX step does, by multiplying
 with the f32 reciprocal of N (XLA's rewrite of a division by a

@@ -131,33 +131,69 @@ def test_runspec_rejects_unknown_keys_and_bad_specs(tmp_path):
 
 
 @pytest.mark.parametrize("kw,name", [
-    (dict(mesh=dict(tp=2)), "tensor parallelism"),
-    (dict(mesh=dict(pods=2)), "mesh.pods"),
-    (dict(mesh=dict(fsdp=True)), "FSDP"),
-    (dict(mesh=dict(seq_parallel=True)), "seq_parallel"),
-    (dict(mesh=dict(remat_groups=2)), "remat_groups"),
-    (dict(sync=dict(mode="ring")), "ring"),
-    (dict(sync=dict(mode="cascade")), "cascade"),
-    (dict(sync=dict(overlap=True)), "overlap"),
-    (dict(sync=dict(error_layers=[3, 4])), "error_layers"),
-    (dict(elastic=dict(enabled=True)), "elastic.enabled"),
-    (dict(elastic=dict(evict_after=3)), "evict_after"),
-    (dict(elastic=dict(heartbeat_s=2.0)), "heartbeat_s"),
-    (dict(optim=dict(moment_dtype="bfloat16")), "moment_dtype"),
+    pytest.param(dict(mesh=dict(tp=2)), "tensor parallelism",
+                 id="kw0-tensor parallelism"),
+    pytest.param(dict(mesh=dict(fsdp=True)), "FSDP", id="kw2-FSDP"),
+    pytest.param(dict(mesh=dict(seq_parallel=True)), "seq_parallel",
+                 id="kw3-seq_parallel"),
+    pytest.param(dict(mesh=dict(remat_groups=2)), "remat_groups",
+                 id="kw4-remat_groups"),
+    pytest.param(dict(elastic=dict(enabled=True)), "elastic.enabled",
+                 id="kw9-elastic.enabled"),
+    pytest.param(dict(elastic=dict(evict_after=3)), "evict_after",
+                 id="kw10-evict_after"),
+    pytest.param(dict(elastic=dict(heartbeat_s=2.0)), "heartbeat_s",
+                 id="kw11-heartbeat_s"),
+    pytest.param(dict(optim=dict(moment_dtype="bfloat16")), "moment_dtype",
+                 id="kw12-moment_dtype"),
 ])
 def test_runspec_refuses_what_is_not_ported_by_name(kw, name, tmp_path):
     """Each field the port does not run yet, from a JAX spec's JSON (a
-    spec JAX itself takes, given the pods a cascade needs) and from a
-    --spec file through the CLI."""
+    spec JAX itself takes) and from a --spec file through the CLI."""
     d = tiny(**kw)
-    if "cascade" in json.dumps(kw):
-        d["mesh"] = {**d["mesh"], "pods": 2}
     with pytest.raises(tapi.SpecError, match=name):
         tapi.RunSpec.from_json_dict(d).validate()
     path = tmp_path / "s.json"
     path.write_text(json.dumps(d))
     with pytest.raises(SystemExit, match=name):
         train.parse_args(["--spec", str(path)])
+
+
+@pytest.mark.parametrize("kw", [
+    pytest.param(dict(mesh=dict(pods=2)), id="pods-2"),
+    pytest.param(dict(mesh=dict(pods=4, dp=1), sync=dict(mode="cascade")),
+                 id="cascade-pods-4"),
+    pytest.param(dict(sync=dict(mode="ring")), id="ring"),
+    pytest.param(dict(mesh=dict(pods=2, dp=1), sync=dict(
+        mode="cascade", bits=2, photonics=dict(fidelity="onn"))),
+        id="cascade-onn"),
+    pytest.param(dict(sync=dict(overlap=True, error_feedback=True)),
+                 id="overlap"),
+    pytest.param(dict(sync=dict(error_layers=[3, 4, 5, 6])),
+                 id="error_layers"),
+])
+def test_runspec_takes_the_sync_modes_jax_takes(kw, tmp_path):
+    """Each field that earlier slices refused (mesh.pods, ring, cascade,
+    overlap, error_layers): a JAX spec's JSON validates in the
+    port with JAX's JSON, and a --spec file of it builds and trains one
+    step on the CPU over pods * dp peers."""
+    d = tiny(**kw)
+    j = japi.RunSpec.from_json_dict(d).validate()
+    t = tapi.RunSpec.from_json_dict(d).validate()
+    assert _json(t) == _json(j)
+    assert t.resolved_sync().axes == j.resolved_sync().axes
+    assert tapi.modeled_bytes_on_wire(t) == japi.modeled_bytes_on_wire(j)
+    for ov in (False, True):
+        assert tapi.modeled_time_on_wire(t, overlap=ov) == \
+            japi.modeled_time_on_wire(j, overlap=ov)
+    path = tmp_path / "s.json"
+    path.write_text(json.dumps(d))
+    opts = train.parse_args(["--spec", str(path), "--steps", "1",
+                             "--device", "cpu"])
+    sess = tapi.TrainSession(opts.spec, callbacks=[], device="cpu")
+    assert sess.peers == t.mesh.pods * t.mesh.dp
+    recs = sess.run()
+    assert len(recs) == 1 and np.isfinite(recs[0]["loss"])
 
 
 def test_from_args_overlays_flags_and_spec_file(tmp_path):
@@ -188,6 +224,9 @@ RESUME_CASES = {
                                        sparse_residuals=True)),
     "onn-bits-2": dict(sync=dict(bits=2, error_feedback=True,
                                  photonics=dict(fidelity="onn"))),
+    # 2 pods of 2 peers: the residuals' 4 rows through the checkpoint
+    "cascade-pods-2": dict(mesh=dict(pods=2),
+                           sync=dict(mode="cascade", error_feedback=True)),
 }
 
 
@@ -218,6 +257,7 @@ def test_resume_is_exact(case, tmp_path, monkeypatch):
         assert all(a.shape == b.shape and torch.equal(a, b)
                    for a, b in zip(leaves(got), leaves(want)))
     if "error_feedback" in json.dumps(kw):
+        assert full.sync_state["rep"].shape[0] == full.peers
         assert full.sync_state["rep"].abs().max() > 0
         assert torch.equal(resumed.sync_state["rep"], full.sync_state["rep"])
     if "sparse" in case:

@@ -355,7 +355,11 @@ def test_bucketizer_matches_jax(bucket_bytes):
 
 
 def test_registry_and_config_reject_what_is_not_ported():
-    assert registry.available_backends() == ("optinc", "psum")
+    """The registry lists JAX's four backends, and SyncConfig takes each
+    of them, streaming overlap and every Table-II row (since the
+    ring/cascade slice); it still rejects what JAX cannot run."""
+    assert registry.available_backends() == ("cascade", "optinc", "psum",
+                                             "ring")
     with pytest.raises(ValueError, match="already registered"):
         registry.register_backend("optinc", backends.OptincBackend())
     with pytest.raises(TypeError, match="time_on_wire"):
@@ -363,12 +367,14 @@ def test_registry_and_config_reject_what_is_not_ported():
             "sync": lambda *a: None, "bytes_on_wire": lambda *a: 0})())
     with pytest.raises(ValueError, match="unknown sync mode"):
         engine.SyncConfig(mode="nope")
-    for kw, what in ((dict(mode="ring"), "ring"),
-                     (dict(mode="cascade"), "cascade"),
-                     (dict(overlap=True), "overlap"),
-                     (dict(error_layers=(3, 4)), "Table-II")):
-        with pytest.raises(NotImplementedError, match=what):
-            engine.SyncConfig(**kw)
+    for kw in (dict(mode="ring"), dict(mode="cascade"),
+               dict(overlap=True), dict(error_layers=(3, 4, 5, 6)),
+               dict(mode="cascade", axes=("pod", "data"), bits=2,
+                    photonics=PhotonicsConfig(fidelity="mesh"))):
+        sc = engine.SyncConfig(**kw)
+        assert all(getattr(sc, k) == v for k, v in kw.items())
+    with pytest.raises(ValueError, match="not a row of Table II"):
+        engine.SyncConfig(error_layers=(3, 4))
     # block-sparse residual checkpoints are taken since the checkpoint
     # slice, and the JAX mesh axes are kept for the spec's JSON
     sc = engine.SyncConfig(sparse_residuals=True, error_feedback=True)
@@ -385,9 +391,10 @@ def test_registry_and_config_reject_what_is_not_ported():
         with pytest.raises(ValueError, match="only apply to --fidelity mesh"):
             engine.SyncConfig(photonics=PhotonicsConfig(
                 fidelity="onn", **{knob: 0.01}))
-    with pytest.raises(ValueError, match="photonic-backend knob"):
-        engine.SyncConfig(mode="psum",
-                          photonics=PhotonicsConfig(fidelity="onn"))
+    for mode in ("psum", "ring"):
+        with pytest.raises(ValueError, match="photonic-backend knob"):
+            engine.SyncConfig(mode=mode,
+                              photonics=PhotonicsConfig(fidelity="onn"))
     with pytest.raises(TypeError, match="PhotonicsConfig"):
         engine.SyncConfig(photonics="onn")
     assert engine.SyncConfig().photonics == PhotonicsConfig()

@@ -251,14 +251,20 @@ def test_train_needs_cuda_unless_a_device_is_given(monkeypatch):
     # taken since the checkpoint slice (what = a check of the spec)
     pytest.param(["--ckpt-dir", "x"], lambda s: s.ckpt.dir == "x",
                  id="argv0-checkpointing"),
-    (["--overlap"], "overlap"),
+    # taken since the ring/cascade slice
+    pytest.param(["--overlap"], lambda s: s.sync.overlap,
+                 id="argv1-overlap"),
     # taken since the mesh fidelity was ported
     pytest.param(["--fidelity", "mesh", "--bits", "2"],
                  lambda s: (s.sync.photonics.fidelity, s.sync.bits)
                  == ("mesh", 2), id="argv2-fidelities"),
     (["--mesh", "2x2"], "tensor parallelism"),
-    (["--sync", "cascade"], "cascade"),
-    (["--sync", "ring"], "ring"),
+    pytest.param(["--sync", "cascade"],
+                 lambda s: (s.sync.mode, s.mesh.pods,
+                            s.resolved_sync().axes)
+                 == ("cascade", 2, ("pod", "data")), id="argv4-cascade"),
+    pytest.param(["--sync", "ring"], lambda s: s.sync.mode == "ring",
+                 id="argv5-ring"),
     pytest.param(["--ckpt-dir", "x", "--ckpt-every", "3", "--ckpt-keep",
                   "2", "--resume"],
                  lambda s: (s.ckpt.dir, s.ckpt.every, s.ckpt.keep,
@@ -274,9 +280,12 @@ def test_train_needs_cuda_unless_a_device_is_given(monkeypatch):
                  id="allow-reshard"),
     pytest.param(["--sparse-residuals"], "needs --error-feedback",
                  id="sparse-residuals-alone"),
-    pytest.param(["--pods", "2"], "pod axis", id="pods"),
+    pytest.param(["--pods", "2"], lambda s: s.mesh.peers == 2
+                 and s.resolved_sync().axes == ("pod", "data"), id="pods"),
     pytest.param(["--fsdp"], "FSDP", id="fsdp"),
-    pytest.param(["--error-layers", "3,4"], "Table-II", id="error-layers"),
+    pytest.param(["--error-layers", "3,4,5,6"],
+                 lambda s: s.sync.error_layers == (3, 4, 5, 6),
+                 id="error-layers"),
     pytest.param(["--elastic"], "elastic membership", id="elastic"),
     pytest.param(["--evict-after", "2"], "elastic membership",
                  id="evict-after"),
