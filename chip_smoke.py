@@ -154,6 +154,24 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    barrier path in turns (10 steps each, barrier, overlap, overlap,
    barrier): the same losses bit for bit and buckets launched before the
    last peer's backward ended.  Step p50 and peak memory of each run.
+   4h. Peers as processes (``processes_full_width``; alone: ``python3 -c
+   'import chip_smoke as c; c.processes_alone(c.card_line())'``), each
+   launched through ``python -m torch.distributed.run --standalone -m
+   repro_torch.launch.train``, rank 0's step lines and rank report read
+   back: a world of one on NCCL (``--mesh 1x1 --error-feedback``, 10
+   steps) equal to the stacked 1-peer run bit for bit, on every run;
+   with 4 cards, 4 ranks (one a card) of optinc bits 8 with feedback,
+   ring, cascade ``--pods 2``, onn bits 2, overlap with feedback and
+   psum, 10 steps each, against the stacked 4-peer run of the same spec
+   on one card: bit for bit but psum, each mode's step p50/p99 and
+   tokens/s beside the stacked run's, the bytes each rank handed to each
+   collective a step beside ``bytes_on_wire`` (optinc bits 8: 2 bytes a
+   code reduce-scattered, 1 all-gathered), each rank's kernel launches
+   (flash once a layer a step, pam4 encode once a bucket); then psum's
+   first-step synced gradients (a rank worker of this script, ``python3
+   chip_smoke.py --psum-grads <file>`` under torchrun) within PSUM_ULPS
+   spacings of the stacked sum.  With one card the phase prints that
+   the 4-rank part needs 4 cards.
 5. Card vs plain end to end: the f32 model with the same weights served
    through the kernels on the card and through the plain path on the
    CPU; teacher-forced logits must agree, greedy tokens must agree up to
@@ -2618,6 +2636,259 @@ def sync_modes_alone(card: str) -> None:
     sync_modes_full_width(card)
 
 
+# ----------------------------------------- phase 4h: peers as processes
+# 4 ranks, one a card, each mode against the stacked 4-peer run of the
+# same spec on one card (argv over TRAIN_ARGV)
+PROC_MODES = {
+    "optinc bits 8 + feedback": ["--error-feedback"],
+    "ring": ["--sync", "ring"],
+    "cascade pods 2": ["--sync", "cascade", "--pods", "2", "--mesh", "2x1"],
+    "onn bits 2": ["--bits", "2", "--fidelity", "onn"],
+    "overlap + feedback": ["--overlap", "--error-feedback"],
+    "psum": ["--sync", "psum"],
+}
+PROC_STEPS = 10
+PROC_TIMEOUT_S = 600
+# psum over NCCL against the stacked f32 sum, elementwise: two orders of
+# an f32 sum of N values differ by at most 2 (N - 1) u sum|x_i| and the
+# division by N rounds once; in units of spacing(sum|x_i| / N) that is
+# 2N - 1 = 7 at N = 4
+PSUM_ULPS = 7
+
+
+def torchrun(nproc: int, args, timeout: int = PROC_TIMEOUT_S):
+    """``python -m torch.distributed.run --standalone`` with ``nproc``
+    ranks on ``args`` (a module run with ``-m`` or this script), from the
+    checkout; its process group is killed if it outlives ``timeout``.
+    Returns (returncode, stdout, stderr, seconds)."""
+    import os
+    import signal
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(nproc), *args]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        err += f"\n[killed after {timeout} s]"
+    return proc.returncode, out, err, time.perf_counter() - t0
+
+
+def process_run(nproc: int, argv, steps: int | None = None):
+    """``steps`` steps of the training entry point on TRAIN_ARGV + argv
+    as ``nproc`` processes: rank 0's step records and its rank report
+    (each rank's device, collective bytes and kernel launches; the whole
+    losses)."""
+    steps = PROC_STEPS if steps is None else steps
+    rc, out, err, wall = torchrun(nproc, [
+        "-m", "repro_torch.launch.train", *TRAIN_ARGV, *argv,
+        "--steps", str(steps)])
+    lines = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+    if rc != 0 or not lines:
+        raise AssertionError(f"torchrun {nproc} x {' '.join(argv)}: exit "
+                             f"{rc}\n{out[-3000:]}\n{err[-6000:]}")
+    recs = [x for x in lines if "step" in x]
+    [report] = [x for x in lines if "ranks" in x]
+    if [r["step"] for r in recs] != list(range(steps)):
+        raise AssertionError(f"rank 0 printed steps {recs}")
+    return recs, report, wall
+
+
+def step_stats(recs, tokens: int = 32 * 512) -> str:
+    times = [r["time_s"] for r in recs[1:]]
+    p50 = pct(times, 0.5)
+    return (f"p50 {p50 * 1e3:.3f} ms p99 {pct(times, 0.99) * 1e3:.3f} ms, "
+            f"{tokens / p50:.1f} tokens/s")
+
+
+def wire_codes(spec) -> int:
+    """The B-bit codes one step's buckets carry: each bucket's elements
+    padded to whole blocks, then to JAX's shards of ceil(L / N)."""
+    from repro_torch.collectives.bucketizer import make_layout
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves
+    cfg = spec.model_config()
+    layout = make_layout([(s, lm.torch_dtype(cfg)) for s in leaves(
+        lm.param_shapes(cfg))], spec.sync.bucket_bytes)
+    n, block = spec.mesh.peers, spec.sync.block
+    return sum(-(-(-(-(e - s) // block) * block) // n) * n
+               for s, e in layout.bounds)
+
+
+def check_process_wire(label: str, spec, report, steps: int) -> None:
+    """Per rank and step, the bytes handed to each collective beside the
+    modeled optical bytes; for optinc at bits 8 over 4 ranks, 2 bytes a
+    code into the reduce-scatter (16-bit lanes) and 1 byte a code out of
+    the all-gather (uint8)."""
+    from repro_torch.api import build
+    ranks = report["ranks"]
+    per_step = [{k: v / steps for k, v in r["collective_bytes"].items()}
+                for r in ranks]
+    modeled = build.modeled_bytes_on_wire(spec)
+    print(f"4h {label}: bytes a rank hands each collective a step "
+          f"{per_step[0]} (all {len(ranks)} ranks alike "
+          f"{all(p == per_step[0] for p in per_step)}); bytes_on_wire "
+          f"(modeled optical) {modeled:.0f}", flush=True)
+    if any(p != per_step[0] for p in per_step):
+        raise AssertionError(f"4h {label}: the ranks sent different bytes")
+    if spec.sync.mode == "optinc" and spec.sync.bits == 8:
+        codes = wire_codes(spec)
+        got = (per_step[0]["psum_scatter:int32"],
+               per_step[0]["all_gather:uint8"])
+        print(f"4h {label}: {codes} codes a step; reduce-scatter "
+              f"{got[0] / codes:.4f} B a code, all-gather "
+              f"{got[1] / codes:.4f} B a code", flush=True)
+        if got != (2 * codes, codes):
+            raise AssertionError(f"4h {label}: wire bytes {got}, want "
+                                 f"{(2 * codes, codes)}")
+
+
+def check_process_launches(label: str, spec, report, steps: int) -> None:
+    """Each rank ran its own peer: one flash forward and backward a layer
+    a step, and (optinc and cascade) one pam4 encode a bucket."""
+    from repro_torch.collectives.bucketizer import expected_buckets
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves
+    cfg = spec.model_config()
+    nb = expected_buckets(4 * sum(math.prod(s) for s in leaves(
+        lm.param_shapes(cfg))), spec.sync.bucket_bytes)
+    for r in report["ranks"]:
+        got = r["launches"]
+        print(f"4h {label}: rank {r['rank']} on {r['device']} launched "
+              f"{ {k: v for k, v in got.items() if v} }", flush=True)
+        want = {"flash_attention": steps * cfg.n_layers,
+                "flash_attention_bwd": steps * cfg.n_layers}
+        if spec.sync.mode in ("optinc", "cascade"):
+            want["pam4_quantize_encode"] = steps * nb
+        if spec.sync.photonics.fidelity == "onn":
+            want["onn_layer"] = 2 * steps * nb
+        bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+        if bad or r["device"] != f"cuda:{r['rank']}":
+            raise AssertionError(f"4h {label}: rank {r['rank']} on "
+                                 f"{r['device']}: launches (got, want) {bad}")
+
+
+def psum_grads_rank(out_path: str) -> None:
+    """One rank of the psum gradient check (run under torchrun by phase
+    4h): this rank's first-step gradient row of the 4-peer config synced
+    by the process psum (NCCL's all-reduce), and on rank 0 the same four
+    rows synced by the stacked psum; rank 0 writes both and each
+    element's bound to ``out_path``."""
+    import torch
+    from repro_torch.api import TrainSession
+    from repro_torch.collectives.bucketizer import make_layout
+    from repro_torch.collectives.engine import get_backend, sync_flat
+    from repro_torch.launch import distributed, steps, train
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves
+    opts = train.parse_args(TRAIN_ARGV + ["--sync", "psum", "--steps", "1"])
+    sess = TrainSession(opts.spec, callbacks=[], device=opts.device)
+    world, n = sess.world, sess.peers
+    layout = make_layout([(s, lm.torch_dtype(sess.cfg)) for s in leaves(
+        lm.param_shapes(sess.cfg))], sess.sync.bucket_bytes)
+    tokens = torch.from_numpy(sess.data.batch(0)).to(sess.device)
+    per = tokens.shape[0] // n
+    _, row = steps.peer_grad_stack(
+        sess.cfg, sess.params, tokens[world.rank * per:(world.rank + 1) * per],
+        1, layout.total)
+    synced, _ = sync_flat(row, layout.bounds, sess.sync, world=world)
+    rows = world.gather_rows(row)
+    if world.rank == 0:
+        backend = get_backend("psum")
+        want = torch.cat([backend.sync(rows[:, s:e], sess.sync)[0]
+                          for s, e in layout.bounds])
+        mag = rows.abs().sum(0) / n
+        bound = PSUM_ULPS * (torch.nextafter(mag, torch.full_like(
+            mag, math.inf)) - mag)
+        torch.save({"process": synced.cpu(), "stacked": want.cpu(),
+                    "bound": bound.cpu()}, out_path)
+    distributed.shutdown()
+    distributed.exit_rank(0)
+
+
+def processes_full_width(card: str) -> None:
+    """Phase 4h: the data-parallel peers as processes, one a card,
+    launched through ``torch.distributed.run -m repro_torch.launch.train``
+    (NCCL), each run against the stacked run of the same spec on one
+    card.  A world of one always; 4 ranks when the machine has 4 cards."""
+    import torch
+    from repro_torch.launch import train
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = ["--mesh", "1x1", "--error-feedback"]
+    _, stacked = train_run(one, PROC_STEPS)
+    srecs = train_run(one, PROC_STEPS)[0]
+    recs, report, wall = process_run(1, one)
+    print(f"4h world of one (NCCL, --mesh 1x1 --error-feedback, "
+          f"{PROC_STEPS} steps, {wall:.1f} s of torchrun): losses bit-equal "
+          f"to the stacked 1-peer run {report['losses'] == stacked}; "
+          f"process {step_stats(recs)}, stacked {step_stats(srecs)} "
+          f"[{card}]", flush=True)
+    if report["losses"] != stacked:
+        raise AssertionError(f"4h world of one: {report['losses']} vs "
+                             f"stacked {stacked}")
+    check_process_launches("world of one", train.parse_args(
+        TRAIN_ARGV + one).spec, report, PROC_STEPS)
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        print(f"4h: the 4-rank runs need 4 cards; this machine has {cards} "
+              f"(on a 4-card host, processes_alone runs them) [{card}]",
+              flush=True)
+        print(f"phase 4h took {time.perf_counter() - t_phase:.1f} s "
+              f"[{card}]", flush=True)
+        return
+    for label, argv in PROC_MODES.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        srecs, stacked = train_run(argv, PROC_STEPS)
+        recs, report, wall = process_run(4, argv)
+        same = report["losses"] == stacked
+        err = max(abs(a - b) for a, b in zip(report["losses"], stacked))
+        print(f"4h {label} ({' '.join(argv)}), 4 ranks vs 4 stacked peers, "
+              f"{PROC_STEPS} steps ({wall:.1f} s of torchrun): losses "
+              f"bit-equal {same}, max_abs_diff {err:.3e}; process "
+              f"{step_stats(recs)}; stacked {step_stats(srecs)} [{card}]",
+              flush=True)
+        spec = train.parse_args(TRAIN_ARGV + argv).spec
+        check_process_wire(label, spec, report, PROC_STEPS)
+        check_process_launches(label, spec, report, PROC_STEPS)
+        if label != "psum" and not same:
+            raise AssertionError(f"4h {label}: {report['losses']} vs "
+                                 f"stacked {stacked}")
+    out = ROOT / "build" / "psum_grads.pt"
+    rc, o, e, _ = torchrun(4, [str(ROOT / "chip_smoke.py"), "--psum-grads",
+                               str(out)])
+    if rc != 0:
+        raise AssertionError(f"4h psum gradients: exit {rc}\n{e[-6000:]}")
+    got = torch.load(out)
+    out.unlink()
+    diff = (got["process"] - got["stacked"]).abs()
+    ulps = float((diff / (got["bound"] / PSUM_ULPS)).max())
+    print(f"4h psum first-step synced gradients, NCCL all-reduce vs the "
+          f"stacked sum ({diff.numel()} elements): max_abs_err "
+          f"{float(diff.max()):.3e}, {int((diff > 0).sum())} elements "
+          f"differ, at most {ulps:.2f} x spacing(sum|x_i| / 4) (bound "
+          f"{PSUM_ULPS}) [{card}]", flush=True)
+    if not bool((diff <= got["bound"]).all()):
+        raise AssertionError("4h psum gradients beyond the bound")
+    print(f"phase 4h took {time.perf_counter() - t_phase:.1f} s [{card}]",
+          flush=True)
+
+
+def processes_alone(card: str) -> None:
+    """Phase 4h alone, the kernels built first."""
+    from repro_torch.kernels import _build
+    _build.build()
+    processes_full_width(card)
+
+
 # ----------------------------------------- phase 4d: the trained ONN
 # The paper's scenario 1 (examples/quickstart.py --scenario1): B 8, N 4,
 # K 4, 4-64-128-256-128-64-4 with layers 1-6 approximated, the full
@@ -3256,6 +3527,7 @@ def main() -> int:
         records[name]["launches"] = train_launches[name]
     sessions_full_width(card, train_p50_ms)
     sync_modes_full_width(card, base)
+    processes_full_width(card)
     onn = trained_onn_full_width(card)
     onn_launches, behavioral_bits2 = train_onn_full_width(card, behavioral8,
                                                           onn)
@@ -3283,4 +3555,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--psum-grads"]:
+        psum_grads_rank(sys.argv[2])     # one rank of phase 4h's check
     sys.exit(main())

@@ -23,7 +23,8 @@ from .build import (build_decode_step, build_prefill_step, build_train_step,
                     init_sync_state, modeled_bytes_on_wire,
                     modeled_time_on_wire)
 from .callbacks import (Callback, JsonlLogger, PeriodicCheckpoint,
-                        SigtermHandler, StragglerWatchdog, default_callbacks)
+                        RankReport, SigtermHandler, StragglerWatchdog,
+                        default_callbacks)
 from .serve import ServeSession
 from .session import TrainSession
 from .spec import (CheckpointConfig, MeshSpec, ResumeCompat, RunSpec,
@@ -36,8 +37,8 @@ __all__ = [
     "SpecError", "SpecMismatchError",
     "ResumeCompat", "check_resume_compat", "validate_resume_compat",
     "ElasticError", "TrainSession", "ServeSession",
-    "Callback", "JsonlLogger", "PeriodicCheckpoint", "SigtermHandler",
-    "StragglerWatchdog", "default_callbacks",
+    "Callback", "JsonlLogger", "PeriodicCheckpoint", "RankReport",
+    "SigtermHandler", "StragglerWatchdog", "default_callbacks",
     "build_train_step", "build_prefill_step", "build_decode_step",
     "init_sync_state", "modeled_bytes_on_wire", "modeled_time_on_wire",
 ]

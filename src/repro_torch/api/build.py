@@ -5,9 +5,9 @@ TrainSession and ServeSession build their steps here, so the train
 step, the sync-state initializer and the serving steps never disagree
 on the state structure.  JAX's ``param_specs``, ``sync_state_specs``
 and ``decode_cache_specs`` are PartitionSpecs for shard_map and get no
-twin: the port's peers are one stacked dimension on one device, and its
-decode cache is a paged pool with a fixed block table
-(``new_decode_cache``).
+twin: the port's peers are one stacked dimension on one device or one
+process each (``world``), and its decode cache is a paged pool with a
+fixed block table (``new_decode_cache``).
 """
 from __future__ import annotations
 
@@ -65,20 +65,23 @@ def modeled_bytes_on_wire(spec: RunSpec, cfg=None) -> float:
     return backend.bytes_on_wire(nbytes, n, sync.bits, **kw)
 
 
-def build_train_step(spec: RunSpec, cfg=None, device="cuda"):
+def build_train_step(spec: RunSpec, cfg=None, device="cuda", world=None):
     """step(params, opt_state, sync_state, tokens, key) -> (params,
-    opt_state, sync_state, metrics) over the ``pods * dp`` stacked peers
+    opt_state, sync_state, metrics) over the ``pods * dp`` stacked peers,
+    or as one of ``pods * dp`` processes (``world``)
     (``launch.steps.make_train_step``; JAX returns it with its shard_map
     specs)."""
     return steps.make_train_step(_cfg(spec, cfg), spec.mesh.peers,
                                  spec.resolved_sync(), spec.optim, device,
-                                 pods=spec.mesh.pods)
+                                 pods=spec.mesh.pods, world=world)
 
 
-def init_sync_state(spec: RunSpec, cfg=None, device="cuda") -> dict:
+def init_sync_state(spec: RunSpec, cfg=None, device="cuda",
+                    world=None) -> dict:
     """Zero sync_state matching build_train_step ({} when error feedback
-    is off, else {"rep": (pods * dp, n_params)})."""
-    return steps.init_sync_state(_cfg(spec, cfg), spec.mesh.peers,
+    is off, else {"rep": (pods * dp, n_params)}, one row a process)."""
+    rows = spec.mesh.peers if world is None else 1
+    return steps.init_sync_state(_cfg(spec, cfg), rows,
                                  spec.resolved_sync(), device)
 
 

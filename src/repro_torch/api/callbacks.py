@@ -18,6 +18,13 @@ it as a delegating alias, and the session loop calls it.
 ``session.request_stop()`` ends the loop after the current step;
 PeriodicCheckpoint treats a requested stop like a final step, so a
 SIGTERM'd run always leaves a fresh checkpoint behind.
+
+Peers as processes (``session.world``): every rank runs the stack.
+JsonlLogger writes on rank 0 only; a stop asked on any rank is agreed
+by every rank after the step (the session's flag all-reduce), so
+SigtermHandler and PeriodicCheckpoint decide alike on every rank, and a
+checkpoint is collective.  RankReport (added by ``default_callbacks``
+in a launched process) gathers what each rank did and rank 0 prints it.
 """
 from __future__ import annotations
 
@@ -26,6 +33,11 @@ import signal
 import statistics
 import sys
 import threading
+
+import torch.distributed as dist
+
+from ..kernels import launches as kernel_launches
+from ..launch import distributed
 
 
 class Callback:
@@ -92,10 +104,12 @@ class JsonlLogger(Callback):
         self._f = None
 
     def on_train_start(self, session):
-        if self.path:
+        if self.path and session.rank == 0:
             self._f = open(self.path, "a")
 
     def on_step(self, session, record):
+        if session.rank:
+            return
         line = json.dumps(record)
         print(line, file=self.out or sys.stdout, flush=True)
         if self._f:
@@ -163,10 +177,48 @@ class SigtermHandler(Callback):
         self._previous = {}
 
 
+class RankReport(Callback):
+    """Peers as processes: at the end of a run() call rank 0 prints one
+    JSON line ``{"ranks": [...], "steps", "losses"}``: per rank its
+    device, the bytes it handed to each collective ("op:dtype") and its
+    kernel launches during the run, and the run's losses whole (the
+    step records round them).  Collective: every rank runs it."""
+
+    def __init__(self, out=None):
+        self.out = out
+        self._bytes = self._launches = None
+        self._steps = []
+
+    def on_train_start(self, session):
+        self._bytes = dict(session.world.bytes)
+        self._launches = kernel_launches()
+        self._steps = []
+
+    def on_step(self, session, record):
+        self._steps.append(record["step"])
+
+    def on_train_end(self, session):
+        w = session.world
+        mine = {"rank": w.rank, "device": str(w.device),
+                "collective_bytes": {k: v - self._bytes.get(k, 0)
+                                     for k, v in w.bytes.items()
+                                     if v != self._bytes.get(k, 0)},
+                "launches": {k: v - self._launches[k]
+                             for k, v in kernel_launches().items()}}
+        ranks = [None] * w.size
+        dist.all_gather_object(ranks, mine)
+        if w.rank == 0:
+            print(json.dumps({"ranks": ranks, "steps": len(self._steps),
+                              "losses": [session.losses[s]
+                                         for s in self._steps]}),
+                  file=self.out or sys.stdout, flush=True)
+
+
 def default_callbacks(spec, out=None) -> list:
     """The train CLI's stack for a RunSpec; ``out`` takes the JSON lines
-    (stdout when None)."""
-    return [StragglerWatchdog(spec.watchdog),
-            JsonlLogger(spec.log, out=out),
-            PeriodicCheckpoint(spec.ckpt.every),
-            SigtermHandler()]
+    (stdout when None); in a launched process also RankReport."""
+    stack = [StragglerWatchdog(spec.watchdog),
+             JsonlLogger(spec.log, out=out),
+             PeriodicCheckpoint(spec.ckpt.every),
+             SigtermHandler()]
+    return stack + ([RankReport(out)] if distributed.launched() else [])

@@ -15,6 +15,19 @@ spec whose state structure does not match.  Step i's batch is
 run's step sees.  At fidelities onn and mesh the in-network ONN is
 resolved at start-up (``build.warmup_photonics``), never read from a
 checkpoint.
+
+Peers as processes: a session started as one rank of a launch
+(``launch.distributed.launched``; torchrun sets the environment) is
+peer RANK of the ``pods * dp`` processes, on card ``LOCAL_RANK`` (or the
+CPU, gloo).  The world must be ``pods * dp`` processes.  Each rank
+seeds the same parameters, rank 0's are broadcast once after init or
+resume, and each keeps its own (1, total) residual row.  A checkpoint
+is collective: the residual rows are gathered, rank 0 writes the JAX
+layout (a stacked run's file), and every rank meets at a barrier after
+the save; on resume each rank reads its own row, so a stacked
+checkpoint resumes as processes and the other way round.  A stop asked
+on any rank (``request_stop``, a signal) is agreed by every rank after
+the step, so the ranks never part ways.
 """
 from __future__ import annotations
 
@@ -30,11 +43,13 @@ from ..collectives import (is_packed_residuals, pack_residuals,
                            residuals_from_jax, residuals_to_jax,
                            unpack_residuals)
 from ..data.pipeline import SyntheticLM
+from ..launch import distributed
 from ..models import lm
 from ..optim.adamw import adamw_init
+from ..tree import leaves
 from . import build
 from .callbacks import default_callbacks
-from .spec import RunSpec, validate_resume_compat
+from .spec import RunSpec, SpecError, validate_resume_compat
 
 _REZEROED = ("resharded resume: error-feedback residual buckets changed "
              "shape; residuals re-zeroed")
@@ -52,7 +67,17 @@ class TrainSession:
     def __init__(self, spec: RunSpec, callbacks: list | None = None, *,
                  device=None, params=None, cfg=None):
         spec.validate()
+        launched = distributed.launched()
+        if launched and distributed.world_size() != spec.mesh.peers:
+            raise SpecError(
+                f"WORLD_SIZE {distributed.world_size()} != mesh.peers "
+                f"{spec.mesh.peers} (pods {spec.mesh.pods} x dp "
+                f"{spec.mesh.dp}): peers as processes run one process a "
+                f"peer")
         self.device = device_util.resolve(device, "TrainSession")
+        # launch.distributed.ProcessAxes of peers as processes, else None
+        self.world = (distributed.init(spec.mesh.pods, spec.mesh.dp,
+                                       self.device) if launched else None)
         self.spec = spec
         self.cfg = cfg if cfg is not None else spec.model_config()
         self.peers = spec.mesh.peers      # pods * dp, peer p = pod * dp + d
@@ -63,24 +88,44 @@ class TrainSession:
                     if spec.ckpt.dir else None)
         self.data = SyntheticLM(spec.resolved_data(self.cfg))
         self.stop_requested = False
+        self._stop_asked = False   # on this rank, not yet agreed
         self.step = 0              # next step to execute
         self.losses = {}           # step -> loss as the device gave it
 
         self.params = (lm.init_params(self.cfg, spec.seed, self.device)
                        if params is None else params)
         self.opt_state = adamw_init(spec.optim, self.params)
-        self.sync_state = build.init_sync_state(spec, self.cfg, self.device)
+        self.sync_state = build.init_sync_state(spec, self.cfg, self.device,
+                                                self.world)
         if spec.ckpt.resume:
             self._maybe_resume()
+        if self.world is not None:
+            self.world.broadcast_(leaves(self.params))
 
         build.warmup_photonics(spec, self.device)
-        self._step_fn = build.build_train_step(spec, self.cfg, self.device)
+        self._step_fn = build.build_train_step(spec, self.cfg, self.device,
+                                               self.world)
         self._base_key = prng.PRNGKey(spec.seed + 1)
+
+    @property
+    def rank(self) -> int:
+        """This process's peer as one of several processes, else 0."""
+        return 0 if self.world is None else self.world.rank
 
     # ------------------------------------------------------------ control
     def request_stop(self):
-        """End the loop after the current step (checkpoint included)."""
-        self.stop_requested = True
+        """End the loop after the current step (checkpoint included); as
+        one of several processes, after the step every rank agrees on."""
+        if self.world is None:
+            self.stop_requested = True
+        self._stop_asked = True
+
+    def close(self):
+        """End the process group of peers as processes (the CLI, when
+        the run is over); nothing for stacked peers."""
+        if self.world is not None:
+            distributed.shutdown()
+            self.world = None
 
     def save_checkpoint(self, step: int | None = None):
         """Persist params + optimizer + residuals + the RunSpec manifest
@@ -90,15 +135,31 @@ class TrainSession:
         if self.mgr is None:
             return
         step = (self.step - 1) if step is None else step
-        sync_state = residuals_to_jax(self.sync_state)
-        if self.sync.sparse_residuals and sync_state:
-            sync_state = pack_residuals(sync_state)
-        self.mgr.save(step, self.params, self.opt_state,
-                      sync_state=sync_state,
-                      extra={"run_spec": self.spec.to_json_dict(),
-                             "arch": self.cfg.name, "sync": self.sync.mode})
+        sync_state = self.sync_state
+        if self.world is not None:
+            sync_state = {k: self.world.gather_rows(v)
+                          for k, v in sync_state.items()}
+        if self.rank == 0:
+            sync_state = residuals_to_jax(sync_state)
+            if self.sync.sparse_residuals and sync_state:
+                sync_state = pack_residuals(sync_state)
+            self.mgr.save(step, self.params, self.opt_state,
+                          sync_state=sync_state,
+                          extra={"run_spec": self.spec.to_json_dict(),
+                                 "arch": self.cfg.name,
+                                 "sync": self.sync.mode})
+        if self.world is not None:
+            self.mgr.wait()
+            self.world.barrier()
         for cb in self.callbacks:
             cb.on_checkpoint(self, step)
+
+    def _own_rows(self, state: dict) -> dict:
+        """(N, total) residual rows -> this process's (1, total) row."""
+        if self.world is None:
+            return state
+        r = self.world.rank
+        return {k: v[r:r + 1].clone() for k, v in state.items()}
 
     def _maybe_resume(self):
         c = self.spec.ckpt
@@ -121,7 +182,9 @@ class TrainSession:
         sync_packed = bool(sync_paths) and all(
             p.rsplit("/", 1)[-1] in ("idx", "val", "shape")
             for p in sync_paths)
-        want = residuals_to_jax(self.sync_state)
+        want = residuals_to_jax(
+            {k: v.new_zeros((self.peers, v.shape[1]))
+             for k, v in self.sync_state.items()})
         sync_shapes_ok = want and sync_paths and all(
             list((man["leaves"].get(f"sync/{name}") or {}).get("shape", ()))
             == list(v.shape) for name, v in want.items())
@@ -139,7 +202,8 @@ class TrainSession:
         tree, _ = load_checkpoint(c.dir, s, template, device=self.device)
         self.params, self.opt_state = tree["params"], tree["opt"]
         if "sync" in tree:
-            self.sync_state = residuals_from_jax(tree["sync"], self.peers)
+            self.sync_state = self._own_rows(
+                residuals_from_jax(tree["sync"], self.peers))
         elif want and sync_packed:
             try:
                 self.sync_state = self._load_packed_sync(c.dir, s, want)
@@ -153,7 +217,8 @@ class TrainSession:
             note = (f" (resharded {saved.mesh.shape} -> "
                     f"{self.spec.mesh.shape}; data pipeline continues at "
                     f"sample offset of step {s + 1})")
-        print(f"resumed from step {s}{note}", flush=True)
+        if self.rank == 0:
+            print(f"resumed from step {s}{note}", flush=True)
 
     def _load_packed_sync(self, direc, step: int, want: dict) -> dict:
         """Restore block-sparse residuals: read the packed sync/ subtree,
@@ -175,7 +240,7 @@ class TrainSession:
                     f"checkpoint {None if got is None else got.shape} vs "
                     f"run {tuple(ref.shape)}")
             state[name] = torch.from_numpy(got).to(self.device)
-        return residuals_from_jax(state, self.peers)
+        return self._own_rows(residuals_from_jax(state, self.peers))
 
     # ------------------------------------------------------------ the loop
     def run_step(self, step: int) -> dict:
@@ -205,6 +270,8 @@ class TrainSession:
             while self.step < end and not self.stop_requested:
                 record = self.run_step(self.step)
                 self.step = record["step"] + 1
+                if self.world is not None:
+                    self.stop_requested = self.world.any(self._stop_asked)
                 for cb in self.callbacks:
                     cb.on_step_end(self, record)
                 history.append(record)

@@ -25,6 +25,7 @@ import pathlib
 from ..collectives.engine import SyncConfig
 from ..data.pipeline import DataConfig
 from ..elastic.config import ElasticConfig
+from ..launch.mesh import sync_axes
 from ..optim.adamw import AdamWConfig
 from ..photonics.config import FIDELITIES, MESH_BACKENDS
 from ..serving.config import ServeConfig
@@ -140,8 +141,8 @@ class RunSpec:
 
     def resolved_sync(self) -> SyncConfig:
         """Sync axes canonicalized to the mesh's DP axes."""
-        axes = (("pod", "data") if self.mesh.pods > 1 else ("data",))
-        return dataclasses.replace(self.sync, axes=axes)
+        return dataclasses.replace(self.sync,
+                                   axes=sync_axes(self.mesh.pods))
 
     def _refuse_unported(self) -> None:
         """Name each field the port does not run yet, and the slice that

@@ -53,6 +53,28 @@ At fidelity 'mesh' with noise stds set, the pipeline runs the PhaseNoise
 model (``photonics.pipeline.PhaseNoise``) from a key folded off the
 bucket's sync key (``_noise_key``), so every step and bucket draws its
 own noise; Table-II injection draws from the raw bucket key.
+
+Peers as processes (``world``, a ``launch.distributed.ProcessAxes``):
+each backend takes this rank's (1, m) row and runs the collectives of
+JAX's shard-local program over the named axes.  psum: an all-reduce,
+then the stacked path's division (NCCL sums in its own order, so psum
+is held to a tolerance).  ring: JAX's ``_ring_allreduce_flat`` over
+'pod', then 'data', its 2(N - 1) ``ppermute`` rounds each a send to the
+next rank of the axis, the same chunks and f32 order as ``_ring_sum``.
+optinc and the behavioral cascade (``_quantized_sync_ranks``): the
+rank's ``compute_scale`` and a ``pmax``, the encode of its row, the
+reduce-scatter plan of JAX (``_scatter_plan``: every axis in 16-bit
+lanes where JAX picks int16, else int32; the cascade 'data' first, then
+'pod' in int32) over shards of ceil(L / N) codes, Q(mean) and the
+Table-II injection on the shard (the raw bucket key: every rank draws
+the same pattern, as every JAX device does), the all-gather of the
+averaged codes as uint8 (uint16 above 8 bits), then the decode at n = 1
+and, with error feedback, the rank's own residual row.  The photonic
+paths run the same pipeline levels with ``Preprocess`` summing over the
+level's axes (``world``, ``axes``); every rank then runs the whole ONN
+on the whole bucket, and in the cascade every pod draws the same
+level-0 noise, as in JAX.  Integer sums are exact in any order, so
+every mode but psum is bit-equal to the stacked path.
 """
 from __future__ import annotations
 
@@ -91,12 +113,14 @@ def _block(cfg, m: int) -> int:
     return cfg.block if cfg.block > 0 else m
 
 
-def _shared_scale(x: torch.Tensor, cfg) -> torch.Tensor:
+def _shared_scale(x: torch.Tensor, cfg, world=None) -> torch.Tensor:
     """Per-block max-abs scale shared by all peers: each peer's
-    ``compute_scale``, then the max over the peer dimension (the JAX
-    ``lax.pmax``).  x: (N, m) -> (nblocks,)."""
+    ``compute_scale``, then the max over the peer dimension and, for
+    peers as processes, the JAX ``lax.pmax`` over the sync axes.  x:
+    (N, m) -> (nblocks,)."""
     spec = QuantSpec(bits=cfg.bits, block=cfg.block)
-    return torch.stack([compute_scale(row, spec) for row in x]).amax(dim=0)
+    scale = torch.stack([compute_scale(row, spec) for row in x]).amax(dim=0)
+    return scale if world is None else world.pmax(scale, cfg.axes)
 
 
 def _encode(x: torch.Tensor, scale: torch.Tensor, cfg) -> torch.Tensor:
@@ -172,6 +196,49 @@ def _quantized_sync(x: torch.Tensor, cfg, key=None):
     return _finish(_inject(u_avg, spec, cfg, key, n), 1, u, x, scale, cfg)
 
 
+def lanes16(bits: int, n: int) -> bool:
+    """JAX's reduce-scatter dtype choice: int16 when the n-way sum of
+    B-bit codes fits, (2^B - 2) n < 2^15 (16-bit lanes here)."""
+    return (2 ** bits - 2) * n < 2 ** 15
+
+
+def _scatter_plan(cfg, world) -> list:
+    """JAX's ordered (axis, 16-bit lanes) reduce-scatter schedule: optinc
+    every sync axis in the type of the N-way sum; the cascade its
+    within-pod 'data' level in the type of the dp-way sum, then the
+    other axes in int32."""
+    if cfg.mode == "cascade" and len(cfg.axes) > 1:
+        lvl1 = cfg.axes[-1]
+        return ([(lvl1, lanes16(cfg.bits, world.axis_size(lvl1)))]
+                + [(ax, False) for ax in cfg.axes[:-1]])
+    n = world.axis_size(cfg.axes)
+    return [(ax, lanes16(cfg.bits, n)) for ax in cfg.axes]
+
+
+def _quantized_sync_ranks(x: torch.Tensor, cfg, key, world):
+    """``_quantized_sync`` for peers as processes, in JAX's shard-local
+    structure; x is this rank's (1, m) row, the result the (m,) average
+    and this rank's (1, m) residual row."""
+    n = world.axis_size(cfg.axes)
+    scale = _shared_scale(x, cfg, world)
+    u = _encode(x, scale, cfg)
+    width = u[0].numel()
+    s = -(-width // n)                    # JAX's shard: ceil(L / N) codes
+    parts = F.pad(u.reshape(-1), (0, s * n - width))
+    plan = _scatter_plan(cfg, world)
+    for ax, lanes in plan:
+        parts = world.psum_scatter(parts, ax, lanes)
+    u_avg = torch.round(parts.float() * f32_reciprocal(n)).to(torch.int32)
+    spec = _injection(cfg, key)
+    if spec is not None:
+        hit, which = error_model.draws(key, (s,), spec, u_avg.device)
+        u_avg = error_model.inject_with(u_avg, hit, which, spec, cfg.bits)
+    coded = u_avg.to(torch.uint8 if cfg.bits <= 8 else torch.uint16)
+    for ax, _ in reversed(plan):
+        coded = world.all_gather(coded, ax)
+    return _finish(coded[:width].to(torch.int32), 1, u, x, scale, cfg)
+
+
 def _finish_photonic(u_avg, u, x, scale, cfg, key):
     """Epilogue of both photonic paths: Table-II injection over the whole
     averaged code vector (raw bucket key), then ``_finish`` at n = 1."""
@@ -196,26 +263,29 @@ def _noise_key(key, noise):
     return prng.fold_in(key, 1)
 
 
-def _photonic_sync(x: torch.Tensor, cfg, key=None):
+def _photonic_sync(x: torch.Tensor, cfg, key=None, world=None):
     """The hardware-in-the-loop OptINC path (fidelity 'onn' or 'mesh'):
     the B-bit codes of the N peers run one ``photonics.pipeline`` level
     instead of the integer Q(mean), with the PhaseNoise model when the
-    config sets a noise std."""
-    n = x.shape[0]
+    config sets a noise std (peers as processes: the level's unit P sums
+    over the sync axes)."""
+    n = x.shape[0] if world is None else world.axis_size(cfg.axes)
     ph = cfg.photonics
     module = ph_runtime.get_module(ph, cfg.bits, n, x.device)
-    scale = _shared_scale(x, cfg)
+    scale = _shared_scale(x, cfg, world)
     u = _encode(x, scale, cfg)
     noise = ph_pipeline.PhaseNoise.from_config(ph)
     pipe = ph_pipeline.level_pipeline(module, cfg.bits,
                                       fidelity=ph.fidelity,
                                       mesh_backend=ph.mesh_backend,
-                                      noise=noise, blk_b=ph.blk_b)
-    u_avg = pipe.run(u.reshape(n, -1), key=_noise_key(key, noise)).data
+                                      noise=noise, blk_b=ph.blk_b,
+                                      world=world, axes=cfg.axes)
+    u_avg = pipe.run(u.reshape(x.shape[0], -1),
+                     key=_noise_key(key, noise)).data
     return _finish_photonic(u_avg, u, x, scale, cfg, key)
 
 
-def _photonic_cascade_sync(x: torch.Tensor, cfg, key=None):
+def _photonic_cascade_sync(x: torch.Tensor, cfg, key=None, world=None):
     """The two-level carry cascade through the emulated fabric, x:
     (pods, dp, m).  Level 0 reduces each pod's dp peers and emits the
     eq.-10 decimal part off its analog readout (ONN resolved for n1 =
@@ -223,7 +293,9 @@ def _photonic_cascade_sync(x: torch.Tensor, cfg, key=None):
     pipeline run (one launch a layer) serves every pod.  Level 1 reduces
     over the pods with the carry merged into the least-significant unit-P
     group and quantizes once (ONN resolved for all N, Preprocess over
-    the pods).  The noise keys are ``split(fold_in(key, 1))``."""
+    the pods).  The noise keys are ``split(fold_in(key, 1))``.  Peers as
+    processes: x is this rank's (1, m) row, level 0 sums over 'data'
+    and level 1 over 'pod', every pod with the same level-0 key."""
     if num_symbols(cfg.bits) != 1:
         # the carry rides the least-significant unit-P group, which stays
         # on the ONN's training grid only for one symbol per value
@@ -233,13 +305,16 @@ def _photonic_cascade_sync(x: torch.Tensor, cfg, key=None):
             f"eq.-10 carry is exactly representable on the unit-P grid); "
             f"got bits={cfg.bits}.  Use fidelity='behavioral' for wider "
             f"bit widths")
-    pods, dp, m = x.shape
-    n = pods * dp
+    if world is None:
+        pods, dp = x.shape[:2]
+    else:
+        pods = world.axis_size(cfg.axes[:-1])
+        dp = world.axis_size(cfg.axes[-1])
     ph = cfg.photonics
     mod0 = ph_runtime.get_module(ph, cfg.bits, dp, x.device)
-    mod1 = ph_runtime.get_module(ph, cfg.bits, n, x.device)
+    mod1 = ph_runtime.get_module(ph, cfg.bits, pods * dp, x.device)
     flat = _rows(x)
-    scale = _shared_scale(flat, cfg)
+    scale = _shared_scale(flat, cfg, world)
     u = _encode(flat, scale, cfg)
     width = u[0].numel()
     noise = ph_pipeline.PhaseNoise.from_config(ph)
@@ -248,13 +323,18 @@ def _photonic_cascade_sync(x: torch.Tensor, cfg, key=None):
     if nk is not None:
         nk0, nk1 = prng.split(nk)
     kw = dict(fidelity=ph.fidelity, mesh_backend=ph.mesh_backend,
-              noise=noise, blk_b=ph.blk_b)
-    p0 = ph_pipeline.level_pipeline(mod0, cfg.bits, emit_carry=True, **kw)
-    p1 = ph_pipeline.level_pipeline(mod1, cfg.bits, **kw)
-    u0 = u.reshape(pods, dp, width).transpose(0, 1).reshape(dp, -1)
+              noise=noise, blk_b=ph.blk_b, world=world)
+    p0 = ph_pipeline.level_pipeline(mod0, cfg.bits, emit_carry=True,
+                                    axes=cfg.axes[-1:], **kw)
+    p1 = ph_pipeline.level_pipeline(mod1, cfg.bits, axes=cfg.axes[:-1], **kw)
+    if world is None:       # every pod's level 0 in one run, side by side
+        u0 = u.reshape(pods, dp, width).transpose(0, 1).reshape(dp, -1)
+    else:                   # this rank's codes, summed over its pod
+        u0 = u.reshape(1, width)
+    here = u0.shape[1] // width           # the pods this level 0 holds
     lvl0 = p0.run(u0, key=nk0)
-    u_avg = p1.run(lvl0.data.reshape(pods, width), key=nk1,
-                   frac=lvl0.frac.reshape(pods, width)).data
+    u_avg = p1.run(lvl0.data.reshape(here, width), key=nk1,
+                   frac=lvl0.frac.reshape(here, width)).data
     return _finish_photonic(u_avg, u, flat, scale, cfg, key)
 
 
@@ -262,8 +342,11 @@ class PsumBackend:
     """Exact all-reduce mean over the peers (reference)."""
     name = "psum"
 
-    def sync(self, x, cfg, key=None):
+    def sync(self, x, cfg, key=None, world=None):
         x = _rows(x)
+        if world is not None:
+            n = world.axis_size(cfg.axes)
+            return world.psum(x[0], cfg.axes) / n, None
         return x.sum(dim=0) / x.shape[0], None
 
     def bytes_on_wire(self, nbytes: float, n: int, bits: int) -> float:
@@ -297,13 +380,35 @@ def _ring_sum(x: torch.Tensor) -> torch.Tensor:
     return acc.transpose(0, 1).reshape(*x.shape[1:-1], n * c)[..., :m]
 
 
+def _ring_allreduce_ranks(x: torch.Tensor, world, ax: str) -> torch.Tensor:
+    """JAX's ``_ring_allreduce_flat`` of this rank's (m,) bucket over
+    axis ``ax``: a reduce-scatter, then an all-gather, each (k - 1)
+    ``ppermute`` rounds to the next rank of the axis; chunk c is summed
+    from rank c forward, as ``_ring_sum`` sums it."""
+    k = world.axis_size(ax)
+    if k == 1:
+        return x
+    i, m = world.axis_index(ax), x.shape[0]
+    chunks = F.pad(x, (0, (-m) % k)).reshape(k, -1).clone()
+    for r in range(k - 1):
+        chunks[(i - r - 1) % k] += world.ppermute(chunks[(i - r) % k], ax)
+    for r in range(k - 1):
+        chunks[(i - r) % k] = world.ppermute(chunks[(i + 1 - r) % k], ax)
+    return chunks.reshape(-1)[:m]
+
+
 class RingBackend:
     """Ring all-reduce, the paper's baseline (2(N-1)/N blow-up): one
     ring a sync axis, 'pod' before 'data', then the product with
     f32(1/N)."""
     name = "ring"
 
-    def sync(self, x, cfg, key=None):
+    def sync(self, x, cfg, key=None, world=None):
+        if world is not None:
+            out = x.reshape(-1)
+            for ax in cfg.axes:
+                out = _ring_allreduce_ranks(out, world, ax)
+            return out * f32_reciprocal(world.axis_size(cfg.axes)), None
         n = math.prod(x.shape[:-1])
         out = x
         while out.ndim > 1:
@@ -322,13 +427,16 @@ class OptincBackend:
     through the ONN (the module docstring has the steps)."""
     name = "optinc"
 
-    def sync(self, x, cfg, key=None):
-        """One bucket (*peers, elems); ``key`` is the bucket's sync key,
+    def sync(self, x, cfg, key=None, world=None):
+        """One bucket (*peers, elems), or this rank's (1, elems) row of
+        peers as processes (``world``); ``key`` is the bucket's sync key,
         which the PhaseNoise model (folded) and Table-II injection (raw)
         draw from."""
         x = _rows(x)
         if cfg.photonics.fidelity != "behavioral":
-            return _photonic_sync(x, cfg, key)
+            return _photonic_sync(x, cfg, key, world)
+        if world is not None:
+            return _quantized_sync_ranks(x, cfg, key, world)
         return _quantized_sync(x, cfg, key)
 
     def bytes_on_wire(self, nbytes: float, n: int, bits: int) -> float:
@@ -360,17 +468,19 @@ class CascadeBackend:
     against behavioral on a 100%-accurate ONN.  One sync axis: optinc."""
     name = "cascade"
 
-    def sync(self, x, cfg, key=None):
-        if x.ndim == 2:
+    def sync(self, x, cfg, key=None, world=None):
+        if (x.ndim if world is None else len(cfg.axes) + 1) == 2:
             # N2 == 1 (one pod): level 2 has nothing to merge, so the
             # eq.-10 result is the one-level optinc average
-            return OptincBackend().sync(x, cfg, key)
-        if x.ndim != 3:
+            return OptincBackend().sync(x, cfg, key, world)
+        if world is None and x.ndim != 3:
             raise ValueError(
                 f"cascade sync needs (pods, dp, elems) peers, got "
                 f"{tuple(x.shape)}; run with a (pod, data) mesh")
         if cfg.photonics.fidelity != "behavioral":
-            return _photonic_cascade_sync(x, cfg, key)
+            return _photonic_cascade_sync(x, cfg, key, world)
+        if world is not None:
+            return _quantized_sync_ranks(x, cfg, key, world)
         return _quantized_sync(_rows(x), cfg, key)
 
     def bytes_on_wire(self, nbytes: float, n: int, bits: int,

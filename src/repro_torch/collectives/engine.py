@@ -36,6 +36,13 @@ before quantization and replaced by each peer's quantization error.
 A checkpoint stores it in the JAX package's layout (``residuals_to_jax``
 and ``residuals_from_jax``, the one place that maps the two), and with
 ``SyncConfig.sparse_residuals`` block-sparsely (``pack_residuals``).
+
+Peers as processes (``world``, a ``launch.distributed.ProcessAxes``):
+the stack is this rank's (1, total) row and its residual row, and each
+backend runs its collectives over the sync axes.  Every rank must issue
+its collectives in the same order, so a ``BucketStream`` then launches
+the buckets in the static ``launch_order`` and never lets a ready
+bucket pass an earlier one.
 """
 from __future__ import annotations
 
@@ -51,7 +58,8 @@ from ..tree import leaves as tree_leaves
 from ..tree import unflatten
 from . import backends  # noqa: F401  (registers the four backends)
 from .bucketizer import (DEFAULT_BUCKET_BYTES, bucket_segments,
-                         emission_order, make_layout, unbucketize)
+                         emission_order, launch_order, make_layout,
+                         unbucketize)
 from .registry import get_backend
 
 
@@ -207,12 +215,14 @@ def peer_view(x: torch.Tensor, cfg: SyncConfig, pods: int = 1):
     return x.reshape(pods, x.shape[0] // pods, x.shape[1])
 
 
-def _bucket_sync(backend, flat, residual, bounds, cfg, key, pods):
+def _bucket_sync(backend, flat, residual, bounds, cfg, key, pods, world):
     """One bucket of the (N, total) stack, with its residual slice."""
     s, e = bounds
     x = flat[:, s:e]
     if residual is not None:
         x = x + residual[:, s:e]
+    if world is not None:
+        return backend.sync(x, cfg, key, world)
     return backend.sync(peer_view(x, cfg, pods), cfg, key)
 
 
@@ -228,24 +238,25 @@ def _new_residual(cfg, errs):
 
 def sync_flat(flat: torch.Tensor, bounds, cfg: SyncConfig,
               residual: torch.Tensor | None = None, key=None,
-              pods: int = 1):
+              pods: int = 1, world=None):
     """Sync an (N, total) f32 gradient stack bucket by bucket (the
     barrier path).
 
     ``bounds``: the layout's (start, end) bucket slices; ``key``: the
     step's sync key (``prng``), split into one key a bucket; ``pods``:
-    the size of the 'pod' axis when ``cfg.axes`` has one.  Returns
-    ``(synced, new_residual)``: the (total,) average every peer receives
-    and, when ``cfg.error_feedback`` and the backend reports a
-    quantization error, the (N, total) residual for the next step (None
-    otherwise)."""
+    the size of the 'pod' axis when ``cfg.axes`` has one; ``world``: the
+    ranks of peers as processes, ``flat`` then this rank's (1, total)
+    row.  Returns ``(synced, new_residual)``: the (total,) average every
+    peer receives and, when ``cfg.error_feedback`` and the backend
+    reports a quantization error, the (N, total) residual for the next
+    step (None otherwise)."""
     backend = get_backend(cfg.mode)
     res = residual if cfg.error_feedback else None
     synced = flat.new_empty(flat.shape[1])
     errs = []
     for (s, e), k in zip(bounds, _bucket_keys(key, len(bounds))):
         synced[s:e], err = _bucket_sync(backend, flat, res, (s, e), cfg, k,
-                                        pods)
+                                        pods, world)
         errs.append(err)
     return synced, _new_residual(cfg, errs)
 
@@ -277,13 +288,21 @@ class BucketStream:
     bit for bit.  ``order`` keeps the buckets in the order they were
     launched, ``early`` counts those launched while leaves were still
     outstanding, i.e. before the backward ended; ``finish`` lets go of
-    the tensors, so a finished stream keeps only those two."""
+    the tensors, so a finished stream keeps only those two.
+
+    With ``world`` (peers as processes) a ready bucket waits until every
+    bucket before it in ``launch_order(layout, readiness)`` has been
+    launched, so every rank issues its collectives in one order."""
 
     def __init__(self, layout, cfg: SyncConfig, flat: torch.Tensor,
                  residual: torch.Tensor | None = None, key=None,
-                 pods: int = 1):
+                 pods: int = 1, world=None, readiness=None):
         self.backend = get_backend(cfg.mode)
         self.layout, self.cfg, self.flat, self.pods = layout, cfg, flat, pods
+        self.world = world
+        self.schedule = (launch_order(layout, readiness)
+                         if world is not None else None)
+        self.ready = set()
         self.residual = residual if cfg.error_feedback else None
         nb = layout.n_buckets
         self.keys = _bucket_keys(key, nb)
@@ -307,7 +326,16 @@ class BucketStream:
         for b in self.covers[i]:
             self.waiting[b].discard(i)
             if not self.waiting[b]:
-                self._launch(b)
+                self._ready(b)
+
+    def _ready(self, b: int) -> None:
+        if self.schedule is None:
+            self._launch(b)
+            return
+        self.ready.add(b)
+        while (len(self.order) < len(self.schedule)
+               and self.schedule[len(self.order)] in self.ready):
+            self._launch(self.schedule[len(self.order)])
 
     def _launch(self, b: int) -> None:
         self.order.append(b)
@@ -327,7 +355,7 @@ class BucketStream:
         s, e = self.layout.bounds[b]
         self.synced[s:e], self.errs[b] = _bucket_sync(
             self.backend, self.flat, self.residual, (s, e), self.cfg,
-            self.keys[b], self.pods)
+            self.keys[b], self.pods, self.world)
 
     def finish(self):
         missing = sorted(set(range(self.layout.n_buckets)) - set(self.order))
@@ -348,7 +376,7 @@ class BucketStream:
 
 def sync_gradients(grads, cfg: SyncConfig,
                    residual: torch.Tensor | None = None, key=None,
-                   readiness=None, pods: int = 1):
+                   readiness=None, pods: int = 1, world=None):
     """Synchronize (average) ``grads`` over the peers.
 
     ``grads``: a dict (walked in sorted-key order, like
@@ -361,7 +389,8 @@ def sync_gradients(grads, cfg: SyncConfig,
     order the backward emits them, so the buckets launch in
     ``launch_order``; ``readiness`` (per-leaf emission ranks,
     ``launch.steps.grad_readiness``) overrides its reverse-tree-order
-    model of the backward."""
+    model of the backward.  ``world``: peers as processes, each leaf
+    then this rank's (1, ...) gradient."""
     is_dict = isinstance(grads, dict)
     leaves = tree_leaves(grads) if is_dict else list(grads)
     if not leaves:
@@ -371,12 +400,13 @@ def sync_gradients(grads, cfg: SyncConfig,
                          cfg.bucket_bytes)
     flat = torch.cat([l.reshape(n, -1).float() for l in leaves], dim=1)
     if cfg.overlap:
-        stream = BucketStream(layout, cfg, flat, residual, key, pods)
+        stream = BucketStream(layout, cfg, flat, residual, key, pods,
+                              world, readiness)
         for i in emission_order(layout, readiness):
             stream.leaf_ready(i)
         synced, new_residual = stream.finish()
     else:
         synced, new_residual = sync_flat(flat, layout.bounds, cfg, residual,
-                                         key, pods)
+                                         key, pods, world)
     out = unbucketize([synced], layout)
     return (unflatten(grads, out) if is_dict else out), new_residual

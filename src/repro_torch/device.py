@@ -1,8 +1,12 @@
 """Where the port's entry points run: on CUDA unless the caller names a
-device.  None never falls back to the CPU by itself."""
+device.  None never falls back to the CPU by itself.  A process launched
+as one rank of a run (``launch.distributed.launched``) runs on its own
+card, ``cuda:LOCAL_RANK``."""
 from __future__ import annotations
 
 import torch
+
+from .launch import distributed
 
 
 def resolve(device, who: str) -> torch.device:
@@ -15,4 +19,8 @@ def resolve(device, who: str) -> torch.device:
                 f"available; pass device='cpu' (--device cpu on the command "
                 f"line) to run on the CPU")
         device = "cuda"
-    return torch.device(device)
+    device = torch.device(device)
+    if (device.type == "cuda" and device.index is None
+            and distributed.launched()):
+        return torch.device("cuda", distributed.local_rank())
+    return device

@@ -11,15 +11,24 @@ one ``nvcc`` process per source, all started together.
 
 If ``nvcc`` is missing or a build fails this raises; nothing is
 substituted for a kernel.
+
+The C entries launch on the CURRENT device, on the stream they are
+given, so ``entry`` returns a launcher that takes the tensors' device
+first and makes it current around the call: a tensor on ``cuda:1`` is
+never launched on device 0's context (peers as processes run one card
+each).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -90,10 +99,16 @@ def build(names=None) -> dict:
     return paths
 
 
+def _on_device(fn, device, *args) -> int:
+    with torch.cuda.device(device):
+        return fn(*args)
+
+
 def entry(name: str, symbol: str, argtypes):
     """The C function ``symbol`` of library ``name``, built and loaded on
     first use, with its ``argtypes`` declared and an int return (the
-    ``cudaError_t`` of the launch)."""
+    ``cudaError_t`` of the launch), as ``launch(device, *args)``: the
+    call runs with ``device`` current."""
     fn = _ENTRIES.get((name, symbol))
     if fn is None:
         lib = ctypes.CDLL(str(build([name])[name]))
@@ -101,4 +116,4 @@ def entry(name: str, symbol: str, argtypes):
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
         _ENTRIES[(name, symbol)] = fn
-    return fn
+    return functools.partial(_on_device, fn)

@@ -89,8 +89,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     fn = _build.entry("flash_attention", "flash_attention_fwd", _ARGTYPES)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             lse.data_ptr() if return_lse else None,
+    err = fn(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             out.data_ptr(), lse.data_ptr() if return_lse else None,
              b, h, hkv, sq, skv, hd,
              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
              hd ** -0.5, _DTYPES[q.dtype],
@@ -149,9 +149,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dsum = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     fn = _build.entry("flash_attention_bwd", "flash_attention_bwd",
                       _BWD_ARGTYPES)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             lse.data_ptr(), do.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
-             dk.data_ptr(), dv.data_ptr(), b, h, hkv, sq, skv, hd,
+    err = fn(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             o.data_ptr(), lse.data_ptr(), do.data_ptr(), dsum.data_ptr(),
+             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, hkv, sq, skv,
+             hd,
              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
              *do.stride()[:3], hd ** -0.5, _DTYPES[q.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)

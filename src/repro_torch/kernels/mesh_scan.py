@@ -222,8 +222,8 @@ def mesh_scan_blocks(signs: torch.Tensor, perm: torch.Tensor,
         seeds = torch.where(s >= 2 ** 31, s - 2 ** 32, s).to(torch.int32)
         seed_ptr = seeds.data_ptr()        # read by the kernel as uint32
     fn = _build.entry("mesh_scan", "mesh_scan_blocks", _ARGTYPES)
-    err = fn(x.data_ptr(), signs.data_ptr(), perm.data_ptr(), ca.data_ptr(),
-             sa.data_ptr(),
+    err = fn(x.device, x.data_ptr(), signs.data_ptr(), perm.data_ptr(),
+             ca.data_ptr(), sa.data_ptr(),
              None if post_scale is None else post_scale.data_ptr(),
              seed_ptr, out.data_ptr(), rows, n_blocks, n_layers, m,
              int(x_block_axis), int(transpose), float(theta_std), tile,

@@ -155,8 +155,8 @@ def _sms(index: int) -> int:
 def _launch(x, w, d, b, y, relu: bool, p: Plan) -> None:
     rows, n = x.shape
     fn = _build.entry("onn_layer", "onn_layer", _ARGTYPES)
-    err = fn(x.data_ptr(), w.data_ptr(), d.data_ptr(), b.data_ptr(),
-             y.data_ptr(), rows, n, w.shape[0], int(relu),
+    err = fn(x.device, x.data_ptr(), w.data_ptr(), d.data_ptr(),
+             b.data_ptr(), y.data_ptr(), rows, n, w.shape[0], int(relu),
              FORMS.index(p.form), p.tile, p.grid[0],
              torch.cuda.current_stream(x.device).cuda_stream)
     if err:

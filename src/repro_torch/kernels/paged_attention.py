@@ -154,7 +154,7 @@ def _launch(q, k_pool, v_pool, page_table, lengths, p: Plan):
     part = (torch.empty(b * h * p.n_splits * (hd + 2), dtype=torch.float32,
                         device=q.device) if p.n_splits > 1 else None)
     fn = _build.entry("paged_attention", "paged_attention_fwd", _ARGTYPES)
-    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+    err = fn(q.device, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
              None if part is None else part.data_ptr(),
              b, h, hkv, ps, hd, page_table.shape[1], hd ** -0.5,

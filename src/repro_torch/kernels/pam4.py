@@ -120,8 +120,8 @@ def pam4_quantize_encode(g: torch.Tensor, scale: torch.Tensor, bits: int,
         return u.fill_(2 ** (bits - 1) - 1)
     form = encode_form(rows, g.stride(0), block, g.data_ptr())
     fn = _build.entry("pam4", "pam4_encode", _ENCODE_ARGTYPES)
-    err = fn(g.data_ptr(), scale.data_ptr(), u.data_ptr(), rows, m,
-             g.stride(0), nb, block, bits, FORMS.index(form),
+    err = fn(g.device, g.data_ptr(), scale.data_ptr(), u.data_ptr(), rows,
+             m, g.stride(0), nb, block, bits, FORMS.index(form),
              torch.cuda.current_stream(g.device).cuda_stream)
     if err:
         raise RuntimeError(f"pam4_quantize_encode kernel launch failed "
@@ -170,8 +170,9 @@ def pam4_decode_dequantize(total: torch.Tensor, scale: torch.Tensor,
     form = decode_form(rows, m, ld, block, base_ptr, out.data_ptr(),
                        total.data_ptr())
     fn = _build.entry("pam4", "pam4_decode", _DECODE_ARGTYPES)
-    err = fn(total.data_ptr(), scale.data_ptr(), base_ptr, out.data_ptr(),
-             rows, m, ld, nb, block, bits, n, FORMS.index(form),
+    err = fn(total.device, total.data_ptr(), scale.data_ptr(), base_ptr,
+             out.data_ptr(), rows, m, ld, nb, block, bits, n,
+             FORMS.index(form),
              torch.cuda.current_stream(total.device).cuda_stream)
     if err:
         raise RuntimeError(f"pam4_decode_dequantize kernel launch failed "

@@ -19,6 +19,15 @@ into the stack as the backward produces it and report it to an
 ``engine.BucketStream``, which launches every bucket whose leaves are
 all written (on the card on a side CUDA stream, overlapping the rest of
 that backward).  The result is the barrier path's, bit for bit.
+
+Peers as processes (``world``, ``launch.distributed``): rank r is peer
+r and takes rows [r B/N, (r+1) B/N) of the global batch, as the stacked
+loop's peer r does; its (1, total) gradient row goes through the
+backends' collectives, and with overlap its own backward's hooks feed
+the stream.  The loss is the mean of the ranks' losses gathered in
+rank order (the stacked sum, bit for bit; an all-reduce would sum in
+NCCL's order).  Clipping and AdamW run on the synced gradients, which
+every rank holds alike, so the parameters stay replicated.
 """
 from __future__ import annotations
 
@@ -105,35 +114,47 @@ def peer_grad_stack(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
 
 def make_train_step(cfg: ModelConfig, peers: int, sync: SyncConfig,
-                    opt: AdamWConfig, device="cuda", pods: int = 1):
+                    opt: AdamWConfig, device="cuda", pods: int = 1,
+                    world=None):
     """Returns ``step(params, opt_state, sync_state, tokens, key=None) ->
     (params, opt_state, sync_state, metrics)`` over ``peers`` = pods * dp
     peers; tokens: (B, t + 1) on ``device`` with B a multiple of
     ``peers``; ``key``: the step's sync key (``prng``; the PhotonicsConfig
     noise and Table-II injection draw from it); metrics: {"loss",
     "grad_norm"}.  With ``sync.overlap`` each call leaves its
-    ``BucketStream`` in ``step.last_stream`` (launch order, ``early``)."""
+    ``BucketStream`` in ``step.last_stream`` (launch order, ``early``).
+    ``world``: this process is one peer of ``peers`` processes (its
+    sync state the (1, total) residual row, tokens the global batch)."""
     shapes = leaves(lm.param_shapes(cfg))
     layout = make_layout([(s, lm.torch_dtype(cfg)) for s in shapes],
                          sync.bucket_bytes)
+    local = peers if world is None else 1
 
     def grads_and_sync(params, tokens, residual, key):
+        if world is not None:
+            per = tokens.shape[0] // peers
+            tokens = tokens[world.rank * per:(world.rank + 1) * per]
         if not sync.overlap:
-            losses, flat = peer_grad_stack(cfg, params, tokens, peers,
+            losses, flat = peer_grad_stack(cfg, params, tokens, local,
                                            layout.total)
             return losses, flat, *sync_flat(flat, layout.bounds, sync,
-                                            residual, key, pods)
-        flat = torch.empty((peers, layout.total), dtype=torch.float32,
+                                            residual, key, pods, world)
+        flat = torch.empty((local, layout.total), dtype=torch.float32,
                            device=tokens.device)
-        stream = BucketStream(layout, sync, flat, residual, key, pods)
+        stream = BucketStream(layout, sync, flat, residual, key, pods, world)
         step.last_stream = stream
-        losses, _ = peer_grad_stack(cfg, params, tokens, peers, layout.total,
+        losses, _ = peer_grad_stack(cfg, params, tokens, local, layout.total,
                                     stream.leaf_ready, flat)
         return losses, flat, *stream.finish()
 
     def step(params, opt_state, sync_state, tokens, key=None):
+        if tokens.shape[0] % peers:
+            raise ValueError(f"global batch {tokens.shape[0]} is not "
+                             f"divisible by {peers} peers")
         losses, flat, synced, residual = grads_and_sync(
             params, tokens.to(device), sync_state.get("rep"), key)
+        if world is not None:
+            losses = world.gather_rows(losses)
         if sync.error_feedback:
             sync_state = {"rep": residual if residual is not None
                           else torch.zeros_like(flat)}

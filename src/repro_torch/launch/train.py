@@ -1,8 +1,8 @@
 """Training entry point of the port (counterpart of
 ``repro.launch.train``), a thin client of ``repro_torch.api``:
-data-parallel training over N peers stacked on one card, gradients
-averaged by the OptINC collective, its two-level cascade, a ring
-all-reduce or psum.
+data-parallel training over N peers stacked on one card (or N
+processes, one a card), gradients averaged by the OptINC collective,
+its two-level cascade, a ring all-reduce or psum.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch paper_llama \\
       --sync optinc --bits 8 --block 2048 --mesh 4x1 --global-batch 32 \\
@@ -54,6 +54,16 @@ all-reduce or psum.
       --sync optinc --mesh 4x1 --error-feedback --steps 10 \\
       --ckpt-dir results/ckpt/paper_llama --ckpt-every 5 [--resume]
 
+  # peers as processes, one per card: 4 ranks of one peer each, the
+  # sync over NCCL (the codes reduce-scattered in 16-bit lanes, the
+  # averaged codes all-gathered as uint8, the ring's ppermute rounds);
+  # rank 0 prints the step lines and, at the end, a line of what each
+  # rank sent and launched.  --device cpu runs gloo ranks on the CPU
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc-per-node 4 -m repro_torch.launch.train --arch paper_llama \\
+      --sync optinc --bits 8 --mesh 4x1 --error-feedback \\
+      --global-batch 32 --seq-len 512 --steps 10  # or --sync ring, ...
+
   # a whole scenario from a RunSpec JSON file (flags override it)
   PYTHONPATH=src python -m repro_torch.launch.train --spec my_run.json
 
@@ -69,7 +79,10 @@ is ``repro_torch.api.TrainSession``.  Each step prints one JSON line
 ``{"step", "loss", "time_s"}`` like the JAX CLI.  A JAX flag the port
 does not run yet exits with an error naming the piece that is not
 ported.  The run raises when there is no CUDA device and no --device.
-Parameters are seeded from ``--seed`` with a ``torch.Generator`` (not
+Under ``torch.distributed.run`` (WORLD_SIZE, RANK and LOCAL_RANK set)
+each process is one peer of ``pods * dp`` (``api.session``), on its
+own card; the world must be that size.  Parameters are seeded from
+``--seed`` with a ``torch.Generator`` (not
 ``jax.random``): ``run(opts, params=...)`` takes parameters carried
 across from JAX instead.  Step i's sync key is
 ``prng.fold_in(prng.PRNGKey(seed + 1), i)``, the JAX session's key tree.
@@ -80,6 +93,7 @@ import argparse
 import sys
 
 from ..api import RunSpec, SpecError, TrainSession, default_callbacks
+from . import distributed
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -121,7 +135,10 @@ def run(opts: argparse.Namespace, params=None, cfg=None, out=None,
         # a bad spec, a mismatched checkpoint, or an ONN that cannot be
         # resolved (with the JAX guidance): before the first step
         raise SystemExit(f"error: {e}")
-    return session.run()
+    try:
+        return session.run()
+    finally:
+        session.close()
 
 
 def main(argv=None) -> int:
@@ -130,4 +147,7 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    code = main()
+    if distributed.launched():
+        distributed.exit_rank(code)
+    sys.exit(code)

@@ -9,7 +9,9 @@ dimension:
                 input values (eq. 2); an incoming eq.-10 carry rides on
                 the least-significant group
     Preprocess  unit P: the exact sum over the peer dimension / N (the
-                single-card form of the JAX ``lax.psum`` over 'data')
+                single-card form of the JAX ``lax.psum`` over 'data');
+                for peers as processes this rank's values summed over
+                the level's axes (``ProcessAxes.psum``), JAX's form
     MeshApply   the in-network ONN: the trained dense forward ('onn'),
                 one ``onn_layer`` launch per layer, or the phase-
                 programmed MZI mesh emulator ('mesh'), one ``mesh_scan``
@@ -142,11 +144,18 @@ class Encode:
 class Preprocess:
     """Unit P over the stacked peers: (N, L, K) -> (L, K), the sum over
     the peer dimension times f32(1/N).  The grouped values are small
-    integers, so the f32 sum is exact in any order."""
+    integers, so the f32 sum is exact in any order.  With ``world``
+    (peers as processes) the rank's (1, L, K) values are summed over
+    ``axes`` and N is their size."""
+    world: object = None            # launch.distributed.ProcessAxes
+    axes: tuple = ()
 
     def apply(self, carry: Carry, key=None) -> Carry:
-        n = carry.data.shape[0]
-        return Carry(carry.data.sum(dim=0) * f32_reciprocal(n))
+        total, n = carry.data.sum(dim=0), carry.data.shape[0]
+        if self.world is not None:
+            total = self.world.psum(total, self.axes)
+            n = self.world.axis_size(self.axes)
+        return Carry(total * f32_reciprocal(n))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -215,12 +224,14 @@ class SyncPipeline:
 def level_pipeline(module, bits: int, fidelity: str = "onn",
                    mesh_backend: str | None = None,
                    noise: PhaseNoise | None = None,
-                   emit_carry: bool = False, blk_b: int = 0) -> SyncPipeline:
+                   emit_carry: bool = False, blk_b: int = 0,
+                   world=None, axes: tuple = ()) -> SyncPipeline:
     """The Encode -> Preprocess -> MeshApply -> Readout -> Decode pipeline
-    of one reduction level over the stacked peers."""
+    of one reduction level over the stacked peers, or over the ``axes``
+    of peers as processes (``world``)."""
     return SyncPipeline(stages=(
         Encode(bits=bits, k_inputs=module.cfg.k_inputs),
-        Preprocess(),
+        Preprocess(world=world, axes=tuple(axes)),
         MeshApply(module=module, fidelity=fidelity,
                   mesh_backend=mesh_backend, noise=noise, blk_b=blk_b),
         Readout(transceiver=module.transceiver, emit_carry=emit_carry),
