@@ -172,6 +172,23 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    chip_smoke.py --psum-grads <file>`` under torchrun) within PSUM_ULPS
    spacings of the stacked sum.  With one card the phase prints that
    the 4-rank part needs 4 cards.
+   4i. FSDP, tensor parallelism and remat groups (``sharded_full_width``;
+   alone ``sharded_alone``): deepseek_coder_33b at its published widths
+   with 2 layers as a world of one on NCCL (``--fsdp --remat-groups 2
+   --sync optinc --bits 8``, one sequence of 4096, 5 steps; its
+   ``--train-layers`` rank worker cuts the depth): finite, falling
+   losses, step p50, tokens/s, peak memory, launches; paper_llama's
+   ``--fsdp`` world of one against the stacked 1-peer ``--fsdp`` run and
+   ``--remat-groups 2`` against none, bit for bit; the flash forward and
+   backward at deepseek's shape (hd 128, t 4096, bf16) against their
+   plain versions, timed beside SDPA and the bound.  With 4 cards: (a)
+   ``--pods 2 --mesh 2x1 --fsdp --error-feedback`` as 4 ranks against 4
+   stacked peers, bit for bit; (b) ``--mesh 2x2``: step 0's loss against
+   the stacked dp-2 run's, the model-sharded leaves' step-0 gradients 2x
+   the tp-1 ones (a ``--tp-grads`` rank worker), falling losses; (c)
+   deepseek_coder_33b with 8 layers on ``--mesh 2x2 --fsdp``; every
+   run's bytes a rank a step by axis, op and dtype equal to those
+   derived from the shapes.
 5. Card vs plain end to end: the f32 model with the same weights served
    through the kernels on the card and through the plain path on the
    CPU; teacher-forced logits must agree, greedy tokens must agree up to
@@ -2889,6 +2906,442 @@ def processes_alone(card: str) -> None:
     processes_full_width(card)
 
 
+# --------------------------- phase 4i: FSDP, tensor parallelism, remat
+# deepseek_coder_33b at its published widths, depth cut (one card: 2
+# layers; 4 cards: 8), one sequence of 4096 tokens a data peer.  lr 1e-5:
+# at the CLI's 3e-4 (paper_llama's) AdamW's first, sign-like step moves
+# each of the 7168 or 19200 inputs of an output by lr and the loss went
+# 11.821 -> 22.602 at step 1 (NVIDIA H100 80GB HBM3, 700 W)
+DSC_ARGV = ["--arch", "deepseek_coder_33b", "--sync", "optinc", "--bits",
+            "8", "--fsdp", "--remat-groups", "2", "--seq-len", "4096",
+            "--lr", "1e-5", "--device", "cuda"]
+DSC_STEPS = 5
+SHARD_STEPS = 3        # the one-card paper_llama checks
+TP_STEPS = 10          # (b): paper_llama --mesh 2x2
+# (b) bf16: the step-0 loss at tp 2 against the stacked dp 2 run (the
+# vocab-sharded log-sum-exp and the row-parallel psums add in another
+# order; the loss is O(10)), and each model-sharded leaf's local
+# gradient against 2 x its tp-1 shard, relative to the leaf's largest
+# entry (bf16 products rounded at other points of the sums).  Set from
+# the H100 readings (loss 4.96e-5, gradients 7.25e-3; PERF.md section 2)
+# with room on each side; the step-0 loss is about ln(vocab) + 0.05, so
+# a forward that loses a 'model' psum moves it by far less than 1e-2
+TP_LOSS_TOL = 1e-3
+TP_GRAD_RTOL = 2e-2
+# The flash forward at a 4096-long row, each (head, row) against its own
+# scale: a late row's outputs average thousands of values (|o| ~ 0.03),
+# so an absolute bound at the bf16 spacing of O(1) outputs would be as
+# large as they are.  max |o - ref| over a row <= FLASH_ROW_TOL * max
+# |ref| over it (one bf16 spacing at a row's largest value is 2^-8 to
+# 2^-7 of it; each side rounds once, and the kernel rounds P to bf16 for
+# the PV product), and mean |o - ref| <= FLASH_MEAN_TOL * mean |ref|,
+# beside the absolute KERNEL_TOL bound of every bf16 case
+FLASH_ROW_TOL = 2 ** -6
+FLASH_MEAN_TOL = 2 ** -8
+
+
+def train_layers_rank(layers: int, argv) -> None:
+    """One rank of a phase-4i run (under torchrun): the training entry
+    point on ``argv`` with the model's depth cut to ``layers``
+    (``train.run``'s ``cfg``); rank 0 prints the step lines and the rank
+    report."""
+    from repro_torch.launch import distributed, train
+    opts = train.parse_args(argv)
+    cfg = dataclasses.replace(opts.spec.model_config(), n_layers=layers)
+    train.run(opts, cfg=cfg)
+    distributed.exit_rank(0)
+
+
+def layers_run(nproc: int, layers: int, argv, steps: int):
+    """``steps`` steps of ``argv`` with ``layers`` layers as ``nproc``
+    processes (``train_layers_rank``): rank 0's records and report."""
+    rc, out, err, wall = torchrun(nproc, [
+        str(ROOT / "chip_smoke.py"), "--train-layers", str(layers), *argv,
+        "--steps", str(steps)], timeout=900)
+    lines = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+    recs = [x for x in lines if "step" in x]
+    reports = [x for x in lines if "ranks" in x]
+    if rc != 0 or not reports or [r["step"] for r in recs] != list(
+            range(steps)):
+        raise AssertionError(f"torchrun {nproc} x {layers} layers "
+                             f"{' '.join(argv)}: exit {rc}\n{out[-3000:]}"
+                             f"\n{err[-6000:]}")
+    return recs, reports[0], wall
+
+
+def derived_shard_bytes(cfg, ctx, b: int, t: int, layer_runs: float) -> dict:
+    """The bytes a rank hands each collective of the model in one step,
+    from the shapes ("axis/op:dtype"): the FSDP all-gathers of every
+    forward run of a layer (``layer_runs`` layer forwards a step, remat
+    recomputes included) plus the embedding and head once, their
+    reduce-scatters once; the 'model' psums of the attention and MLP
+    outputs (b, t, d) a layer forward and again a backward, and of the
+    embedding; the loss's two (b, t) f32 psums both ways, its (b, t)
+    pmax, and the clip's scalar."""
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves_with_paths
+    dt = str(lm.torch_dtype(cfg)).removeprefix("torch.")
+    e = 2 if dt == "bfloat16" else 4
+    out = {}
+    if ctx.fsdp and ctx.dp > 1:
+        local = dict(leaves_with_paths(lm.local_param_shapes(cfg, ctx)))
+        masks = lm.fsdp_leaves(cfg, ctx)
+        once = layer = 0
+        for (path, shp), m in zip(local.items(), masks):
+            if not m:
+                continue
+            n = math.prod(shp) * ctx.dp * e
+            if path[0] == "layers":
+                layer += n // shp[0]
+            else:
+                once += n
+        out[f"data/all_gather:{dt}"] = once + layer * layer_runs
+        out[f"data/psum_scatter:{dt}"] = once + layer * cfg.n_layers
+    if ctx.tp > 1:
+        act = b * t * cfg.d_model * e
+        out[f"model/psum:{dt}"] = act * (2 * layer_runs + 2 * cfg.n_layers
+                                         + 2)
+        out["model/psum:float32"] = 16 * b * t + 4
+        out["model/pmax:float32"] = 4 * b * t
+    return out
+
+
+def check_shard_bytes(label: str, cfg, spec, report, steps: int,
+                      layer_runs: float, card: str) -> None:
+    """Per rank and step, the bytes handed to each collective by axis, op
+    and dtype beside ``derived_shard_bytes``; the derived ones must
+    match."""
+    ctx = spec.mesh.ctx()
+    b = spec.data.global_batch // spec.mesh.peers
+    want = derived_shard_bytes(cfg, ctx, b, spec.data.seq_len, layer_runs)
+    for r in report["ranks"]:
+        got = {k: v / steps for k, v in r["axis_bytes"].items()}
+        print(f"4i {label}: rank {r['rank']} bytes a step by axis/op:dtype "
+              f"{got}; derived from the shapes {want} [{card}]", flush=True)
+        bad = {k: (got.get(k), v) for k, v in want.items()
+               if got.get(k) != v}
+        if bad:
+            raise AssertionError(f"4i {label}: rank {r['rank']} bytes "
+                                 f"(measured, derived) {bad}")
+
+
+def tp_grads_rank(out_dir: str) -> None:
+    """One rank of phase 4i (b)'s gradient check (paper_llama --mesh 2x2
+    under torchrun): its local step-0 gradients before the sync; rank 0
+    also the tp-1 gradients of each data peer's rows on the whole
+    weights.  Each written to ``out_dir``."""
+    import torch
+    from repro_torch.api import TrainSession
+    from repro_torch.launch import distributed, train
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves, unflatten
+    opts = train.parse_args(TRAIN_ARGV + ["--mesh", "2x2", "--steps", "1"])
+    sess = TrainSession(opts.spec, callbacks=[], device=opts.device)
+    world, ctx = sess.world, sess.ctx
+    tokens = torch.from_numpy(sess.data.batch(0)).to(sess.device)
+    per = tokens.shape[0] // sess.peers
+    _, d, _ = world.coords
+    rows = lambda p: {"tokens": tokens[p * per:(p + 1) * per]}
+    train_ = [t.detach().requires_grad_() for t in leaves(sess.params)]
+    loss, _ = lm.loss_fn(sess.cfg, unflatten(sess.params, train_),
+                         rows(d), ctx, world)
+    grads = torch.autograd.grad(loss, train_)
+    torch.save([g.cpu() for g in grads], Path(out_dir) / f"r{world.rank}.pt")
+    if world.rank == 0:
+        whole = lm.init_params(sess.cfg, opts.spec.seed, sess.device)
+        one = []
+        for p in range(sess.peers):
+            ps = [t.detach().requires_grad_() for t in leaves(whole)]
+            loss1, _ = lm.loss_fn(sess.cfg, unflatten(whole, ps), rows(p))
+            one.append([g.cpu() for g in torch.autograd.grad(loss1, ps)])
+        torch.save(one, Path(out_dir) / "tp1.pt")
+    distributed.shutdown()
+    distributed.exit_rank(0)
+
+
+def check_tp_grads(card: str) -> None:
+    """(b)'s property of the reference: every model-sharded leaf's local
+    pre-sync gradient is 2 x the tp-1 gradient's shard (JAX transposes
+    psum into psum under check_vma=False)."""
+    import shutil
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    out = ROOT / "build" / "tp_grads"
+    out.mkdir(parents=True, exist_ok=True)
+    rc, o, e, _ = torchrun(4, [str(ROOT / "chip_smoke.py"), "--tp-grads",
+                               str(out)])
+    if rc != 0:
+        raise AssertionError(f"4i tp gradients: exit {rc}\n{e[-6000:]}")
+    spec = train.parse_args(TRAIN_ARGV + ["--mesh", "2x2"]).spec
+    cfg, ctx = spec.model_config(), spec.mesh.ctx()
+    one = torch.load(out / "tp1.pt")
+    specs = lm.spec_leaves(cfg, ctx)
+    worst = 0.0
+    for r in range(4):
+        got = torch.load(out / f"r{r}.pt")
+        pod, d, m = r // 4, r // 2 % 2, r % 2
+        for i, sp in enumerate(specs):
+            if "model" not in sp:
+                continue
+            want = 2 * lm.shard_leaf(one[d][i].float(), sp, ctx, (pod, 0, m))
+            rel = float((got[i].float() - want).abs().max()
+                        / want.abs().max())
+            worst = max(worst, rel)
+    shutil.rmtree(out)
+    print(f"4i (b) model-sharded leaves' step-0 local gradients at tp 2 "
+          f"against 2 x the tp-1 shards, 4 ranks: max |diff| / max|grad| "
+          f"{worst:.3e} (tol {TP_GRAD_RTOL}) [{card}]", flush=True)
+    if not worst <= TP_GRAD_RTOL:
+        raise AssertionError(f"4i (b) tp gradients: {worst}")
+
+
+def row_and_mean_errs(o, want) -> tuple:
+    """(max over (head, row) of max |o - want| / max |want| on the row,
+    mean |o - want| / mean |want|): the forward's readings against
+    FLASH_ROW_TOL and FLASH_MEAN_TOL."""
+    err, mag = (o.float() - want.float()).abs(), want.float().abs()
+    return ((err.amax(-1) / mag.amax(-1).clamp_min(1e-30)).max().item(),
+            (err.mean() / mag.mean()).item())
+
+
+def flash_dropped_tile(q, k, v, rows_from: int, keys: tuple):
+    """The plain forward with keys [keys[0], keys[1]) left out of every
+    row from ``rows_from`` on: what a kernel that skips or misplaces one
+    KV tile of the long rows would give."""
+    import torch
+    from repro_torch.kernels import ref
+    s, _ = ref._causal_scores(q, k)
+    s[..., rows_from:, keys[0]:keys[1]] = ref.NEG_INF
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    out = torch.einsum("bgrqk,bgkd->bgrqd", p, v.float()) / p.sum(
+        dim=-1, keepdim=True)
+    return out.reshape(q.shape).to(q.dtype)
+
+
+def check_flash_hd128(card: str) -> dict:
+    """The flash forward and backward at deepseek_coder_33b's shape (56
+    heads, 8 KV heads, hd 128, one sequence of 4096, bf16) against their
+    plain versions, timed beside SDPA (GQA) and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import attention, ref
+    shape = (1, 56, 8, 128, 4096, 4096, torch.bfloat16)
+    q, k, v = flash_case(*shape, SEED)
+    g = torch.Generator().manual_seed(SEED + 1)
+    do = torch.randn((1, 56, 4096, 128), generator=g).bfloat16().cuda()
+    o, lse = attention.flash_attention(q, k, v, return_lse=True)
+    wo, wl = ref.attention_fwd_ref(q, k, v)
+    f_err = (o.float() - wo.float()).abs().max().item()
+    f_row, f_mean = row_and_mean_errs(o, wo)
+    # two planted faults through the plain version: the limits must
+    # tell them from the kernel
+    faults = [row_and_mean_errs(flash_dropped_tile(q, k, v, r0, ks), wo)
+              for r0, ks in ((3000, (1024, 1088)), (4032, (3968, 4032)))]
+    l_err = (lse - wl).abs().max().item()
+    got = attention.flash_attention_bwd(q, k, v, o, lse, do)
+    want = ref.attention_bwd_ref(q, k, v, o, lse, do)
+    rel = max(((a.float() - w.float()).abs().max() / w.float().abs().max())
+              .item() for a, w in zip(got, want))
+    del wo, wl, want
+    torch.cuda.synchronize()
+    ins = copies_for([q, k, v, o, lse, do])
+    fwd = time_ms(lambda q, k, v, *_: attention.flash_attention(
+        q, k, v, return_lse=True), ins, iters=20)[0]
+    fwd_plain = time_ms(lambda q, k, v, *_: ref.attention_fwd_ref(q, k, v),
+                        ins, iters=3)[0]
+    sdpa = time_ms(lambda q, k, v, *_: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), ins, iters=20)[0]
+    bwd = time_ms(attention.flash_attention_bwd, ins, iters=20)[0]
+    bwd_plain = time_ms(ref.attention_bwd_ref, ins, iters=3)[0]
+    f_bound, b_bound = flash_bounds(*shape, True), flash_bwd_bounds(*shape)
+    print(f"4i flash at deepseek_coder_33b's shape b=1 h=56 hkv=8 hd=128 "
+          f"t=4096 bf16: forward max over rows of max|err| / max|ref| "
+          f"{f_row:.3e} (tol {FLASH_ROW_TOL:.3e}), mean|err| / mean|ref| "
+          f"{f_mean:.3e} (tol {FLASH_MEAN_TOL:.3e}), max_abs_err "
+          f"{f_err:.3e} (tol {KERNEL_TOL['bfloat16']}) (planted: keys 1024-1087 left out of rows >= "
+          f"3000 read {faults[0][0]:.3e} / {faults[0][1]:.3e}, keys "
+          f"3968-4031 out of rows >= 4032 {faults[1][0]:.3e} / "
+          f"{faults[1][1]:.3e}), lse {l_err:.3e}, {fwd:.3f} ms "
+          f"(plain {fwd_plain:.3f} ms, sdpa {sdpa:.3f} ms, bound "
+          f"{f_bound[0]:.3f} ms {f_bound[1]}); backward max_abs_err / "
+          f"max|grad| {rel:.3e} (tol {BWD_TOL['bfloat16']}), {bwd:.3f} ms "
+          f"(plain {bwd_plain:.3f} ms, bound {b_bound[0]:.3f} ms "
+          f"{b_bound[1]}) [{card}]", flush=True)
+    if not (f_err <= KERNEL_TOL["bfloat16"]
+            and f_row <= FLASH_ROW_TOL and f_mean <= FLASH_MEAN_TOL
+            and all(r > FLASH_ROW_TOL for r, _ in faults)
+            and l_err <= KERNEL_TOL["float32"]
+            and rel <= BWD_TOL["bfloat16"]):
+        raise AssertionError(f"4i flash hd 128: {f_row}, {f_mean}, {l_err}, "
+                             f"{rel}, planted {faults}")
+    return {"fwd_ms": fwd, "bwd_ms": bwd}
+
+
+def dsc_stats(recs, report, tokens: int) -> str:
+    times = [r["time_s"] for r in recs[1:]]
+    p50 = pct(times, 0.5)
+    peak = max(r["peak_bytes"] for r in report["ranks"])
+    return (f"losses {report['losses']}; step p50 {p50 * 1e3:.1f} ms p99 "
+            f"{pct(times, 0.99) * 1e3:.1f} ms, {tokens / p50:.1f} tokens/s; "
+            f"peak memory a rank {[r['peak_bytes'] for r in report['ranks']]}"
+            f" bytes (max {peak / 2 ** 30:.2f} GiB)")
+
+
+def check_falling(label: str, losses) -> None:
+    if not (all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"4i {label}: losses {losses}")
+
+
+def fsdp_pods_vs_stacked(card: str) -> None:
+    """Phase 4i (a): FSDP over 2 pods of 2 as 4 ranks against 4 stacked
+    peers, bit for bit, saving a checkpoint (rank 0 gathers the global
+    state) every PROC_STEPS // 2 steps; then the run resumed on 4 ranks
+    from the middle checkpoint gives the last steps' losses bit for
+    bit."""
+    import shutil
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.launch import train
+    argv = ["--pods", "2", "--mesh", "2x1", "--fsdp", "--error-feedback"]
+    srecs, stacked = train_run(argv, PROC_STEPS)
+    ck = ROOT / "build" / "ckpt_4i_a"
+    shutil.rmtree(ck, ignore_errors=True)
+    half = PROC_STEPS // 2
+    save = ["--ckpt-dir", str(ck), "--ckpt-every", str(half)]
+    recs, report, wall = process_run(4, argv + save)
+    spec = train.parse_args(TRAIN_ARGV + argv).spec
+    print(f"4i (a) paper_llama {' '.join(argv)}, 4 ranks vs 4 stacked "
+          f"peers, {PROC_STEPS} steps ({wall:.1f} s of torchrun): losses "
+          f"bit-equal {report['losses'] == stacked}; process "
+          f"{step_stats(recs)}; stacked {step_stats(srecs)} [{card}]",
+          flush=True)
+    check_shard_bytes("(a)", spec.model_config(), spec, report, PROC_STEPS,
+                      spec.model_config().n_layers, card)
+    if report["losses"] != stacked:
+        raise AssertionError(f"4i (a): {report['losses']} vs {stacked}")
+    last = latest_step(ck)
+    size = _npz_bytes(ck, last)
+    shutil.rmtree(ck / f"step_{last}")
+    rc, out, err, rwall = torchrun(4, [
+        "-m", "repro_torch.launch.train", *TRAIN_ARGV, *argv, *save,
+        "--resume", "--steps", str(PROC_STEPS)])
+    lines = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+    steps_run = [x["step"] for x in lines if "step" in x]
+    resumed = [x["losses"] for x in lines if "ranks" in x]
+    shutil.rmtree(ck)
+    print(f"4i (a) the 4 ranks' checkpoint of step {half - 1} ({size} bytes "
+          f"of arrays.npz, written by rank 0 from the gathered shards) "
+          f"resumed on 4 ranks ({rwall:.1f} s of torchrun): steps "
+          f"{steps_run}, losses bit-equal to the uninterrupted run "
+          f"{resumed == [report['losses'][half:]]} [{card}]", flush=True)
+    if (rc != 0 or steps_run != list(range(half, PROC_STEPS))
+            or resumed != [report["losses"][half:]]):
+        raise AssertionError(f"4i (a) resume: exit {rc}, steps {steps_run}, "
+                             f"{resumed}\n{out[-3000:]}\n{err[-6000:]}")
+
+
+def sharded_full_width(card: str) -> dict:
+    """Phase 4i: FSDP, tensor parallelism and remat groups over a (pod,
+    data, model) mesh of processes.  One card: deepseek_coder_33b at its
+    published widths (2 layers) as a world of one with --fsdp
+    --remat-groups 2; paper_llama --fsdp as a world of one against the
+    stacked 1-peer --fsdp run, bit for bit; --remat-groups 2 against
+    none; the flash kernels at hd 128.  4 cards: (a) --pods 2 --mesh 2x1
+    --fsdp --error-feedback against 4 stacked peers, bit for bit; (b)
+    --mesh 2x2 against the stacked dp 2 run and the x2 gradients; (c)
+    deepseek_coder_33b at 8 layers on a 2 x 2 mesh with FSDP.  Returns
+    the launch counts of the world-of-one deepseek run."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.launch import train
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dsc = get("deepseek_coder_33b")
+    argv = DSC_ARGV + ["--mesh", "1x1", "--global-batch", "1"]
+    recs, report, wall = layers_run(1, 2, argv, DSC_STEPS)
+    launches = report["ranks"][0]["launches"]
+    print(f"4i deepseek_coder_33b (d 7168, 56/8 heads, d_ff 19200, vocab "
+          f"32256; 2 layers) world of one on NCCL, --fsdp --remat-groups 2 "
+          f"--sync optinc --bits 8, seq 4096, {DSC_STEPS} steps "
+          f"({wall:.1f} s of torchrun): {dsc_stats(recs, report, 4096)}; "
+          f"launches { {k: v for k, v in launches.items() if v} } [{card}]",
+          flush=True)
+    check_falling("deepseek_coder_33b world of one", report["losses"])
+    idle = [k for k in _train_counters() if not launches.get(k)]
+    if idle:
+        raise AssertionError(f"4i: the deepseek run launched no {idle}")
+    one = ["--mesh", "1x1", "--fsdp"]
+    _, stacked = train_run(one, SHARD_STEPS)
+    _, rep1, _ = process_run(1, one, SHARD_STEPS)
+    print(f"4i paper_llama --fsdp --mesh 1x1, world of one vs the stacked "
+          f"1-peer --fsdp run, {SHARD_STEPS} steps: losses bit-equal "
+          f"{rep1['losses'] == stacked} ({rep1['losses']}) [{card}]",
+          flush=True)
+    if rep1["losses"] != stacked:
+        raise AssertionError(f"4i fsdp world of one: {rep1['losses']} vs "
+                             f"{stacked}")
+    _, plain = train_run(["--mesh", "1x1"], SHARD_STEPS)
+    _, remat = train_run(["--mesh", "1x1", "--remat-groups", "2"],
+                         SHARD_STEPS)
+    print(f"4i paper_llama (8 layers) --remat-groups 2 vs none, stacked "
+          f"1 peer, {SHARD_STEPS} steps: losses bit-equal {remat == plain} "
+          f"({remat}) [{card}]", flush=True)
+    if remat != plain:
+        raise AssertionError(f"4i remat: {remat} vs {plain}")
+    flash = check_flash_hd128(card)
+    print(f"4i one-card part took {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]", flush=True)
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        print(f"4i: (a), (b) and (c) need 4 cards; this machine has {cards} "
+              f"(on a 4-card host, sharded_alone runs them) [{card}]",
+              flush=True)
+        return {"launches": launches, "flash": flash}
+    fsdp_pods_vs_stacked(card)
+    # (b) tensor parallelism 2 x data 2
+    _, stacked = train_run(["--mesh", "2x1"], 1)
+    recs, report, wall = process_run(4, ["--mesh", "2x2"], TP_STEPS)
+    spec = train.parse_args(TRAIN_ARGV + ["--mesh", "2x2"]).spec
+    d0 = abs(report["losses"][0] - stacked[0])
+    print(f"4i (b) paper_llama --mesh 2x2, 4 ranks, {TP_STEPS} steps "
+          f"({wall:.1f} s of torchrun): step-0 loss {report['losses'][0]} "
+          f"vs the stacked dp 2 run's {stacked[0]} (|diff| {d0:.3e}, tol "
+          f"{TP_LOSS_TOL}); losses {report['losses']}; "
+          f"{step_stats(recs)} [{card}]", flush=True)
+    check_shard_bytes("(b)", spec.model_config(), spec, report, TP_STEPS,
+                      spec.model_config().n_layers, card)
+    check_falling("(b)", report["losses"])
+    if d0 > TP_LOSS_TOL:
+        raise AssertionError(f"4i (b) step-0 loss {d0}")
+    check_tp_grads(card)
+    # (c) deepseek_coder_33b at full width, 8 layers, 2 x 2 with FSDP
+    argv = DSC_ARGV + ["--mesh", "2x2", "--global-batch", "2"]
+    recs, report, wall = layers_run(4, 8, argv, DSC_STEPS)
+    spec = train.parse_args(argv).spec
+    cfg = dataclasses.replace(spec.model_config(), n_layers=8)
+    runs = report["ranks"][0]["launches"]["flash_attention"] / DSC_STEPS
+    print(f"4i (c) deepseek_coder_33b (8 layers) --mesh 2x2 --fsdp "
+          f"--remat-groups 2 --sync optinc --bits 8, seq 4096, "
+          f"{DSC_STEPS} steps ({wall:.1f} s of torchrun): "
+          f"{dsc_stats(recs, report, 2 * 4096)}; layer forwards a step "
+          f"{runs} [{card}]", flush=True)
+    check_falling("(c)", report["losses"])
+    check_shard_bytes("(c)", cfg, spec, report, DSC_STEPS, runs, card)
+    print(f"phase 4i took {time.perf_counter() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return {"launches": launches, "flash": flash}
+
+
+def sharded_alone(card: str) -> None:
+    """Phase 4i alone, the kernels built first."""
+    from repro_torch.kernels import _build
+    _build.build()
+    sharded_full_width(card)
+
+
 # ----------------------------------------- phase 4d: the trained ONN
 # The paper's scenario 1 (examples/quickstart.py --scenario1): B 8, N 4,
 # K 4, 4-64-128-256-128-64-4 with layers 1-6 approximated, the full
@@ -3528,6 +3981,7 @@ def main() -> int:
     sessions_full_width(card, train_p50_ms)
     sync_modes_full_width(card, base)
     processes_full_width(card)
+    sharded_full_width(card)
     onn = trained_onn_full_width(card)
     onn_launches, behavioral_bits2 = train_onn_full_width(card, behavioral8,
                                                           onn)
@@ -3557,4 +4011,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--psum-grads"]:
         psum_grads_rank(sys.argv[2])     # one rank of phase 4h's check
+    if sys.argv[1:2] == ["--train-layers"]:      # one rank of phase 4i
+        train_layers_rank(int(sys.argv[2]), sys.argv[3:])
+    if sys.argv[1:2] == ["--tp-grads"]:          # one rank of phase 4i (b)
+        tp_grads_rank(sys.argv[2])
     sys.exit(main())

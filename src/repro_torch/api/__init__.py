@@ -11,7 +11,8 @@
 JAX's ``api`` that have no twin yet raise when they are looked up:
 ``ElasticTrainSession`` and ``Membership`` (elastic membership), and the
 PartitionSpec helpers ``param_specs``, ``sync_state_specs`` and
-``decode_cache_specs`` (shardings have no torch meaning here).
+``decode_cache_specs`` (shard_map shardings; the message names the
+local-shard functions that do their work here).
 """
 from ..collectives import SyncConfig
 from ..data.pipeline import DataConfig
@@ -47,11 +48,19 @@ _NO_TWIN = {
     "ElasticTrainSession": "elastic membership is not ported yet",
     "Membership": "elastic membership is not ported yet",
     "param_specs": "param_specs is a shard_map sharding, which has no "
-                   "twin in the port",
+                   "twin in the port: a rank's shards are "
+                   "repro_torch.models.lm.local_param_shapes and "
+                   "lm.shard_params (the specs: lm.param_specs)",
     "sync_state_specs": "sync_state_specs is a shard_map sharding, which "
-                        "has no twin in the port",
+                        "has no twin in the port: a rank's residual sizes "
+                        "are repro_torch.launch.steps._local_leaf_sizes "
+                        "(steps.init_sync_state)",
     "decode_cache_specs": "decode_cache_specs is a shard_map sharding, "
-                          "which has no twin in the port",
+                          "which has no twin in the port: serving runs "
+                          "unsharded on one process (the paged pool of "
+                          "api.build.new_decode_cache); a rank's weight "
+                          "shards are repro_torch.models.lm."
+                          "local_param_shapes",
 }
 
 

@@ -5,9 +5,10 @@ TrainSession and ServeSession build their steps here, so the train
 step, the sync-state initializer and the serving steps never disagree
 on the state structure.  JAX's ``param_specs``, ``sync_state_specs``
 and ``decode_cache_specs`` are PartitionSpecs for shard_map and get no
-twin: the port's peers are one stacked dimension on one device or one
-process each (``world``), and its decode cache is a paged pool with a
-fixed block table (``new_decode_cache``).
+twin: a rank's shard shapes come from ``models.lm.local_param_shapes``
+(slices: ``lm.shard_params``) and its residual sizes from
+``launch.steps._local_leaf_sizes``; the serving decode cache is a paged
+pool with a fixed block table (``new_decode_cache``).
 """
 from __future__ import annotations
 
@@ -27,13 +28,16 @@ def warmup_photonics(spec: RunSpec, device=None):
     """Resolve the in-network ONN(s) for spec's photonic fidelity eagerly
     (None for 'behavioral') and put what they apply on ``device``, so a
     slow params source ('train') or a missing one fails before the step
-    loop: the ONN for all pods * dp peers, and for the cascade also the
-    level-0 ONN of a pod's dp peers."""
+    loop: the ONN for all pods * dp peers, for the cascade also the
+    level-0 ONN of a pod's dp peers, and under FSDP with pods the ONN
+    of the pods (the FSDP leaf group syncs over 'pod' only)."""
     from ..photonics import runtime
     sync, m = spec.resolved_sync(), spec.mesh
     module = runtime.warmup(sync, m.peers, device)
     if module is not None and sync.mode == "cascade":
         runtime.warmup(sync, m.dp, device)
+    if module is not None and m.fsdp and m.pods > 1:
+        runtime.warmup(sync, m.pods, device)
     return module
 
 
@@ -68,21 +72,24 @@ def modeled_bytes_on_wire(spec: RunSpec, cfg=None) -> float:
 def build_train_step(spec: RunSpec, cfg=None, device="cuda", world=None):
     """step(params, opt_state, sync_state, tokens, key) -> (params,
     opt_state, sync_state, metrics) over the ``pods * dp`` stacked peers,
-    or as one of ``pods * dp`` processes (``world``)
+    or as one of ``pods * dp * tp`` processes (``world``)
     (``launch.steps.make_train_step``; JAX returns it with its shard_map
     specs)."""
     return steps.make_train_step(_cfg(spec, cfg), spec.mesh.peers,
                                  spec.resolved_sync(), spec.optim, device,
-                                 pods=spec.mesh.pods, world=world)
+                                 pods=spec.mesh.pods, world=world,
+                                 ctx=spec.mesh.ctx())
 
 
 def init_sync_state(spec: RunSpec, cfg=None, device="cuda",
                     world=None) -> dict:
     """Zero sync_state matching build_train_step ({} when error feedback
-    is off, else {"rep": (pods * dp, n_params)}, one row a process)."""
+    is off, else {"rep": (rows, size)} and under FSDP {"fsdp": (rows,
+    size)}: a row a stacked peer, one row a process)."""
     rows = spec.mesh.peers if world is None else 1
     return steps.init_sync_state(_cfg(spec, cfg), rows,
-                                 spec.resolved_sync(), device)
+                                 spec.resolved_sync(), device,
+                                 spec.mesh.ctx())
 
 
 def build_prefill_step(spec: RunSpec, cfg=None):

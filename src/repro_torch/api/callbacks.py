@@ -34,6 +34,7 @@ import statistics
 import sys
 import threading
 
+import torch
 import torch.distributed as dist
 
 from ..kernels import launches as kernel_launches
@@ -180,19 +181,24 @@ class SigtermHandler(Callback):
 class RankReport(Callback):
     """Peers as processes: at the end of a run() call rank 0 prints one
     JSON line ``{"ranks": [...], "steps", "losses"}``: per rank its
-    device, the bytes it handed to each collective ("op:dtype") and its
-    kernel launches during the run, and the run's losses whole (the
-    step records round them).  Collective: every rank runs it."""
+    device, the bytes it handed to each collective ("op:dtype"; by axis
+    as "axis/op:dtype" in ``axis_bytes``), its kernel launches during the
+    run and, on a card, ``torch.cuda.max_memory_allocated`` since the
+    run started, and the run's losses whole (the step records round
+    them).  Collective: every rank runs it."""
 
     def __init__(self, out=None):
         self.out = out
-        self._bytes = self._launches = None
+        self._bytes = self._axis_bytes = self._launches = None
         self._steps = []
 
     def on_train_start(self, session):
         self._bytes = dict(session.world.bytes)
+        self._axis_bytes = dict(session.world.axis_bytes)
         self._launches = kernel_launches()
         self._steps = []
+        if session.world.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(session.world.device)
 
     def on_step(self, session, record):
         self._steps.append(record["step"])
@@ -203,8 +209,13 @@ class RankReport(Callback):
                 "collective_bytes": {k: v - self._bytes.get(k, 0)
                                      for k, v in w.bytes.items()
                                      if v != self._bytes.get(k, 0)},
+                "axis_bytes": {k: v - self._axis_bytes.get(k, 0)
+                               for k, v in w.axis_bytes.items()
+                               if v != self._axis_bytes.get(k, 0)},
                 "launches": {k: v - self._launches[k]
-                             for k, v in kernel_launches().items()}}
+                             for k, v in kernel_launches().items()},
+                "peak_bytes": (torch.cuda.max_memory_allocated(w.device)
+                               if w.device.type == "cuda" else None)}
         ranks = [None] * w.size
         dist.all_gather_object(ranks, mine)
         if w.rank == 0:

@@ -18,16 +18,22 @@ checkpoint.
 
 Peers as processes: a session started as one rank of a launch
 (``launch.distributed.launched``; torchrun sets the environment) is
-peer RANK of the ``pods * dp`` processes, on card ``LOCAL_RANK`` (or the
-CPU, gloo).  The world must be ``pods * dp`` processes.  Each rank
-seeds the same parameters, rank 0's are broadcast once after init or
-resume, and each keeps its own (1, total) residual row.  A checkpoint
-is collective: the residual rows are gathered, rank 0 writes the JAX
-layout (a stacked run's file), and every rank meets at a barrier after
-the save; on resume each rank reads its own row, so a stacked
-checkpoint resumes as processes and the other way round.  A stop asked
-on any rank (``request_stop``, a signal) is agreed by every rank after
-the step, so the ranks never part ways.
+rank RANK of the ``pods * dp * tp`` processes of the (pod, data, model)
+mesh, on card ``LOCAL_RANK`` (or the CPU, gloo); the world must be that
+size (``RunSpec.check_launch``), and tp > 1 runs only so.  Unsharded,
+each rank seeds the same parameters and rank 0's are broadcast once
+after init or resume; sharded (tp > 1 or ``--fsdp``) each rank seeds
+the same global parameters and keeps its shards
+(``steps.to_local``).  Each rank keeps its own residual rows.  A
+checkpoint is collective and in JAX's layout: each leaf the padded
+global array (shards gathered to rank 0's host leaf by leaf, of a
+replicated leaf rank 0's copy, as JAX's ``np.asarray`` gives device
+0's), the residual rows gathered in rank order; rank 0 writes it, and
+every rank meets at a barrier after the save.  On resume each rank takes its shards and its rows, so a
+stacked checkpoint resumes as processes and the other way round.  A
+stop asked on any rank (``request_stop``, a signal) is agreed by an
+all-reduce over the whole world after the step, so the ranks never
+part ways.
 """
 from __future__ import annotations
 
@@ -43,10 +49,10 @@ from ..collectives import (is_packed_residuals, pack_residuals,
                            residuals_from_jax, residuals_to_jax,
                            unpack_residuals)
 from ..data.pipeline import SyntheticLM
-from ..launch import distributed
+from ..launch import distributed, steps
 from ..models import lm
 from ..optim.adamw import adamw_init
-from ..tree import leaves
+from ..tree import leaves, tree_map
 from . import build
 from .callbacks import default_callbacks
 from .spec import RunSpec, SpecError, validate_resume_compat
@@ -68,19 +74,17 @@ class TrainSession:
                  device=None, params=None, cfg=None):
         spec.validate()
         launched = distributed.launched()
-        if launched and distributed.world_size() != spec.mesh.peers:
-            raise SpecError(
-                f"WORLD_SIZE {distributed.world_size()} != mesh.peers "
-                f"{spec.mesh.peers} (pods {spec.mesh.pods} x dp "
-                f"{spec.mesh.dp}): peers as processes run one process a "
-                f"peer")
+        spec.check_launch(launched,
+                          distributed.world_size() if launched else 0)
         self.device = device_util.resolve(device, "TrainSession")
-        # launch.distributed.ProcessAxes of peers as processes, else None
-        self.world = (distributed.init(spec.mesh.pods, spec.mesh.dp,
-                                       self.device) if launched else None)
+        m = spec.mesh
+        # launch.distributed.ProcessAxes of the process mesh, else None
+        self.world = (distributed.init(m.pods, m.dp, m.tp, self.device)
+                      if launched else None)
         self.spec = spec
+        self.ctx = m.ctx()
         self.cfg = cfg if cfg is not None else spec.model_config()
-        self.peers = spec.mesh.peers      # pods * dp, peer p = pod * dp + d
+        self.peers = m.peers              # pods * dp, peer p = pod * dp + d
         self.sync = spec.resolved_sync()
         self.callbacks = (list(callbacks) if callbacks is not None
                           else default_callbacks(spec))
@@ -92,14 +96,19 @@ class TrainSession:
         self.step = 0              # next step to execute
         self.losses = {}           # step -> loss as the device gave it
 
-        self.params = (lm.init_params(self.cfg, spec.seed, self.device)
-                       if params is None else params)
+        if params is None and self.world is not None and self.ctx.sharded:
+            self.params = lm.init_params(self.cfg, spec.seed, self.device,
+                                         self.ctx, self.world.coords)
+        else:
+            self.params = self._local(
+                lm.init_params(self.cfg, spec.seed, self.device, self.ctx)
+                if params is None else params)
         self.opt_state = adamw_init(spec.optim, self.params)
         self.sync_state = build.init_sync_state(spec, self.cfg, self.device,
                                                 self.world)
         if spec.ckpt.resume:
             self._maybe_resume()
-        if self.world is not None:
+        if self.world is not None and not self.ctx.sharded:
             self.world.broadcast_(leaves(self.params))
 
         build.warmup_photonics(spec, self.device)
@@ -109,8 +118,12 @@ class TrainSession:
 
     @property
     def rank(self) -> int:
-        """This process's peer as one of several processes, else 0."""
+        """This process's rank as one of several processes, else 0."""
         return 0 if self.world is None else self.world.rank
+
+    def _local(self, tree: dict):
+        """Global params as this run's state (``steps.to_local``)."""
+        return steps.to_local(tree, self.cfg, self.ctx, self.world)
 
     # ------------------------------------------------------------ control
     def request_stop(self):
@@ -136,14 +149,20 @@ class TrainSession:
             return
         step = (self.step - 1) if step is None else step
         sync_state = self.sync_state
-        if self.world is not None:
-            sync_state = {k: self.world.gather_rows(v)
+        if self.world is not None:      # rank 0 gets every rank's rows
+            sync_state = {k: self.world.gather_to_root(v)
                           for k, v in sync_state.items()}
+            sync_state = {k: v.reshape(v.shape[0], -1)
+                          for k, v in sync_state.items() if v is not None}
+        # JAX's global arrays (collective: rank 0 gets them on its host)
+        params = steps.to_global(self.params, self.cfg, self.ctx, self.world)
+        opt_state = steps.opt_to_global(self.opt_state, self.cfg, self.ctx,
+                                        self.world)
         if self.rank == 0:
             sync_state = residuals_to_jax(sync_state)
             if self.sync.sparse_residuals and sync_state:
                 sync_state = pack_residuals(sync_state)
-            self.mgr.save(step, self.params, self.opt_state,
+            self.mgr.save(step, params, opt_state,
                           sync_state=sync_state,
                           extra={"run_spec": self.spec.to_json_dict(),
                                  "arch": self.cfg.name,
@@ -155,11 +174,13 @@ class TrainSession:
             cb.on_checkpoint(self, step)
 
     def _own_rows(self, state: dict) -> dict:
-        """(N, total) residual rows -> this process's (1, total) row."""
+        """(N, size) residual rows -> this process's (1, size) rows, on
+        the run's device."""
         if self.world is None:
-            return state
+            return {k: v.to(self.device) for k, v in state.items()}
         r = self.world.rank
-        return {k: v[r:r + 1].clone() for k, v in state.items()}
+        return {k: v[r:r + 1].to(self.device, copy=True)
+                for k, v in state.items()}
 
     def _maybe_resume(self):
         c = self.spec.ckpt
@@ -174,7 +195,19 @@ class TrainSession:
             compat = validate_resume_compat(
                 saved, self.spec, allow_reshard=self.spec.elastic.allow_reshard)
             resharded = compat.verdict == "reshardable"
-        template = {"params": self.params, "opt": self.opt_state}
+        if self.ctx.sharded:    # global leaves, read on the host
+            shapes = lm.param_shapes(self.cfg, self.ctx)
+
+            def meta(dt, shape=None):
+                if shape is not None:
+                    return torch.empty(shape, dtype=dt, device="meta")
+                return tree_map(lambda sh: meta(dt, sh), shapes)
+            template = {"params": meta(lm.torch_dtype(self.cfg)),
+                        "opt": {"m": meta(torch.float32),
+                                "v": meta(torch.float32),
+                                "step": meta(torch.int32, ())}}
+        else:
+            template = {"params": self.params, "opt": self.opt_state}
         sync_paths = [p for p in man["leaves"]
                       if p.split("/", 1)[0] == "sync"]
         # block-sparse checkpoints store sync/<name>/{idx,val,shape};
@@ -182,8 +215,9 @@ class TrainSession:
         sync_packed = bool(sync_paths) and all(
             p.rsplit("/", 1)[-1] in ("idx", "val", "shape")
             for p in sync_paths)
+        devices = self.spec.mesh.devices
         want = residuals_to_jax(
-            {k: v.new_zeros((self.peers, v.shape[1]))
+            {k: v.new_zeros((devices, v.shape[1]))
              for k, v in self.sync_state.items()})
         sync_shapes_ok = want and sync_paths and all(
             list((man["leaves"].get(f"sync/{name}") or {}).get("shape", ()))
@@ -199,11 +233,19 @@ class TrainSession:
         elif want and not sync_paths:
             print("checkpoint predates sync_state persistence; "
                   "error-feedback residuals restart from zero", flush=True)
-        tree, _ = load_checkpoint(c.dir, s, template, device=self.device)
+        tree, _ = load_checkpoint(
+            c.dir, s, template,
+            device="cpu" if self.ctx.sharded else self.device)
+        if self.ctx.sharded:    # this run's shards, on its device
+            params = self._local(tree["params"])
+            opt = steps.opt_to_local(tree["opt"], self.cfg, self.ctx,
+                                     self.world)
+            on = lambda t: tree_map(lambda x: x.to(self.device), t)
+            tree["params"], tree["opt"] = on(params), on(opt)
         self.params, self.opt_state = tree["params"], tree["opt"]
         if "sync" in tree:
             self.sync_state = self._own_rows(
-                residuals_from_jax(tree["sync"], self.peers))
+                residuals_from_jax(tree["sync"], devices))
         elif want and sync_packed:
             try:
                 self.sync_state = self._load_packed_sync(c.dir, s, want)
@@ -240,7 +282,8 @@ class TrainSession:
                     f"checkpoint {None if got is None else got.shape} vs "
                     f"run {tuple(ref.shape)}")
             state[name] = torch.from_numpy(got).to(self.device)
-        return self._own_rows(residuals_from_jax(state, self.peers))
+        return self._own_rows(residuals_from_jax(state,
+                                                 self.spec.mesh.devices))
 
     # ------------------------------------------------------------ the loop
     def run_step(self, step: int) -> dict:

@@ -10,10 +10,12 @@ Its JSON keys are the JAX package's, so a JAX checkpoint's
 Fields the port does not run yet are taken when they hold their
 defaults and refused by name otherwise (``validate``).
 
-``MeshSpec`` keeps JAX's fields, but ``build()``/``ctx()`` (a jax Mesh
-and a ShardCtx) have no torch meaning: here ``MeshSpec.pods *
-MeshSpec.dp`` is the number of data-parallel peers stacked on one
-device, ``pods`` of ``dp`` each.
+``MeshSpec`` keeps JAX's fields: ``pods * dp`` data-parallel peers
+(stacked on one device, or processes), each ``tp`` ranks of the 'model'
+axis, with FSDP and remat groups; ``ctx()`` is the model code's
+ShardCtx.  ``build()`` (a jax Mesh) has no torch meaning: a sharded run
+is a mesh of processes (``launch.distributed``), one a device, and
+tensor parallelism exists only there (``check_launch``).
 """
 from __future__ import annotations
 
@@ -26,12 +28,21 @@ from ..collectives.engine import SyncConfig
 from ..data.pipeline import DataConfig
 from ..elastic.config import ElasticConfig
 from ..launch.mesh import sync_axes
+from ..models.layers import ShardCtx
 from ..optim.adamw import AdamWConfig
 from ..photonics.config import FIDELITIES, MESH_BACKENDS
 from ..serving.config import ServeConfig
 
 # the JAX package's sync backends
 SYNC_MODES = ("cascade", "optinc", "psum", "ring")
+
+
+# why sequence parallelism stays refused (a CPU probe of the reference,
+# llama3_405b SMOKE in f32 at mesh (1, 2))
+_SP_DEFECT = (": the reference's swiglu_mlp takes the sequence-sharded "
+              "residual and ends with a psum over 'model', so it adds the "
+              "outputs of different sequence positions (its loss at mesh "
+              "1x2 is 5.583917 with it, 5.571617 without)")
 
 
 class SpecError(ValueError):
@@ -45,9 +56,11 @@ class SpecMismatchError(SpecError):
 
 @dataclasses.dataclass(frozen=True)
 class MeshSpec:
-    """The JAX device-mesh description.  In the port ``pods * dp`` is the
-    number of stacked peers (``pods`` is the cascade's level-2 axis);
-    the other fields must keep their defaults (``RunSpec.validate``)."""
+    """The JAX device-mesh description: ``pods * dp`` data-parallel
+    peers (``pods`` is the cascade's level-2 axis), each ``tp`` devices
+    of the 'model' axis; ``fsdp`` shards the weights over 'data';
+    ``remat_groups`` is JAX's two-level remat.  ``seq_parallel`` is
+    refused (``RunSpec.validate``)."""
     dp: int = 1
     tp: int = 1
     pods: int = 1
@@ -68,8 +81,21 @@ class MeshSpec:
 
     @property
     def peers(self) -> int:
-        """The data-parallel peers stacked on the device, pods * dp."""
+        """The data-parallel peers, pods * dp."""
         return self.pods * self.dp
+
+    @property
+    def devices(self) -> int:
+        """The devices of the mesh (processes of a launched run), pods *
+        dp * tp."""
+        return self.pods * self.dp * self.tp
+
+    def ctx(self, *, seq_shard_cache: bool = False) -> ShardCtx:
+        """The ShardCtx of this mesh (JAX's ``MeshSpec.ctx``)."""
+        return ShardCtx(tp=self.tp, dp=self.dp, pods=self.pods,
+                        fsdp=self.fsdp, seq_shard_cache=seq_shard_cache,
+                        seq_parallel=self.seq_parallel,
+                        remat_groups=self.remat_groups)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,14 +175,8 @@ class RunSpec:
         brings it."""
         m, e = self.mesh, self.elastic
         for bad, what in (
-                (m.tp > 1, f"mesh.tp={m.tp} (--mesh DPxTP): tensor "
-                           f"parallelism (the FSDP/TP slice)"),
-                (m.fsdp, "mesh.fsdp (--fsdp): FSDP (the FSDP/TP slice)"),
                 (m.seq_parallel, "mesh.seq_parallel (--seq-parallel): "
-                                 "sequence parallelism (the FSDP/TP slice)"),
-                (m.remat_groups > 0, "mesh.remat_groups (--remat-groups): "
-                                     "rematerialization groups (the "
-                                     "FSDP/TP slice)"),
+                                 "sequence parallelism"),
                 (e.enabled, "elastic.enabled (--elastic): elastic "
                             "membership (the elastic slice)"),
                 ((e.dir, e.heartbeat_s, e.timeout_s) != ("", 1.0, 0.0),
@@ -169,7 +189,8 @@ class RunSpec:
                  f"optim.moment_dtype={self.optim.moment_dtype!r}: bf16 "
                  f"AdamW moments")):
             if bad:
-                raise SpecError(f"{what} is not ported yet")
+                raise SpecError(f"{what} is not ported yet" + (
+                    _SP_DEFECT if what.startswith("mesh.seq") else ""))
 
     def validate(self) -> "RunSpec":
         self.model_config()
@@ -201,6 +222,11 @@ class RunSpec:
             raise SpecError(
                 f"--blk-b tiles the MZI-emulator kernel's rows and only "
                 f"applies to --fidelity mesh; got --fidelity {ph.fidelity}")
+        if self.sync.overlap and (self.mesh.fsdp or self.mesh.tp > 1):
+            raise SpecError(
+                "--overlap streams the replicated-leaf buckets of one "
+                "gradient stack and is not ported together with --fsdp or "
+                "tp > 1 (--mesh DPxTP)")
         if self.sync.sparse_residuals and not self.sync.error_feedback:
             raise SpecError("--sparse-residuals compresses the checkpointed "
                             "error-feedback residuals and needs "
@@ -221,6 +247,24 @@ class RunSpec:
             raise SpecError("--reload-every polls the checkpoint directory "
                             "and needs --ckpt-dir")
         return self
+
+    def check_launch(self, launched: bool, world_size: int = 0) -> None:
+        """Raise unless the run's processes fit the mesh: a launched run
+        (``launch.distributed.launched``) must be pods * dp * tp
+        processes, one a device; tensor parallelism exists only across
+        processes."""
+        m = self.mesh
+        if launched and world_size != m.devices:
+            raise SpecError(
+                f"WORLD_SIZE {world_size} != mesh.peers {m.peers} x mesh.tp "
+                f"{m.tp} = {m.devices} (pods {m.pods} x dp {m.dp} x tp "
+                f"{m.tp}): a launched run is one process a device")
+        if not launched and m.tp > 1:
+            raise SpecError(
+                f"mesh.tp={m.tp} (--mesh {m.dp}x{m.tp}): tensor parallelism "
+                f"runs as one process a device; launch {m.devices} "
+                f"processes with python -m torch.distributed.run "
+                f"--nproc-per-node {m.devices}")
 
     # ------------------------------------------------ JSON round-trip
     def to_json_dict(self) -> dict:
@@ -261,9 +305,8 @@ class RunSpec:
                 "error_feedback": self.sync.error_feedback}
 
     def shape_fingerprint(self) -> dict:
-        """The spec fields that determine only the state's placement: in
-        the port, the peer grid ``mesh.pods`` x ``mesh.dp`` (the
-        residuals' rows)."""
+        """The spec fields that determine only the state's placement:
+        the mesh (the residuals' rows and sizes, the shards)."""
         return {"mesh": dataclasses.asdict(self.mesh)}
 
     def compat_fingerprint(self) -> dict:
@@ -316,16 +359,22 @@ class RunSpec:
                         help="checkpoint error-feedback residuals "
                              "block-sparsely (only blocks with nonzero "
                              "carry)")
-        ap.add_argument("--fsdp", action="store_true", help="not ported")
+        ap.add_argument("--fsdp", action="store_true",
+                        help="shard params over the data axis (ZeRO-3)")
         ap.add_argument("--seq-parallel", action="store_true",
-                        help="not ported")
-        ap.add_argument("--remat-groups", type=int, help="not ported")
+                        help="refused: the reference's MLP mixes sequence "
+                             "shards")
+        ap.add_argument("--remat-groups", type=int,
+                        help="two-level remat: checkpoint groups of "
+                             "layers (0 = off)")
         ap.add_argument("--steps", type=int)
         ap.add_argument("--global-batch", type=int)
         ap.add_argument("--seq-len", type=int)
         ap.add_argument("--lr", type=float)
-        ap.add_argument("--mesh", help="DPxTP, e.g. 4x1: DP peers stacked "
-                                       "on one device; TP must be 1")
+        ap.add_argument("--mesh", help="DPxTP, e.g. 4x1 or 2x2: DP "
+                                       "data-parallel peers, TP model "
+                                       "shards each (TP > 1: one process "
+                                       "a device)")
         ap.add_argument("--ckpt-dir")
         ap.add_argument("--ckpt-every", type=int)
         ap.add_argument("--ckpt-keep", type=int)

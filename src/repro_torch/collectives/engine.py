@@ -119,33 +119,39 @@ def residual_size(leaves) -> int:
 
 # ------------------ the residuals in a checkpoint ------------------
 #
-# The port keeps {"rep": (N, total)}, one row a peer.  The JAX package
-# keeps {"rep": (N * total,), "fsdp": (0,)}: device d's local residual is
-# slice d of "rep" (sharded over 'data'), and "fsdp" is the empty FSDP
-# leaf group.  Row-major flattening maps one onto the other.
+# The port keeps {"rep": (N, rep), "fsdp": (N, fsdp)}, one row a device
+# (a stacked peer, or a rank of the process mesh in rank order), "fsdp"
+# only under FSDP.  The JAX package keeps {"rep": (N * rep,), "fsdp":
+# (N * fsdp,)}: device i's local residual is slice i of each vector (the
+# vectors are sharded over every mesh axis), and "fsdp" is (0,) without
+# FSDP.  Row-major flattening maps one onto the other.
 
 def residuals_to_jax(state: dict) -> dict:
     """The port's sync state in the JAX layout (views, no copy)."""
     if not state:
         return {}
     rep = state["rep"]
-    return {"rep": rep.reshape(-1), "fsdp": rep.new_zeros((0,))}
+    fsdp = state.get("fsdp")
+    return {"rep": rep.reshape(-1),
+            "fsdp": rep.new_zeros((0,)) if fsdp is None else fsdp.reshape(-1)}
 
 
 def residuals_from_jax(state: dict, peers: int) -> dict:
-    """A JAX-layout sync state (tensors) as the port's (peers, total)
-    rows; the FSDP group must be empty (FSDP is not ported)."""
+    """A JAX-layout sync state (tensors) as the port's (peers, size)
+    rows, ``peers`` the devices of the mesh; an empty FSDP group is
+    left out."""
     if not state:
         return {}
-    fsdp = state.get("fsdp")
-    if fsdp is not None and fsdp.numel():
-        raise ValueError(f"the checkpoint holds {fsdp.numel()} FSDP "
-                         f"residuals; FSDP is not ported")
-    rep = state["rep"]
-    if rep.ndim != 1 or rep.numel() % peers:
-        raise ValueError(f"residual vector of shape {tuple(rep.shape)} does "
-                         f"not split over {peers} peers")
-    return {"rep": rep.reshape(peers, -1)}
+    out = {}
+    for name, vec in state.items():
+        if name == "fsdp" and not vec.numel():
+            continue
+        if vec.ndim != 1 or vec.numel() % peers:
+            raise ValueError(f"{'FSDP' if name == 'fsdp' else name} "
+                             f"residual vector of shape {tuple(vec.shape)} "
+                             f"does not split over {peers} peers")
+        out[name] = vec.reshape(peers, -1)
+    return out
 
 
 # ------------------- block-sparse residual checkpointing -------------------

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import importlib
 
-ARCHS = ["paper_llama", "minitron_4b"]
+ARCHS = ["paper_llama", "minitron_4b", "deepseek_coder_33b", "llama3_405b"]
 
 
 def _module(arch: str):

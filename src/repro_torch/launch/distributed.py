@@ -1,9 +1,9 @@
-"""Data-parallel peers as processes, one per card (counterpart of the
-``shard_map`` programs of ``repro.launch.steps``).
+"""Peers as processes, one per card, over a (pod, data, model) mesh
+(counterpart of the ``shard_map`` programs of ``repro.launch.steps``).
 
-The JAX step runs one program per device of the ('pod', 'data') mesh,
-and every gradient sync there is a collective between devices.  Here a
-run launched with one process per peer does the same over
+The JAX step runs one program per device of the ('pod', 'data',
+'model') mesh, and every collective there is between devices.  Here a
+run launched with one process per device does the same over
 ``torch.distributed``: NCCL for CUDA tensors, gloo for CPU tensors
 (chosen by the run's device, not as a fallback).
 
@@ -14,16 +14,23 @@ torch.distributed.run``) sets ``WORLD_SIZE``, ``RANK`` and
 ``LOCAL_RANK`` before any CUDA work, builds the CUDA kernels once (local
 rank 0, then a barrier), starts the process group with a timeout of
 minutes (a rank that dies fails the others instead of hanging them) and
-returns the ranks as a ``(pods, dp)`` device mesh with the axis names of
-``mesh``: rank = peer = pod * dp + d.
+returns the ranks as a ``(pods, dp, tp)`` device mesh with the axis
+names of ``mesh``, in JAX's device order: rank = (pod * dp + d) * tp + m.
 
-``ProcessAxes`` offers the ``lax`` collectives the JAX backends call,
-each over one or more named axes: ``axis_size``, ``axis_index``,
-``pmax``, ``psum``, ``psum_scatter``, ``all_gather`` and ``ppermute``
-(plus the gathers, broadcast and stop flag of the trainer).  It counts
-the bytes it hands to each collective by op and dtype (``bytes``): a
-reduce-scatter's input, an all-gather's output, an all-reduce's or a
-ppermute's buffer, so the count over a sync is its full-length tensor.
+``ProcessAxes`` offers the ``lax`` collectives the JAX code calls, each
+over one or more named axes: ``axis_size``, ``axis_index``, ``pmax``,
+``psum``, ``psum_scatter``, ``all_gather`` and ``ppermute`` (plus the
+gathers, broadcast and stop flag of the trainer; a checkpoint's leaves
+go to rank 0 alone, ``gather_to_root``).  It counts the bytes
+it hands to each collective by op and dtype (``bytes``) and by axis,
+op and dtype (``axis_bytes``, "axis/op:dtype"; the trainer's whole-world
+collectives under "world"): a reduce-scatter's input, an all-gather's
+output, an all-reduce's or a ppermute's buffer, so the count over a
+sync is its full-length tensor.
+
+Inside the model (tensor parallelism and FSDP) the collectives of a
+ProcessAxes are called through the autograd functions of
+``models.collectives``.
 
 JAX reduce-scatters the B-bit codes in int16 when the sum fits (2^B -
 2) * N < 2^15.  NCCL has no 16-bit integer type and gloo refuses int16,
@@ -43,7 +50,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from .mesh import AXIS_NAMES
+from .mesh import AXIS_NAMES, coords_of
 
 TIMEOUT = datetime.timedelta(minutes=5)
 LAUNCH_ENV = ("WORLD_SIZE", "RANK", "LOCAL_RANK")
@@ -84,9 +91,9 @@ def _tag(op: str, t: torch.Tensor) -> str:
 
 
 class ProcessAxes:
-    """The ``lax`` collectives over the named axes of a (pod, data) mesh
-    of processes.  Every method is collective: each rank of the axes'
-    groups calls it, in the same order."""
+    """The ``lax`` collectives over the named axes of a (pod, data,
+    model) mesh of processes.  Every method is collective: each rank of
+    the axes' groups calls it, in the same order."""
 
     def __init__(self, mesh, device: torch.device):
         self.mesh = mesh
@@ -95,9 +102,17 @@ class ProcessAxes:
         self.size = dist.get_world_size()
         self.sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
         self.bytes = collections.Counter()      # "op:dtype" -> bytes
+        self.axis_bytes = collections.Counter()  # "axis/op:dtype" -> bytes
 
-    def _count(self, op: str, t: torch.Tensor) -> None:
-        self.bytes[_tag(op, t)] += t.numel() * t.element_size()
+    @property
+    def coords(self) -> tuple:
+        """(pod, d, m): this rank's place in the mesh."""
+        return coords_of(self.rank, self.sizes["data"], self.sizes["model"])
+
+    def _count(self, op: str, t: torch.Tensor, ax: str = "world") -> None:
+        n = t.numel() * t.element_size()
+        self.bytes[_tag(op, t)] += n
+        self.axis_bytes[f"{ax}/{_tag(op, t)}"] += n
 
     def _axes(self, axes) -> tuple:
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
@@ -115,7 +130,7 @@ class ProcessAxes:
     def _all_reduce(self, op: str, x: torch.Tensor, axes, red):
         out = x.clone()
         for ax in self._axes(axes):
-            self._count(op, out)
+            self._count(op, out, ax)
             dist.all_reduce(out, op=red, group=self.mesh.get_group(ax))
         return out
 
@@ -137,7 +152,7 @@ class ProcessAxes:
         s = x.numel() // k
         send = pack_lanes(x.view(k, s)).reshape(-1) if lanes16 else x
         out = send.new_empty(send.numel() // k)
-        self._count("psum_scatter", send)
+        self._count("psum_scatter", send, ax)
         dist.reduce_scatter_tensor(out, send.contiguous(),
                                    group=self.mesh.get_group(ax))
         return unpack_lanes(out, s) if lanes16 else out
@@ -151,7 +166,7 @@ class ProcessAxes:
             return x
         send = x.view(torch.uint8) if x.dtype == torch.uint16 else x
         out = send.new_empty(send.numel() * k)
-        self._count("all_gather", out)
+        self._count("all_gather", out, ax)
         dist.all_gather_into_tensor(out, send.contiguous(),
                                     group=self.mesh.get_group(ax))
         return out.view(x.dtype)
@@ -166,7 +181,7 @@ class ProcessAxes:
         group = self.mesh.get_group(ax)
         i = self.axis_index(ax)
         out = torch.empty_like(x)
-        self._count("ppermute", x)
+        self._count("ppermute", x, ax)
         reqs = dist.batch_isend_irecv([
             dist.P2POp(dist.isend, x.contiguous(),
                        dist.get_global_rank(group, (i + 1) % k), group),
@@ -176,17 +191,64 @@ class ProcessAxes:
             r.wait()
         return out
 
+    def all_gather_dim(self, x: torch.Tensor, ax: str,
+                       dim: int) -> torch.Tensor:
+        """Tiled all-gather of x along ``dim`` over ``ax`` (JAX's
+        ``all_gather(..., axis=dim, tiled=True)``), in axis order."""
+        k = self.sizes[ax]
+        if k == 1:
+            return x
+        send = x.movedim(dim, 0).contiguous()
+        out = send.new_empty((k * send.shape[0], *send.shape[1:]))
+        self._count("all_gather", out, ax)
+        dist.all_gather_into_tensor(out, send, group=self.mesh.get_group(ax))
+        return out.movedim(0, dim).contiguous()
+
+    def psum_scatter_dim(self, x: torch.Tensor, ax: str,
+                         dim: int) -> torch.Tensor:
+        """Tiled reduce-scatter sum of x along ``dim`` over ``ax`` (JAX's
+        ``psum_scatter(..., scatter_dimension=dim, tiled=True)``), in
+        x's dtype: shard i of the sum to the rank of axis index i."""
+        k = self.sizes[ax]
+        if k == 1:
+            return x
+        send = x.movedim(dim, 0).contiguous()
+        out = send.new_empty((send.shape[0] // k, *send.shape[1:]))
+        self._count("psum_scatter", send, ax)
+        dist.reduce_scatter_tensor(out, send, group=self.mesh.get_group(ax))
+        return out.movedim(0, dim).contiguous()
+
     # ------------------------------------------ the trainer's collectives
     def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
-        """Every rank's (1, ...) x as (N, ...) in rank order (peer p =
-        pod * dp + d), on every rank."""
-        out = x.new_empty((self.size, *x.shape[1:]))
+        """Every rank's (1, ...) x as (N, ...) in rank order, on every
+        rank (a bf16 x goes as its bits)."""
+        send = x.view(torch.uint8) if x.dtype == torch.bfloat16 else x
+        out = send.new_empty((self.size, *send.shape[1:]))
         self._count("all_gather", out)
-        dist.all_gather_into_tensor(out, x.contiguous())
-        return out
+        dist.all_gather_into_tensor(out, send.contiguous())
+        return out.view(x.dtype)
+
+    def gather_to_root(self, x: torch.Tensor):
+        """Every rank's x (one shape on every rank) as (N, *x.shape) in
+        rank order on rank 0's host, None on the other ranks, which only
+        send (a bf16 x goes as its bits).  Each rank counts the bytes it
+        hands over."""
+        if self.size == 1:
+            return x.detach().to("cpu", copy=True)[None]
+        send = x.detach().reshape(-1).contiguous()
+        send = send.view(torch.uint8) if x.dtype == torch.bfloat16 else send
+        self._count("gather", send)
+        parts = ([torch.empty_like(send) for _ in range(self.size)]
+                 if self.rank == 0 else None)
+        dist.gather(send, parts, dst=0)
+        if parts is None:
+            return None
+        return torch.stack([p.cpu() for p in parts]).view(x.dtype).reshape(
+            self.size, *x.shape)
 
     def any(self, flag: bool) -> bool:
-        """True on every rank when ``flag`` is true on any."""
+        """True on every rank when ``flag`` is true on any (an all-reduce
+        over the whole world)."""
         t = torch.tensor([int(flag)], dtype=torch.int32, device=self.device)
         return bool(self.pmax(t, AXIS_NAMES).item())
 
@@ -210,22 +272,23 @@ def _check_cards() -> None:
             f"one card); run --device cpu for gloo ranks")
 
 
-def init(pods: int, dp: int, device, timeout=TIMEOUT) -> ProcessAxes:
-    """This process's rank of the (pods, dp) mesh of processes, started
-    once (later calls return it).  ``device``: a CUDA device (this
-    rank's card, ``cuda:LOCAL_RANK``; NCCL) or the CPU (gloo)."""
+def init(pods: int, dp: int, tp: int, device,
+         timeout=TIMEOUT) -> ProcessAxes:
+    """This process's rank of the (pods, dp, tp) mesh of processes,
+    started once (later calls return it).  ``device``: a CUDA device
+    (this rank's card, ``cuda:LOCAL_RANK``; NCCL) or the CPU (gloo)."""
     global _WORLD
     if _WORLD is not None:
         have = tuple(_WORLD.sizes.values())
-        if have != (pods, dp):
+        if have != (pods, dp, tp):
             raise ValueError(f"the process group is a {have} mesh, not "
-                             f"({pods}, {dp})")
+                             f"({pods}, {dp}, {tp})")
         return _WORLD
     from torch.distributed.device_mesh import init_device_mesh
     n = world_size()
-    if n != pods * dp:
-        raise ValueError(f"WORLD_SIZE {n} != pods * dp = {pods} * {dp}: "
-                         f"one process a peer")
+    if n != pods * dp * tp:
+        raise ValueError(f"WORLD_SIZE {n} != pods * dp * tp = {pods} * "
+                         f"{dp} * {tp}: one process a device")
     device = torch.device(device)
     if device.type == "cuda":
         _check_cards()
@@ -238,7 +301,8 @@ def init(pods: int, dp: int, device, timeout=TIMEOUT) -> ProcessAxes:
         dist.barrier()
     else:
         dist.init_process_group("gloo", timeout=timeout)
-    mesh = init_device_mesh(device.type, (pods, dp), mesh_dim_names=AXIS_NAMES)
+    mesh = init_device_mesh(device.type, (pods, dp, tp),
+                            mesh_dim_names=AXIS_NAMES)
     _WORLD = ProcessAxes(mesh, device)
     return _WORLD
 

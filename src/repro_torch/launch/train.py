@@ -64,6 +64,15 @@ its two-level cascade, a ring all-reduce or psum.
       --sync optinc --bits 8 --mesh 4x1 --error-feedback \\
       --global-batch 32 --seq-len 512 --steps 10  # or --sync ring, ...
 
+  # FSDP, tensor parallelism and remat groups over a (pod, data, model)
+  # mesh of processes: 2 data peers x 2 model shards, the weights sharded
+  # over 'data' too, groups of layers rematerialized (tp > 1 needs
+  # torchrun; --fsdp and --remat-groups also run stacked)
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch deepseek_coder_33b --mesh 2x2 --fsdp --remat-groups 2 \\
+      --sync optinc --bits 8 --global-batch 2 --seq-len 4096 --lr 1e-5
+
   # a whole scenario from a RunSpec JSON file (flags override it)
   PYTHONPATH=src python -m repro_torch.launch.train --spec my_run.json
 
@@ -80,8 +89,8 @@ is ``repro_torch.api.TrainSession``.  Each step prints one JSON line
 does not run yet exits with an error naming the piece that is not
 ported.  The run raises when there is no CUDA device and no --device.
 Under ``torch.distributed.run`` (WORLD_SIZE, RANK and LOCAL_RANK set)
-each process is one peer of ``pods * dp`` (``api.session``), on its
-own card; the world must be that size.  Parameters are seeded from
+each process is one device of the ``pods * dp * tp`` mesh
+(``api.session``), on its own card; the world must be that size.  Parameters are seeded from
 ``--seed`` with a ``torch.Generator`` (not
 ``jax.random``): ``run(opts, params=...)`` takes parameters carried
 across from JAX instead.  Step i's sync key is

@@ -1,42 +1,68 @@
 """GQA self-attention blocks of the dense transformer (counterpart of
-``repro.models.blocks``) at tensor parallelism 1: the training/prefill
-branch of ``gqa_attention`` (differentiable: attention goes through the
-flash kernels' autograd function, and nothing autograd saves is written
-in place) and the paged decode step ``gqa_decode_paged``."""
+``repro.models.blocks``): the training/prefill branch of
+``gqa_attention`` (differentiable: attention goes through the flash
+kernels' autograd function, and nothing autograd saves is written in
+place) and the paged decode step ``gqa_decode_paged``.
+
+Under tensor parallelism each rank holds its heads: hl = h_pad / tp
+query heads and kvl = kv_pad / tp KV heads (``_heads_local`` and
+``_kv_local``; kv < tp replicates the KV heads, one a rank), so the
+flash kernels run on the local heads, and the out-projection closes
+with the psum over 'model'.  FSDP shards of wq/wk/wv/wo are gathered
+where they are used."""
 from __future__ import annotations
 
 from ..kernels.paged_attention import paged_attention
+from .collectives import psum_model
 from .config import ModelConfig
-from .layers import blocked_attention, paged_update_cache, rmsnorm, rope
+from .layers import (NO_SHARD, ShardCtx, blocked_attention, gather_fsdp,
+                     paged_update_cache, rmsnorm, rope)
 
 
-def _gqa_qkv(cfg: ModelConfig, p, x, pos):
+def _heads_local(h: int, tp: int) -> int:
+    """Query heads per shard after padding h up to a multiple of tp."""
+    return max(1, -(-h // tp))
+
+
+def _kv_local(kv: int, tp: int) -> int:
+    """KV heads per shard (>=1; kv < tp means replication across shards)."""
+    return max(1, kv // tp)
+
+
+def _gqa_qkv(cfg: ModelConfig, p, x, pos, ctx: ShardCtx = NO_SHARD,
+             axes=None):
     """Shared q/k/v projection + RoPE of prefill and paged decode, so
     their per-token math stays identical.  x: (b, t, d);
     pos: (t,) shared positions or (b, t) per-slot positions."""
     h = rmsnorm(x, p["norm"])
     b, t, _ = h.shape
-    hl = p["wq"].shape[-1] // cfg.hd
-    kvl = p["wk"].shape[-1] // cfg.hd
-    q = (h @ p["wq"]).reshape(b, t, hl, cfg.hd)
-    k = (h @ p["wk"]).reshape(b, t, kvl, cfg.hd)
-    v = (h @ p["wv"]).reshape(b, t, kvl, cfg.hd)
+    wq = gather_fsdp(ctx, axes, p["wq"], 0)
+    wk = gather_fsdp(ctx, axes, p["wk"], 0)
+    wv = gather_fsdp(ctx, axes, p["wv"], 0)
+    hl = wq.shape[-1] // cfg.hd
+    kvl = wk.shape[-1] // cfg.hd
+    q = (h @ wq).reshape(b, t, hl, cfg.hd)
+    k = (h @ wk).reshape(b, t, kvl, cfg.hd)
+    v = (h @ wv).reshape(b, t, kvl, cfg.hd)
     q = rope(q, pos, cfg.rope_theta)
     k = rope(k, pos, cfg.rope_theta)
     return q, k, v
 
 
-def gqa_attention(cfg: ModelConfig, p, x, pos):
+def gqa_attention(cfg: ModelConfig, p, x, pos, ctx: ShardCtx = NO_SHARD,
+                  axes=None):
     """Causal self-attention over a whole sequence batch (the training
-    and prefill branch of the JAX ``gqa_attention``).  x: (b, t, d), pos: (t,).
-    Returns (out (b, t, d), {"k", "v": (b, kvl, t, hd)})."""
-    q, k, v = _gqa_qkv(cfg, p, x, pos)
+    and prefill branch of the JAX ``gqa_attention``) on this rank's
+    heads.  x: (b, t, d), pos: (t,).  Returns (out (b, t, d), psummed
+    over 'model', {"k", "v": (b, kvl, t, hd)})."""
+    q, k, v = _gqa_qkv(cfg, p, x, pos, ctx, axes)
     b, t, hl = q.shape[:3]
     k = k.transpose(1, 2)
     v = v.transpose(1, 2)
     attn = blocked_attention(q.transpose(1, 2), k, v)
     attn = attn.transpose(1, 2).reshape(b, t, hl * cfg.hd)
-    return attn @ p["wo"], {"k": k, "v": v}
+    out = attn @ gather_fsdp(ctx, axes, p["wo"], 1)
+    return psum_model(out, axes), {"k": k, "v": v}
 
 
 def gqa_decode_paged(cfg: ModelConfig, p, x, lengths, pool_kv, page_table):

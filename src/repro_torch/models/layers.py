@@ -1,9 +1,19 @@
 """Layer primitives of the dense transformer (counterpart of
-``repro.models.layers``) at tensor parallelism 1.
+``repro.models.layers``).
 
-The JAX module runs inside shard_map and closes each row-parallel
-projection with ``lax.psum`` over 'model'; at tp=1 those collectives are
-identities and are left out here, as are the FSDP gathers.
+The JAX module runs inside shard_map: parameters arrive as local shards,
+activations are replicated over the 'model' axis, and tensor
+parallelism is explicit collectives (column-parallel in-projections
+need none, row-parallel out-projections and the vocab-sharded
+embedding and loss close with ``lax.psum`` over 'model'; FSDP weights
+are all-gathered over 'data' where they are used).  Here the same
+functions take the static ``ShardCtx`` and the process mesh ``axes``
+(``launch.distributed.ProcessAxes``; None for stacked peers, whose
+weights are whole), and the collectives are
+``models.collectives.psum_model``/``all_gather_data``/``pmax_model``,
+autograd functions with JAX's ``check_vma=False`` transposes.  At tp 1
+without FSDP the collectives are identities and the code is the tp-1
+code.
 
 Attention keeps the JAX names: ``blocked_attention`` is the flash
 kernel with its gradient (``kernels.attention.FlashAttention``: the CUDA
@@ -14,15 +24,64 @@ the paged kernel's plain version uses, are defined in ``kernels.ref``.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.nn.functional as F
 
 from ..kernels.attention import FlashAttention
 from ..kernels.ref import NEG_INF, decode_attention, paged_gather
+from .collectives import all_gather_data, pmax_model, psum_model
 
-__all__ = ["NEG_INF", "rmsnorm", "rope", "embed_lookup", "lm_loss",
+__all__ = ["NEG_INF", "ShardCtx", "NO_SHARD", "tp_index", "gather_fsdp",
+           "rmsnorm", "rope", "embed_lookup", "lm_loss",
            "blocked_attention", "decode_attention", "swiglu_mlp",
            "paged_update_cache", "paged_gather"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """Static sharding context threaded through the model code (JAX's
+    fields).  ``seq_parallel`` is held only so a spec can ask for it:
+    sequence parallelism is refused (``api.spec``)."""
+    tp: int = 1                   # size of 'model' axis
+    dp: int = 1                   # size of 'data' axis
+    pods: int = 1                 # size of 'pod' axis (1 = single pod)
+    model_axis: str = "model"
+    data_axis: str = "data"
+    pod_axis: str = "pod"
+    fsdp: bool = False            # params sharded over data axis
+    seq_shard_cache: bool = False  # decode KV cache sharded over data axis
+    seq_parallel: bool = False    # refused: see api.spec
+    remat_groups: int = 0         # nested-remat group count (0 = none)
+
+    @property
+    def dp_axes(self) -> tuple:
+        return (self.pod_axis, self.data_axis) if self.pods > 1 else (
+            self.data_axis,)
+
+    @property
+    def sharded(self) -> bool:
+        """Whether any parameter is a shard (tp > 1 or FSDP)."""
+        return self.tp > 1 or self.fsdp
+
+
+NO_SHARD = ShardCtx()
+
+
+def tp_index(ctx: ShardCtx, axes) -> int:
+    """This rank's index on the 'model' axis (0 without processes)."""
+    return 0 if axes is None else axes.axis_index(ctx.model_axis)
+
+
+def gather_fsdp(ctx: ShardCtx, axes, w: torch.Tensor,
+                axis: int) -> torch.Tensor:
+    """All-gather an FSDP-sharded weight along ``axis`` over 'data' (the
+    identity without FSDP, and for stacked peers, whose weights are
+    whole); the backward reduce-scatters the gradient (ZeRO-3)."""
+    if not ctx.fsdp:
+        return w
+    return all_gather_data(w, axes, axis)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -46,21 +105,46 @@ def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-def embed_lookup(emb: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Embedding rows for token ids (the whole vocabulary at tp=1)."""
-    return F.embedding(ids, emb)
+def embed_lookup(emb: torch.Tensor, ids: torch.Tensor,
+                 ctx: ShardCtx = NO_SHARD, axes=None) -> torch.Tensor:
+    """Vocab-sharded embedding lookup: emb (V_local, d) is this rank's
+    vocabulary shard; rows of ids outside it are zero, and the psum over
+    'model' joins the shards.  At tp 1 the plain lookup."""
+    if ctx.tp == 1:
+        return F.embedding(ids, emb)
+    v_local = emb.shape[0]
+    lo = tp_index(ctx, axes) * v_local
+    x = F.embedding((ids - lo).clamp(0, v_local - 1), emb)
+    mask = ((ids >= lo) & (ids < lo + v_local))[..., None]
+    x = torch.where(mask, x, torch.zeros((), dtype=emb.dtype,
+                                         device=emb.device))
+    return psum_model(x, axes)
 
 
-def lm_loss(x: torch.Tensor, head: torch.Tensor,
-            targets: torch.Tensor) -> torch.Tensor:
-    """Cross-entropy over the whole vocabulary (tp=1): x (b, t, d), head
-    (d, V), targets (b, t).  Returns the mean NLL, f32.  The JAX version
-    scans sequence chunks of 1024 under ``jax.checkpoint`` to bound the
-    live logits; that memory device is not ported (one chunk here)."""
-    logits = (x @ head).float()                        # (b, t, V)
-    m = logits.detach().amax(dim=-1)                  # stability shift only
-    lse = torch.log(torch.exp(logits - m[..., None]).sum(dim=-1)) + m
-    tgt = logits.gather(-1, targets.long()[..., None])[..., 0]
+def lm_loss(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
+            ctx: ShardCtx = NO_SHARD, axes=None) -> torch.Tensor:
+    """Vocab-sharded cross-entropy: x (b, t, d), head (d, V_local) this
+    rank's vocabulary shard, targets (b, t) global token ids.  Returns
+    the mean NLL, f32: the stability shift is the pmax over 'model' of
+    the detached logits' max, the log-sum-exp and the target logit
+    (where it lies in this shard, else 0) are psummed over 'model'.  The
+    JAX version scans sequence chunks of 1024 under ``jax.checkpoint``
+    to bound the live logits; that memory device is not ported (one
+    chunk here)."""
+    logits = (x @ head).float()                        # (b, t, V_local)
+    m = pmax_model(logits.detach().amax(dim=-1), axes)  # stability shift
+    sumexp = psum_model(torch.exp(logits - m[..., None]).sum(dim=-1), axes)
+    lse = torch.log(sumexp) + m
+    if ctx.tp == 1:
+        tgt = logits.gather(-1, targets.long()[..., None])[..., 0]
+        return (lse - tgt).mean()
+    v_local = head.shape[-1]
+    lo = tp_index(ctx, axes) * v_local
+    local_t = (targets.long() - lo).clamp(0, v_local - 1)
+    tgt = logits.gather(-1, local_t[..., None])[..., 0]
+    in_shard = (targets >= lo) & (targets < lo + v_local)
+    tgt = psum_model(torch.where(in_shard, tgt, torch.zeros(
+        (), dtype=tgt.dtype, device=tgt.device)), axes)
     return (lse - tgt).mean()
 
 
@@ -71,12 +155,15 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor,
     return FlashAttention.apply(q, k, v)
 
 
-def swiglu_mlp(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
-    """SwiGLU MLP.  w_gate/w_up: (d, ff), w_down: (ff, d)."""
-    g = x @ w_gate
-    u = x @ w_up
+def swiglu_mlp(x: torch.Tensor, w_gate, w_up, w_down,
+               ctx: ShardCtx = NO_SHARD, axes=None) -> torch.Tensor:
+    """Column/row-parallel SwiGLU.  w_gate/w_up: (d, ff_local) local
+    shards, w_down: (ff_local, d) (FSDP shards gathered here); ends with
+    the psum over 'model'."""
+    g = x @ gather_fsdp(ctx, axes, w_gate, 0)
+    u = x @ gather_fsdp(ctx, axes, w_up, 0)
     h = F.silu(g.float()).to(x.dtype) * u
-    return h @ w_down
+    return psum_model(h @ gather_fsdp(ctx, axes, w_down, 1), axes)
 
 
 # -------------------------- paged KV cache ---------------------------

@@ -1,14 +1,22 @@
-"""Dense transformer assembly (counterpart of ``repro.models.lm``) at
-tensor parallelism 1: parameter shapes and seeded init, the
-JAX-parameter bridge, the training forward and loss (``forward_lm``,
-``loss_fn``), and the two steps of the continuous-batching engine —
-``batched_prefill_step`` and ``paged_decode_step``.
+"""Dense transformer assembly (counterpart of ``repro.models.lm``):
+parameter specs, shapes and seeded init, the JAX-parameter bridge, the
+training forward and loss (``forward_lm``, ``loss_fn``), and the two
+steps of the continuous-batching engine — ``batched_prefill_step`` and
+``paged_decode_step`` (which run unsharded).
 
 Parameters are a plain dict with the JAX package's layout: ``embed``
 (V, d), ``final_norm`` (d,), ``lm_head`` (d, V), and ``layers`` holding
 each per-layer weight stacked on a leading L axis; weights are (in, out)
 and used as ``x @ w``.  The JAX package scans over that axis; here a
-Python loop walks it.
+Python loop walks it, with JAX's two-level remat groups as
+``torch.utils.checkpoint`` (``ShardCtx.remat_groups``).
+
+Sharding follows JAX's ``param_specs``: each leaf's spec names, per
+dimension, the mesh axis it is split over ('model', 'data' under FSDP,
+or None), and the padded global shapes (``ArchDims``: heads, KV heads,
+vocabulary and d_ff padded to a multiple of tp; kv < tp replicates KV
+heads) are JAX's, so a rank's shards (``shard_params``) are slices of
+JAX's global arrays, and ``assemble_leaf`` joins them back.
 """
 from __future__ import annotations
 
@@ -17,10 +25,13 @@ import dataclasses
 import numpy as np
 import torch
 
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
+
 from .. import tree as tree_util
 from . import blocks
 from .config import ModelConfig
-from .layers import embed_lookup, lm_loss, rmsnorm, swiglu_mlp
+from .layers import (NO_SHARD, ShardCtx, embed_lookup, gather_fsdp,
+                     lm_loss, rmsnorm, swiglu_mlp)
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -35,74 +46,184 @@ def _check_dense(cfg: ModelConfig, what: str):
         raise NotImplementedError(f"qk_norm ({cfg.name}) is not ported")
 
 
+def pad_to(x: int, mult: int) -> int:
+    return -(-x // mult) * mult
+
+
 @dataclasses.dataclass(frozen=True)
 class ArchDims:
-    """Padded dimensions derived from the config.  At tp=1 nothing is
-    padded; kept so shapes read as in the JAX package."""
-    h_pad: int
-    kv_pad: int
-    v_pad: int
+    """All padded dimensions derived from (cfg, ctx), as in JAX."""
+    h_pad: int      # query heads padded to a multiple of tp
+    kv_pad: int     # kv heads padded/replicated to a multiple of tp
+    v_pad: int      # vocab padded to a multiple of tp
     ff_pad: int
     d_model: int
 
     @classmethod
-    def build(cls, cfg: ModelConfig):
-        return cls(h_pad=cfg.n_heads, kv_pad=cfg.n_kv_heads, v_pad=cfg.vocab,
-                   ff_pad=max(cfg.d_ff, 1), d_model=cfg.d_model)
+    def build(cls, cfg: ModelConfig, ctx: ShardCtx = NO_SHARD):
+        return cls(
+            h_pad=pad_to(cfg.n_heads, ctx.tp),
+            kv_pad=max(cfg.n_kv_heads, ctx.tp) if cfg.n_kv_heads < ctx.tp
+            else pad_to(cfg.n_kv_heads, ctx.tp),
+            v_pad=pad_to(cfg.vocab, ctx.tp),
+            ff_pad=pad_to(max(cfg.d_ff, 1), ctx.tp),
+            d_model=cfg.d_model)
 
 
-# ====================== parameter shapes and init ======================
+# ====================== parameter specs and shapes ======================
+#
+# A spec is a tuple with one entry a dimension: the mesh axis the
+# dimension is split over, or None (JAX's PartitionSpec entries).
 
-def attn_param_shapes(cfg: ModelConfig, dims: ArchDims) -> dict:
-    """Per-layer attention shapes (JAX ``attn_param_specs``, tp=1)."""
+def _fsdp(ctx: ShardCtx):
+    return ctx.data_axis if ctx.fsdp else None
+
+
+def attn_param_specs(cfg: ModelConfig, ctx: ShardCtx, dims: ArchDims):
+    """Per-layer attention (specs, shapes), JAX's ``attn_param_specs``
+    (the specs with the leading layer entry)."""
+    fa, ma = _fsdp(ctx), ctx.model_axis
     hd = cfg.hd
-    return {
-        "norm": (cfg.d_model,),
-        "wq": (cfg.d_model, dims.h_pad * hd),
-        "wk": (cfg.d_model, dims.kv_pad * hd),
-        "wv": (cfg.d_model, dims.kv_pad * hd),
-        "wo": (dims.h_pad * hd, cfg.d_model),
-    }
+    spec = {"norm": (None, None), "wq": (None, fa, ma),
+            "wk": (None, fa, ma), "wv": (None, fa, ma),
+            "wo": (None, ma, fa)}
+    shapes = {"norm": (cfg.d_model,),
+              "wq": (cfg.d_model, dims.h_pad * hd),
+              "wk": (cfg.d_model, dims.kv_pad * hd),
+              "wv": (cfg.d_model, dims.kv_pad * hd),
+              "wo": (dims.h_pad * hd, cfg.d_model)}
+    return spec, shapes
 
 
-def mlp_param_shapes(cfg: ModelConfig, dims: ArchDims) -> dict:
-    """Per-layer SwiGLU shapes (JAX ``mlp_param_specs``, tp=1)."""
-    return {
-        "mlp_norm": (cfg.d_model,),
-        "w_gate": (cfg.d_model, dims.ff_pad),
-        "w_up": (cfg.d_model, dims.ff_pad),
-        "w_down": (dims.ff_pad, cfg.d_model),
-    }
+def mlp_param_specs(cfg: ModelConfig, ctx: ShardCtx, dims: ArchDims):
+    """Per-layer SwiGLU (specs, shapes), JAX's ``mlp_param_specs``."""
+    fa, ma = _fsdp(ctx), ctx.model_axis
+    spec = {"mlp_norm": (None, None), "w_gate": (None, fa, ma),
+            "w_up": (None, fa, ma), "w_down": (None, ma, fa)}
+    shapes = {"mlp_norm": (cfg.d_model,),
+              "w_gate": (cfg.d_model, dims.ff_pad),
+              "w_up": (cfg.d_model, dims.ff_pad),
+              "w_down": (dims.ff_pad, cfg.d_model)}
+    return spec, shapes
 
 
-def param_shapes(cfg: ModelConfig) -> dict:
-    """The dense-family parameter tree's shapes (JAX ``param_specs``)."""
-    _check_dense(cfg, "param_shapes")
-    dims = ArchDims.build(cfg)
-    layer = {**attn_param_shapes(cfg, dims), **mlp_param_shapes(cfg, dims)}
-    return {"embed": (dims.v_pad, cfg.d_model),
-            "final_norm": (cfg.d_model,),
-            "lm_head": (cfg.d_model, dims.v_pad),
-            "layers": {k: (cfg.n_layers,) + s for k, s in layer.items()}}
+def param_specs(cfg: ModelConfig, ctx: ShardCtx = NO_SHARD):
+    """(specs, global shapes) of the dense family's parameter tree (JAX
+    ``param_specs``)."""
+    _check_dense(cfg, "param_specs")
+    dims = ArchDims.build(cfg, ctx)
+    fa, ma = _fsdp(ctx), ctx.model_axis
+    asp, ash = attn_param_specs(cfg, ctx, dims)
+    msp, msh = mlp_param_specs(cfg, ctx, dims)
+    specs = {"embed": (ma, fa), "final_norm": (None,),
+             "lm_head": (fa, ma), "layers": {**asp, **msp}}
+    shapes = {"embed": (dims.v_pad, cfg.d_model),
+              "final_norm": (cfg.d_model,),
+              "lm_head": (cfg.d_model, dims.v_pad),
+              "layers": {k: (cfg.n_layers,) + v
+                         for k, v in {**ash, **msh}.items()}}
+    return specs, shapes
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
+def param_shapes(cfg: ModelConfig, ctx: ShardCtx = NO_SHARD) -> dict:
+    """The parameter tree's global (padded) shapes."""
+    return param_specs(cfg, ctx)[1]
+
+
+def _axis_sizes(ctx: ShardCtx) -> dict:
+    return {ctx.pod_axis: ctx.pods, ctx.data_axis: ctx.dp,
+            ctx.model_axis: ctx.tp}
+
+
+def local_shape(shape, spec, ctx: ShardCtx) -> tuple:
+    """One leaf's shard shape (JAX's local, inside-shard_map shape)."""
+    sizes = _axis_sizes(ctx)
+    return tuple(n if ax is None else n // sizes[ax]
+                 for n, ax in zip(shape, spec))
+
+
+def local_param_shapes(cfg: ModelConfig, ctx: ShardCtx) -> dict:
+    """The parameter tree's shard shapes on every rank of ``ctx``'s
+    mesh (the port's twin of what JAX's ``param_specs`` shardings give
+    inside shard_map)."""
+    specs, shapes = param_specs(cfg, ctx)
+    return tree_util.tree_map(lambda sh, sp: local_shape(sh, sp, ctx),
+                              shapes, specs)
+
+
+def spec_leaves(cfg: ModelConfig, ctx: ShardCtx = NO_SHARD) -> list:
+    """The specs, one a leaf in sorted-key order."""
+    return tree_util.leaves(param_specs(cfg, ctx)[0])
+
+
+def fsdp_leaves(cfg: ModelConfig, ctx: ShardCtx) -> list:
+    """Per leaf (sorted-key order), whether its spec names the data axis:
+    its gradient is already reduce-scattered over 'data' by the gather's
+    transpose (JAX's ``_fsdp_leaf_tree``)."""
+    return [ctx.data_axis in spec for spec in spec_leaves(cfg, ctx)]
+
+
+def shard_leaf(t: torch.Tensor, spec, ctx: ShardCtx,
+               coords: tuple) -> torch.Tensor:
+    """The shard of global leaf ``t`` that the rank at mesh coordinates
+    ``coords`` = (pod, d, m) holds (a copy)."""
+    sizes = _axis_sizes(ctx)
+    index = dict(zip((ctx.pod_axis, ctx.data_axis, ctx.model_axis), coords))
+    for dim, ax in enumerate(spec):
+        if ax is not None and sizes[ax] > 1:
+            n = t.shape[dim] // sizes[ax]
+            t = t.narrow(dim, index[ax] * n, n)
+    return t.clone()
+
+
+def shard_params(tree: dict, cfg: ModelConfig, ctx: ShardCtx,
+                 coords: tuple) -> dict:
+    """A tree of global leaves (params, or AdamW moments) as the rank at
+    ``coords``' shards."""
+    return tree_util.unflatten(tree, [
+        shard_leaf(t, sp, ctx, coords) for t, sp in
+        zip(tree_util.leaves(tree), spec_leaves(cfg, ctx))])
+
+
+def assemble_leaf(shards: torch.Tensor, spec, ctx: ShardCtx) -> torch.Tensor:
+    """Every rank's shard of one leaf, (pods * dp * tp, *local) in rank
+    order, as the global array JAX's ``np.asarray`` gives: the data and
+    model shards joined, and of a dimension no axis splits, device 0's
+    copy (pod 0; data index 0 / model index 0 where the spec does not
+    name the axis)."""
+    g = shards.reshape(ctx.pods, ctx.dp, ctx.tp, *shards.shape[1:])[0]
+    dd = spec.index(ctx.data_axis) if ctx.data_axis in spec else None
+    md = spec.index(ctx.model_axis) if ctx.model_axis in spec else None
+    g = g if dd is not None else g[:1]
+    g = g if md is not None else g[:, :1]
+    rows = [torch.cat(list(r), dim=md) if md is not None else r[0]
+            for r in g]
+    return torch.cat(rows, dim=dd) if dd is not None else rows[0]
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
+                ctx: ShardCtx = NO_SHARD, coords: tuple | None = None) -> dict:
     """Seeded parameters, the JAX ``init_params`` recipe: normal * 0.02
-    (0.5 when fan_in <= 8), norms = 1, cast to the config dtype.  Draws
-    come from one CPU ``torch.Generator`` in sorted-leaf order, so the
-    weights do not depend on the device; they are not the numbers
-    ``jax.random`` draws (carry JAX weights across with
-    ``params_from_jax``)."""
+    (0.5 when fan_in <= 8), norms = 1, cast to the config dtype, at the
+    padded global shapes of ``ctx``; with ``coords`` = (pod, d, m) the
+    shards of that rank.  Draws come from one CPU ``torch.Generator``
+    in sorted-leaf order, leaf by leaf, so the weights depend on neither
+    the device nor the mesh; they are not the numbers ``jax.random``
+    draws (carry JAX weights across with ``params_from_jax``)."""
     gen = torch.Generator().manual_seed(seed)
     dt = torch_dtype(cfg)
+    specs = spec_leaves(cfg, ctx)
     out: dict = {}
-    for path, shp in tree_util.leaves_with_paths(param_shapes(cfg)):
+    for (path, shp), spec in zip(
+            tree_util.leaves_with_paths(param_shapes(cfg, ctx)), specs):
         fan_in = shp[-2] if len(shp) >= 2 else shp[-1]
         if len(shp) == 1 or shp[-1] == 1 or path[-1].endswith("norm"):
             w = torch.ones(shp, dtype=dt)
         else:
             w = (torch.randn(shp, generator=gen, dtype=torch.float32)
                  * (0.02 if fan_in > 8 else 0.5)).to(dt)
+        if coords is not None:
+            w = shard_leaf(w, spec, ctx, coords)
         tree_util.set_path(out, path, w.to(device))
     return out
 
@@ -117,13 +238,18 @@ def _from_numpy(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def params_from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
-    """The JAX package's dense parameter dict (leaves as numpy arrays,
-    e.g. ``jax.tree.map(np.asarray, params)``) as this package's
-    parameters, bit for bit.  Shapes are checked against
-    ``param_shapes(cfg)``."""
+def params_from_jax(tree: dict, cfg: ModelConfig, device="cuda",
+                    ctx: ShardCtx = NO_SHARD,
+                    coords: tuple | None = None) -> dict:
+    """The JAX package's dense parameter dict (leaves as numpy arrays of
+    JAX's padded global shapes for ``ctx``, e.g. ``jax.tree.map(
+    np.asarray, params)``) as this package's parameters, bit for bit;
+    with ``coords`` = (pod, d, m) the shards of that rank.  Shapes are
+    checked against ``param_shapes(cfg, ctx)``."""
     out: dict = {}
-    for path, shp in tree_util.leaves_with_paths(param_shapes(cfg)):
+    for (path, shp), spec in zip(
+            tree_util.leaves_with_paths(param_shapes(cfg, ctx)),
+            spec_leaves(cfg, ctx)):
         node = tree
         for k in path:
             node = node[k]
@@ -131,6 +257,8 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
         if tuple(t.shape) != shp:
             raise ValueError(f"param {'/'.join(path)}: shape "
                              f"{tuple(t.shape)} != {shp}")
+        if coords is not None:
+            t = shard_leaf(t, spec, ctx, coords)
         tree_util.set_path(out, path, t.to(device))
     return out
 
@@ -143,38 +271,81 @@ def layer_params(params: dict) -> list:
     return [{k: v[i] for k, v in stacked.items()} for i in range(n)]
 
 
-def _attn_mlp_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, pos):
+def _attn_mlp_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, pos,
+                    ctx: ShardCtx = NO_SHARD, axes=None):
     """One pre-norm transformer layer (attention + SwiGLU MLP); returns
     (x, {"k", "v"})."""
-    a, kv = blocks.gqa_attention(cfg, p, x, pos)
+    a, kv = blocks.gqa_attention(cfg, p, x, pos, ctx, axes)
     x = x + a
     x = x + swiglu_mlp(rmsnorm(x, p["mlp_norm"]), p["w_gate"], p["w_up"],
-                       p["w_down"])
+                       p["w_down"], ctx, axes)
     return x, kv
 
 
 # ============================== training ==============================
 
-def forward_lm(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
-    """Training forward of the dense family.  tokens: (b, t).  Returns
-    (hidden (b, t, d), aux_loss = 0.0).  The JAX version scans the
-    stacked layers under ``jax.checkpoint``; a Python loop walks them
-    here, with no rematerialization."""
+def scan_layers(body, x: torch.Tensor, layers: list,
+                remat_groups: int = 0) -> torch.Tensor:
+    """``x = body(x, p)`` over the layers, with JAX's two-level remat
+    (``scan_layers``) when ``remat_groups`` > 0: every layer under
+    ``torch.utils.checkpoint`` and, when g = remat_groups satisfies
+    JAX's ``g > 1 and n % g == 0 and n // g > 1``, every group of n / g
+    layers checkpointed as well, so the live residuals drop from O(L)
+    to O(g + L / g).  ``remat_groups`` 0 checkpoints nothing (JAX's
+    scan checkpoints each layer always; the port keeps its activations
+    unless asked).  A recompute runs its whole region (no early stop),
+    so every layer's collectives run as often as its forward: once, and
+    once more a checkpoint around it."""
+    n, g = len(layers), remat_groups
+    if g <= 0:
+        for p in layers:
+            x = body(x, p)
+        return x
+
+    def layer(x, p):
+        return checkpoint(body, x, p, use_reentrant=False)
+
+    def group(x, ps):
+        for p in ps:
+            x = layer(x, p)
+        return x
+
+    with set_checkpoint_early_stop(False):
+        if g > 1 and n % g == 0 and n // g > 1:
+            per = n // g
+            for i in range(g):
+                x = checkpoint(group, x, layers[i * per:(i + 1) * per],
+                               use_reentrant=False)
+            return x
+        return group(x, layers)
+
+
+def forward_lm(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+               ctx: ShardCtx = NO_SHARD, axes=None):
+    """Training forward of the dense family on this rank's shards
+    (``axes``: the process mesh, None for whole weights).  tokens:
+    (b, t).  Returns (hidden (b, t, d), aux_loss = 0.0)."""
     _check_dense(cfg, "forward_lm")
     pos = torch.arange(tokens.shape[1], device=tokens.device)
-    x = embed_lookup(params["embed"], tokens)
-    for p in layer_params(params):
-        x, _ = _attn_mlp_layer(cfg, p, x, pos)
+    emb = gather_fsdp(ctx, axes, params["embed"], 1)
+    x = embed_lookup(emb, tokens, ctx, axes)
+
+    def body(x, p):
+        return _attn_mlp_layer(cfg, p, x, pos, ctx, axes)[0]
+
+    x = scan_layers(body, x, layer_params(params), ctx.remat_groups)
     return x, 0.0
 
 
-def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
+            ctx: ShardCtx = NO_SHARD, axes=None):
     """Next-token NLL of a (b, t + 1) token batch (dense: no MoE aux, no
-    MTP).  Returns (loss, {"nll": loss})."""
+    MTP), vocab-sharded over 'model'.  Returns (loss, {"nll": loss})."""
     tokens = batch["tokens"].long()
-    x, aux = forward_lm(cfg, params, tokens[:, :-1])
+    x, aux = forward_lm(cfg, params, tokens[:, :-1], ctx, axes)
     h = rmsnorm(x, params["final_norm"])
-    loss = lm_loss(h, params["lm_head"], tokens[:, 1:])
+    head = gather_fsdp(ctx, axes, params["lm_head"], 0)
+    loss = lm_loss(h, head, tokens[:, 1:], ctx, axes)
     return loss + 0.01 * aux, {"nll": loss}
 
 

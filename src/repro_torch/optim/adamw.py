@@ -47,10 +47,16 @@ def adamw_init(cfg: AdamWConfig, params: dict) -> dict:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: dict, max_norm: float):
+def clip_by_global_norm(grads: dict, max_norm: float, axes=(), world=None):
     """Scale every gradient by min(1, max_norm / ||g||), the norm taken
-    over all leaves in f32.  Returns (grads, norm)."""
+    over all leaves in f32; the squared norm is psummed over the mesh
+    ``axes`` of ``world`` (the process mesh) so sharded leaves count
+    whole.  The JAX step passes ('model',) only: under FSDP each data
+    rank clips by its own norm, and replicated leaves count once a model
+    rank.  Returns (grads, norm)."""
     sq = sum((g.float() * g.float()).sum() for g in leaves(grads))
+    if world is not None and axes:
+        sq = world.psum(sq.reshape(1), axes)[0]
     norm = torch.sqrt(sq)
     factor = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return tree_map(lambda g: (g.float() * factor).to(g.dtype), grads), norm

@@ -131,12 +131,17 @@ def test_runspec_rejects_unknown_keys_and_bad_specs(tmp_path):
 
 
 @pytest.mark.parametrize("kw,name", [
-    pytest.param(dict(mesh=dict(tp=2)), "tensor parallelism",
+    # taken since FSDP/TP were ported (name = a check of the spec); tp > 1
+    # runs as processes (RunSpec.check_launch)
+    pytest.param(dict(mesh=dict(tp=2)),
+                 lambda s: (s.mesh.tp, s.mesh.devices) == (2, 4),
                  id="kw0-tensor parallelism"),
-    pytest.param(dict(mesh=dict(fsdp=True)), "FSDP", id="kw2-FSDP"),
+    pytest.param(dict(mesh=dict(fsdp=True)), lambda s: s.mesh.ctx().fsdp,
+                 id="kw2-FSDP"),
     pytest.param(dict(mesh=dict(seq_parallel=True)), "seq_parallel",
                  id="kw3-seq_parallel"),
-    pytest.param(dict(mesh=dict(remat_groups=2)), "remat_groups",
+    pytest.param(dict(mesh=dict(remat_groups=2)),
+                 lambda s: s.mesh.ctx().remat_groups == 2,
                  id="kw4-remat_groups"),
     pytest.param(dict(elastic=dict(enabled=True)), "elastic.enabled",
                  id="kw9-elastic.enabled"),
@@ -149,12 +154,17 @@ def test_runspec_rejects_unknown_keys_and_bad_specs(tmp_path):
 ])
 def test_runspec_refuses_what_is_not_ported_by_name(kw, name, tmp_path):
     """Each field the port does not run yet, from a JAX spec's JSON (a
-    spec JAX itself takes) and from a --spec file through the CLI."""
+    spec JAX itself takes) and from a --spec file through the CLI; the
+    fields it runs now parse both ways."""
     d = tiny(**kw)
-    with pytest.raises(tapi.SpecError, match=name):
-        tapi.RunSpec.from_json_dict(d).validate()
     path = tmp_path / "s.json"
     path.write_text(json.dumps(d))
+    if callable(name):
+        assert name(tapi.RunSpec.from_json_dict(d).validate())
+        assert name(train.parse_args(["--spec", str(path)]).spec)
+        return
+    with pytest.raises(tapi.SpecError, match=name):
+        tapi.RunSpec.from_json_dict(d).validate()
     with pytest.raises(SystemExit, match=name):
         train.parse_args(["--spec", str(path)])
 

@@ -225,7 +225,7 @@ RANK_MAIN = textwrap.dedent('''
 
     spec = json.loads(sys.argv[1])
     inp = dict(np.load(spec["inputs"]))
-    world = distributed.init(spec["pods"], spec["dp"], "cpu",
+    world = distributed.init(spec["pods"], spec["dp"], 1, "cpu",
                              datetime.timedelta(seconds=spec["pg_timeout"]))
     r = world.rank
     if spec.get("stop"):
@@ -784,7 +784,7 @@ def test_more_cuda_ranks_than_cards_raise(monkeypatch):
     monkeypatch.setattr(torch.distributed, "init_process_group",
                         lambda *a, **k: called.append("pg"))
     with pytest.raises(RuntimeError, match=r"2 CUDA ranks .* 1 card"):
-        distributed.init(1, 2, "cuda")
+        distributed.init(1, 2, 1, "cuda")
     assert not called
 
 
@@ -812,14 +812,15 @@ def test_cuda_init_binds_the_card_first_and_rank_0_builds(monkeypatch):
         monkeypatch.setattr(distributed, "ProcessAxes",
                             lambda mesh, device: ("axes", device))
         monkeypatch.setattr(distributed, "_WORLD", None)
-        got = distributed.init(1, 2, "cuda")
+        got = distributed.init(1, 2, 1, "cuda")
         dev = f"cuda:{rank}"
         assert got == ("axes", torch.device(dev))
         want = [("set_device", dev),
                 ("init", "nccl", distributed.TIMEOUT.total_seconds(), dev)]
         want += [("build",)] if rank == 0 else []
-        want += [("barrier",), ("mesh", ("cuda", (1, 2)),
-                                {"mesh_dim_names": ("pod", "data")})]
+        want += [("barrier",), ("mesh", ("cuda", (1, 2, 1)),
+                                {"mesh_dim_names": ("pod", "data",
+                                                    "model")})]
         assert calls == want
         assert 60 <= distributed.TIMEOUT.total_seconds() <= 1800
     monkeypatch.setattr(distributed, "_WORLD", None)
