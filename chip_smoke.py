@@ -189,6 +189,27 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    deepseek_coder_33b with 8 layers on ``--mesh 2x2 --fsdp``; every
    run's bytes a rank a step by axis, op and dtype equal to those
    derived from the shapes.
+   4j. ResNet-50 on CIFAR-100 shapes (``resnet_full_width``; alone
+   ``resnet_alone``, with a seeded ONN): benchmarks/fig7a.py's step
+   (each peer's ``resnet.loss_fn`` gradients, one ``sync_gradients``,
+   SGD) at full width, 100 classes, 32 x 32 x 3 ``synthetic_images``, 4
+   peers stacked on one card, 64 images a peer, TF32 off and cuDNN
+   deterministic: (a) 10 steps each of psum, ring, optinc bits 8
+   (twice), Table-II injection, bits 2 at behavioral, onn and mesh and
+   cascade over 2 pods, then 3 onn and 2 mesh bits-8 steps through
+   phase 4d's ONN; losses finite and falling, the bits-2 runs, the
+   cascade and the repeat bit-equal to their twins, ring within
+   RESNET_RING_TOL of psum, the injection hits of each step within
+   INJECT_SIGMAS, every kernel's launches (pam4 once a bucket, 23 a
+   step); step p50/p99, images/s and peak memory of each run, the pam4
+   forms of the ragged last bucket, a profiled step; (b) a narrow f32
+   step card vs CPU (loss and gradients within tolerance, the synced
+   gradients bit for bit in optinc and ring); (c) with 4 cards, 4
+   ``chip_smoke.py --resnet-rank`` ranks (NCCL) against the stacked
+   runs: bit for bit in optinc, ring and cascade, psum's first-step
+   gradients within PSUM_ULPS spacings, optinc's bytes a rank a step
+   equal to the count derived from the buckets (``resnet_processes_alone``
+   on a 4-card host).
 5. Card vs plain end to end: the f32 model with the same weights served
    through the kernels on the card and through the plain path on the
    CPU; teacher-forced logits must agree, greedy tokens must agree up to
@@ -216,6 +237,7 @@ imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import io
@@ -789,16 +811,18 @@ def check_flash_kernels(card: str) -> dict:
     return records
 
 
-def sdpa_bwd_ms(ins) -> float:
+def sdpa_bwd_ms(ins, gqa: bool = False) -> float:
     """Device ms of the backward of PyTorch's SDPA alone on the (q, k, v,
-    o, lse, do) copies ins: its forward graph built once, the backward
-    replayed on it (the flash backward's yardstick)."""
+    o, lse, do) copies ins (``gqa``: fewer KV heads than query heads):
+    its forward graph built once, the backward replayed on it (the flash
+    backward's yardstick)."""
     import torch
     import torch.nn.functional as F
     sd_ins = []
     for qq, kk, vv, _, _, dd in ins:
         qq, kk, vv = (t.detach().requires_grad_() for t in (qq, kk, vv))
-        out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
+        out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
+                                             enable_gqa=gqa)
         sd_ins.append((out, qq, kk, vv, dd))
     return time_ms(lambda out, qq, kk, vv, dd: torch.autograd.grad(
         out, (qq, kk, vv), dd, retain_graph=True), sd_ins)[0]
@@ -2724,17 +2748,15 @@ def step_stats(recs, tokens: int = 32 * 512) -> str:
 
 
 def wire_codes(spec) -> int:
-    """The B-bit codes one step's buckets carry: each bucket's elements
-    padded to whole blocks, then to JAX's shards of ceil(L / N)."""
+    """The B-bit codes one step's buckets carry (``bucket_codes`` of the
+    spec's layout)."""
     from repro_torch.collectives.bucketizer import make_layout
     from repro_torch.models import lm
     from repro_torch.tree import leaves
     cfg = spec.model_config()
     layout = make_layout([(s, lm.torch_dtype(cfg)) for s in leaves(
         lm.param_shapes(cfg))], spec.sync.bucket_bytes)
-    n, block = spec.mesh.peers, spec.sync.block
-    return sum(-(-(-(-(e - s) // block) * block) // n) * n
-               for s, e in layout.bounds)
+    return bucket_codes(layout.bounds, spec.mesh.peers, spec.sync.block)
 
 
 def check_process_wire(label: str, spec, report, steps: int) -> None:
@@ -2886,15 +2908,7 @@ def processes_full_width(card: str) -> None:
         raise AssertionError(f"4h psum gradients: exit {rc}\n{e[-6000:]}")
     got = torch.load(out)
     out.unlink()
-    diff = (got["process"] - got["stacked"]).abs()
-    ulps = float((diff / (got["bound"] / PSUM_ULPS)).max())
-    print(f"4h psum first-step synced gradients, NCCL all-reduce vs the "
-          f"stacked sum ({diff.numel()} elements): max_abs_err "
-          f"{float(diff.max()):.3e}, {int((diff > 0).sum())} elements "
-          f"differ, at most {ulps:.2f} x spacing(sum|x_i| / 4) (bound "
-          f"{PSUM_ULPS}) [{card}]", flush=True)
-    if not bool((diff <= got["bound"]).all()):
-        raise AssertionError("4h psum gradients beyond the bound")
+    check_psum_grads("4h", got, card)
     print(f"phase 4h took {time.perf_counter() - t_phase:.1f} s [{card}]",
           flush=True)
 
@@ -3154,6 +3168,7 @@ def check_flash_hd128(card: str) -> dict:
         q, k, v, is_causal=True, enable_gqa=True), ins, iters=20)[0]
     bwd = time_ms(attention.flash_attention_bwd, ins, iters=20)[0]
     bwd_plain = time_ms(ref.attention_bwd_ref, ins, iters=3)[0]
+    sdpa_bwd = sdpa_bwd_ms(ins, gqa=True)
     f_bound, b_bound = flash_bounds(*shape, True), flash_bwd_bounds(*shape)
     print(f"4i flash at deepseek_coder_33b's shape b=1 h=56 hkv=8 hd=128 "
           f"t=4096 bf16: forward max over rows of max|err| / max|ref| "
@@ -3166,8 +3181,9 @@ def check_flash_hd128(card: str) -> dict:
           f"(plain {fwd_plain:.3f} ms, sdpa {sdpa:.3f} ms, bound "
           f"{f_bound[0]:.3f} ms {f_bound[1]}); backward max_abs_err / "
           f"max|grad| {rel:.3e} (tol {BWD_TOL['bfloat16']}), {bwd:.3f} ms "
-          f"(plain {bwd_plain:.3f} ms, bound {b_bound[0]:.3f} ms "
-          f"{b_bound[1]}) [{card}]", flush=True)
+          f"(plain {bwd_plain:.3f} ms, sdpa backward (GQA) {sdpa_bwd:.3f} "
+          f"ms, bound {b_bound[0]:.3f} ms {b_bound[1]}) [{card}]",
+          flush=True)
     if not (f_err <= KERNEL_TOL["bfloat16"]
             and f_row <= FLASH_ROW_TOL and f_mean <= FLASH_MEAN_TOL
             and all(r > FLASH_ROW_TOL for r, _ in faults)
@@ -3175,7 +3191,7 @@ def check_flash_hd128(card: str) -> dict:
             and rel <= BWD_TOL["bfloat16"]):
         raise AssertionError(f"4i flash hd 128: {f_row}, {f_mean}, {l_err}, "
                              f"{rel}, planted {faults}")
-    return {"fwd_ms": fwd, "bwd_ms": bwd}
+    return {"fwd_ms": fwd, "bwd_ms": bwd, "sdpa_bwd_ms": sdpa_bwd}
 
 
 def dsc_stats(recs, report, tokens: int) -> str:
@@ -3551,6 +3567,618 @@ def trained_onn_and_noise(card: str) -> None:
         card, ["--bits", "8", "--mesh-backend", "pallas"], 3)
     bits2, _, _, _ = mesh_run(card, ["--bits", "2"], 8)
     train_noise_full_width(card, onn, losses, times, bits2)
+
+
+# ---------------------------- phase 4j: ResNet-50 on CIFAR-100 shapes
+# benchmarks/fig7a.py's ResNet step (value_and_grad of resnet.loss_fn,
+# then sync_gradients over the data peers at block 2048, then SGD) at
+# full width: 100 classes, 32 x 32 x 3 images from synthetic_images, 4
+# peers stacked on one card, 64 images a peer (fig7b's ResNet-50 batch).
+# The JAX package has no ResNet trainer, so the step lives here (and in
+# tests/test_torch_resnet.py), not in the port.  lr 0.002: at fig7a's
+# 0.05 the full-width loss rises (4.777 -> 7.456 in 10 psum steps on an
+# NVIDIA H100 80GB HBM3, 700 W; JAX's fig7a step does the same on the
+# CPU at BLOCKS (1, 1, 1, 1), 4.744 -> 8.440 in 6): a step moves every
+# logit by ~lr |f|^2, and the head's input f is 2048 non-negative
+# features of order one
+RESNET_PEERS = 4
+RESNET_BATCH = 256
+RESNET_STEPS = 10
+RESNET_LR = 0.002
+# (a)'s runs: label -> (SyncConfig and PhotonicsConfig fields, pods,
+# steps); the bits-8 onn and mesh runs go through phase 4d's ONN
+RESNET_RUNS = {
+    "psum": (dict(mode="psum"), 1, RESNET_STEPS),
+    "ring": (dict(mode="ring"), 1, RESNET_STEPS),
+    "optinc bits 8": (dict(mode="optinc"), 1, RESNET_STEPS),
+    "optinc bits 8 again": (dict(mode="optinc"), 1, RESNET_STEPS),
+    "injection": (dict(mode="optinc", error_layers=(3, 4, 5, 6)), 1,
+                  RESNET_STEPS),
+    "bits 2 behavioral": (dict(mode="optinc", bits=2), 1, RESNET_STEPS),
+    "bits 2 onn": (dict(mode="optinc", bits=2, fidelity="onn"), 1,
+                   RESNET_STEPS),
+    "bits 2 mesh": (dict(mode="optinc", bits=2, fidelity="mesh",
+                         mesh_backend="pallas"), 1, RESNET_STEPS),
+    "cascade pods 2": (dict(mode="cascade"), 2, RESNET_STEPS),
+    "onn bits 8": (dict(mode="optinc", fidelity="onn"), 1, 3),
+    "mesh bits 8": (dict(mode="optinc", fidelity="mesh",
+                         mesh_backend="pallas"), 1, 2),
+}
+# (c): 4 ranks of these against the stacked runs of (a)
+RESNET_PROC_RUNS = ("optinc bits 8", "ring", "cascade pods 2", "psum")
+# ring against psum, each loss of the 10 steps: the two sum the 4 f32
+# gradient rows in other orders (an ulp or two an element), and SGD
+# carries that into the weights; a ring that got a chunk or 1/N wrong
+# would move step 1's loss (O(5)) by far more
+RESNET_RING_TOL = 1e-3
+# (b): BLOCKS and WIDTHS of the narrow card-vs-CPU step
+RESNET_NARROW = ((1, 1, 1, 1), (8, 16, 32, 64))
+
+
+@contextlib.contextmanager
+def resnet_determinism():
+    """TF32 off, cuDNN deterministic and not benchmarking, for the
+    stacked runs and every rank worker alike (a new process starts with
+    cuDNN's TF32 on), so the peers' pre-sync gradients are the same bits
+    wherever they are computed."""
+    import torch
+    flags = [(torch.backends.cuda.matmul, "allow_tf32", False),
+             (torch.backends.cudnn, "allow_tf32", False),
+             (torch.backends.cudnn, "deterministic", True),
+             (torch.backends.cudnn, "benchmark", False)]
+    old = [getattr(o, name) for o, name, _ in flags]
+    for o, name, value in flags:
+        setattr(o, name, value)
+    try:
+        yield
+    finally:
+        for (o, name, _), value in zip(flags, old):
+            setattr(o, name, value)
+
+
+@contextlib.contextmanager
+def resnet_width(blocks, widths):
+    """The port's ResNet with BLOCKS and WIDTHS set to these."""
+    from repro_torch.models import resnet
+    old = resnet.BLOCKS, resnet.WIDTHS
+    resnet.BLOCKS, resnet.WIDTHS = tuple(blocks), tuple(widths)
+    try:
+        yield
+    finally:
+        resnet.BLOCKS, resnet.WIDTHS = old
+
+
+def resnet_sync(fields: dict, pods: int = 1, **kw):
+    """fig7a's SyncConfig (bits 8, block 2048) with ``fields`` (its own
+    and the PhotonicsConfig's) over the data peers, or 2 levels."""
+    from repro_torch.collectives.engine import SyncConfig
+    from repro_torch.launch.mesh import sync_axes
+    from repro_torch.photonics import PhotonicsConfig
+    f = dict(fields)
+    ph = PhotonicsConfig(**{k: f.pop(k) for k in ("fidelity", "mesh_backend")
+                            if k in f})
+    f.setdefault("bits", 8)
+    return SyncConfig(axes=sync_axes(pods), block=2048, photonics=ph,
+                      **f, **kw)
+
+
+def resnet_layout(bucket_bytes=None):
+    """The bucket layout of the ResNet's gradient at the widths set now."""
+    import torch
+    from repro_torch.collectives.bucketizer import (DEFAULT_BUCKET_BYTES,
+                                                    make_layout)
+    from repro_torch.models import resnet
+    from repro_torch.tree import leaves
+    return make_layout([(s, torch.float32) for s in
+                        leaves(resnet.param_shapes())],
+                       bucket_bytes or DEFAULT_BUCKET_BYTES)
+
+
+def resnet_batches(steps: int, device, batch: int | None = None) -> list:
+    """Each step's global batch of synthetic_images (RESNET_BATCH images
+    unless ``batch`` says) on ``device``."""
+    import torch
+    from repro_torch.data.pipeline import synthetic_images
+    return [tuple(torch.from_numpy(a).to(device) for a in synthetic_images(
+        s, batch or RESNET_BATCH)) for s in range(steps)]
+
+
+def resnet_key(step: int) -> int:
+    """Step ``step``'s sync key, the trainer's key tree."""
+    from repro_torch import prng
+    return prng.fold_in(prng.PRNGKey(SEED + 1), step)
+
+
+def resnet_peer_grads(params, images, labels, peers: int, world=None):
+    """Each peer's loss and gradients on its rows [p B/N, (p+1) B/N) of
+    the global batch, as P("data") splits it (with ``world`` this rank's
+    peer alone): ((n,) losses, the gradient tree with a leading peer
+    dimension)."""
+    import torch
+    from repro_torch.models import resnet
+    from repro_torch.tree import leaves, unflatten
+    per = images.shape[0] // peers
+    own = range(peers) if world is None else [world.rank]
+    train = [t.detach().requires_grad_() for t in leaves(params)]
+    tparams = unflatten(params, train)
+    losses, grads = [], []
+    for p in own:
+        loss, _ = resnet.loss_fn(tparams, images[p * per:(p + 1) * per],
+                                 labels[p * per:(p + 1) * per])
+        grads.append(torch.autograd.grad(loss, train))
+        losses.append(loss.detach())
+    return torch.stack(losses), unflatten(
+        params, [torch.stack(g) for g in zip(*grads)])
+
+
+def resnet_step(params, images, labels, sync, key, pods: int = 1,
+                world=None):
+    """fig7a's step over RESNET_PEERS peers: (params, loss, pre-sync
+    gradient tree, synced gradient tree); the loss is the peers' losses
+    summed and divided by N, as ``launch.steps`` reports it."""
+    from repro_torch.collectives.engine import sync_gradients
+    from repro_torch.tree import tree_map
+    losses, grads = resnet_peer_grads(params, images, labels, RESNET_PEERS,
+                                      world)
+    synced, _ = sync_gradients(grads, sync, None, key, pods=pods, world=world)
+    params = tree_map(lambda p, g: p - RESNET_LR * g, params, synced)
+    if world is not None:
+        losses = world.gather_rows(losses)
+    return params, losses.sum() / RESNET_PEERS, grads, synced
+
+
+def resnet_run(sync, pods: int, steps: int, batches, params):
+    """``steps`` stacked steps from ``params``: (whole losses, step
+    seconds, each timed to the loss on the host)."""
+    losses, times = [], []
+    for s in range(steps):
+        t0 = time.perf_counter()
+        params, loss, _, _ = resnet_step(params, *batches[s], sync,
+                                         resnet_key(s), pods)
+        losses.append(loss.item())
+        times.append(time.perf_counter() - t0)
+    return losses, times
+
+
+def resnet_install_onn(onn=None) -> str:
+    """Phase 4d's ONN (``onn``) for the bits-8 onn and mesh runs, else a
+    seeded Table I row 1 ONN (for 4j alone); returns what it is."""
+    from repro_torch.photonics import PhotonicsConfig, runtime
+    if onn is None:
+        module = seeded_onn(PhotonicsConfig(fidelity="onn"), APPROX_LAYERS,
+                            SEED + 6)
+        label = "a seeded Table I row 1 ONN (approx 1-6)"
+    else:
+        module, label = onn["module"], f"phase 4d's trained {onn['label']} ONN"
+    for fid in ("onn", "mesh"):
+        runtime.put_module(PhotonicsConfig(fidelity=fid), 8, RESNET_PEERS,
+                           module)
+    return label
+
+
+def resnet_want_launches(sync, nb: int, steps: int) -> dict:
+    """Each kernel's launches in ``steps`` steps of ``sync`` over ``nb``
+    buckets: pam4 encode and decode once a bucket but in psum and ring,
+    onn_layer once a layer of the ONN a bucket at fidelity onn, mesh_scan
+    once a mesh a bucket at fidelity mesh (none at bits 2: the exact
+    identity has no rotation)."""
+    from repro_torch.photonics import runtime
+    pam4 = 0 if sync.mode in ("psum", "ring") else nb * steps
+    want = {"pam4_quantize_encode": pam4, "pam4_decode_dequantize": pam4,
+            "onn_layer": 0, "mesh_scan_blocks": 0}
+    ph = sync.photonics
+    if ph.fidelity == "onn":
+        module = runtime.get_module(ph, sync.bits, RESNET_PEERS)
+        want["onn_layer"] = (len(module.cfg.structure) - 1) * nb * steps
+    if ph.fidelity == "mesh" and sync.bits > 2:
+        module = runtime.get_module(ph, sync.bits, RESNET_PEERS)
+        want["mesh_scan_blocks"] = sum(
+            len(layer) for layer in mesh_launches(module.programs)
+        ) * nb * steps
+    return want
+
+
+def resnet_counters() -> dict:
+    from repro_torch.kernels import mesh_scan, onn_layer, pam4
+    return {"pam4_quantize_encode": pam4.pam4_quantize_encode,
+            "pam4_decode_dequantize": pam4.pam4_decode_dequantize,
+            "onn_layer": onn_layer.onn_layer,
+            "mesh_scan_blocks": mesh_scan.mesh_scan_blocks}
+
+
+def resnet_stats(times) -> str:
+    rest = times[1:] or times
+    p50 = pct(rest, 0.5)
+    return (f"step p50 {p50 * 1e3:.3f} ms p99 {pct(rest, 0.99) * 1e3:.3f} ms "
+            f"over steps 1-{len(times) - 1}, {RESNET_BATCH / p50:.1f} "
+            f"images/s "
+            f"(first step {times[0] * 1e3:.3f} ms)")
+
+
+def resnet_stacked_runs(card: str, labels, onn=None) -> dict:
+    """(a)'s runs of ``labels`` (RESNET_RUNS keys), each with the launch
+    counts set to 0 just before it and read just after: {label: (losses,
+    step seconds, launches)}; raises on a non-finite loss, a loss that
+    does not fall over 10 steps or a launch count off its want."""
+    import torch
+    from repro_torch.models import resnet
+    from repro_torch.photonics import error_model, runtime
+
+    nb = resnet_layout().n_buckets
+    params0 = resnet.init_params(SEED, device="cuda")
+    batches = resnet_batches(RESNET_STEPS, "cuda")
+    if {"onn bits 8", "mesh bits 8"} & set(labels):
+        print(f"4j: the bits-8 onn and mesh runs go through "
+              f"{resnet_install_onn(onn)}", flush=True)
+    counters = resnet_counters()
+    tally = []                      # (hits, codes drawn) of each bucket
+    inject_with = error_model.inject_with
+
+    def counting(u_avg, hit, which, spec, bits):
+        tally.append((int(hit.sum()), hit.numel()))
+        return inject_with(u_avg, hit, which, spec, bits)
+
+    out = {}
+    for label in labels:
+        fields, pods, steps = RESNET_RUNS[label]
+        sync = resnet_sync(fields, pods)
+        if sync.photonics.fidelity != "behavioral":
+            runtime.warmup(sync, RESNET_PEERS, "cuda")
+        want = resnet_want_launches(sync, nb, steps)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        error_model.inject_with = counting
+        try:
+            losses, times = resnet_run(sync, pods, steps, batches, params0)
+        finally:
+            error_model.inject_with = inject_with
+        launches = {k: fn.launches for k, fn in counters.items()}
+        print(f"4j {label}: {steps} steps, losses {losses}; "
+              f"{resnet_stats(times)}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; "
+              f"launches {launches} [{card}]", flush=True)
+        if not all(math.isfinite(x) for x in losses) or (
+                steps == RESNET_STEPS and not sum(losses[-3:])
+                < sum(losses[:3])):
+            raise AssertionError(f"4j {label}: losses {losses} (the last "
+                                 f"three must sum below the first three)")
+        if launches != want:
+            raise AssertionError(f"4j {label}: launches {launches}, want "
+                                 f"{want}")
+        out[label] = losses, times, launches
+    if tally:
+        resnet_check_injection(card, tally, nb)
+    return out
+
+
+def resnet_check_injection(card: str, tally, nb: int) -> None:
+    """The Table-II hits of each step of the injection run within
+    INJECT_SIGMAS binomial sigma of the expected count."""
+    from repro_torch.photonics import error_model
+    p = error_model.TABLE_II[(3, 4, 5, 6)].p_error
+    steps = [tally[i:i + nb] for i in range(0, len(tally), nb)]
+    for s, buckets in enumerate(steps):
+        hits = sum(h for h, _ in buckets)
+        drawn = sum(d for _, d in buckets)
+        mean, sd = p * drawn, (drawn * p * (1 - p)) ** 0.5
+        print(f"4j injection step {s}: {hits} Table-II hits in {drawn} "
+              f"codes drawn, expected {mean:.1f} +- {INJECT_SIGMAS} x "
+              f"{sd:.1f} (p_error {p:.7f}) [{card}]", flush=True)
+        if abs(hits - mean) > INJECT_SIGMAS * sd or not hits:
+            raise AssertionError(f"4j injection step {s}: {hits} hits")
+
+
+def resnet_ragged_forms(card: str) -> None:
+    """The pam4 forms of the last, ragged bucket (310 blocks and a
+    1,700-element tail at full width): its optinc sync alone on a peer
+    stack of the step's shape."""
+    import torch
+    from repro_torch.collectives.engine import sync_flat
+    from repro_torch.kernels import pam4
+    layout = resnet_layout()
+    s, e = layout.bounds[-1]
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    flat = torch.randn((RESNET_PEERS, layout.total), generator=g,
+                       device="cuda")
+    enc, dec = pam4.pam4_quantize_encode, pam4.pam4_decode_dequantize
+    enc.forms = dict.fromkeys(enc.forms, 0)
+    dec.forms = dict.fromkeys(dec.forms, 0)
+    sync_flat(flat, [(s, e)], resnet_sync(dict(mode="optinc")))
+    torch.cuda.synchronize()
+    print(f"4j the last bucket, elements [{s}, {e}) ({e - s} = "
+          f"{(e - s) // 2048} blocks of 2048 + {(e - s) % 2048}), optinc "
+          f"bits 8: encode forms {enc.forms}, decode forms {dec.forms} "
+          f"[{card}]", flush=True)
+
+
+def resnet_profile(card: str) -> None:
+    """One optinc bits-8 step (after a warm-up step) under the profiler:
+    the busy share, the top device operations, and the device time of
+    the convolutions (cuDNN and GEMM kernels), the elementwise passes
+    and reductions (GroupNorm's, with the ReLUs and adds) and pam4."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import resnet
+    params = resnet.init_params(SEED, device="cuda")
+    batches = resnet_batches(1, "cuda")
+    sync = resnet_sync(dict(mode="optinc"))
+    params, loss, _, _ = resnet_step(params, *batches[0], sync, resnet_key(0))
+    loss.item()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, loss, _, _ = resnet_step(params, *batches[0], sync, resnet_key(1))
+        loss.item()
+        wall = time.perf_counter() - t0
+    dev = device_profile(prof, wall, card, "ResNet-50 step, optinc bits 8, "
+                         "4 peers x 64 images")
+    conv_words = ("conv", "gemm", "xmma", "wgrad", "dgrad", "fprop",
+                  "cudnn", "cutlass", "implicit", "winograd")
+    shares = {"convolutions": 0.0, "elementwise and reductions": 0.0,
+              "pam4": 0.0, "other": 0.0}
+    for name, us in dev.items():
+        low = name.lower()
+        if "pam4" in low:
+            shares["pam4"] += us
+        elif any(w in low for w in conv_words):
+            shares["convolutions"] += us
+        elif "elementwise" in low or "reduce" in low:
+            shares["elementwise and reductions"] += us
+        else:
+            shares["other"] += us
+    busy = max(sum(shares.values()), 1e-9)
+    print("4j profiled step, device time by kind: " + ", ".join(
+        f"{k} {v / 1e3:.3f} ms ({100 * v / busy:.2f}%)"
+        for k, v in shares.items()) + f" [{card}]", flush=True)
+
+
+def resnet_card_vs_plain(card: str) -> None:
+    """(b): one narrow f32 step of 4 peers on the card and on the CPU
+    from the same weights and images; then the card's gradient stack
+    synced on the CPU through the plain versions must give the card's
+    synced gradients bit for bit, in optinc and ring."""
+    import torch
+    from repro_torch.collectives.engine import sync_gradients
+    from repro_torch.models import resnet
+    from repro_torch.tree import leaves, tree_map
+    with resnet_width(*RESNET_NARROW):
+        params_cpu = resnet.init_params(SEED, device="cpu")
+        params_gpu = tree_map(lambda t: t.cuda(), params_cpu)
+        [(images, labels)] = resnet_batches(1, "cpu", 16)
+        l_cpu, g_cpu = resnet_peer_grads(params_cpu, images, labels,
+                                         RESNET_PEERS)
+        l_gpu, g_gpu = resnet_peer_grads(params_gpu, images.cuda(),
+                                         labels.cuda(), RESNET_PEERS)
+        loss_err = (l_gpu.cpu() - l_cpu).abs().max().item()
+        grad_err = max(((a.cpu() - w).abs().max() / w.abs().max()).item()
+                       for a, w in zip(leaves(g_gpu), leaves(g_cpu)))
+        same = {}
+        for mode in ("optinc", "ring"):
+            sync = resnet_sync(dict(mode=mode), bucket_bytes=1 << 18)
+            out_g, _ = sync_gradients(g_gpu, sync, None, resnet_key(0))
+            out_c, _ = sync_gradients(tree_map(lambda t: t.cpu(), g_gpu),
+                                      sync, None, resnet_key(0))
+            same[mode] = all(torch.equal(a.cpu(), b) for a, b in
+                             zip(leaves(out_g), leaves(out_c)))
+        n = resnet_layout(1 << 18)
+    print(f"4j (b) card vs CPU, BLOCKS {RESNET_NARROW[0]} WIDTHS "
+          f"{RESNET_NARROW[1]}, 4 peers x 4 images, f32 ({n.total} params, "
+          f"{n.n_buckets} buckets): loss max_abs_err {loss_err:.3e} (tol "
+          f"{TRAIN_LOSS_TOL:.0e}), pre-sync gradients max_abs_err / "
+          f"max|leaf| {grad_err:.3e} (tol {TRAIN_GRAD_TOL:.0e}); the card's "
+          f"stack synced on the CPU bit-equal to the card's sync {same} "
+          f"[{card}]", flush=True)
+    if not (loss_err <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_TOL
+            and all(same.values())):
+        raise AssertionError("4j (b): card vs CPU")
+
+
+def resnet_rank(spec_json: str) -> None:
+    """One rank of phase 4j (c) under torchrun: RESNET_RUNS[label] as 4
+    processes, this rank's peer and its sync over ``world``; writes
+    ``rank<r>.json`` (losses, bytes a collective, launches, step seconds)
+    into ``out``, and for psum rank 0 also ``psum_grads.pt`` (the
+    first-step synced gradients of the process psum and of the stacked
+    sum of the gathered rows, and each element's bound).  One card a
+    rank, NCCL."""
+    import torch
+    from repro_torch.launch import distributed
+    from repro_torch.models import resnet
+    from repro_torch.tree import leaves
+    spec = json.loads(spec_json)
+    fields, pods, steps = RESNET_RUNS[spec["label"]]
+    out = Path(spec["out"])
+    with resnet_determinism():
+        world = distributed.init(pods, RESNET_PEERS // pods, 1, "cuda")
+        params = resnet.init_params(SEED, device=world.device)
+        batches = resnet_batches(steps, world.device)
+        sync = resnet_sync(fields, pods)
+        counters = resnet_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        losses, times = [], []
+        for s in range(steps):
+            t0 = time.perf_counter()
+            params, loss, grads, synced = resnet_step(
+                params, *batches[s], sync, resnet_key(s), pods, world)
+            losses.append(loss.item())
+            times.append(time.perf_counter() - t0)
+            if s == 0 and sync.mode == "psum":
+                rows = world.gather_rows(torch.cat(
+                    [g.reshape(1, -1) for g in leaves(grads)], dim=1))
+                if world.rank == 0:
+                    mag = rows.abs().sum(0) / RESNET_PEERS
+                    torch.save({
+                        "process": torch.cat([g.reshape(-1) for g in
+                                              leaves(synced)]).cpu(),
+                        "stacked": (rows.sum(0) / RESNET_PEERS).cpu(),
+                        "bound": (PSUM_ULPS * (torch.nextafter(
+                            mag, torch.full_like(mag, math.inf)) - mag)
+                        ).cpu()}, out / "psum_grads.pt")
+                del rows
+        (out / f"rank{world.rank}.json").write_text(json.dumps({
+            "rank": world.rank, "device": str(world.device),
+            "losses": losses, "times": times,
+            "bytes": dict(world.bytes),
+            "launches": {k: fn.launches for k, fn in counters.items()}}))
+    distributed.shutdown()
+    distributed.exit_rank(0)
+
+
+def bucket_codes(bounds, n: int, block: int) -> int:
+    """The B-bit codes one step's buckets carry over ``n`` ranks: each
+    bucket's elements padded to whole blocks, then to JAX's shards of
+    ceil(L / N)."""
+    return sum(-(-(-(-(e - s) // block) * block) // n) * n
+               for s, e in bounds)
+
+
+def check_psum_grads(label: str, got: dict, card: str) -> None:
+    """The process psum's first-step synced gradients against the
+    stacked sum of the same rows, elementwise within ``got["bound"]``
+    (PSUM_ULPS spacings of sum|x_i| / 4)."""
+    diff = (got["process"] - got["stacked"]).abs()
+    ulps = float((diff / (got["bound"] / PSUM_ULPS)).max())
+    print(f"{label} psum first-step synced gradients, NCCL all-reduce vs "
+          f"the stacked sum ({diff.numel()} elements): max_abs_err "
+          f"{float(diff.max()):.3e}, {int((diff > 0).sum())} elements "
+          f"differ, at most {ulps:.2f} x spacing(sum|x_i| / 4) (bound "
+          f"{PSUM_ULPS}) [{card}]", flush=True)
+    if not bool((diff <= got["bound"]).all()):
+        raise AssertionError(f"{label} psum gradients beyond the bound")
+
+
+def resnet_processes(card: str, stacked: dict) -> None:
+    """(c): RESNET_PROC_RUNS as 4 ``--resnet-rank`` ranks on NCCL, one a
+    card, against (a)'s stacked runs (``stacked``: {label: (losses, step
+    seconds, launches)}): the losses bit for bit but psum's, psum's
+    first-step gradients within PSUM_ULPS spacings, each rank's launches
+    (pam4 once a bucket a step, its own row) and, in optinc, its bytes a
+    step: 2 B a code reduce-scattered in 16-bit lanes, 1 B a code
+    all-gathered as uint8."""
+    import shutil
+    import torch
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        print(f"4j (c): skipped, the 4-rank runs need 4 cards and this "
+              f"machine has {cards} (on a 4-card host "
+              f"resnet_processes_alone runs them) [{card}]", flush=True)
+        return
+    layout = resnet_layout()
+    nb = layout.n_buckets
+    codes = bucket_codes(layout.bounds, RESNET_PEERS, 2048)
+    out = ROOT / "build" / "resnet_ranks"
+    for label in RESNET_PROC_RUNS:
+        shutil.rmtree(out, ignore_errors=True)
+        out.mkdir(parents=True)
+        rc, o, e, wall = torchrun(4, [
+            str(ROOT / "chip_smoke.py"), "--resnet-rank",
+            json.dumps({"label": label, "out": str(out)})])
+        if rc != 0:
+            raise AssertionError(f"4j (c) {label}: exit {rc}\n{o[-3000:]}\n"
+                                 f"{e[-6000:]}")
+        ranks = [json.loads((out / f"rank{r}.json").read_text())
+                 for r in range(4)]
+        losses, times, _ = stacked[label]
+        got = ranks[0]["losses"]
+        same = got == losses
+        err = max(abs(a - b) for a, b in zip(got, losses))
+        print(f"4j (c) {label}, 4 ranks vs 4 stacked peers ({wall:.1f} s of "
+              f"torchrun): losses bit-equal {same}, max_abs_diff {err:.3e}; "
+              f"rank 0 {resnet_stats(ranks[0]['times'])}; stacked "
+              f"{resnet_stats(times)} [{card}]", flush=True)
+        if label != "psum" and not same:
+            raise AssertionError(f"4j (c) {label}: {got} vs stacked {losses}")
+        pam4 = 0 if label in ("ring", "psum") else nb * RESNET_STEPS
+        for r in ranks:
+            launches = {k: v for k, v in r["launches"].items() if v}
+            print(f"4j (c) {label}: rank {r['rank']} on {r['device']} "
+                  f"launched {launches}; bytes a step "
+                  f"{ {k: v / RESNET_STEPS for k, v in r['bytes'].items()} }",
+                  flush=True)
+            if (r["launches"]["pam4_quantize_encode"] != pam4
+                    or r["device"] != f"cuda:{r['rank']}"):
+                raise AssertionError(f"4j (c) {label}: rank {r['rank']}")
+            if label == "optinc bits 8":
+                wire = (r["bytes"]["psum_scatter:int32"] / RESNET_STEPS,
+                        r["bytes"]["all_gather:uint8"] / RESNET_STEPS)
+                if wire != (2 * codes, codes):
+                    raise AssertionError(f"4j (c) optinc wire bytes {wire}, "
+                                         f"want {(2 * codes, codes)}")
+        if label == "optinc bits 8":
+            print(f"4j (c) optinc: {codes} codes a step over {nb} buckets; "
+                  f"every rank reduce-scattered {2 * codes} B and "
+                  f"all-gathered {codes} B a step, as derived", flush=True)
+        if label == "psum":
+            check_psum_grads("4j (c)", torch.load(out / "psum_grads.pt"),
+                             card)
+    shutil.rmtree(out, ignore_errors=True)
+
+
+def resnet_full_width(card: str, onn=None) -> None:
+    """Phase 4j: ResNet-50 on CIFAR-100 shapes through every --sync mode
+    ((a) 4 peers stacked on one card, RESNET_RUNS), its ragged bucket's
+    pam4 forms and a profiled step; (b) narrow, card vs CPU; (c) 4 ranks
+    against (a) when the machine has 4 cards.  ``onn``: phase 4d's pick
+    for the bits-8 onn and mesh runs (a seeded ONN when None)."""
+    import torch
+    t_phase = time.perf_counter()
+    with resnet_determinism():
+        runs = resnet_stacked_runs(card, RESNET_RUNS, onn)
+        losses = {k: v[0] for k, v in runs.items()}
+        ring_err = max(abs(a - b) for a, b in zip(losses["ring"],
+                                                  losses["psum"]))
+        checks = {
+            "optinc bits 8 again = optinc bits 8":
+                losses["optinc bits 8 again"] == losses["optinc bits 8"],
+            "bits 2 onn = bits 2 mesh = bits 2 behavioral":
+                losses["bits 2 onn"] == losses["bits 2 mesh"]
+                == losses["bits 2 behavioral"],
+            "cascade pods 2 = optinc bits 8":
+                losses["cascade pods 2"] == losses["optinc bits 8"],
+            f"ring within {RESNET_RING_TOL} of psum":
+                ring_err <= RESNET_RING_TOL,
+        }
+        off = {k: max(abs(a - b) for a, b in zip(losses[k],
+                                                 losses["optinc bits 8"]))
+               for k in ("onn bits 8", "mesh bits 8")}
+        print(f"4j checks (bit for bit but the ring): {checks}; ring vs psum "
+              f"max_abs_diff {ring_err:.3e}; max |dloss| against optinc "
+              f"bits 8 (behavioral) {off} [{card}]", flush=True)
+        if not all(checks.values()):
+            raise AssertionError(f"4j: {checks}")
+        for label in ("psum", "optinc bits 8", "injection"):
+            ls = losses[label]
+            print(f"4j fig7a row resnet50.{label}: loss_first "
+                  f"{sum(ls[:3]) / 3:.4f} loss_last {sum(ls[-3:]) / 3:.4f} "
+                  f"steps {len(ls)} [{card}]", flush=True)
+        resnet_ragged_forms(card)
+        resnet_profile(card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        resnet_card_vs_plain(card)
+        resnet_processes(card, runs)
+    print(f"phase 4j took {time.perf_counter() - t_phase:.1f} s [{card}]",
+          flush=True)
+
+
+def resnet_alone(card: str) -> None:
+    """Phase 4j alone, the kernels built first (a seeded ONN for the
+    bits-8 onn and mesh runs)."""
+    from repro_torch.kernels import _build
+    _build.build()
+    resnet_full_width(card)
+
+
+def resnet_processes_alone(card: str) -> None:
+    """Phase 4j (c) alone on a 4-card host: the kernels built, the
+    stacked runs it compares with, then the 4-rank runs."""
+    from repro_torch.kernels import _build
+    _build.build()
+    with resnet_determinism():
+        resnet_processes(card, resnet_stacked_runs(card, RESNET_PROC_RUNS))
 
 
 def card_vs_plain_training(card: str) -> None:
@@ -3994,6 +4622,7 @@ def main() -> int:
                                    behavioral_bits2)
     print(f"mesh_scan_blocks theta-drift launches on the PhaseNoise path: "
           f"{drift} in 3 pallas steps [{card}]", flush=True)
+    resnet_full_width(card, onn)
     card_vs_plain(card)
     card_vs_plain_training(card)
     card_vs_plain_sync_modes(card)
@@ -4015,4 +4644,6 @@ if __name__ == "__main__":
         train_layers_rank(int(sys.argv[2]), sys.argv[3:])
     if sys.argv[1:2] == ["--tp-grads"]:          # one rank of phase 4i (b)
         tp_grads_rank(sys.argv[2])
+    if sys.argv[1:2] == ["--resnet-rank"]:       # one rank of phase 4j (c)
+        resnet_rank(sys.argv[2])
     sys.exit(main())

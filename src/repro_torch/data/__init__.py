@@ -1,2 +1,3 @@
 """Synthetic data of the port (counterpart of ``repro.data``)."""
-from .pipeline import DataConfig, SyntheticLM, make_batch_iterator
+from .pipeline import (DataConfig, SyntheticLM, make_batch_iterator,
+                       synthetic_images)

@@ -1,10 +1,12 @@
-"""Deterministic synthetic LM stream, a numpy copy of
-``repro.data.pipeline`` (``DataConfig``, ``SyntheticLM``,
-``make_batch_iterator``), so both packages see identical tokens.
+"""Deterministic synthetic data, a numpy copy of ``repro.data.pipeline``
+(``DataConfig``, ``SyntheticLM``, ``make_batch_iterator``,
+``synthetic_images``), so both packages see identical tokens and images.
 
 Streams are functions of (seed, step, shard): a Zipfian token process
 shaped like the paper's Wikipedia-1B setup (vocab 32000) in which half
-the positions follow a fixed bigram map, so the loss is learnable.
+the positions follow a fixed bigram map, so the loss is learnable; and
+CIFAR-100-shaped images (the paper's ResNet-50 task), class-conditional
+blobs over Gaussian noise.
 """
 from __future__ import annotations
 
@@ -63,3 +65,26 @@ def make_batch_iterator(cfg: DataConfig, start_step: int = 0, shard: int = 0,
     while True:
         yield step, {"tokens": ds.batch(step)}
         step += 1
+
+
+def synthetic_images(step: int, batch: int, seed: int = 7,
+                     shape=(32, 32, 3), classes: int = 100):
+    """CIFAR-100-shaped deterministic image stream (paper's ResNet50 task):
+    class-conditional Gaussian blobs (learnable but non-trivial).
+    Returns ((batch, *shape) f32 NHWC images, (batch,) int32 labels), the
+    JAX package's arrays bit for bit (the same generators, the same
+    per-image loop)."""
+    rng = np.random.default_rng(seed * 999_983 + step)
+    labels = rng.integers(0, classes, size=batch)
+    protos = np.random.default_rng(seed).normal(
+        size=(classes, 8)).astype(np.float32)
+    noise = rng.normal(size=(batch,) + shape).astype(np.float32)
+    grid = np.linspace(0, 1, shape[0] * shape[1] * shape[2]).reshape(shape)
+    imgs = noise * 0.5
+    for i in range(batch):
+        f = protos[labels[i]]
+        imgs[i] += (f[:4].reshape(2, 2, 1) * grid[:2, :2] * 0).sum() + \
+            f.mean() + 0.3 * np.outer(
+                np.sin(np.linspace(0, f[0] * 6, shape[0])),
+                np.cos(np.linspace(0, f[1] * 6, shape[1])))[..., None]
+    return imgs.astype(np.float32), labels.astype(np.int32)
