@@ -210,6 +210,30 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    gradients within PSUM_ULPS spacings, optinc's bytes a rank a step
    equal to the count derived from the buckets (``resnet_processes_alone``
    on a 4-card host).
+   4k. The MoE family (``moe_full_width``; alone ``moe_alone``; run
+   after 4i): (a) phi35_moe_42b at its published widths (d 4096, 32/8
+   heads, 16 experts top-2, moe_d_ff 6400, vocab 32064) cut to
+   PHI_LAYERS layer, a world of one on NCCL, ``--sync optinc --bits 8
+   --lr 1e-5``, one sequence of 4096, 5 steps: finite losses, step
+   p50/p99, tokens/s, peak memory beside the reckoning, the capacity
+   (641 tokens an expert), step 0's loss and aux loss from a forward of
+   the seeded weights in the rank before the run, and the flash and pam4
+   launches; (b) the phi35 and
+   deepseek_v3 SMOKE configs in f32, one 2-peer step card vs CPU (loss
+   and pre-sync gradients within phase 5's tolerances, the synced
+   gradients and residuals bit for bit), deepseek's through MLA's
+   (24, 16) flash instantiation, which is then timed at that shape;
+   (c) deepseek_v3's MLA block at its published widths (QK 192, V 128,
+   128 heads, seq 4096) forward and backward through
+   ``blocks.mla_attention`` (the (192, 128) launches), and the flash
+   forward and backward at that shape against their plain versions,
+   timed beside SDPA and the bound; (d) with 4 cards, phi35_moe_42b
+   with PHI_LAYERS_4 layers on ``--mesh 2x2 --fsdp`` (8 experts a rank):
+   finite losses, the bytes a rank a step against the shapes, and a
+   ``chip_smoke.py --moe-grads`` rank worker for the step-0 loss against
+   the stacked dp-2 run's and the 2x gradients of the model-sharded
+   leaves at tp 2.  deepseek_v3_671b at its published widths does not
+   fit four H100s (PERF.md has the arithmetic).
 5. Card vs plain end to end: the f32 model with the same weights served
    through the kernels on the card and through the plain path on the
    CPU; teacher-forced logits must agree, greedy tokens must agree up to
@@ -383,36 +407,44 @@ def paged_bounds(b, h, hkv, hd, ps, lengths, dtype):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def flash_case(b, h, hkv, hd, sq, skv, dtype, seed):
+def flash_case(b, h, hkv, hd, sq, skv, dtype, seed, hdv=None):
     """q/k/v as the model passes them: (b, t, heads, hd) transposed to
-    (b, heads, t, hd) views (strided, last dim contiguous)."""
+    (b, heads, t, hd) views (strided, last dim contiguous); v is hdv wide
+    (MLA), hd by default."""
     import torch
+    hdv = hd if hdv is None else hdv
     g = torch.Generator().manual_seed(seed)
     q = torch.randn((b, sq, h, hd), generator=g).to(dtype).cuda()
     k = torch.randn((b, skv, hkv, hd), generator=g).to(dtype).cuda()
-    v = torch.randn((b, skv, hkv, hd), generator=g).to(dtype).cuda()
+    v = torch.randn((b, skv, hkv, hdv), generator=g).to(dtype).cuda()
     return [t.transpose(1, 2) for t in (q, k, v)]
 
 
-def flash_bounds(b, h, hkv, hd, sq, skv, dtype, lse=False):
+def flash_bounds(b, h, hkv, hd, sq, skv, dtype, lse=False, hdv=None):
+    """(ms, what bounds it) of the causal forward: QK^T 2 hd and PV 2 hdv
+    flops a visible (row, column) pair; q, k, v read and o (and the lse)
+    written once."""
     import torch
+    hdv = hd if hdv is None else hdv
     item = torch.tensor([], dtype=dtype).element_size()
     pairs = sum(min(skv, r + (skv - sq) + 1) for r in range(sq))  # causal
-    flops = 4 * b * h * pairs * hd
-    nbytes = ((2 * b * h * sq * hd + 2 * b * hkv * skv * hd) * item
+    flops = 2 * b * h * pairs * (hd + hdv)
+    nbytes = ((b * h * sq * (hd + hdv) + b * hkv * skv * (hd + hdv)) * item
               + (4 * b * h * sq if lse else 0))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[str(dtype).split(".")[-1]] * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def flash_bwd_bounds(b, h, hkv, hd, sq, skv, dtype):
+def flash_bwd_bounds(b, h, hkv, hd, sq, skv, dtype, hdv=None):
     import torch
+    hdv = hd if hdv is None else hdv
     item = torch.tensor([], dtype=dtype).element_size()
     pairs = sum(min(skv, r + (skv - sq) + 1) for r in range(sq))  # causal
-    flops = 10 * b * h * pairs * hd      # S, dP, dV, dK, dQ: 2 * hd each
-    nbytes = ((4 * b * h * sq * hd + 4 * b * hkv * skv * hd) * item
-              + 4 * b * h * sq)          # q, o, dO, dq; k, v, dk, dv; lse
+    # S, dK, dQ: 2 hd flops a pair each; dP, dV: 2 hdv each
+    flops = 2 * b * h * pairs * (3 * hd + 2 * hdv)
+    nbytes = ((2 * b * h * sq * (hd + hdv) + 2 * b * hkv * skv * (hd + hdv))
+              * item + 4 * b * h * sq)   # q, dq, o, dO; k, dk, v, dv; lse
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[str(dtype).split(".")[-1]] * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -602,6 +634,7 @@ def flash_build_report(card: str) -> None:
     flash sources (nvcc -Xptxas -v), and the HMMA instructions of each
     where cuobjdump exists.  Raises if a head-dim-48 tensor-core kernel
     spills."""
+    import re
     from repro_torch.kernels import _build
 
     paths = _build.build(["flash_attention", "flash_attention_bwd"])
@@ -615,7 +648,8 @@ def flash_build_report(card: str) -> None:
                   f"{spill[0]} bytes spill stores, {spill[1]} bytes spill "
                   f"loads, {st.get('smem', 0)} bytes static smem; HMMA "
                   f"{count}", flush=True)
-            if "_mma_" in short and "<48>" in short and any(spill):
+            if ("_mma_" in short and re.search(r"<48(, 48)?>", short)
+                    and any(spill)):
                 raise AssertionError(f"{short} spills registers: {spill}")
     print(f"flash build report done [{card}]", flush=True)
 
@@ -676,15 +710,23 @@ def check_flash_kernels(card: str) -> dict:
         ("hd32_bf16", 2, 4, 4, 32, 50, 50, torch.bfloat16),
         # the training shape (one peer's batch of the training step)
         ("t512", 8, 8, 8, 48, 512, 512, torch.bfloat16),
+        # MLA: a V head dim of its own, (192, 128) at deepseek-v3's
+        # published widths and (24, 16) at its SMOKE config
+        ("mla", 2, 8, 8, 192, 130, 130, torch.bfloat16, 128),
+        ("mla_f32", 2, 8, 8, 192, 130, 130, torch.float32, 128),
+        ("mla_shift", 1, 4, 4, 192, 37, 203, torch.bfloat16, 128),
+        ("mla_smoke", 2, 4, 4, 24, 100, 100, torch.bfloat16, 16),
+        ("mla_smoke_f32", 2, 4, 4, 24, 100, 100, torch.float32, 16),
     ]
-    for label, b, h, hkv, hd, sq, skv, dt in flash_cases:
-        args = flash_case(b, h, hkv, hd, sq, skv, dt, SEED)
+    for label, b, h, hkv, hd, sq, skv, dt, *hdv in flash_cases:
+        args = flash_case(b, h, hkv, hd, sq, skv, dt, SEED, *hdv)
         got = attention.flash_attention(*args).float()
         want = ref.attention_ref(*args).float()
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         tol = KERNEL_TOL[str(dt).split(".")[-1]]
         print(f"flash_attention {label}: b={b} h={h} hkv={hkv} hd={hd} "
+              f"{f'hdv={hdv[0]} ' if hdv else ''}"
               f"sq={sq} skv={skv} {dt}: max_abs_err {err:.3e} "
               f"(tol {tol:.0e})", flush=True)
         if not err <= tol:
@@ -726,11 +768,17 @@ def check_flash_kernels(card: str) -> dict:
         # bf16 twins of the f32-only cases, for the tensor-core kernels
         ("gqa_hd16_bf16", 4, 8, 2, 16, 300, 300, torch.bfloat16),
         ("hd32_bf16", 2, 4, 4, 32, 70, 70, torch.bfloat16),
+        # MLA's (QK, V) head dims, as the forward's
+        ("mla", 2, 4, 4, 192, 129, 129, torch.bfloat16, 128),
+        ("mla_f32", 2, 4, 4, 192, 129, 129, torch.float32, 128),
+        ("mla_shift", 1, 4, 4, 192, 60, 150, torch.bfloat16, 128),
+        ("mla_smoke", 2, 4, 4, 24, 100, 100, torch.bfloat16, 16),
+        ("mla_smoke_f32", 2, 4, 4, 24, 100, 100, torch.float32, 16),
     ]
-    for label, b, h, hkv, hd, sq, skv, dt in bwd_cases:
-        q, k, v = flash_case(b, h, hkv, hd, sq, skv, dt, SEED)
+    for label, b, h, hkv, hd, sq, skv, dt, *hdv in bwd_cases:
+        q, k, v = flash_case(b, h, hkv, hd, sq, skv, dt, SEED, *hdv)
         g = torch.Generator().manual_seed(SEED + 1)
-        do = torch.randn((b, h, sq, hd), generator=g).to(dt).cuda()
+        do = torch.randn((b, h, sq, v.shape[-1]), generator=g).to(dt).cuda()
         o, lse = attention.flash_attention(q, k, v, return_lse=True)
         o_ref, lse_ref = ref.attention_fwd_ref(q, k, v)
         torch.cuda.synchronize()
@@ -747,6 +795,7 @@ def check_flash_kernels(card: str) -> dict:
                    / w.float().abs().max()).item() for a, w in zip(got, want))
         btol = BWD_TOL[str(dt).split(".")[-1]]
         print(f"flash_attention_bwd {label}: b={b} h={h} hkv={hkv} hd={hd} "
+              f"{f'hdv={hdv[0]} ' if hdv else ''}"
               f"sq={sq} skv={skv} {dt}: max_abs_err / max|grad| {rel:.3e} "
               f"(tol {btol:.0e}); forward with lse: out {f_err:.3e}, lse "
               f"{l_err:.3e}", flush=True)
@@ -2955,14 +3004,37 @@ FLASH_MEAN_TOL = 2 ** -8
 
 
 def train_layers_rank(layers: int, argv) -> None:
-    """One rank of a phase-4i run (under torchrun): the training entry
-    point on ``argv`` with the model's depth cut to ``layers``
-    (``train.run``'s ``cfg``); rank 0 prints the step lines and the rank
-    report."""
+    """One rank of a phase-4i or 4k run (under torchrun): the training
+    entry point's session on ``argv`` with the model's depth cut to
+    ``layers``; rank 0 prints the step lines and the rank report, and
+    for a MoE model first a line {"loss0", "aux0"}: step 0's loss and
+    summed aux loss on its peer's rows, a forward of the seeded weights
+    before the run (collective: every rank runs it; the report's launch
+    counts and peak memory start after it)."""
+    import torch
+    from repro_torch.api import TrainSession
+    from repro_torch.api.callbacks import default_callbacks
     from repro_torch.launch import distributed, train
+    from repro_torch.models import lm
     opts = train.parse_args(argv)
     cfg = dataclasses.replace(opts.spec.model_config(), n_layers=layers)
-    train.run(opts, cfg=cfg)
+    session = TrainSession(opts.spec, default_callbacks(opts.spec),
+                           device=opts.device, cfg=cfg)
+    if cfg.moe:
+        tokens = torch.from_numpy(session.data.batch(0))
+        per = tokens.shape[0] // session.peers
+        pod, d, _ = session.world.coords
+        p = pod * session.ctx.dp + d
+        rows = tokens[p * per:(p + 1) * per].to(session.device)
+        args = (session.ctx, session.world)
+        with torch.no_grad():
+            loss, _ = lm.loss_fn(cfg, session.params, {"tokens": rows}, *args)
+            aux = lm.forward_lm(cfg, session.params, rows[:, :-1], *args)[1]
+        if session.rank == 0:
+            print(json.dumps({"loss0": loss.item(), "aux0": aux.item()}),
+                  flush=True)
+    session.run()
+    session.close()
     distributed.exit_rank(0)
 
 
@@ -2980,7 +3052,11 @@ def layers_run(nproc: int, layers: int, argv, steps: int):
         raise AssertionError(f"torchrun {nproc} x {layers} layers "
                              f"{' '.join(argv)}: exit {rc}\n{out[-3000:]}"
                              f"\n{err[-6000:]}")
-    return recs, reports[0], wall
+    report = reports[0]
+    for x in lines:
+        if "aux0" in x:
+            report.update(x)
+    return recs, report, wall
 
 
 def derived_shard_bytes(cfg, ctx, b: int, t: int, layer_runs: float) -> dict:
@@ -3005,7 +3081,7 @@ def derived_shard_bytes(cfg, ctx, b: int, t: int, layer_runs: float) -> dict:
             if not m:
                 continue
             n = math.prod(shp) * ctx.dp * e
-            if path[0] == "layers":
+            if len(path) == 2:          # a stacked per-layer leaf
                 layer += n // shp[0]
             else:
                 once += n
@@ -3017,6 +3093,10 @@ def derived_shard_bytes(cfg, ctx, b: int, t: int, layer_runs: float) -> dict:
                                          + 2)
         out["model/psum:float32"] = 16 * b * t + 4
         out["model/pmax:float32"] = 4 * b * t
+        if cfg.moe:     # the router's f32 logits (b t, E) joined over 'model'
+            logits = 4 * b * t * cfg.n_experts
+            out["model/all_gather:float32"] = logits * layer_runs
+            out["model/psum_scatter:float32"] = logits * cfg.n_layers
     return out
 
 
@@ -3030,12 +3110,12 @@ def check_shard_bytes(label: str, cfg, spec, report, steps: int,
     want = derived_shard_bytes(cfg, ctx, b, spec.data.seq_len, layer_runs)
     for r in report["ranks"]:
         got = {k: v / steps for k, v in r["axis_bytes"].items()}
-        print(f"4i {label}: rank {r['rank']} bytes a step by axis/op:dtype "
+        print(f"{label}: rank {r['rank']} bytes a step by axis/op:dtype "
               f"{got}; derived from the shapes {want} [{card}]", flush=True)
         bad = {k: (got.get(k), v) for k, v in want.items()
                if got.get(k) != v}
         if bad:
-            raise AssertionError(f"4i {label}: rank {r['rank']} bytes "
+            raise AssertionError(f"{label}: rank {r['rank']} bytes "
                                  f"(measured, derived) {bad}")
 
 
@@ -3232,7 +3312,7 @@ def fsdp_pods_vs_stacked(card: str) -> None:
           f"bit-equal {report['losses'] == stacked}; process "
           f"{step_stats(recs)}; stacked {step_stats(srecs)} [{card}]",
           flush=True)
-    check_shard_bytes("(a)", spec.model_config(), spec, report, PROC_STEPS,
+    check_shard_bytes("4i (a)", spec.model_config(), spec, report, PROC_STEPS,
                       spec.model_config().n_layers, card)
     if report["losses"] != stacked:
         raise AssertionError(f"4i (a): {report['losses']} vs {stacked}")
@@ -3327,7 +3407,7 @@ def sharded_full_width(card: str) -> dict:
           f"vs the stacked dp 2 run's {stacked[0]} (|diff| {d0:.3e}, tol "
           f"{TP_LOSS_TOL}); losses {report['losses']}; "
           f"{step_stats(recs)} [{card}]", flush=True)
-    check_shard_bytes("(b)", spec.model_config(), spec, report, TP_STEPS,
+    check_shard_bytes("4i (b)", spec.model_config(), spec, report, TP_STEPS,
                       spec.model_config().n_layers, card)
     check_falling("(b)", report["losses"])
     if d0 > TP_LOSS_TOL:
@@ -3345,7 +3425,7 @@ def sharded_full_width(card: str) -> dict:
           f"{dsc_stats(recs, report, 2 * 4096)}; layer forwards a step "
           f"{runs} [{card}]", flush=True)
     check_falling("(c)", report["losses"])
-    check_shard_bytes("(c)", cfg, spec, report, DSC_STEPS, runs, card)
+    check_shard_bytes("4i (c)", cfg, spec, report, DSC_STEPS, runs, card)
     print(f"phase 4i took {time.perf_counter() - t_phase:.1f} s [{card}]",
           flush=True)
     return {"launches": launches, "flash": flash}
@@ -3356,6 +3436,445 @@ def sharded_alone(card: str) -> None:
     from repro_torch.kernels import _build
     _build.build()
     sharded_full_width(card)
+
+
+# ------------------------------------------------- phase 4k: the MoE family
+# phi35_moe_42b at its published widths (d 4096, 32/8 heads, hd 128, 16
+# experts top-2, moe_d_ff 6400, vocab 32064), depth cut (one card: 1
+# layer; 4 cards: 4), one sequence of 4096 tokens a data peer, lr 1e-5 as
+# phase 4i's deepseek_coder_33b
+PHI_ARGV = ["--arch", "phi35_moe_42b", "--sync", "optinc", "--bits", "8",
+            "--seq-len", "4096", "--lr", "1e-5", "--device", "cuda"]
+PHI_STEPS = 5
+PHI_LAYERS = 1          # one card
+PHI_LAYERS_4 = 4        # --mesh 2x2 --fsdp on 4 cards
+# the bytes a parameter of phase 4i's deepseek_coder_33b world of one
+# (40.80 GB peak over 1.523 B parameters, NVIDIA H100 80GB HBM3, 700 W):
+# the reckoning the depth cuts were sized by
+RECKON_BYTES_PER_PARAM = 40.80e9 / 1.523e9
+# the run's step-0 loss against a forward of the same weights in the same
+# rank before it (the same kernels; the loss is O(10))
+PHI_LOSS_TOL = 1e-3
+# (d): |g_tp2| / |g_tp1 shard| of each model-sharded leaf within this of 2.
+# It tells the reference's factor tp = 2 from 1 (a transpose that loses
+# the reduce-scatter sum) or 4; bf16 routing that flips between tp 1 and
+# tp 2 moves a data peer's router and expert gradients: on the H100
+# (NVIDIA H100 80GB HBM3, 700 W) the ratios read 1.8862 (the router) to
+# 2.0334, the largest entry errors up to 0.32 of the leaf's largest
+MOE_RATIO_TOL = 0.1
+
+
+def n_params(cfg) -> int:
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves
+    return sum(math.prod(s) for s in leaves(lm.param_shapes(cfg)))
+
+
+def phi_full_width(card: str) -> dict:
+    """(a) phi35_moe_42b at its published widths, PHI_LAYERS layers, a
+    world of one on NCCL: finite losses, step p50/p99, tokens/s, the
+    peak memory beside the reckoning, the capacity and aux loss, and the
+    launches of the flash and pam4 kernels (reset before the run, read
+    after)."""
+    from repro_torch.configs import get
+    from repro_torch.models import blocks
+    argv = PHI_ARGV + ["--mesh", "1x1", "--global-batch", "1"]
+    recs, report, wall = layers_run(1, PHI_LAYERS, argv, PHI_STEPS)
+    launches = report["ranks"][0]["launches"]
+    cfg = dataclasses.replace(get("phi35_moe_42b"), n_layers=PHI_LAYERS)
+    n = n_params(cfg)
+    peak = report["ranks"][0]["peak_bytes"]
+    loss0, aux0 = report["loss0"], report["aux0"]
+    print(f"4k (a) phi35_moe_42b (d 4096, 32/8 heads, hd 128, 16 experts "
+          f"top-2, moe_d_ff 6400, vocab 32064; {PHI_LAYERS} layer, {n} "
+          f"parameters) world of one on NCCL, --sync optinc --bits 8 --lr "
+          f"1e-5, seq 4096, {PHI_STEPS} steps ({wall:.1f} s of torchrun): "
+          f"{dsc_stats(recs, report, 4096)}; peak {peak / 1e9:.2f} GB "
+          f"against the reckoning {n * RECKON_BYTES_PER_PARAM / 1e9:.2f} GB "
+          f"({RECKON_BYTES_PER_PARAM:.1f} B a parameter), {peak / n:.1f} B "
+          f"a parameter measured; 2 layers ({n_params(dataclasses.replace(cfg, n_layers=2))} "
+          f"parameters) would take {n_params(dataclasses.replace(cfg, n_layers=2)) * peak / n / 1e9:.2f} "
+          f"GB at that rate; capacity {blocks.capacity(cfg, 4096)} tokens "
+          f"an expert of 4096; step 0 by a forward of the seeded weights "
+          f"before the run: loss {loss0} (the run's {report['losses'][0]}), "
+          f"aux {aux0}; launches "
+          f"{ {k: v for k, v in launches.items() if v} } [{card}]",
+          flush=True)
+    losses = report["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"4k (a) losses {losses}")
+    if abs(loss0 - losses[0]) > PHI_LOSS_TOL:
+        raise AssertionError(f"4k (a) step-0 loss {loss0} vs {losses[0]}")
+    idle = [k for k in _train_counters() if not launches.get(k)]
+    if idle:
+        raise AssertionError(f"4k (a): the phi35 run launched no {idle}")
+    return launches
+
+
+def card_vs_plain_moe(card: str) -> dict:
+    """(b) phi35_moe_42b's and deepseek_v3_671b's SMOKE configs in f32:
+    one step of 2 peers on the card and on the CPU from the same weights
+    and tokens (the loss and the pre-sync gradients within phase 5's
+    tolerances), and the card's gradient stack synced on the card and on
+    the CPU, bit for bit.  deepseek's step runs MLA's (24, 16) flash
+    instantiation.  Returns the launches of each (hd, hdv) pair of the
+    flash kernels in these steps."""
+    import torch
+    from repro_torch.collectives.bucketizer import make_layout
+    from repro_torch.collectives.engine import SyncConfig, sync_flat
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import attention
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves, tree_map
+
+    counters = (attention.flash_attention, attention.flash_attention_bwd)
+    for fn in counters:
+        fn.launches_by_dims = {}
+    sync = SyncConfig(mode="optinc", bits=8, block=2048, error_feedback=True,
+                      bucket_bytes=2 ** 20)
+    for arch in ("phi35_moe_42b", "deepseek_v3_671b"):
+        cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+        params_cpu = lm.init_params(cfg, SEED, "cpu")
+        params_gpu = tree_map(lambda t: t.cuda(), params_cpu)
+        layout = make_layout([(s, torch.float32) for s in
+                              leaves(lm.param_shapes(cfg))], sync.bucket_bytes)
+        g = torch.Generator().manual_seed(SEED + 3)
+        tok = torch.randint(0, cfg.vocab, (8, 129), generator=g)
+        l_cpu, f_cpu = tsteps.peer_grad_stack(cfg, params_cpu, tok, 2,
+                                              layout.total)
+        l_gpu, f_gpu = tsteps.peer_grad_stack(cfg, params_gpu, tok.cuda(), 2,
+                                              layout.total)
+        loss_err = (l_gpu.cpu() - l_cpu).abs().max().item()
+        grad_err, start = 0.0, 0
+        for size in layout.sizes:          # each leaf against its own max
+            want = f_cpu[:, start:start + size]
+            got = f_gpu[:, start:start + size].cpu()
+            grad_err = max(grad_err, ((got - want).abs().max()
+                                      / want.abs().max().clamp_min(1e-30)
+                                      ).item())
+            start += size
+        res = torch.zeros_like(f_gpu)
+        out_gpu, res_gpu = sync_flat(f_gpu, layout.bounds, sync, res)
+        out_cpu, res_cpu = sync_flat(f_gpu.cpu(), layout.bounds, sync,
+                                     res.cpu())
+        same = (torch.equal(out_gpu.cpu(), out_cpu),
+                torch.equal(res_gpu.cpu(), res_cpu))
+        print(f"4k (b) card vs plain, {cfg.name} f32, 2 peers, "
+              f"{layout.total} params: losses {l_gpu.tolist()} (CPU "
+              f"{l_cpu.tolist()}), max_abs_err {loss_err:.3e} (tol "
+              f"{TRAIN_LOSS_TOL:.0e}); pre-sync gradients max_abs_err / "
+              f"max|leaf| {grad_err:.3e} (tol {TRAIN_GRAD_TOL:.0e}); the "
+              f"card's stack synced on the CPU: synced bit-equal {same[0]},"
+              f" residuals bit-equal {same[1]} [{card}]", flush=True)
+        if not (loss_err <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_TOL
+                and all(same)):
+            raise AssertionError(f"4k (b) {arch}: card vs plain disagrees")
+    by_dims = {fn.__name__: dict(fn.launches_by_dims) for fn in counters}
+    print(f"4k (b) flash launches by (hd x hdv) in these steps: {by_dims} "
+          f"[{card}]", flush=True)
+    if not all(by_dims[fn.__name__].get("24x16") for fn in counters):
+        raise AssertionError(f"4k (b): deepseek's step ran no (24, 16) "
+                             f"flash kernel: {by_dims}")
+    return by_dims
+
+
+def mla_block_launches(card: str) -> dict:
+    """deepseek_v3_671b's MLA block at its published widths (d 7168, 128
+    heads, q_lora 1536, kv_lora 512, QK 192 = 128 + 64 rope, V 128), one
+    sequence of 4096, forward and backward on the card through
+    ``blocks.mla_attention`` (seeded bf16 weights), with the flash
+    counts reset before and read after: the (192, 128) instantiation on
+    the model's path (the whole model does not fit the card)."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.kernels import attention
+    from repro_torch.models import blocks, lm
+    cfg = get("deepseek_v3_671b")
+    spec, shapes = lm.mla_param_specs(cfg, lm.NO_SHARD,
+                                      lm.ArchDims.build(cfg))
+    g = torch.Generator().manual_seed(SEED + 4)
+    p = {k: (torch.ones(s) if k.endswith("norm") else
+             torch.randn(s, generator=g) * 0.02).bfloat16().cuda()
+         .requires_grad_() for k, s in shapes.items()}
+    x = (torch.randn((1, 4096, cfg.d_model), generator=g)).bfloat16().cuda()
+    x.requires_grad_()
+    pos = torch.arange(4096, device="cuda")
+    counters = (attention.flash_attention, attention.flash_attention_bwd)
+    for fn in counters:
+        fn.launches_by_dims = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, _ = blocks.mla_attention(cfg, p, x, pos)
+    grads = torch.autograd.grad(out.float().square().mean(), [x, *p.values()])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_dims = {fn.__name__: dict(fn.launches_by_dims) for fn in counters}
+    finite = all(bool(torch.isfinite(t).all()) for t in (out, *grads))
+    print(f"4k (c) deepseek_v3_671b's MLA block at its published widths, "
+          f"seq 4096, bf16, forward and backward through "
+          f"blocks.mla_attention: {wall * 1e3:.1f} ms (first call), output "
+          f"{tuple(out.shape)}, finite {finite}; flash launches by (hd x "
+          f"hdv) {by_dims} [{card}]", flush=True)
+    if not finite or not all(by_dims[fn.__name__].get("192x128")
+                             for fn in counters):
+        raise AssertionError(f"4k (c) MLA block: finite {finite}, {by_dims}")
+    return {fn.__name__: by_dims[fn.__name__]["192x128"] for fn in counters}
+
+
+def check_mla_flash(card: str, label: str, b: int, h: int, hd: int,
+                    hdv: int, t: int, dtype) -> dict:
+    """The flash forward and backward at one of MLA's (hd, hdv)
+    instantiations against their plain versions (bf16: under
+    check_flash_hd128's limits, each (head, row) against its own scale
+    too; f32: the f32 limits), each timed beside its plain version,
+    SDPA (which takes a V head dim of its own) and the bound.  Returns
+    the two kernels' records."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import attention, ref
+    dt = str(dtype).split(".")[-1]
+    big = b * h * t * t > 1 << 28
+    shape = (b, h, h, hd, t, t, dtype)
+    q, k, v = flash_case(*shape, SEED, hdv=hdv)
+    g = torch.Generator().manual_seed(SEED + 1)
+    do = torch.randn((b, h, t, hdv), generator=g).to(dtype).cuda()
+    o, lse = attention.flash_attention(q, k, v, return_lse=True)
+    wo, wl = ref.attention_fwd_ref(q, k, v)
+    f_err = (o.float() - wo.float()).abs().max().item()
+    f_row, f_mean = row_and_mean_errs(o, wo)
+    l_err = (lse - wl).abs().max().item()
+    del wo, wl
+    got = attention.flash_attention_bwd(q, k, v, o, lse, do)
+    want = ref.attention_bwd_ref(q, k, v, o, lse, do)
+    rel = max(((a.float() - w.float()).abs().max() / w.float().abs().max())
+              .item() for a, w in zip(got, want))
+    b_err = max((a.float() - w.float()).abs().max().item()
+                for a, w in zip(got, want))
+    del want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    ins = copies_for([q, k, v, o, lse, do])
+    fast, slow = (20, 3) if big else (50, 10)
+    fwd = time_ms(lambda q, k, v, *_: attention.flash_attention(
+        q, k, v, return_lse=True), ins, iters=fast)[0]
+    fwd_plain = time_ms(lambda q, k, v, *_: ref.attention_fwd_ref(q, k, v),
+                        ins, iters=slow)[0]
+    sdpa = time_ms(lambda q, k, v, *_: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), ins, iters=fast)[0]
+    bwd = time_ms(attention.flash_attention_bwd, ins, iters=fast)[0]
+    bwd_plain = time_ms(ref.attention_bwd_ref, ins, iters=slow)[0]
+    sdpa_bwd = sdpa_bwd_ms(ins)
+    f_bound = flash_bounds(*shape, True, hdv=hdv)
+    b_bound = flash_bwd_bounds(*shape, hdv=hdv)
+    rows = dt == "bfloat16"
+    print(f"4k {label} flash at b={b} h={h} hd={hd} hdv={hdv} t={t} {dt}: "
+          f"forward max_abs_err {f_err:.3e} (tol {KERNEL_TOL[dt]})"
+          + (f", max over rows of max|err| / max|ref| {f_row:.3e} (tol "
+             f"{FLASH_ROW_TOL:.3e}), mean|err| / mean|ref| {f_mean:.3e} "
+             f"(tol {FLASH_MEAN_TOL:.3e})" if rows else "")
+          + f", lse {l_err:.3e}, {fwd:.4f} ms (plain {fwd_plain:.4f} ms, "
+          f"sdpa {sdpa:.4f} ms, bound {f_bound[0]:.4f} ms {f_bound[1]}); "
+          f"backward max_abs_err / max|grad| {rel:.3e} (tol {BWD_TOL[dt]}), "
+          f"{bwd:.4f} ms (plain {bwd_plain:.4f} ms, sdpa backward "
+          f"{sdpa_bwd:.4f} ms, bound {b_bound[0]:.4f} ms {b_bound[1]}) "
+          f"[{card}]", flush=True)
+    if not (f_err <= KERNEL_TOL[dt] and l_err <= KERNEL_TOL["float32"]
+            and rel <= BWD_TOL[dt] and (not rows or (
+                f_row <= FLASH_ROW_TOL and f_mean <= FLASH_MEAN_TOL))):
+        raise AssertionError(f"4k {label} MLA flash: {f_err}, {f_row}, "
+                             f"{f_mean}, {l_err}, {rel}")
+    return {f"{fn} mla {hd}x{hdv}": dict(
+        name=f"{fn} (MLA, hd {hd}, hdv {hdv})", route="cuda",
+        source=f"src/repro_torch/csrc/{fn}.cu",
+        replaces="src/repro/kernels/attention.py:63", max_abs_err=err, ms=ms,
+        plain_ms=plain, bound_ms=bound[0], bound_by=bound[1],
+        library_ms=lib)
+        for fn, err, ms, plain, bound, lib in (
+            ("flash_attention", f_err, fwd, fwd_plain, f_bound, sdpa),
+            ("flash_attention_bwd", b_err, bwd, bwd_plain, b_bound,
+             sdpa_bwd))}
+
+
+def moe_grads_rank(out_dir: str) -> None:
+    """One rank of phase 4k (d)'s gradient check (phi35_moe_42b at its
+    published widths, PHI_LAYERS_4 layers, --mesh 2x2 under torchrun):
+    its local step-0 loss and gradients on its seeded shards, then the
+    tp-1 loss and gradients of its data peer's rows on the whole weights
+    on its own card; per model-sharded leaf the ratio of the norms of
+    its local gradient and the tp-1 gradient's shard, and the largest
+    entry error against 2x that shard, written to ``out_dir`` as JSON."""
+    import torch
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import distributed, train
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves, leaves_with_paths, unflatten
+    opts = train.parse_args(PHI_ARGV + ["--mesh", "2x2", "--global-batch",
+                                        "2"])
+    spec = opts.spec
+    cfg = dataclasses.replace(spec.model_config(), n_layers=PHI_LAYERS_4)
+    ctx = spec.mesh.ctx()
+    world = distributed.init(1, 2, 2, opts.device)
+    dev = world.device
+    _, d, m = world.coords
+    tokens = torch.from_numpy(SyntheticLM(spec.resolved_data(cfg)).batch(0))
+    rows = {"tokens": tokens[d:d + 1].to(dev)}
+    mine = [t.requires_grad_() for t in leaves(lm.init_params(
+        cfg, spec.seed, dev, ctx, world.coords))]
+    loss, _ = lm.loss_fn(cfg, unflatten(lm.param_shapes(cfg, ctx), mine),
+                         rows, ctx, world)
+    grads = [g.float().cpu() for g in torch.autograd.grad(loss, mine)]
+    del mine
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    whole = [t.requires_grad_() for t in leaves(lm.init_params(
+        cfg, spec.seed, dev))]
+    loss1, _ = lm.loss_fn(cfg, unflatten(lm.param_shapes(cfg), whole), rows)
+    one = torch.autograd.grad(loss1, whole)
+    out = {"rank": world.rank, "loss": loss.item(), "loss_tp1": loss1.item(),
+           "leaves": [], "ratios": [], "errs": []}
+    for (path, _), g, g1, sp in zip(
+            leaves_with_paths(lm.param_shapes(cfg)), grads, one,
+            lm.spec_leaves(cfg, ctx)):
+        if "model" not in sp:
+            continue
+        out["leaves"].append("/".join(path))
+        want = lm.shard_leaf(g1.float(), sp, ctx, (0, 0, m)).cpu()
+        out["ratios"].append((g.norm() / want.norm()).item())
+        out["errs"].append(((g - 2 * want).abs().max()
+                            / (2 * want).abs().max()).item())
+    (Path(out_dir) / f"r{world.rank}.json").write_text(json.dumps(out))
+    distributed.shutdown()
+    distributed.exit_rank(0)
+
+
+def check_moe_grads(card: str, loss0: float) -> None:
+    """(d)'s factor: every model-sharded leaf's (the routed experts, the
+    router, attention, the vocabulary) local pre-sync gradient at tp 2 is
+    2x the tp-1 gradient's shard, as the CPU tests pin against JAX:
+    held by the ratio of norms within MOE_RATIO_TOL (a token whose bf16
+    routing flips between tp 1 and 2 moves single entries much more
+    than the norm), with each leaf's ratios and largest entry error
+    printed; and the 2 x 2 --fsdp run's step-0 loss ``loss0`` against
+    the mean of the two data peers' tp-1 losses (the stacked dp-2 run's
+    step 0) within TP_LOSS_TOL."""
+    import shutil
+    out = ROOT / "build" / "moe_grads"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    rc, o, e, wall = torchrun(4, [str(ROOT / "chip_smoke.py"), "--moe-grads",
+                                  str(out)], timeout=900)
+    if rc != 0:
+        raise AssertionError(f"4k (d) gradients: exit {rc}\n{e[-6000:]}")
+    ranks = [json.loads((out / f"r{r}.json").read_text()) for r in range(4)]
+    shutil.rmtree(out)
+    ratios = [x for r in ranks for x in r["ratios"]]
+    worst = max(x for r in ranks for x in r["errs"])
+    by_leaf = {n: ([round(r["ratios"][i], 4) for r in ranks],
+                   max(r["errs"][i] for r in ranks))
+               for i, n in enumerate(ranks[0]["leaves"])}
+    stacked0 = (ranks[0]["loss_tp1"] + ranks[2]["loss_tp1"]) / 2
+    d0 = abs(loss0 - stacked0)
+    lo, hi = min(ratios), max(ratios)
+    print(f"4k (d) phi35_moe_42b ({PHI_LAYERS_4} layers) --mesh 2x2 "
+          f"step-0 local gradients of the {len(ranks[0]['ratios'])} "
+          f"model-sharded leaves a rank against the tp-1 shards "
+          f"({wall:.1f} s of torchrun): |g_tp2| / |g_tp1| in [{lo:.4f}, "
+          f"{hi:.4f}] (want 2 within {MOE_RATIO_TOL} of it), max entry "
+          f"|g_tp2 - 2 g_tp1| / max|2 g_tp1| {worst:.3e}; by leaf (ratios "
+          f"of ranks 0-3, max entry error) {by_leaf}; step-0 losses: the "
+          f"--fsdp "
+          f"run's {loss0} vs the stacked dp-2 run's {stacked0} (|diff| "
+          f"{d0:.3e}, tol {TP_LOSS_TOL}); the tp-2 ranks' local losses "
+          f"{[r['loss'] for r in ranks]} [{card}]", flush=True)
+    if not (abs(lo / 2 - 1) <= MOE_RATIO_TOL and abs(hi / 2 - 1)
+            <= MOE_RATIO_TOL and d0 <= TP_LOSS_TOL):
+        raise AssertionError(f"4k (d): ratios [{lo}, {hi}], loss {d0}")
+
+
+def moe_full_width(card: str) -> dict:
+    """Phase 4k: the MoE family.  One card: (a) phi35_moe_42b at its
+    published widths as a world of one; (b) the two MoE SMOKE configs
+    card vs CPU; (c) deepseek_v3's MLA block and flash kernels at its
+    published shape.  4 cards: (d) phi35_moe_42b with PHI_LAYERS_4
+    layers on --mesh 2x2 --fsdp (8 experts a rank over 'model'): finite
+    losses, the bytes a rank a step against the shapes, the step-0 loss
+    against the stacked dp-2 run's and the x2 gradients.  Returns the
+    launch counts of (a), the (hd x hdv) launches of (b) and (c) and
+    (c)'s records."""
+    import torch
+    from repro_torch.launch import train
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = phi_full_width(card)
+    smoke_dims = card_vs_plain_moe(card)
+    mla_launches = mla_block_launches(card)
+    # deepseek_v3's published MLA shape; (b)'s deepseek step: a peer's 4
+    # rows of 128 tokens, 4 heads, f32
+    records = check_mla_flash(card, "(c)", 1, 128, 192, 128, 4096,
+                              torch.bfloat16)
+    records.update(check_mla_flash(card, "(b)", 4, 4, 24, 16, 128,
+                                   torch.float32))
+    for fn in ("flash_attention", "flash_attention_bwd"):
+        records[f"{fn} mla 192x128"]["launches"] = mla_launches[fn]
+        records[f"{fn} mla 24x16"]["launches"] = smoke_dims[fn]["24x16"]
+    print(f"4k one-card part took {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]", flush=True)
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        print(f"4k: (d) needs 4 cards; this machine has {cards} (on a "
+              f"4-card host, moe_processes_alone runs it) [{card}]",
+              flush=True)
+    else:
+        phi_four_cards(card)
+    print(f"phase 4k took {time.perf_counter() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return {"launches": launches, "smoke_dims": smoke_dims,
+            "records": records}
+
+
+def phi_four_cards(card: str) -> None:
+    """(d) phi35_moe_42b with PHI_LAYERS_4 layers on --mesh 2x2 --fsdp
+    (8 experts a rank over 'model'), 4 ranks on NCCL: finite losses, the
+    bytes a rank a step against the shapes, the step-0 loss against the
+    stacked dp-2 run's and the x2 gradients (``check_moe_grads``)."""
+    import torch
+    from repro_torch.launch import train
+    gc.collect()
+    torch.cuda.empty_cache()
+    argv = PHI_ARGV + ["--mesh", "2x2", "--fsdp", "--global-batch", "2"]
+    recs, report, wall = layers_run(4, PHI_LAYERS_4, argv, PHI_STEPS)
+    spec = train.parse_args(argv).spec
+    cfg = dataclasses.replace(spec.model_config(), n_layers=PHI_LAYERS_4)
+    runs = report["ranks"][0]["launches"]["flash_attention"] / PHI_STEPS
+    n = n_params(cfg)
+    peak = max(r["peak_bytes"] for r in report["ranks"])
+    print(f"4k (d) phi35_moe_42b ({PHI_LAYERS_4} layers, {n} parameters, 8 "
+          f"experts a rank) --mesh 2x2 --fsdp --sync optinc --bits 8, seq "
+          f"4096, {PHI_STEPS} steps ({wall:.1f} s of torchrun): "
+          f"{dsc_stats(recs, report, 2 * 4096)}; peak a rank "
+          f"{peak / 1e9:.2f} GB against the reckoning "
+          f"{n / 4 * RECKON_BYTES_PER_PARAM / 1e9:.2f} GB; layer forwards a "
+          f"step {runs} [{card}]", flush=True)
+    if not all(math.isfinite(x) for x in report["losses"]):
+        raise AssertionError(f"4k (d) losses {report['losses']}")
+    check_shard_bytes("4k (d)", cfg, spec, report, PHI_STEPS, runs, card)
+    check_moe_grads(card, report["losses"][0])
+
+
+def moe_alone(card: str) -> None:
+    """Phase 4k alone, the kernels built first."""
+    from repro_torch.kernels import _build
+    _build.build()
+    moe_full_width(card)
+
+
+def moe_processes_alone(card: str) -> None:
+    """Phase 4k's 4-card part (d) alone, on a 4-card host."""
+    from repro_torch.kernels import _build
+    _build.build()
+    phi_four_cards(card)
 
 
 # ----------------------------------------- phase 4d: the trained ONN
@@ -4610,6 +5129,7 @@ def main() -> int:
     sync_modes_full_width(card, base)
     processes_full_width(card)
     sharded_full_width(card)
+    records.update(moe_full_width(card)["records"])
     onn = trained_onn_full_width(card)
     onn_launches, behavioral_bits2 = train_onn_full_width(card, behavioral8,
                                                           onn)
@@ -4644,6 +5164,8 @@ if __name__ == "__main__":
         train_layers_rank(int(sys.argv[2]), sys.argv[3:])
     if sys.argv[1:2] == ["--tp-grads"]:          # one rank of phase 4i (b)
         tp_grads_rank(sys.argv[2])
+    if sys.argv[1:2] == ["--moe-grads"]:         # one rank of phase 4k (d)
+        moe_grads_rank(sys.argv[2])
     if sys.argv[1:2] == ["--resnet-rank"]:       # one rank of phase 4j (c)
         resnet_rank(sys.argv[2])
     sys.exit(main())

@@ -43,7 +43,8 @@ class ServeSession:
         if not kv_pool.supports_paged(self.cfg):
             raise NotImplementedError(
                 f"ServeSession covers the dense-attention families; "
-                f"{self.cfg.name} (ssm/enc-dec/moe) is not ported")
+                f"{self.cfg.name} (ssm/enc-dec/moe) is not ported (the "
+                f"JAX engine serves no MoE model either)")
         if params is not None:
             self.params, self.params_step = params, None
         else:

@@ -1,12 +1,16 @@
 """Architecture registry of the port: ``get(arch)`` / ``get_smoke(arch)``
 resolve ``repro_torch.configs.<arch>`` (counterpart of
-``repro.configs``).  Only the dense-attention architectures the port
-serves so far are registered."""
+``repro.configs``).  Registered: the dense-attention architectures and
+the MoE family (phi35_moe_42b: GQA with routed experts; deepseek_v3_671b:
+MLA, shared and routed experts, MTP), which the port trains; it serves
+the dense ones only, as the JAX engine does.  The SSM, xLSTM and
+encoder-decoder families are not ported."""
 from __future__ import annotations
 
 import importlib
 
-ARCHS = ["paper_llama", "minitron_4b", "deepseek_coder_33b", "llama3_405b"]
+ARCHS = ["paper_llama", "minitron_4b", "deepseek_coder_33b", "llama3_405b",
+         "phi35_moe_42b", "deepseek_v3_671b"]
 
 
 def _module(arch: str):

@@ -44,6 +44,13 @@
 // CUDA cores, two threads a query row, K/V widened into f32 shared tiles.
 // It is exact enough for the card-vs-CPU f32 checks, which TF32 would
 // not be.
+//
+// Both take a V head dim HDV of their own (deepseek-v3's MLA: QK 192 =
+// 128 + 64 rope dims, V 128): Q and K tiles and the scores run over HD,
+// V, the accumulators and O over HDV, so O is written HDV wide and no
+// V column is padded.  A QK width that is not a multiple of 16 (24 at
+// MLA's SMOKE shape) is zero-filled to one in shared memory for the
+// tensor cores (flash_mma.cuh).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,14 +77,14 @@ from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-template <int HD>
+template <int HD, int HDV>
 constexpr size_t smem_bytes() {
-  // qs[BQ][HD+1], ks[BK][HD+1], vs[BK][HD], ps[BQ][BK+1]
+  // qs[BQ][HD+1], ks[BK][HD+1], vs[BK][HDV], ps[BQ][BK+1]
   return sizeof(float) * ((size_t)kBQ * (HD + 1) + (size_t)kBK * (HD + 1) +
-                          (size_t)kBK * HD + (size_t)kBQ * (kBK + 1));
+                          (size_t)kBK * HDV + (size_t)kBQ * (kBK + 1));
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out,
@@ -86,14 +93,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        long long qss, long long ksb, long long ksh,
                        long long kss, long long vsb, long long vsh,
                        long long vss, float scale) {
-  static_assert(HD % 2 == 0, "head dim must be even");
+  static_assert(HDV % 2 == 0, "v head dim must be even");
   constexpr int LD = HD + 1;
   constexpr int LP = kBK + 1;
   extern __shared__ float smem[];
   float* qs = smem;
   float* ks = qs + kBQ * LD;
   float* vs = ks + kBK * LD;
-  float* ps = vs + kBK * HD;
+  float* ps = vs + kBK * HDV;
 
   const int q0 = blockIdx.x * kBQ;
   const int hq = blockIdx.y;
@@ -120,22 +127,21 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kv_end = min(skv, last_row + shift + 1);
 
   float m = kNegInf, l = 0.f;
-  float acc[HD / 2];
+  float acc[HDV / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < HDV / 2; ++i) acc[i] = 0.f;
 
   for (int k0 = 0; k0 < kv_end; k0 += kBK) {
     __syncthreads();  // Q tile loaded / previous K,V tile consumed
     for (int i = tid; i < kBK * HD; i += kThreads) {
       const int j = i / HD, d = i - j * HD;
       const int col = k0 + j;
-      float kx = 0.f, vx = 0.f;
-      if (col < skv) {
-        kx = to_f32(kb[col * kss + d]);
-        vx = to_f32(vb[col * vss + d]);
-      }
-      ks[j * LD + d] = kx;
-      vs[j * HD + d] = vx;
+      ks[j * LD + d] = col < skv ? to_f32(kb[col * kss + d]) : 0.f;
+    }
+    for (int i = tid; i < kBK * HDV; i += kThreads) {
+      const int j = i / HDV, d = i - j * HDV;
+      const int col = k0 + j;
+      vs[j * HDV + d] = col < skv ? to_f32(vb[col * vss + d]) : 0.f;
     }
     __syncthreads();
 
@@ -177,21 +183,21 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float* pr = ps + r * LP;
     const float* vh = vs + half;
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) acc[i] *= alpha;
+    for (int i = 0; i < HDV / 2; ++i) acc[i] *= alpha;
 #pragma unroll 2
     for (int j = 0; j < kBK; ++j) {
       const float p = pr[j];
 #pragma unroll
-      for (int i = 0; i < HD / 2; ++i)
-        acc[i] = fmaf(p, vh[j * HD + 2 * i], acc[i]);
+      for (int i = 0; i < HDV / 2; ++i)
+        acc[i] = fmaf(p, vh[j * HDV + 2 * i], acc[i]);
     }
   }
 
   if (row < sq) {
-    T* orow = out + (((size_t)bi * h + hq) * sq + row) * HD;
+    T* orow = out + (((size_t)bi * h + hq) * sq + row) * HDV;
     const float den = fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i)
+    for (int i = 0; i < HDV / 2; ++i)
       orow[half + 2 * i] = from_f32<T>(acc[i] / den);
     if (lse != nullptr && half == 0)
       lse[((size_t)bi * h + hq) * sq + row] = m + logf(den);
@@ -205,12 +211,14 @@ namespace fm = flash_mma;
 constexpr int kStages = 3;
 constexpr float kLn2 = 0.6931471805599453f;
 
-template <int HD>
+template <int HD, int HDV>
 constexpr size_t mma_smem_bytes() {
-  return (1 + 2 * kStages) * (size_t)fm::Tile<HD>::kBytes;  // Q, K, V
+  // Q; kStages K tiles and kStages V tiles
+  return (1 + kStages) * (size_t)fm::Tile<HD>::kBytes +
+         kStages * (size_t)fm::Tile<HDV>::kBytes;
 }
 
-template <int HD>
+template <int HD, int HDV>
 __global__ void __launch_bounds__(fm::kThreads)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
@@ -222,7 +230,9 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      long long vsb, long long vsh, long long vss,
                      float scale) {
   using Tl = fm::Tile<HD>;
-  constexpr int NB = HD / 8;               // 8-wide blocks of the head dim
+  using Tv = fm::Tile<HDV>;
+  static_assert(HDV % 16 == 0, "v head dim must be a multiple of 16");
+  constexpr int NB = HDV / 8;              // 8-wide blocks of the v head dim
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* ks = qs + Tl::kElems;             // [kStages] tiles
@@ -249,7 +259,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     if (i < n_kv) {
       const int buf = i % kStages;
       fm::load_tile<HD>(ks + buf * Tl::kElems, kb, kss, i * fm::kRows, skv);
-      fm::load_tile<HD>(vs + buf * Tl::kElems, vb, vss, i * fm::kRows, skv);
+      fm::load_tile<HDV>(vs + buf * Tv::kElems, vb, vss, i * fm::kRows, skv);
     }
     fm::cp_async_commit();   // empty past the end: the count stays uniform
   };
@@ -273,7 +283,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();
     issue(it + kStages - 1);
     const __nv_bfloat16* kt = ks + buf * Tl::kElems;
-    const __nv_bfloat16* vt = vs + buf * Tl::kElems;
+    const __nv_bfloat16* vt = vs + buf * Tv::kElems;
 
     float s[8][4];
     fm::mma_abt_64<HD>(s, qs, 16 * warp, kt);
@@ -326,7 +336,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int kk = 0; kk < 4; ++kk) {
       uint32_t a[4];
       fm::c_to_a(a, s[2 * kk], s[2 * kk + 1]);
-      fm::mma_a_bt<HD, NB>(o, a, vt, 16 * kk);
+      fm::mma_a_bt<HDV, NB>(o, a, vt, 16 * kk);
     }
   }
 
@@ -342,7 +352,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     if (row >= sq) continue;
     const float den = fmaxf(l[r], 1e-30f);
     const float inv = 1.f / den;
-    __nv_bfloat16* orow = out + (base + row) * HD + 2 * tq;
+    __nv_bfloat16* orow = out + (base + row) * HDV + 2 * tq;
 #pragma unroll
     for (int j = 0; j < NB; ++j)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
@@ -351,12 +361,12 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int HD>
+template <int HD, int HDV>
 int launch_mma(const void* q, const void* k, const void* v, void* out,
                float* lse, int b, int h, int hkv, int sq, int skv,
                const long long* st, float scale, cudaStream_t stream) {
-  constexpr size_t smem = mma_smem_bytes<HD>();
-  auto kernel = flash_fwd_mma_kernel<HD>;
+  constexpr size_t smem = mma_smem_bytes<HD, HDV>();
+  auto kernel = flash_fwd_mma_kernel<HD, HDV>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -372,26 +382,30 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
+// The (QK, V) head dim pairs instantiated: the equal dims, and MLA's at
+// deepseek-v3's published widths (192, 128) and its SMOKE config (24, 16)
+#define FLASH_HEAD_DIMS(X) \
+  X(16, 16) X(32, 32) X(48, 48) X(64, 64) X(128, 128) X(192, 128) X(24, 16)
+
 int dispatch_mma(const void* q, const void* k, const void* v, void* out,
                  float* lse, int b, int h, int hkv, int sq, int skv, int hd,
-                 const long long* st, float scale, cudaStream_t s) {
-  switch (hd) {
-    case 16: return launch_mma<16>(q, k, v, out, lse, b, h, hkv, sq, skv, st, scale, s);
-    case 32: return launch_mma<32>(q, k, v, out, lse, b, h, hkv, sq, skv, st, scale, s);
-    case 48: return launch_mma<48>(q, k, v, out, lse, b, h, hkv, sq, skv, st, scale, s);
-    case 64: return launch_mma<64>(q, k, v, out, lse, b, h, hkv, sq, skv, st, scale, s);
-    case 128: return launch_mma<128>(q, k, v, out, lse, b, h, hkv, sq, skv, st, scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+                 int hdv, const long long* st, float scale, cudaStream_t s) {
+#define FLASH_FWD_MMA_CASE(HD, HDV)                                          \
+  if (hd == HD && hdv == HDV)                                              \
+    return launch_mma<HD, HDV>(q, k, v, out, lse, b, h, hkv, sq, skv, st,  \
+                               scale, s);
+  FLASH_HEAD_DIMS(FLASH_FWD_MMA_CASE)
+#undef FLASH_FWD_MMA_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 // ------------------------------------------------ f32: CUDA cores
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, int b, int h, int hkv, int sq, int skv,
            const long long* st, float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD>();
-  auto kernel = flash_attention_kernel<T, HD>;
+  constexpr size_t smem = smem_bytes<HD, HDV>();
+  auto kernel = flash_attention_kernel<T, HD, HDV>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -408,29 +422,28 @@ int launch(const void* q, const void* k, const void* v, void* out,
 template <typename T>
 int dispatch_hd(const void* q, const void* k, const void* v, void* out,
                 float* lse, int b, int h, int hkv, int sq, int skv, int hd,
-                const long long* st, float scale, cudaStream_t s) {
-  switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, out, lse, b, h, hkv, sq, skv, st, scale, s);
-    case 32: return launch<T, 32>(q, k, v, out, lse, b, h, hkv, sq, skv, st, scale, s);
-    case 48: return launch<T, 48>(q, k, v, out, lse, b, h, hkv, sq, skv, st, scale, s);
-    case 64: return launch<T, 64>(q, k, v, out, lse, b, h, hkv, sq, skv, st, scale, s);
-    case 128: return launch<T, 128>(q, k, v, out, lse, b, h, hkv, sq, skv, st, scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+                int hdv, const long long* st, float scale, cudaStream_t s) {
+#define FLASH_FWD_CASE(HD, HDV)                                              \
+  if (hd == HD && hdv == HDV)                                              \
+    return launch<T, HD, HDV>(q, k, v, out, lse, b, h, hkv, sq, skv, st,   \
+                              scale, s);
+  FLASH_HEAD_DIMS(FLASH_FWD_CASE)
+#undef FLASH_FWD_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q: (b, h, sq, hd), k/v: (b, hkv, skv, hd) with element strides (batch,
-// head, row) given and the last dim contiguous; out: contiguous
-// (b, h, sq, hd); lse: contiguous (b, h, sq) f32, or null to skip it.
-// dtype code: 0 = float32, 1 = bfloat16 (all four tensors).  Returns the
-// cudaError_t of the launch (0 = success); an unsupported head dim or
-// dtype returns cudaErrorInvalidValue.
+// q: (b, h, sq, hd), k: (b, hkv, skv, hd), v: (b, hkv, skv, hdv) with
+// element strides (batch, head, row) given and the last dim contiguous;
+// out: contiguous (b, h, sq, hdv); lse: contiguous (b, h, sq) f32, or
+// null to skip it.  dtype code: 0 = float32, 1 = bfloat16 (all four
+// tensors).  Returns the cudaError_t of the launch (0 = success); an
+// uninstantiated (hd, hdv) pair or dtype returns cudaErrorInvalidValue.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, void* lse,
                                    int b, int h,
-                                   int hkv, int sq, int skv, int hd,
+                                   int hkv, int sq, int skv, int hd, int hdv,
                                    long long qsb, long long qsh, long long qss,
                                    long long ksb, long long ksh, long long kss,
                                    long long vsb, long long vsh, long long vss,
@@ -440,13 +453,13 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return dispatch_hd<float>(q, k, v, out, static_cast<float*>(lse), b, h,
-                              hkv, sq, skv, hd, st, scale, s);
+                              hkv, sq, skv, hd, hdv, st, scale, s);
   if (dtype == 1) {
     const void* ptrs[3] = {q, k, v};
     if (!fm::rows_aligned(ptrs, 3, st, 9))
       return (int)cudaErrorMisalignedAddress;
     return dispatch_mma(q, k, v, out, static_cast<float*>(lse), b, h, hkv,
-                        sq, skv, hd, st, scale, s);
+                        sq, skv, hd, hdv, st, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

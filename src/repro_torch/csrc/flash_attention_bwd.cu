@@ -60,6 +60,14 @@
 // flash_bwd_dq_kernel): f32 on the CUDA cores, P and dS tiles built in
 // shared memory by outer products.  They are exact enough for the
 // card-vs-CPU f32 checks, which TF32 would not be.
+//
+// Every kernel takes a V head dim HDV of its own (deepseek-v3's MLA: QK
+// 192, V 128): Q, K, S, dQ and dK run over HD; V, dO, O, dP's product,
+// dV and the pre-pass rowsum over HDV, so nothing is padded to the QK
+// width in memory.  A QK width that is not a multiple of 16 (24 at MLA's
+// SMOKE shape) is zero-filled to one in shared memory for the tensor
+// cores (flash_mma.cuh), and only its HD columns of dQ and dK are
+// written.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -111,22 +119,24 @@ row_dot_kernel(const T* __restrict__ dout, const T* __restrict__ o,
   if (lane == 0) dsum[i] = acc;
 }
 
-template <int HD>
+template <int HD, int HDV>
 constexpr size_t smem_floats() {
-  // qs, dos [BQ][HD+1]; ks, vs [BK][HD+1]; ps, dss [BQ][BK+1]; lse, D [BQ]
-  return 2 * (size_t)kBQ * (HD + 1) + 2 * (size_t)kBK * (HD + 1) +
+  // qs [BQ][HD+1], dos [BQ][HDV+1]; ks [BK][HD+1], vs [BK][HDV+1];
+  // ps, dss [BQ][BK+1]; lse, D [BQ]
+  return (size_t)kBQ * (HD + 1) + (size_t)kBQ * (HDV + 1) +
+         (size_t)kBK * (HD + 1) + (size_t)kBK * (HDV + 1) +
          2 * (size_t)kBQ * kLP + 2 * (size_t)kBQ;
 }
 
-// Rows [r0, r0 + 64) of a (., ., s, HD) tensor into a [64][HD+1] f32
+// Rows [r0, r0 + 64) of a (., ., s, W) tensor into a [64][W+1] f32
 // tile, times mul; rows past s read as zero.
-template <typename T, int HD>
+template <typename T, int W>
 __device__ __forceinline__ void load_tile(float* dst, const T* src,
                                           long long stride, int r0, int s,
                                           float mul) {
-  constexpr int LD = HD + 1;
-  for (int i = threadIdx.x; i < 64 * HD; i += kThreads) {
-    const int rr = i / HD, d = i - rr * HD;
+  constexpr int LD = W + 1;
+  for (int i = threadIdx.x; i < 64 * W; i += kThreads) {
+    const int rr = i / W, d = i - rr * W;
     const int r = r0 + rr;
     dst[rr * LD + d] = r < s ? to_f32(src[r * stride + d]) * mul : 0.f;
   }
@@ -135,12 +145,12 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
 // One (64 x 64) tile of P (into ps, unless null) and dS (into dss) from
 // the scaled queries qs, dO tile dos, K tile ks and V tile vs.  Thread t
 // owns column t % 64 and rows i0 .. i0 + 31, i0 = (t / 64) * 32.
-template <int HD>
+template <int HD, int HDV>
 __device__ __forceinline__ void tile_p_ds(
     const float* qs, const float* dos, const float* ks, const float* vs,
     const float* lse_s, const float* d_s, float* ps, float* dss, int q0,
     int k0, int sq, int skv, int shift) {
-  constexpr int LD = HD + 1;
+  constexpr int LD = HD + 1, LDV = HDV + 1;
   constexpr int NR = kBQ / 2;
   const int c = threadIdx.x % kBK;
   const int i0 = (threadIdx.x / kBK) * NR;
@@ -148,17 +158,20 @@ __device__ __forceinline__ void tile_p_ds(
 #pragma unroll
   for (int i = 0; i < NR; ++i) s[i] = dp[i] = 0.f;
   const float* kr = ks + c * LD;
-  const float* vr = vs + c * LD;
+  const float* vr = vs + c * LDV;
   const float* qb = qs + i0 * LD;
-  const float* db = dos + i0 * LD;
+  const float* db = dos + i0 * LDV;
 #pragma unroll 2
   for (int d = 0; d < HD; ++d) {
-    const float kd = kr[d], vd = vr[d];
+    const float kd = kr[d];
 #pragma unroll
-    for (int i = 0; i < NR; ++i) {
-      s[i] = fmaf(qb[i * LD + d], kd, s[i]);
-      dp[i] = fmaf(db[i * LD + d], vd, dp[i]);
-    }
+    for (int i = 0; i < NR; ++i) s[i] = fmaf(qb[i * LD + d], kd, s[i]);
+  }
+#pragma unroll 2
+  for (int d = 0; d < HDV; ++d) {
+    const float vd = vr[d];
+#pragma unroll
+    for (int i = 0; i < NR; ++i) dp[i] = fmaf(db[i * LDV + d], vd, dp[i]);
   }
   const int col = k0 + c;
 #pragma unroll
@@ -187,7 +200,7 @@ __device__ __forceinline__ void load_rows(float* lse_s, float* d_s,
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
@@ -195,13 +208,13 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const float* __restrict__ dsum, T* __restrict__ dk,
                       T* __restrict__ dv, int h, int hkv, int sq, int skv,
                       Strides st, float scale) {
-  constexpr int LD = HD + 1;
+  constexpr int LD = HD + 1, LDV = HDV + 1;
   extern __shared__ float smem[];
   float* qs = smem;
   float* dos = qs + kBQ * LD;
-  float* ks = dos + kBQ * LD;
+  float* ks = dos + kBQ * LDV;
   float* vs = ks + kBK * LD;
-  float* ps = vs + kBK * LD;
+  float* ps = vs + kBK * LDV;
   float* dss = ps + kBQ * kLP;
   float* lse_s = dss + kBQ * kLP;
   float* d_s = lse_s + kBQ;
@@ -215,11 +228,13 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int half = threadIdx.x & 1;   // which half of the head dims
 
   load_tile<T, HD>(ks, k + bi * st.ksb + g * st.ksh, st.kss, k0, skv, 1.f);
-  load_tile<T, HD>(vs, v + bi * st.vsb + g * st.vsh, st.vss, k0, skv, 1.f);
+  load_tile<T, HDV>(vs, v + bi * st.vsb + g * st.vsh, st.vss, k0, skv, 1.f);
 
-  float adk[HD / 2], adv[HD / 2];
+  float adk[HD / 2], adv[HDV / 2];
 #pragma unroll
-  for (int j = 0; j < HD / 2; ++j) adk[j] = adv[j] = 0.f;
+  for (int j = 0; j < HD / 2; ++j) adk[j] = 0.f;
+#pragma unroll
+  for (int j = 0; j < HDV / 2; ++j) adv[j] = 0.f;
 
   // the first query row that sees column k0 is k0 - shift
   const int q_start = (max(0, k0 - shift) / kBQ) * kBQ;
@@ -230,39 +245,40 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       __syncthreads();   // K/V loaded / previous tiles consumed
       load_tile<T, HD>(qs, q + bi * st.qsb + hq * st.qsh, st.qss, q0, sq,
                        scale);
-      load_tile<T, HD>(dos, dout + bi * st.gsb + hq * st.gsh, st.gss, q0,
-                       sq, 1.f);
+      load_tile<T, HDV>(dos, dout + bi * st.gsb + hq * st.gsh, st.gss, q0,
+                        sq, 1.f);
       load_rows(lse_s, d_s, lse, dsum, base, q0, sq);
       __syncthreads();
-      tile_p_ds<HD>(qs, dos, ks, vs, lse_s, d_s, ps, dss, q0, k0, sq, skv,
-                    shift);
+      tile_p_ds<HD, HDV>(qs, dos, ks, vs, lse_s, d_s, ps, dss, q0, k0, sq,
+                         skv, shift);
       __syncthreads();
 #pragma unroll 2
       for (int i = 0; i < kBQ; ++i) {
         const float p = ps[i * kLP + c];
         const float ds = dss[i * kLP + c];
-        const float* dor = dos + i * LD + half;
+        const float* dor = dos + i * LDV + half;
         const float* qr = qs + i * LD + half;
 #pragma unroll
-        for (int j = 0; j < HD / 2; ++j) {
-          adv[j] = fmaf(p, dor[2 * j], adv[j]);
-          adk[j] = fmaf(ds, qr[2 * j], adk[j]);   // qs holds the scale
-        }
+        for (int j = 0; j < HDV / 2; ++j) adv[j] = fmaf(p, dor[2 * j], adv[j]);
+#pragma unroll
+        for (int j = 0; j < HD / 2; ++j)   // qs holds the scale
+          adk[j] = fmaf(ds, qr[2 * j], adk[j]);
       }
     }
   }
   const int row = k0 + c;
   if (row < skv) {
-    const size_t o = (((size_t)bi * hkv + g) * skv + row) * HD + half;
+    const size_t r = ((size_t)bi * hkv + g) * skv + row;
 #pragma unroll
-    for (int j = 0; j < HD / 2; ++j) {
-      dk[o + 2 * j] = from_f32<T>(adk[j]);
-      dv[o + 2 * j] = from_f32<T>(adv[j]);
-    }
+    for (int j = 0; j < HD / 2; ++j)
+      dk[r * HD + half + 2 * j] = from_f32<T>(adk[j]);
+#pragma unroll
+    for (int j = 0; j < HDV / 2; ++j)
+      dv[r * HDV + half + 2 * j] = from_f32<T>(adv[j]);
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
@@ -270,13 +286,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ dsum, T* __restrict__ dq,
                     int h, int hkv, int sq, int skv, Strides st,
                     float scale) {
-  constexpr int LD = HD + 1;
+  constexpr int LD = HD + 1, LDV = HDV + 1;
   extern __shared__ float smem[];
   float* qs = smem;
   float* dos = qs + kBQ * LD;
-  float* ks = dos + kBQ * LD;
+  float* ks = dos + kBQ * LDV;
   float* vs = ks + kBK * LD;
-  float* dss = vs + kBK * LD;
+  float* dss = vs + kBK * LDV;
   float* lse_s = dss + kBQ * kLP;
   float* d_s = lse_s + kBQ;
 
@@ -289,8 +305,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int half = threadIdx.x & 1;
 
   load_tile<T, HD>(qs, q + bi * st.qsb + hq * st.qsh, st.qss, q0, sq, scale);
-  load_tile<T, HD>(dos, dout + bi * st.gsb + hq * st.gsh, st.gss, q0, sq,
-                   1.f);
+  load_tile<T, HDV>(dos, dout + bi * st.gsb + hq * st.gsh, st.gss, q0, sq,
+                    1.f);
   const size_t base = ((size_t)bi * h + hq) * sq;
   load_rows(lse_s, d_s, lse, dsum, base, q0, sq);
 
@@ -303,10 +319,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int k0 = 0; k0 < kv_end; k0 += kBK) {
     __syncthreads();   // Q tile loaded / previous K,V tile consumed
     load_tile<T, HD>(ks, k + bi * st.ksb + g * st.ksh, st.kss, k0, skv, 1.f);
-    load_tile<T, HD>(vs, v + bi * st.vsb + g * st.vsh, st.vss, k0, skv, 1.f);
+    load_tile<T, HDV>(vs, v + bi * st.vsb + g * st.vsh, st.vss, k0, skv,
+                      1.f);
     __syncthreads();
-    tile_p_ds<HD>(qs, dos, ks, vs, lse_s, d_s, nullptr, dss, q0, k0, sq,
-                  skv, shift);
+    tile_p_ds<HD, HDV>(qs, dos, ks, vs, lse_s, d_s, nullptr, dss, q0, k0, sq,
+                       skv, shift);
     __syncthreads();
     const float* dr = dss + r * kLP;
 #pragma unroll 2
@@ -325,7 +342,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const float* lse, const void* dout, float* dsum, void* dq,
            void* dk, void* dv, int b, int h, int hkv, int sq, int skv,
@@ -337,14 +354,14 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const long long rows = (long long)b * h * sq;
   const long long pre_blocks = (rows * 32 + kThreads - 1) / kThreads;
   row_dot_kernel<T><<<(unsigned)pre_blocks, kThreads, 0, stream>>>(
-      dt, static_cast<const T*>(o), dsum, h, sq, HD, st.gsb, st.gsh, st.gss,
+      dt, static_cast<const T*>(o), dsum, h, sq, HDV, st.gsb, st.gsh, st.gss,
       rows);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
-  constexpr size_t smem = smem_floats<HD>() * sizeof(float);
-  auto kv_kernel = flash_bwd_dkdv_kernel<T, HD>;
-  auto q_kernel = flash_bwd_dq_kernel<T, HD>;
+  constexpr size_t smem = smem_floats<HD, HDV>() * sizeof(float);
+  auto kv_kernel = flash_bwd_dkdv_kernel<T, HD, HDV>;
+  auto q_kernel = flash_bwd_dq_kernel<T, HD, HDV>;
   if (smem > 48 * 1024) {
     e = cudaFuncSetAttribute(kv_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -368,25 +385,24 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
+// The (QK, V) head dim pairs instantiated: the equal dims, and MLA's at
+// deepseek-v3's published widths (192, 128) and its SMOKE config (24, 16)
+#define FLASH_HEAD_DIMS(X) \
+  X(16, 16) X(32, 32) X(48, 48) X(64, 64) X(128, 128) X(192, 128) X(24, 16)
+
 template <typename T>
-int dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                const void* o, const float* lse, const void* dout,
-                float* dsum, void* dq, void* dk, void* dv, int b, int h,
-                int hkv, int sq, int skv, const Strides& st, float scale,
-                cudaStream_t s) {
-#define FLASH_BWD_CASE(HD)                                                  \
-  case HD:                                                                  \
-    return launch<T, HD>(q, k, v, o, lse, dout, dsum, dq, dk, dv, b, h, hkv, \
-                         sq, skv, st, scale, s);
-  switch (hd) {
-    FLASH_BWD_CASE(16)
-    FLASH_BWD_CASE(32)
-    FLASH_BWD_CASE(48)
-    FLASH_BWD_CASE(64)
-    FLASH_BWD_CASE(128)
-    default: return (int)cudaErrorInvalidValue;
-  }
+int dispatch_hd(int hd, int hdv, const void* q, const void* k,
+                const void* v, const void* o, const float* lse,
+                const void* dout, float* dsum, void* dq, void* dk, void* dv,
+                int b, int h, int hkv, int sq, int skv, const Strides& st,
+                float scale, cudaStream_t s) {
+#define FLASH_BWD_CASE(HD, HDV)                                             \
+  if (hd == HD && hdv == HDV)                                             \
+    return launch<T, HD, HDV>(q, k, v, o, lse, dout, dsum, dq, dk, dv, b, \
+                              h, hkv, sq, skv, st, scale, s);
+  FLASH_HEAD_DIMS(FLASH_BWD_CASE)
 #undef FLASH_BWD_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 // ------------------------------------------------ bf16: tensor cores
@@ -433,14 +449,15 @@ row_dot_mma_kernel(const bf16* __restrict__ dout, const bf16* __restrict__ o,
   if (i < rows && sub == 0) dsum[i] = acc;
 }
 
-template <int HD>
+template <int HD, int HDV>
 constexpr size_t dkdv_mma_smem_bytes() {
   // K, V; kStages each of the Q and dO tiles and of the lse and D rows
-  return (2 + 2 * kStages) * (size_t)fm::Tile<HD>::kBytes +
+  return (1 + kStages) * ((size_t)fm::Tile<HD>::kBytes +
+                          (size_t)fm::Tile<HDV>::kBytes) +
          2 * kStages * fm::kRows * sizeof(float);
 }
 
-template <int HD>
+template <int HD, int HDV>
 __global__ void __launch_bounds__(fm::kThreads)
 flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
                           const bf16* __restrict__ k,
@@ -451,15 +468,17 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
                           bf16* __restrict__ dk, bf16* __restrict__ dv,
                           int h, int hkv, int sq, int skv, Strides st,
                           float scale) {
-  using Tl = fm::Tile<HD>;
-  constexpr int E = Tl::kElems;
-  constexpr int NB = HD / 8;
+  static_assert(HDV % 16 == 0, "v head dim must be a multiple of 16");
+  constexpr int E = fm::Tile<HD>::kElems;
+  constexpr int EV = fm::Tile<HDV>::kElems;
+  constexpr int NB = fm::Tile<HD>::kPad / 8;   // dK blocks (stored width)
+  constexpr int NBV = HDV / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);
   bf16* vs = ks + E;
-  bf16* qs = vs + E;                                        // [kStages]
+  bf16* qs = vs + EV;                                       // [kStages]
   bf16* dos = qs + kStages * E;                             // [kStages]
-  float* ls = reinterpret_cast<float*>(dos + kStages * E);  // [kStages][64]
+  float* ls = reinterpret_cast<float*>(dos + kStages * EV); // [kStages][64]
   float* ds_ = ls + kStages * fm::kRows;                    // [kStages][64]
 
   // the tile is the slowest grid index, so the heaviest tiles (most
@@ -491,8 +510,8 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
     const int hq = g * rep + hi;
     fm::load_tile<HD>(qs + buf * E, q + bi * st.qsb + hq * st.qsh, st.qss,
                       q0, sq);
-    fm::load_tile<HD>(dos + buf * E, dout + bi * st.gsb + hq * st.gsh,
-                      st.gss, q0, sq);
+    fm::load_tile<HDV>(dos + buf * EV, dout + bi * st.gsb + hq * st.gsh,
+                       st.gss, q0, sq);
     const size_t base = ((size_t)bi * h + hq) * sq;
     const int t = threadIdx.x & (fm::kRows - 1);
     const int r = q0 + t;
@@ -503,15 +522,19 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
   };
 
   fm::load_tile<HD>(ks, k + bi * st.ksb + g * st.ksh, st.kss, k0, skv);
-  fm::load_tile<HD>(vs, v + bi * st.vsb + g * st.vsh, st.vss, k0, skv);
+  fm::load_tile<HDV>(vs, v + bi * st.vsb + g * st.vsh, st.vss, k0, skv);
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) issue(i);
 
-  float adk[NB][4], adv[NB][4];
+  float adk[NB][4], adv[NBV][4];
 #pragma unroll
   for (int j = 0; j < NB; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) adk[j][e] = adv[j][e] = 0.f;
+    for (int e = 0; e < 4; ++e) adk[j][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NBV; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adv[j][e] = 0.f;
   const float sl2 = scale * fm::kLog2e;
   const int c_lo = k0 + 16 * warp + quad;  // this lane's kv rows c_lo, +8
 
@@ -525,14 +548,14 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
     const int hi = it / n_qt;
     const int q0 = q_start + (it - hi * n_qt) * fm::kRows;
     const bf16* qt = qs + buf * E;
-    const bf16* dot = dos + buf * E;
+    const bf16* dot = dos + buf * EV;
     const float* lt = ls + buf * fm::kRows;
     const float* dt = ds_ + buf * fm::kRows;
 
     // S^T = K Q^T and dP^T = V dO^T for this warp's 16 kv rows
     float pt[8][4], dst[8][4];
     fm::mma_abt_64<HD>(pt, ks, 16 * warp, qt);
-    fm::mma_abt_64<HD>(dst, vs, 16 * warp, dot);
+    fm::mma_abt_64<HDV>(dst, vs, 16 * warp, dot);
 
     const bool need_mask = k0 + fm::kRows - 1 > q0 + shift ||
                            q0 + fm::kRows > sq || k0 + fm::kRows > skv;
@@ -559,7 +582,7 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
     for (int kk = 0; kk < 4; ++kk) {
       uint32_t a[4];
       fm::c_to_a(a, pt[2 * kk], pt[2 * kk + 1]);
-      fm::mma_a_bt<HD, NB>(adv, a, dot, 16 * kk);
+      fm::mma_a_bt<HDV, NBV>(adv, a, dot, 16 * kk);
       fm::c_to_a(a, dst[2 * kk], dst[2 * kk + 1]);
       fm::mma_a_bt<HD, NB>(adk, a, qt, 16 * kk);
     }
@@ -569,25 +592,27 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
   for (int r = 0; r < 2; ++r) {
     const int row = c_lo + 8 * r;
     if (row >= skv) continue;
-    const size_t off = (((size_t)bi * hkv + g) * skv + row) * HD + 2 * tq;
+    const size_t rr = ((size_t)bi * hkv + g) * skv + row;
 #pragma unroll
-    for (int j = 0; j < NB; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j) =
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dk + rr * HD + 2 * tq + 8 * j) =
           __floats2bfloat162_rn(adk[j][2 * r] * scale,
                                 adk[j][2 * r + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * j) =
+#pragma unroll
+    for (int j = 0; j < NBV; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dv + rr * HDV + 2 * tq + 8 * j) =
           __floats2bfloat162_rn(adv[j][2 * r], adv[j][2 * r + 1]);
-    }
   }
 }
 
-template <int HD>
+template <int HD, int HDV>
 constexpr size_t dq_mma_smem_bytes() {
   // Q, dO; kStages each of the K and V tiles
-  return (2 + 2 * kStages) * (size_t)fm::Tile<HD>::kBytes;
+  return (1 + kStages) * ((size_t)fm::Tile<HD>::kBytes +
+                          (size_t)fm::Tile<HDV>::kBytes);
 }
 
-template <int HD>
+template <int HD, int HDV>
 __global__ void __launch_bounds__(fm::kThreads)
 flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
                         const bf16* __restrict__ k,
@@ -597,13 +622,13 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
                         const float* __restrict__ dsum,
                         bf16* __restrict__ dq, int h, int hkv, int sq,
                         int skv, Strides st, float scale) {
-  using Tl = fm::Tile<HD>;
-  constexpr int E = Tl::kElems;
-  constexpr int NB = HD / 8;
+  constexpr int E = fm::Tile<HD>::kElems;
+  constexpr int EV = fm::Tile<HDV>::kElems;
+  constexpr int NB = fm::Tile<HD>::kPad / 8;   // dQ blocks (stored width)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* dos = qs + E;
-  bf16* ks = dos + E;              // [kStages] tiles
+  bf16* ks = dos + EV;             // [kStages] tiles
   bf16* vs = ks + kStages * E;     // [kStages] tiles
 
   // the heaviest query tiles (most kv tiles) of every head start first
@@ -626,12 +651,12 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
     if (i < n_kv) {
       const int buf = i % kStages;
       fm::load_tile<HD>(ks + buf * E, kb, st.kss, i * fm::kRows, skv);
-      fm::load_tile<HD>(vs + buf * E, vb, st.vss, i * fm::kRows, skv);
+      fm::load_tile<HDV>(vs + buf * EV, vb, st.vss, i * fm::kRows, skv);
     }
     fm::cp_async_commit();   // empty past the end: the count stays uniform
   };
   fm::load_tile<HD>(qs, q + bi * st.qsb + hq * st.qsh, st.qss, q0, sq);
-  fm::load_tile<HD>(dos, dout + bi * st.gsb + hq * st.gsh, st.gss, q0, sq);
+  fm::load_tile<HDV>(dos, dout + bi * st.gsb + hq * st.gsh, st.gss, q0, sq);
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) issue(i);
 
@@ -659,12 +684,12 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
     __syncthreads();
     issue(it + kStages - 1);
     const bf16* kt = ks + buf * E;
-    const bf16* vt = vs + buf * E;
+    const bf16* vt = vs + buf * EV;
 
     // S = Q K^T and dP = dO V^T for this warp's 16 query rows
     float s[8][4], dp[8][4];
     fm::mma_abt_64<HD>(s, qs, 16 * warp, kt);
-    fm::mma_abt_64<HD>(dp, dos, 16 * warp, vt);
+    fm::mma_abt_64<HDV>(dp, dos, 16 * warp, vt);
 
     const bool need_mask =
         k0 + fm::kRows - 1 > q0 + shift || k0 + fm::kRows > skv;
@@ -696,7 +721,7 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
     if (row >= sq) continue;
     bf16* out = dq + (base + row) * HD + 2 * tq;
 #pragma unroll
-    for (int j = 0; j < NB; ++j)
+    for (int j = 0; j < HD / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) = __floats2bfloat162_rn(
           adq[j][2 * r] * scale, adq[j][2 * r + 1] * scale);
   }
@@ -709,7 +734,7 @@ cudaError_t allow_smem(K kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <int HD>
+template <int HD, int HDV>
 int launch_mma(const void* q, const void* k, const void* v, const void* o,
                const float* lse, const void* dout, float* dsum, void* dq,
                void* dk, void* dv, int b, int h, int hkv, int sq, int skv,
@@ -720,16 +745,16 @@ int launch_mma(const void* q, const void* k, const void* v, const void* o,
   const bf16* dt = static_cast<const bf16*>(dout);
   const long long rows = (long long)b * h * sq;
   const long long pre_blocks = (rows * 8 + fm::kThreads - 1) / fm::kThreads;
-  row_dot_mma_kernel<HD><<<(unsigned)pre_blocks, fm::kThreads, 0, stream>>>(
+  row_dot_mma_kernel<HDV><<<(unsigned)pre_blocks, fm::kThreads, 0, stream>>>(
       dt, static_cast<const bf16*>(o), dsum, h, sq, st.gsb, st.gsh, st.gss,
       rows);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
-  constexpr size_t kv_smem = dkdv_mma_smem_bytes<HD>();
-  constexpr size_t q_smem = dq_mma_smem_bytes<HD>();
-  auto kv_kernel = flash_bwd_dkdv_mma_kernel<HD>;
-  auto q_kernel = flash_bwd_dq_mma_kernel<HD>;
+  constexpr size_t kv_smem = dkdv_mma_smem_bytes<HD, HDV>();
+  constexpr size_t q_smem = dq_mma_smem_bytes<HD, HDV>();
+  auto kv_kernel = flash_bwd_dkdv_mma_kernel<HD, HDV>;
+  auto q_kernel = flash_bwd_dq_mma_kernel<HD, HDV>;
   if ((e = allow_smem(kv_kernel, kv_smem)) != cudaSuccess) return (int)e;
   if ((e = allow_smem(q_kernel, q_smem)) != cudaSuccess) return (int)e;
   const dim3 kv_grid(hkv, b, (skv + fm::kRows - 1) / fm::kRows);
@@ -745,39 +770,35 @@ int launch_mma(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
-int dispatch_mma(int hd, const void* q, const void* k, const void* v,
-                 const void* o, const float* lse, const void* dout,
-                 float* dsum, void* dq, void* dk, void* dv, int b, int h,
-                 int hkv, int sq, int skv, const Strides& st, float scale,
-                 cudaStream_t s) {
-#define FLASH_BWD_MMA_CASE(HD)                                              \
-  case HD:                                                                  \
-    return launch_mma<HD>(q, k, v, o, lse, dout, dsum, dq, dk, dv, b, h,    \
-                          hkv, sq, skv, st, scale, s);
-  switch (hd) {
-    FLASH_BWD_MMA_CASE(16)
-    FLASH_BWD_MMA_CASE(32)
-    FLASH_BWD_MMA_CASE(48)
-    FLASH_BWD_MMA_CASE(64)
-    FLASH_BWD_MMA_CASE(128)
-    default: return (int)cudaErrorInvalidValue;
-  }
+int dispatch_mma(int hd, int hdv, const void* q, const void* k,
+                 const void* v, const void* o, const float* lse,
+                 const void* dout, float* dsum, void* dq, void* dk, void* dv,
+                 int b, int h, int hkv, int sq, int skv, const Strides& st,
+                 float scale, cudaStream_t s) {
+#define FLASH_BWD_MMA_CASE(HD, HDV)                                         \
+  if (hd == HD && hdv == HDV)                                             \
+    return launch_mma<HD, HDV>(q, k, v, o, lse, dout, dsum, dq, dk, dv, b, \
+                               h, hkv, sq, skv, st, scale, s);
+  FLASH_HEAD_DIMS(FLASH_BWD_MMA_CASE)
 #undef FLASH_BWD_MMA_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q: (b, h, sq, hd), k/v: (b, hkv, skv, hd), dout: (b, h, sq, hd), each
-// with element strides (batch, head, row) given and the last dim
-// contiguous; o: contiguous (b, h, sq, hd), the forward's output; lse:
-// contiguous (b, h, sq) f32, the forward's log-sum-exp; dsum: (b, h, sq)
-// f32 scratch; dq: contiguous (b, h, sq, hd), dk/dv: contiguous
-// (b, hkv, skv, hd).  dtype code: 0 = float32, 1 = bfloat16 (every
-// tensor but lse and dsum).  Returns the cudaError_t of the launches.
+// q: (b, h, sq, hd), k: (b, hkv, skv, hd), v: (b, hkv, skv, hdv), dout:
+// (b, h, sq, hdv), each with element strides (batch, head, row) given and
+// the last dim contiguous; o: contiguous (b, h, sq, hdv), the forward's
+// output; lse: contiguous (b, h, sq) f32, the forward's log-sum-exp;
+// dsum: (b, h, sq) f32 scratch; dq: contiguous (b, h, sq, hd), dk:
+// contiguous (b, hkv, skv, hd), dv: contiguous (b, hkv, skv, hdv).
+// dtype code: 0 = float32, 1 = bfloat16 (every tensor but lse and dsum).
+// Returns the cudaError_t of the launches.
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* lse, const void* dout, void* dsum, void* dq, void* dk,
-    void* dv, int b, int h, int hkv, int sq, int skv, int hd, long long qsb,
+    void* dv, int b, int h, int hkv, int sq, int skv, int hd, int hdv,
+    long long qsb,
     long long qsh, long long qss, long long ksb, long long ksh,
     long long kss, long long vsb, long long vsh, long long vss,
     long long gsb, long long gsh, long long gss, float scale, int dtype,
@@ -789,16 +810,16 @@ extern "C" int flash_attention_bwd(
   const float* l = static_cast<const float*>(lse);
   float* ds = static_cast<float*>(dsum);
   if (dtype == 0)
-    return dispatch_hd<float>(hd, q, k, v, o, l, dout, ds, dq, dk, dv, b, h,
-                              hkv, sq, skv, st, scale, s);
+    return dispatch_hd<float>(hd, hdv, q, k, v, o, l, dout, ds, dq, dk, dv,
+                              b, h, hkv, sq, skv, st, scale, s);
   if (dtype == 1) {
     const void* ptrs[5] = {q, k, v, o, dout};
     const long long strides[12] = {qsb, qsh, qss, ksb, ksh, kss,
                                    vsb, vsh, vss, gsb, gsh, gss};
     if (!fm::rows_aligned(ptrs, 5, strides, 12))
       return (int)cudaErrorMisalignedAddress;
-    return dispatch_mma(hd, q, k, v, o, l, dout, ds, dq, dk, dv, b, h, hkv,
-                        sq, skv, st, scale, s);
+    return dispatch_mma(hd, hdv, q, k, v, o, l, dout, ds, dq, dk, dv, b, h,
+                        hkv, sq, skv, st, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

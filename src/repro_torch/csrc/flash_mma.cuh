@@ -14,9 +14,12 @@
 // the A fragment of one 16-deep k-step: a product's result feeds the next
 // product from registers, with no trip through shared memory.
 //
-// A tile is 64 rows of HD bf16, each row padded by 16 bytes (HD + 8
-// elements).  With the row pitch 2 HD + 16 bytes an odd multiple of 16
-// bytes modulo 128 (HD 16, 32, 48, 64, 128 give 48, 80, 112, 144, 272),
+// A tile is 64 rows of HD bf16 (HD a multiple of 8), stored KPAD wide,
+// HD rounded up to a multiple of 16 (the mma k-step), the columns past
+// HD zero-filled by the copy (so they add nothing to a product over
+// them), and each row padded by 16 bytes more (KPAD + 8 elements).  With
+// the row pitch 2 KPAD + 16 bytes an odd multiple of 16 bytes modulo 128
+// (HD 16, 24, 32, 48, 64, 128, 192 give 48, 80, 80, 112, 144, 272, 400),
 // the 8 row addresses of one 8 x 8 ldmatrix matrix land on 8 distinct
 // 16-byte bank groups: no bank conflict.
 #pragma once
@@ -33,11 +36,13 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int HD>
 struct Tile {
-  static_assert(HD % 16 == 0, "head dim must be a multiple of 16");
-  static constexpr int kPitch = HD + 8;               // elements a row
+  static_assert(HD % 8 == 0, "head dim must be a multiple of 8");
+  static constexpr int kPad = (HD + 15) / 16 * 16;    // stored columns
+  static constexpr int kPitch = kPad + 8;             // elements a row
   static constexpr int kElems = kRows * kPitch;
   static constexpr int kBytes = kElems * 2;
-  static constexpr int kChunks = HD / 8;              // 16-byte chunks a row
+  static constexpr int kChunks = kPad / 8;            // 16-byte chunks a row
+  static constexpr int kReal = HD / 8;                // of them read
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -78,7 +83,8 @@ constexpr long long kMaxRowStride = 1LL << 24;
 
 // Rows [r0, r0 + 64) of a (., s, HD) bf16 view with row pitch `stride`
 // elements (16-byte aligned, below kMaxRowStride) into a padded shared
-// tile; rows past s are zero.  Every thread of the block takes part.
+// tile; rows past s and columns past HD are zero.  Every thread of the
+// block takes part.
 template <int HD>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
                                           const __nv_bfloat16* src,
@@ -91,7 +97,7 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
   for (int it = 0; it < kRows * T::kChunks / kThreads; ++it) {
     const int c = threadIdx.x + it * kThreads;
     const int rr = c / T::kChunks, ch = c - rr * T::kChunks;
-    const bool in = rr < left;
+    const bool in = rr < left && ch < T::kReal;
     cp_async16(dst + rr * T::kPitch + ch * 8,
                base + (in ? rr * (int)stride + ch * 8 : 0), in ? 16 : 0);
   }
@@ -201,7 +207,8 @@ __device__ __forceinline__ void mma_a_bt(float (&acc)[NB][4],
 }
 
 // s (16 x 64) = A rows [row, row + 16) of tile a_tile (16 x HD) times the
-// transpose of the 64 x HD tile b_tile: both read by ldmatrix.
+// transpose of the 64 x HD tile b_tile: both read by ldmatrix (k over the
+// stored width, whose zero columns past HD add nothing).
 template <int HD>
 __device__ __forceinline__ void mma_abt_64(float (&s)[8][4],
                                            const __nv_bfloat16* a_tile,
@@ -210,7 +217,7 @@ __device__ __forceinline__ void mma_abt_64(float (&s)[8][4],
 #pragma unroll
   for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
+  for (int kk = 0; kk < Tile<HD>::kPad / 16; ++kk) {
     uint32_t a[4];
     ldsm_x4(a, frag_a<HD>(a_tile, row, 16 * kk));
 #pragma unroll

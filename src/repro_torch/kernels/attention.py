@@ -8,6 +8,12 @@ autograd function that joins them for training.
 For CPU tensors each wrapper runs its plain version
 (``ref.attention_fwd_ref`` / ``ref.attention_bwd_ref``); for CUDA
 tensors it launches the kernel or raises; any other device raises.
+
+The V head dim may differ from the QK one (deepseek-v3's MLA: QK 192 =
+128 + 64 rope dims, V 128): Q, K, dQ and dK are hd wide, V, O, dO and
+dV hdv wide, and the kernels are instantiated for the (hd, hdv) pairs
+of ``_HEAD_DIMS``.  Each wrapper counts its launches (``launches``) and,
+by (hd, hdv) pair, in ``launches_by_dims``.
 """
 from __future__ import annotations
 
@@ -18,11 +24,15 @@ import torch
 from . import _build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32, 48, 64, 128)   # instantiated in flash_attention.cu
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+# (QK head dim, V head dim) pairs instantiated in flash_attention.cu and
+# flash_attention_bwd.cu: the equal dims, and MLA's at deepseek-v3's
+# published widths (192, 128) and its SMOKE config (24, 16)
+_HEAD_DIMS = ((16, 16), (32, 32), (48, 48), (64, 64), (128, 128),
+              (192, 128), (24, 16))
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 9
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                  + [ctypes.c_longlong] * 12
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
@@ -43,11 +53,12 @@ def _kernel_rows(t: torch.Tensor) -> torch.Tensor:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     return_lse: bool = False):
-    """Causal multi-head GQA attention.  q: (b, h, sq, hd); k/v: (b, hkv,
-    skv, hd) with h a multiple of hkv; f32 or bf16, all one dtype; each
+    """Causal multi-head GQA attention.  q: (b, h, sq, hd); k: (b, hkv,
+    skv, hd), v: (b, hkv, skv, hdv) with h a multiple of hkv; the scale
+    is hd^-0.5; f32 or bf16, all one dtype; each
     tensor's last dimension contiguous (other strides are free, so
     transposed views need no copy).  Query row r sees key columns c <= r + (skv -
-    sq), which needs skv >= sq.  Returns (b, h, sq, hd) in q.dtype, and
+    sq), which needs skv >= sq.  Returns (b, h, sq, hdv) in q.dtype, and
     with ``return_lse`` also the per-row log-sum-exp of the scaled scores
     (b, h, sq) f32, which the backward needs.  bf16 runs on the tensor
     cores, whose kernel reads rows by 16-byte copies: a view whose rows
@@ -57,11 +68,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention wants 4-d q/k/v, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, h, sq, hd = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
-    if v.shape[-1] != hd:
-        raise ValueError(f"flash_attention needs the v head dim to equal "
-                         f"q's ({v.shape[-1]} != {hd}); MLA is not ported")
-    if (k.shape != (b, hkv, skv, hd) or v.shape != k.shape
+    hkv, skv, hdv = k.shape[1], k.shape[2], v.shape[-1]
+    if (k.shape != (b, hkv, skv, hd) or v.shape != (b, hkv, skv, hdv)
             or hkv < 1 or h % hkv):
         raise ValueError(f"flash_attention shape mismatch: q {tuple(q.shape)}"
                          f", k {tuple(k.shape)}, v {tuple(v.shape)}")
@@ -78,20 +86,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(f"flash_attention runs on CPU or one CUDA device, "
                          f"got {q.device}, {k.device}, {v.device}")
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel head dims are "
-                         f"{_HEAD_DIMS}, got {hd}")
+    if (hd, hdv) not in _HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel (QK, V) head dims are "
+                         f"{_HEAD_DIMS}, got {(hd, hdv)}")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("flash_attention needs each last dim contiguous")
     if q.dtype == torch.bfloat16:
         q, k, v = (_kernel_rows(t) for t in (q, k, v))
-    out = torch.empty((b, h, sq, hd), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, h, sq, hdv), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     fn = _build.entry("flash_attention", "flash_attention_fwd", _ARGTYPES)
     err = fn(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
              out.data_ptr(), lse.data_ptr() if return_lse else None,
-             b, h, hkv, sq, skv, hd,
+             b, h, hkv, sq, skv, hd, hdv,
              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
              hd ** -0.5, _DTYPES[q.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)
@@ -99,6 +107,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention kernel launch failed "
                            f"(cudaError {err})")
     flash_attention.launches += 1
+    _count_dims(flash_attention, hd, hdv)
     return (out, lse) if return_lse else out
 
 
@@ -107,17 +116,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         do: torch.Tensor):
     """Gradients (dq, dk, dv) of ``flash_attention`` given its output o,
     its log-sum-exp lse and the output gradient do.  q/k/v as the
-    forward took them; do: (b, h, sq, hd) with its last dim contiguous;
-    o: contiguous (b, h, sq, hd), lse: contiguous (b, h, sq) f32.
-    Returns dq (b, h, sq, hd) and dk/dv (b, hkv, skv, hd), contiguous,
-    in the input dtype.  Deterministic: no atomics.  bf16 runs on the
+    forward took them; do: (b, h, sq, hdv) with its last dim contiguous;
+    o: contiguous (b, h, sq, hdv), lse: contiguous (b, h, sq) f32.
+    Returns dq (b, h, sq, hd), dk (b, hkv, skv, hd) and dv (b, hkv,
+    skv, hdv), contiguous, in the input dtype.  Deterministic: no atomics.  bf16 runs on the
     tensor cores and copies views its kernels cannot read in place, as
     the forward does."""
     b, h, sq, hd = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
-    if (o.shape != q.shape or do.shape != q.shape or lse.shape != (b, h, sq)
-            or k.shape != (b, hkv, skv, hd) or v.shape != k.shape
-            or h % hkv or skv < sq):
+    hkv, skv, hdv = k.shape[1], k.shape[2], v.shape[-1]
+    if (o.shape != (b, h, sq, hdv) or do.shape != o.shape
+            or lse.shape != (b, h, sq) or k.shape != (b, hkv, skv, hd)
+            or v.shape != (b, hkv, skv, hdv) or h % hkv or skv < sq):
         raise ValueError(f"flash_attention_bwd shape mismatch: q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}, o {tuple(o.shape)}, lse "
@@ -134,9 +143,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (q.is_cuda and all(t.device == q.device for t in ts)):
         raise ValueError(f"flash_attention_bwd runs on CPU or one CUDA "
                          f"device, got {[str(t.device) for t in ts]}")
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention_bwd kernel head dims are "
-                         f"{_HEAD_DIMS}, got {hd}")
+    if (hd, hdv) not in _HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd kernel (QK, V) head dims "
+                         f"are {_HEAD_DIMS}, got {(hd, hdv)}")
     if any(t.stride(-1) != 1 for t in (q, k, v, do)) or not (
             o.is_contiguous() and lse.is_contiguous()):
         raise ValueError("flash_attention_bwd needs q/k/v/do last dims "
@@ -145,14 +154,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q, k, v, o, do = (_kernel_rows(t) for t in (q, k, v, o, do))
     dq = torch.empty((b, h, sq, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, hkv, skv, hd), dtype=q.dtype, device=q.device)
-    dv = torch.empty_like(dk)
+    dv = torch.empty((b, hkv, skv, hdv), dtype=q.dtype, device=q.device)
     dsum = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     fn = _build.entry("flash_attention_bwd", "flash_attention_bwd",
                       _BWD_ARGTYPES)
     err = fn(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
              o.data_ptr(), lse.data_ptr(), do.data_ptr(), dsum.data_ptr(),
              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, hkv, sq, skv,
-             hd,
+             hd, hdv,
              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
              *do.stride()[:3], hd ** -0.5, _DTYPES[q.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)
@@ -160,11 +169,19 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention_bwd kernel launch failed "
                            f"(cudaError {err})")
     flash_attention_bwd.launches += 1
+    _count_dims(flash_attention_bwd, hd, hdv)
     return dq, dk, dv
+
+
+def _count_dims(fn, hd: int, hdv: int) -> None:
+    key = f"{hd}x{hdv}"
+    fn.launches_by_dims[key] = fn.launches_by_dims.get(key, 0) + 1
 
 
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0
+flash_attention.launches_by_dims = {}
+flash_attention_bwd.launches_by_dims = {}
 
 
 class FlashAttention(torch.autograd.Function):

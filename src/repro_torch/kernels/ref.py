@@ -280,10 +280,11 @@ def attention_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 def attention_ref(q: torch.Tensor, k: torch.Tensor,
                   v: torch.Tensor) -> torch.Tensor:
     """Causal GQA attention, straight softmax in f32.  q: (b, h, sq, hd),
-    k/v: (b, hkv, skv, hd) with h a multiple of hkv (kv head = q head //
-    rep, no repeat).  The masks are those of
+    k: (b, hkv, skv, hd), v: (b, hkv, skv, hdv) with h a multiple of hkv
+    (kv head = q head // rep, no repeat); hdv may differ from hd (MLA),
+    and the scale is hd^-0.5.  The masks are those of
     ``repro.models.layers.blocked_attention``: a query row r sees key
-    columns c <= r + (skv - sq).  Returns (b, h, sq, hd) in q.dtype."""
+    columns c <= r + (skv - sq).  Returns (b, h, sq, hdv) in q.dtype."""
     return attention_fwd_ref(q, k, v)[0]
 
 
@@ -294,8 +295,9 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     masked scores, P = exp(S - lse), D = rowsum(dO * O),
     dV = P^T dO, dS = P * (dO V^T - D), dQ = scale dS K,
     dK = scale dS^T Q.  GQA: dK/dV of a kv head sum over its rep query
-    heads.  Shapes as ``attention_fwd_ref``; o is its output, lse its
-    log-sum-exp.  Returns (dq, dk, dv) in the input dtypes."""
+    heads.  Shapes as ``attention_fwd_ref`` (o and do hdv wide); o is
+    its output, lse its log-sum-exp.  Returns (dq, dk, dv) in the input
+    dtypes, dv hdv wide."""
     b, h, sq, hd = q.shape
     hkv = k.shape[1]
     rep = h // hkv

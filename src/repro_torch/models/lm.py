@@ -1,19 +1,25 @@
-"""Dense transformer assembly (counterpart of ``repro.models.lm``):
-parameter specs, shapes and seeded init, the JAX-parameter bridge, the
-training forward and loss (``forward_lm``, ``loss_fn``), and the two
-steps of the continuous-batching engine — ``batched_prefill_step`` and
-``paged_decode_step`` (which run unsharded).
+"""Model assembly (counterpart of ``repro.models.lm``): parameter
+specs, shapes and seeded init, the JAX-parameter bridge, the training
+forward and loss (``forward_lm``, ``loss_fn``) of the dense and MoE
+families, and the two steps of the continuous-batching engine —
+``batched_prefill_step`` and ``paged_decode_step`` (dense only, and
+unsharded).
 
 Parameters are a plain dict with the JAX package's layout: ``embed``
-(V, d), ``final_norm`` (d,), ``lm_head`` (d, V), and ``layers`` holding
-each per-layer weight stacked on a leading L axis; weights are (in, out)
-and used as ``x @ w``.  The JAX package scans over that axis; here a
-Python loop walks it, with JAX's two-level remat groups as
-``torch.utils.checkpoint`` (``ShardCtx.remat_groups``).
+(V, d), ``final_norm`` (d,), ``lm_head`` (d, V), and per family the
+stacks of per-layer weights on a leading L axis: ``layers`` (dense), or
+``moe_layers``, ``dense_layers`` (``first_dense_layers``) and ``mtp``
+(one block, deepseek-v3's multi-token prediction) of the MoE family,
+whose attention is GQA or MLA.  A MoE layer's attention and its
+``moe_block`` share one ``norm`` leaf, as JAX merges their specs.
+Weights are (in, out) and used as ``x @ w``.  The JAX package scans
+over the L axis; here a Python loop walks it, with JAX's two-level remat
+groups as ``torch.utils.checkpoint`` (``ShardCtx.remat_groups``).
 
 Sharding follows JAX's ``param_specs``: each leaf's spec names, per
 dimension, the mesh axis it is split over ('model', 'data' under FSDP,
-or None), and the padded global shapes (``ArchDims``: heads, KV heads,
+or None; the routed experts are split on their expert axis over
+'model'), and the padded global shapes (``ArchDims``: heads, KV heads,
 vocabulary and d_ff padded to a multiple of tp; kv < tp replicates KV
 heads) are JAX's, so a rank's shards (``shard_params``) are slices of
 JAX's global arrays, and ``assemble_leaf`` joins them back.
@@ -38,12 +44,25 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def _check_dense(cfg: ModelConfig, what: str):
-    if cfg.ssm or cfg.enc_dec or cfg.moe:
+def _check_ported(cfg: ModelConfig, what: str):
+    """Refuse the families the port does not train."""
+    if cfg.ssm or cfg.enc_dec:
         raise NotImplementedError(
-            f"{what} needs a dense-attention model, got {cfg.name}")
+            f"{what}: the {'ssm ' + cfg.ssm if cfg.ssm else 'enc-dec'} "
+            f"family ({cfg.name}) is not ported")
     if cfg.qk_norm:
         raise NotImplementedError(f"qk_norm ({cfg.name}) is not ported")
+
+
+def _check_dense(cfg: ModelConfig, what: str):
+    """The serving steps take the dense family only: the JAX engine
+    serves no MoE model either (its paged steps assert ``not cfg.moe``)."""
+    _check_ported(cfg, what)
+    if cfg.moe:
+        raise NotImplementedError(
+            f"{what} needs a dense-attention model, got {cfg.name}: MoE "
+            f"serving is not ported, and the JAX engine serves no MoE "
+            f"model either")
 
 
 def pad_to(x: int, mult: int) -> int:
@@ -95,6 +114,45 @@ def attn_param_specs(cfg: ModelConfig, ctx: ShardCtx, dims: ArchDims):
     return spec, shapes
 
 
+def mla_param_specs(cfg: ModelConfig, ctx: ShardCtx, dims: ArchDims):
+    """Per-layer MLA (specs, shapes), JAX's ``mla_param_specs``."""
+    fa, ma = _fsdp(ctx), ctx.model_axis
+    hd, rd = cfg.hd, cfg.qk_rope_dim
+    spec = {"norm": (None, None), "wq_a": (None, fa, None),
+            "q_norm": (None, None), "wq_b": (None, None, ma),
+            "wkv_a": (None, fa, None), "kv_norm": (None, None),
+            "wkv_b": (None, None, ma), "wo": (None, ma, fa)}
+    shapes = {"norm": (cfg.d_model,),
+              "wq_a": (cfg.d_model, cfg.q_lora_rank),
+              "q_norm": (cfg.q_lora_rank,),
+              "wq_b": (cfg.q_lora_rank, dims.h_pad * (hd + rd)),
+              "wkv_a": (cfg.d_model, cfg.kv_lora_rank + rd),
+              "kv_norm": (cfg.kv_lora_rank,),
+              "wkv_b": (cfg.kv_lora_rank, dims.h_pad * 2 * hd),
+              "wo": (dims.h_pad * hd, cfg.d_model)}
+    return spec, shapes
+
+
+def moe_param_specs(cfg: ModelConfig, ctx: ShardCtx, dims: ArchDims):
+    """Per-layer routed (and shared) experts (specs, shapes), JAX's
+    ``moe_param_specs``: the experts split on their leading axis over
+    'model'."""
+    fa, ma = _fsdp(ctx), ctx.model_axis
+    ffe, d, e = cfg.moe_d_ff, cfg.d_model, cfg.n_experts
+    spec = {"norm": (None, None), "router": (None, None, ma),
+            "w_gate": (None, ma, fa, None), "w_up": (None, ma, fa, None),
+            "w_down": (None, ma, None, fa)}
+    shapes = {"norm": (d,), "router": (d, e), "w_gate": (e, d, ffe),
+              "w_up": (e, d, ffe), "w_down": (e, ffe, d)}
+    if cfg.n_shared_experts:
+        sh = pad_to(cfg.n_shared_experts * ffe, ctx.tp)
+        spec.update({"sh_gate": (None, fa, ma), "sh_up": (None, fa, ma),
+                     "sh_down": (None, ma, fa)})
+        shapes.update({"sh_gate": (d, sh), "sh_up": (d, sh),
+                       "sh_down": (sh, d)})
+    return spec, shapes
+
+
 def mlp_param_specs(cfg: ModelConfig, ctx: ShardCtx, dims: ArchDims):
     """Per-layer SwiGLU (specs, shapes), JAX's ``mlp_param_specs``."""
     fa, ma = _fsdp(ctx), ctx.model_axis
@@ -108,20 +166,38 @@ def mlp_param_specs(cfg: ModelConfig, ctx: ShardCtx, dims: ArchDims):
 
 
 def param_specs(cfg: ModelConfig, ctx: ShardCtx = NO_SHARD):
-    """(specs, global shapes) of the dense family's parameter tree (JAX
-    ``param_specs``)."""
-    _check_dense(cfg, "param_specs")
+    """(specs, global shapes) of the parameter tree (JAX
+    ``param_specs``): ``layers`` of the dense family; ``moe_layers``,
+    ``dense_layers`` and ``mtp`` of the MoE family, each stacking an
+    attention block (GQA, or MLA) merged with its MoE block or MLP, so a
+    layer has one ``norm``."""
+    _check_ported(cfg, "param_specs")
     dims = ArchDims.build(cfg, ctx)
     fa, ma = _fsdp(ctx), ctx.model_axis
-    asp, ash = attn_param_specs(cfg, ctx, dims)
-    msp, msh = mlp_param_specs(cfg, ctx, dims)
-    specs = {"embed": (ma, fa), "final_norm": (None,),
-             "lm_head": (fa, ma), "layers": {**asp, **msp}}
+    specs = {"embed": (ma, fa), "final_norm": (None,), "lm_head": (fa, ma)}
     shapes = {"embed": (dims.v_pad, cfg.d_model),
               "final_norm": (cfg.d_model,),
-              "lm_head": (cfg.d_model, dims.v_pad),
-              "layers": {k: (cfg.n_layers,) + v
-                         for k, v in {**ash, **msh}.items()}}
+              "lm_head": (cfg.d_model, dims.v_pad)}
+
+    def add(name, n, *builders):
+        sp, sh = {}, {}
+        for build in builders:
+            bsp, bsh = build(cfg, ctx, dims)
+            sp.update(bsp)
+            sh.update(bsh)
+        specs[name] = sp
+        shapes[name] = {k: (n,) + v for k, v in sh.items()}
+
+    if not cfg.moe:
+        add("layers", cfg.n_layers, attn_param_specs, mlp_param_specs)
+        return specs, shapes
+    attn = mla_param_specs if cfg.mla else attn_param_specs
+    nd = cfg.first_dense_layers
+    add("moe_layers", cfg.n_layers - nd, attn, moe_param_specs)
+    if nd:
+        add("dense_layers", nd, attn, mlp_param_specs)
+    if cfg.mtp:
+        add("mtp", 1, attn, mlp_param_specs)
     return specs, shapes
 
 
@@ -241,7 +317,7 @@ def _from_numpy(a) -> torch.Tensor:
 def params_from_jax(tree: dict, cfg: ModelConfig, device="cuda",
                     ctx: ShardCtx = NO_SHARD,
                     coords: tuple | None = None) -> dict:
-    """The JAX package's dense parameter dict (leaves as numpy arrays of
+    """The JAX package's parameter dict (leaves as numpy arrays of
     JAX's padded global shapes for ``ctx``, e.g. ``jax.tree.map(
     np.asarray, params)``) as this package's parameters, bit for bit;
     with ``coords`` = (pod, d, m) the shards of that rank.  Shapes are
@@ -263,10 +339,11 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device="cuda",
     return out
 
 
-def layer_params(params: dict) -> list:
-    """Each layer's weights, views into the stacked tensors (one
-    ``unbind`` per leaf, so a backward through them is one stack)."""
-    stacked = {k: v.unbind(0) for k, v in params["layers"].items()}
+def layer_params(params: dict, name: str = "layers") -> list:
+    """Each layer's weights of the stack ``name``, views into the stacked
+    tensors (one ``unbind`` per leaf, so a backward through them is one
+    stack)."""
+    stacked = {k: v.unbind(0) for k, v in params[name].items()}
     n = len(next(iter(stacked.values())))
     return [{k: v[i] for k, v in stacked.items()} for i in range(n)]
 
@@ -282,11 +359,26 @@ def _attn_mlp_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, pos,
     return x, kv
 
 
+def _mla_moe_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, pos,
+                   ctx: ShardCtx = NO_SHARD, axes=None,
+                   dense_mlp: bool = False):
+    """One layer of the MoE family (JAX's ``_mla_moe_layer``): MLA or
+    GQA attention, then the MoE block, or with ``dense_mlp`` the SwiGLU
+    MLP.  Returns (x, aux loss; 0.0 with ``dense_mlp``)."""
+    attn = blocks.mla_attention if cfg.mla else blocks.gqa_attention
+    x = x + attn(cfg, p, x, pos, ctx, axes)[0]
+    if dense_mlp:
+        return x + swiglu_mlp(rmsnorm(x, p["mlp_norm"]), p["w_gate"],
+                              p["w_up"], p["w_down"], ctx, axes), 0.0
+    y, aux = blocks.moe_block(cfg, p, x, ctx, axes)
+    return x + y, aux
+
+
 # ============================== training ==============================
 
-def scan_layers(body, x: torch.Tensor, layers: list,
-                remat_groups: int = 0) -> torch.Tensor:
-    """``x = body(x, p)`` over the layers, with JAX's two-level remat
+def scan_layers(body, x, layers: list, remat_groups: int = 0):
+    """``x = body(x, p)`` over the layers (x a tensor or a tuple of them:
+    the carry), with JAX's two-level remat
     (``scan_layers``) when ``remat_groups`` > 0: every layer under
     ``torch.utils.checkpoint`` and, when g = remat_groups satisfies
     JAX's ``g > 1 and n % g == 0 and n // g > 1``, every group of n / g
@@ -322,30 +414,62 @@ def scan_layers(body, x: torch.Tensor, layers: list,
 
 def forward_lm(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                ctx: ShardCtx = NO_SHARD, axes=None):
-    """Training forward of the dense family on this rank's shards
-    (``axes``: the process mesh, None for whole weights).  tokens:
-    (b, t).  Returns (hidden (b, t, d), aux_loss = 0.0)."""
-    _check_dense(cfg, "forward_lm")
+    """Training forward on this rank's shards (``axes``: the process
+    mesh, None for whole weights).  tokens: (b, t).  Returns (hidden
+    (b, t, d), aux loss: the MoE layers' summed aux, f32, or 0.0 for the
+    dense family).  The MoE family runs its dense layers first, each
+    checkpointed alone when ``ctx.remat_groups`` > 0 (JAX checkpoints
+    each), then its MoE layers through ``scan_layers`` with the aux
+    carried, as JAX's scan carries it."""
+    _check_ported(cfg, "forward_lm")
     pos = torch.arange(tokens.shape[1], device=tokens.device)
     emb = gather_fsdp(ctx, axes, params["embed"], 1)
     x = embed_lookup(emb, tokens, ctx, axes)
+    if not cfg.moe:
+        def body(x, p):
+            return _attn_mlp_layer(cfg, p, x, pos, ctx, axes)[0]
 
-    def body(x, p):
-        return _attn_mlp_layer(cfg, p, x, pos, ctx, axes)[0]
+        x = scan_layers(body, x, layer_params(params), ctx.remat_groups)
+        return x, 0.0
+    if cfg.first_dense_layers:
+        def dense_body(x, p):
+            return _mla_moe_layer(cfg, p, x, pos, ctx, axes, True)[0]
 
-    x = scan_layers(body, x, layer_params(params), ctx.remat_groups)
-    return x, 0.0
+        x = scan_layers(dense_body, x, layer_params(params, "dense_layers"),
+                        min(ctx.remat_groups, 1))
+
+    def moe_body(carry, p):
+        x, aux = carry
+        x, a = _mla_moe_layer(cfg, p, x, pos, ctx, axes)
+        return x, aux + a
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    moe = layer_params(params, "moe_layers")
+    if not moe:
+        # depth cut to the dense layers: JAX's scan over no layer gives
+        # the empty stack zero gradients; autograd needs it in the graph
+        aux = aux + sum(t.sum() for t in params["moe_layers"].values())
+    return scan_layers(moe_body, (x, aux), moe, ctx.remat_groups)
 
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
             ctx: ShardCtx = NO_SHARD, axes=None):
-    """Next-token NLL of a (b, t + 1) token batch (dense: no MoE aux, no
-    MTP), vocab-sharded over 'model'.  Returns (loss, {"nll": loss})."""
+    """Next-token NLL of a (b, t + 1) token batch, vocab-sharded over
+    'model', plus the MoE aux loss (weight 0.01) and, with ``cfg.mtp``,
+    the multi-token-prediction loss (weight 0.3): the ``mtp`` block on
+    the un-normed hidden state predicts the token after next.  Returns
+    (loss + 0.01 aux, {"nll": the NLL with the MTP term})."""
     tokens = batch["tokens"].long()
     x, aux = forward_lm(cfg, params, tokens[:, :-1], ctx, axes)
     h = rmsnorm(x, params["final_norm"])
     head = gather_fsdp(ctx, axes, params["lm_head"], 0)
     loss = lm_loss(h, head, tokens[:, 1:], ctx, axes)
+    if cfg.mtp:
+        pos = torch.arange(x.shape[1], device=x.device)
+        p1 = {k: v[0] for k, v in params["mtp"].items()}
+        x2, _ = _mla_moe_layer(cfg, p1, x, pos, ctx, axes, True)
+        h2 = rmsnorm(x2[:, :-1], params["final_norm"])
+        loss = loss + 0.3 * lm_loss(h2, head, tokens[:, 2:], ctx, axes)
     return loss + 0.01 * aux, {"nll": loss}
 
 

@@ -53,7 +53,8 @@ class ServeEngine:
         if not kv_pool.supports_paged(cfg):
             raise NotImplementedError(
                 f"paged serving covers the dense-attention families; "
-                f"{cfg.name} (ssm/enc-dec/moe) is not ported")
+                f"{cfg.name} (ssm/enc-dec/moe) is not ported (the JAX "
+                f"engine serves no MoE model either)")
         if serve.top_k and serve.temperature == 0.0:
             raise ValueError("top_k needs temperature > 0")
         self.cfg = cfg

@@ -278,3 +278,58 @@ def test_same_state_gives_the_same_manifest(jax_run, tmp_path):
         assert jax.tree.structure(a) == jax.tree.structure(b)
         for x, y in zip(jax.tree.leaves(a), jax.tree.leaves(b)):
             np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("arch", ["phi35_moe_42b", "deepseek_v3_671b"])
+def test_moe_checkpoints_cross_the_packages(arch, tmp_path):
+    """The MoE family's trees (moe_layers with their one norm, and for
+    deepseek MLA's q_norm/kv_norm, dense_layers and mtp): a JAX
+    TrainSession's checkpoint of the SMOKE config loads in the port bit
+    for bit; the port's TrainSession of the same spec writes one that
+    JAX's load_checkpoint restores bit for bit; and JAX's state saved by
+    either package gives the same manifest, hash included."""
+    kw = {**_spec_kw(tmp_path / "jax"), "arch": arch, "steps": 1}
+    jspec = japi.RunSpec(
+        **{k: v for k, v in kw.items()
+           if k not in ("optim", "data", "sync", "ckpt")},
+        optim=japi.AdamWConfig(**kw["optim"]),
+        data=japi.DataConfig(**kw["data"]),
+        sync=japi.SyncConfig(**kw["sync"]),
+        ckpt=japi.CheckpointConfig(**kw["ckpt"]))
+    jsess = japi.TrainSession(jspec, callbacks=[japi.PeriodicCheckpoint(1)])
+    jsess.run()
+    want = jax.tree.map(np.asarray, {"params": jsess.params,
+                                     "opt": jsess.opt_state,
+                                     "sync": jsess.sync_state})
+    cfg = tapi.RunSpec(arch=arch, smoke=True).model_config()
+    tree, man = load_checkpoint(tmp_path / "jax", 0, _port_template(cfg, 1))
+    assert man["extra"]["arch"] == cfg.name
+    assert set(tree["params"]) >= {"moe_layers"} | (
+        {"dense_layers", "mtp"} if cfg.mla else set())
+    for (path, got), (_, ref) in zip(leaves_with_paths(tree),
+                                     leaves_with_paths(want)):
+        np.testing.assert_array_equal(_np(got), ref, err_msg=str(path))
+    # the port's session of the same spec, read back through JAX
+    pdir = tmp_path / "port"
+    spec = tapi.RunSpec.from_json_dict({**_spec_kw(pdir), "arch": arch,
+                                        "steps": 1})
+    sess = tapi.TrainSession(spec, callbacks=[tapi.PeriodicCheckpoint(1)],
+                             device="cpu")
+    sess.run()
+    got, _ = jckpt.load_checkpoint(pdir, 0, want)
+    port = {"params": sess.params, "opt": sess.opt_state,
+            "sync": residuals_to_jax(sess.sync_state)}
+    for (path, ref), g in zip(leaves_with_paths(port), jax.tree.leaves(got)):
+        np.testing.assert_array_equal(np.asarray(g), _np(ref),
+                                      err_msg=str(path))
+    # JAX's state saved by each package: the same manifest
+    carried = {"params": tlm.params_from_jax(want["params"], cfg,
+                                             device="cpu"),
+               "opt": jax.tree.map(lambda a: torch.from_numpy(np.array(a)),
+                                   want["opt"])}
+    jckpt.save_checkpoint(tmp_path / "j2", 3, want["params"], want["opt"],
+                          extra={"k": 1})
+    save_checkpoint(tmp_path / "p2", 3, carried["params"], carried["opt"],
+                    extra={"k": 1})
+    jm = json.loads((tmp_path / "j2" / "step_3" / "manifest.json").read_text())
+    assert read_manifest(tmp_path / "p2", 3) == jm

@@ -297,6 +297,36 @@ def test_flash_plain_matches_jax_blocked_attention(b, h, hkv, hd, sq, skv):
     np.testing.assert_allclose(got, np.asarray(want), atol=FLASH_TOL, rtol=0)
 
 
+@pytest.mark.parametrize("b,h,hkv,hd,hdv,sq,skv", [
+    (2, 4, 4, 24, 16, 37, 37),     # deepseek_v3 SMOKE's MLA: QK 16 + 8, V 16
+    (1, 2, 2, 192, 128, 20, 20),   # its published widths: QK 128 + 64, V 128
+    (1, 4, 2, 24, 16, 10, 29),     # GQA, fewer queries than keys
+])
+def test_flash_plain_with_a_v_head_dim_matches_jax(b, h, hkv, hd, hdv, sq,
+                                                   skv):
+    """MLA's attention, whose V head dim differs from the QK one (scale
+    hd^-0.5): the plain forward against JAX's blocked_attention, the one
+    JAX trains MLA through, and the plain backward against its vjp."""
+    rng = np.random.default_rng(hd * sq + hdv)
+    q = rng.normal(size=(b, h, sq, hd)).astype(np.float32)
+    k = rng.normal(size=(b, hkv, skv, hd)).astype(np.float32)
+    v = rng.normal(size=(b, hkv, skv, hdv)).astype(np.float32)
+    do = rng.normal(size=(b, h, sq, hdv)).astype(np.float32)
+    o, vjp = jax.vjp(lambda q, k, v: jax_blocked(q, k, v, blk_q=16,
+                                                  blk_kv=16),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    out, lse = ref.attention_fwd_ref(_t(q), _t(k), _t(v))
+    assert out.shape == (b, h, sq, hdv)
+    np.testing.assert_allclose(out.numpy(), np.asarray(o), atol=FLASH_TOL,
+                               rtol=0)
+    got = attention.flash_attention_bwd(_t(q), _t(k), _t(v), out, lse,
+                                        _t(do))
+    for g, w, name in zip(got, vjp(jnp.asarray(do)), "qkv"):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=BWD_TOL,
+                                   rtol=0, err_msg=f"d{name}")
+
+
 def test_flash_wrapper_routes_cpu_to_plain_and_rejects_bad_input():
     rng = np.random.default_rng(0)
     q = _t(rng.normal(size=(1, 4, 8, 16)).astype(np.float32))
@@ -305,8 +335,12 @@ def test_flash_wrapper_routes_cpu_to_plain_and_rejects_bad_input():
     got = attention.flash_attention(q.transpose(2, 3).transpose(2, 3), k, k)
     assert torch.equal(got, ref.attention_ref(q, k, k))
     assert attention.flash_attention.launches == before
-    with pytest.raises(ValueError, match="v head dim"):
-        attention.flash_attention(q, k, k[..., :8])
+    # a V head dim of its own (MLA) is taken; a V whose rows are not K's
+    # is refused
+    assert torch.equal(attention.flash_attention(q, k, k[..., :8]),
+                       ref.attention_ref(q, k, k[..., :8]))
+    with pytest.raises(ValueError, match="shape mismatch"):
+        attention.flash_attention(q, k, k[:, :, :4, :8])
     with pytest.raises(ValueError, match="skv >= sq"):
         attention.flash_attention(q, k[:, :, :4], k[:, :, :4])
     with pytest.raises(ValueError, match="shape mismatch"):
