@@ -131,9 +131,9 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    step, for its timing; pam4 as in 4b.  Step times, peak memory, one
    profiled step.
    4e. PhaseNoise through the trained ONN, ``--fidelity mesh --bits 8
-   --theta-drift-std 0.02 --shot-noise-std 0.01``: 3 steps on pallas,
+   --theta-drift-std 0.02 --shot-noise-std 0.01``: 2 steps on pallas,
    whose 6 x 42 mesh launches a step must all take the kernel's drift
-   branch (``mesh_scan_blocks.branches``), the same 3 steps again with
+   branch (``mesh_scan_blocks.branches``), the same 2 steps again with
    the same seed for the same losses, 1 step on xla (the drift in tensor
    ops, no drift launch); step times and losses beside the clean run's;
    then ``--bits 2`` with the same stds for 8 steps beside behavioral.
@@ -223,6 +223,8 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    and pre-sync gradients within phase 5's tolerances, the synced
    gradients and residuals bit for bit), deepseek's through MLA's
    (24, 16) flash instantiation, which is then timed at that shape;
+   deepseek's SMOKE step in bf16 (its experts' ``index_add``) twice from
+   the same state, bit for bit;
    (c) deepseek_v3's MLA block at its published widths (QK 192, V 128,
    128 heads, seq 4096) forward and backward through
    ``blocks.mla_attention`` (the (192, 128) launches), and the flash
@@ -234,6 +236,21 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    the stacked dp-2 run's and the 2x gradients of the model-sharded
    leaves at tp 2.  deepseek_v3_671b at its published widths does not
    fit four H100s (PERF.md has the arithmetic).
+   4l. The encoder-decoder family (``whisper_phase``; alone
+   ``whisper_alone``): (a) the flash forward and backward's non-causal
+   mode against their plain versions at whisper's encoder shape (b 8, h
+   6, 1500 x 1500, hd 64, bf16), its cross shape (448 queries over 1500
+   keys) and a ragged f32 case with sq 37 > skv 32, timed beside SDPA
+   (``is_causal=False``) and the bound; (b) whisper_tiny at its
+   published widths (4 + 4 layers, d 384, 6 heads, vocab 51865, 1500
+   frames) through ``launch/steps.make_train_step``, 4 stacked peers x 8
+   rows, t 448, seeded ``enc_frames``, ``--sync optinc --bits 8``, 10
+   steps: falling losses, step p50/p99, tokens/s, frames/s, peak memory,
+   the flash launches split by mask equal to the layers' count (a step:
+   4 peers x (4 encoder + 4 cross) non-causal, 4 x 4 causal), pam4 once
+   a bucket, the last step profiled; 10 psum steps as a yardstick; (c)
+   its SMOKE step (2 peers x 2 rows, t 37, 32 frames, f32) card vs CPU,
+   the synced gradients bit for bit.
 5. Card vs plain end to end: the f32 model with the same weights served
    through the kernels on the card and through the plain path on the
    CPU; teacher-forced logits must agree, greedy tokens must agree up to
@@ -255,7 +272,7 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    card's streaming ``BucketStream`` against the CPU's barrier path.
 
 Every phase raises on failure, so the script exits non-zero without the
-last line.  The line before the last is a JSON object of per-kernel
+last line; each phase's seconds are printed on a line of their own.  The line before the last is a JSON object of per-kernel
 numbers; the last line is ``{"ok": true, "device": {...}}``.  The script
 imports nothing of JAX.
 """
@@ -317,9 +334,9 @@ MESH_THETA_TOL = 1e-5
 # Givens programs reproduce W to ~1e-15 in f64, and f32 rounding through
 # up to 509 rotation layers adds a few hundred ulp
 MESH_DENSE_TOL = 1e-4
-# elements of the bits-8 mesh sync compared card vs CPU: the CPU's plain
-# mesh takes about a minute and a half for them
-MESH_ELEMS = 32768
+# elements of the bits-8 mesh sync compared card vs CPU: four blocks of
+# 2048 (the CPU's plain mesh took ~95 s for the 32768 of PRs 16-30)
+MESH_ELEMS = 8192
 
 
 def card_line() -> str:
@@ -420,14 +437,23 @@ def flash_case(b, h, hkv, hd, sq, skv, dtype, seed, hdv=None):
     return [t.transpose(1, 2) for t in (q, k, v)]
 
 
-def flash_bounds(b, h, hkv, hd, sq, skv, dtype, lse=False, hdv=None):
-    """(ms, what bounds it) of the causal forward: QK^T 2 hd and PV 2 hdv
+def visible_pairs(sq: int, skv: int, causal: bool = True) -> int:
+    """The (row, column) pairs a query row sees: causal, columns <= r +
+    (skv - sq); not causal, every column."""
+    if not causal:
+        return sq * skv
+    return sum(min(skv, r + (skv - sq) + 1) for r in range(sq))
+
+
+def flash_bounds(b, h, hkv, hd, sq, skv, dtype, lse=False, hdv=None,
+                 causal=True):
+    """(ms, what bounds it) of the forward: QK^T 2 hd and PV 2 hdv
     flops a visible (row, column) pair; q, k, v read and o (and the lse)
     written once."""
     import torch
     hdv = hd if hdv is None else hdv
     item = torch.tensor([], dtype=dtype).element_size()
-    pairs = sum(min(skv, r + (skv - sq) + 1) for r in range(sq))  # causal
+    pairs = visible_pairs(sq, skv, causal)
     flops = 2 * b * h * pairs * (hd + hdv)
     nbytes = ((b * h * sq * (hd + hdv) + b * hkv * skv * (hd + hdv)) * item
               + (4 * b * h * sq if lse else 0))
@@ -436,11 +462,11 @@ def flash_bounds(b, h, hkv, hd, sq, skv, dtype, lse=False, hdv=None):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def flash_bwd_bounds(b, h, hkv, hd, sq, skv, dtype, hdv=None):
+def flash_bwd_bounds(b, h, hkv, hd, sq, skv, dtype, hdv=None, causal=True):
     import torch
     hdv = hd if hdv is None else hdv
     item = torch.tensor([], dtype=dtype).element_size()
-    pairs = sum(min(skv, r + (skv - sq) + 1) for r in range(sq))  # causal
+    pairs = visible_pairs(sq, skv, causal)
     # S, dK, dQ: 2 hd flops a pair each; dP, dV: 2 hdv each
     flops = 2 * b * h * pairs * (3 * hd + 2 * hdv)
     nbytes = ((2 * b * h * sq * (hd + hdv) + 2 * b * hkv * skv * (hd + hdv))
@@ -860,7 +886,7 @@ def check_flash_kernels(card: str) -> dict:
     return records
 
 
-def sdpa_bwd_ms(ins, gqa: bool = False) -> float:
+def sdpa_bwd_ms(ins, gqa: bool = False, causal: bool = True) -> float:
     """Device ms of the backward of PyTorch's SDPA alone on the (q, k, v,
     o, lse, do) copies ins (``gqa``: fewer KV heads than query heads):
     its forward graph built once, the backward replayed on it (the flash
@@ -870,7 +896,7 @@ def sdpa_bwd_ms(ins, gqa: bool = False) -> float:
     sd_ins = []
     for qq, kk, vv, _, _, dd in ins:
         qq, kk, vv = (t.detach().requires_grad_() for t in (qq, kk, vv))
-        out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
+        out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=causal,
                                              enable_gqa=gqa)
         sd_ins.append((out, qq, kk, vv, dd))
     return time_ms(lambda out, qq, kk, vv, dd: torch.autograd.grad(
@@ -1515,20 +1541,19 @@ def mesh_instruction_floor(rows, st, transpose, post_scale):
     return slots / (132 * 4 * 32 * 1.98e9) * 1e3
 
 
-def once_ms(fn, args) -> float:
-    """Device ms of one call after one warm-up call: for the plain
-    versions at a full bucket, seconds a call, where launch overhead is
-    noise."""
+def once_ms(fn, *args):
+    """(fn(*args), device ms of that one call): for the plain versions at
+    a full bucket, seconds a call, where a warm-up and launch overhead
+    are noise."""
     import torch
-    fn(*args)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    fn(*args)
+    out = fn(*args)
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end)
+    return out, start.elapsed_time(end)
 
 
 def mixed_depth_stack(m: int, seed: int):
@@ -1655,8 +1680,9 @@ def check_mesh_kernel(card: str) -> dict:
         kw = dict(x_block_axis=blocked, transpose=transpose, post_scale=post)
         args = (st.signs, st.perm, st.ca, st.sa, x)
         got = mesh_scan.mesh_scan_blocks(*args, **kw)
-        want = ref.mesh_scan_blocks_ref(*args, **kw)
-        torch.cuda.synchronize()
+        # the one plain call is checked against and timed
+        want, plain_ms = once_ms(lambda: ref.mesh_scan_blocks_ref(*args,
+                                                                  **kw))
         same = torch.equal(got, want)
         # yardstick: the same linear map as one dense product, f32 with
         # TF32 off: y = x o_b^T (o_b with transpose), Sigma_a folded in
@@ -1677,8 +1703,6 @@ def check_mesh_kernel(card: str) -> dict:
         ins = copies_for([x])
         ms, host_ms = time_ms(lambda a: mesh_scan.mesh_scan_blocks(
             st.signs, st.perm, st.ca, st.sa, a, **kw), ins, iters=5)
-        plain_ms = once_ms(lambda a: ref.mesh_scan_blocks_ref(
-            st.signs, st.perm, st.ca, st.sa, a, **kw), ins[0])
         if blocked:
             lib_ms, _ = time_ms(lambda a: torch.einsum("rbi,bji->rbj", a,
                                                        mats), ins, iters=5)
@@ -3205,7 +3229,7 @@ def flash_dropped_tile(q, k, v, rows_from: int, keys: tuple):
     KV tile of the long rows would give."""
     import torch
     from repro_torch.kernels import ref
-    s, _ = ref._causal_scores(q, k)
+    s, _ = ref._masked_scores(q, k, True)
     s[..., rows_from:, keys[0]:keys[1]] = ref.NEG_INF
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     out = torch.einsum("bgrqk,bgkd->bgrqd", p, v.float()) / p.sum(
@@ -3570,6 +3594,7 @@ def card_vs_plain_moe(card: str) -> dict:
         if not (loss_err <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_TOL
                 and all(same)):
             raise AssertionError(f"4k (b) {arch}: card vs plain disagrees")
+    moe_bf16_repeats(card)
     by_dims = {fn.__name__: dict(fn.launches_by_dims) for fn in counters}
     print(f"4k (b) flash launches by (hd x hdv) in these steps: {by_dims} "
           f"[{card}]", flush=True)
@@ -3577,6 +3602,54 @@ def card_vs_plain_moe(card: str) -> dict:
         raise AssertionError(f"4k (b): deepseek's step ran no (24, 16) "
                              f"flash kernel: {by_dims}")
     return by_dims
+
+
+def moe_bf16_repeats(card: str) -> None:
+    """(b) deepseek_v3's SMOKE config in bf16 (its routed experts end in
+    ``index_add``, whose CUDA kernel adds with atomics): the 2-peer
+    gradient stack twice from the same weights and tokens, and two
+    optinc steps with error feedback twice from the same state, each
+    pair bit for bit."""
+    import torch
+    from repro_torch.collectives.bucketizer import make_layout
+    from repro_torch.collectives.engine import SyncConfig
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.tree import leaves
+    cfg = get_smoke("deepseek_v3_671b")
+    sync = SyncConfig(mode="optinc", bits=8, block=2048, error_feedback=True,
+                      bucket_bytes=2 ** 20)
+    opt = AdamWConfig()
+    layout = make_layout([(s, lm.torch_dtype(cfg)) for s in
+                          leaves(lm.param_shapes(cfg))], sync.bucket_bytes)
+    g = torch.Generator().manual_seed(SEED + 6)
+    tok = torch.randint(0, cfg.vocab, (8, 129), generator=g).cuda()
+    stacks, runs = [], []
+    for _ in range(2):
+        params = lm.init_params(cfg, SEED, "cuda")
+        stacks.append(tsteps.peer_grad_stack(cfg, params, tok, 2,
+                                             layout.total))
+        ostate = adamw_init(opt, params)
+        sstate = tsteps.init_sync_state(cfg, 2, sync, "cuda")
+        step = tsteps.make_train_step(cfg, 2, sync, opt, "cuda")
+        losses = []
+        for _ in range(2):
+            params, ostate, sstate, m = step(params, ostate, sstate, tok)
+            losses.append(m["loss"])
+        runs.append([*losses, *leaves(params), *leaves(ostate["m"]),
+                     *leaves(ostate["v"]), sstate["rep"]])
+    grads_same = all(torch.equal(a, b) for a, b in zip(*stacks))
+    steps_same = all(torch.equal(a, b) for a, b in zip(*runs))
+    print(f"4k (b) deepseek_v3 SMOKE bf16 (top-{cfg.top_k} of "
+          f"{cfg.n_experts} experts, index_add back): the 2-peer gradient "
+          f"stack twice bit-equal {grads_same}; two optinc steps twice "
+          f"(losses {[float(x) for x in runs[0][:2]]}, parameters, moments, "
+          f"residuals) bit-equal {steps_same} [{card}]", flush=True)
+    if not (grads_same and steps_same):
+        raise AssertionError("4k (b) deepseek_v3's bf16 step does not "
+                             "repeat bit for bit")
 
 
 def mla_block_launches(card: str) -> dict:
@@ -3622,31 +3695,32 @@ def mla_block_launches(card: str) -> dict:
     return {fn.__name__: by_dims[fn.__name__]["192x128"] for fn in counters}
 
 
-def check_mla_flash(card: str, label: str, b: int, h: int, hd: int,
-                    hdv: int, t: int, dtype) -> dict:
-    """The flash forward and backward at one of MLA's (hd, hdv)
-    instantiations against their plain versions (bf16: under
-    check_flash_hd128's limits, each (head, row) against its own scale
-    too; f32: the f32 limits), each timed beside its plain version,
-    SDPA (which takes a V head dim of its own) and the bound.  Returns
-    the two kernels' records."""
+def check_flash_pair(card: str, label: str, b: int, h: int, hd: int,
+                     hdv: int, sq: int, skv: int, dtype,
+                     causal: bool = True) -> dict:
+    """The flash forward and backward at one shape against their plain
+    versions (bf16: under check_flash_hd128's limits, each (head, row)
+    against its own scale too; f32: the f32 limits), each timed beside
+    its plain version, SDPA (which takes a V head dim of its own) and the
+    bound.  Returns {kernel: its record's numbers}."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import attention, ref
     dt = str(dtype).split(".")[-1]
-    big = b * h * t * t > 1 << 28
-    shape = (b, h, h, hd, t, t, dtype)
+    big = b * h * sq * skv > 1 << 28
+    shape = (b, h, h, hd, sq, skv, dtype)
     q, k, v = flash_case(*shape, SEED, hdv=hdv)
     g = torch.Generator().manual_seed(SEED + 1)
-    do = torch.randn((b, h, t, hdv), generator=g).to(dtype).cuda()
-    o, lse = attention.flash_attention(q, k, v, return_lse=True)
-    wo, wl = ref.attention_fwd_ref(q, k, v)
+    do = torch.randn((b, h, sq, hdv), generator=g).to(dtype).cuda()
+    o, lse = attention.flash_attention(q, k, v, return_lse=True,
+                                       causal=causal)
+    wo, wl = ref.attention_fwd_ref(q, k, v, causal)
     f_err = (o.float() - wo.float()).abs().max().item()
     f_row, f_mean = row_and_mean_errs(o, wo)
     l_err = (lse - wl).abs().max().item()
     del wo, wl
-    got = attention.flash_attention_bwd(q, k, v, o, lse, do)
-    want = ref.attention_bwd_ref(q, k, v, o, lse, do)
+    got = attention.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    want = ref.attention_bwd_ref(q, k, v, o, lse, do, causal)
     rel = max(((a.float() - w.float()).abs().max() / w.float().abs().max())
               .item() for a, w in zip(got, want))
     b_err = max((a.float() - w.float()).abs().max().item()
@@ -3657,43 +3731,55 @@ def check_mla_flash(card: str, label: str, b: int, h: int, hd: int,
     ins = copies_for([q, k, v, o, lse, do])
     fast, slow = (20, 3) if big else (50, 10)
     fwd = time_ms(lambda q, k, v, *_: attention.flash_attention(
-        q, k, v, return_lse=True), ins, iters=fast)[0]
-    fwd_plain = time_ms(lambda q, k, v, *_: ref.attention_fwd_ref(q, k, v),
-                        ins, iters=slow)[0]
+        q, k, v, return_lse=True, causal=causal), ins, iters=fast)[0]
+    fwd_plain = time_ms(lambda q, k, v, *_: ref.attention_fwd_ref(
+        q, k, v, causal), ins, iters=slow)[0]
     sdpa = time_ms(lambda q, k, v, *_: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True), ins, iters=fast)[0]
-    bwd = time_ms(attention.flash_attention_bwd, ins, iters=fast)[0]
-    bwd_plain = time_ms(ref.attention_bwd_ref, ins, iters=slow)[0]
-    sdpa_bwd = sdpa_bwd_ms(ins)
-    f_bound = flash_bounds(*shape, True, hdv=hdv)
-    b_bound = flash_bwd_bounds(*shape, hdv=hdv)
+        q, k, v, is_causal=causal), ins, iters=fast)[0]
+    bwd = time_ms(lambda *a: attention.flash_attention_bwd(*a, causal),
+                  ins, iters=fast)[0]
+    bwd_plain = time_ms(lambda *a: ref.attention_bwd_ref(*a, causal), ins,
+                        iters=slow)[0]
+    sdpa_bwd = sdpa_bwd_ms(ins, causal=causal)
+    f_bound = flash_bounds(*shape, True, hdv=hdv, causal=causal)
+    b_bound = flash_bwd_bounds(*shape, hdv=hdv, causal=causal)
     rows = dt == "bfloat16"
-    print(f"4k {label} flash at b={b} h={h} hd={hd} hdv={hdv} t={t} {dt}: "
-          f"forward max_abs_err {f_err:.3e} (tol {KERNEL_TOL[dt]})"
+    print(f"{label}: b={b} h={h} hd={hd} hdv={hdv} sq={sq} skv={skv} {dt}"
+          f"{'' if causal else ' non-causal'}: forward max_abs_err "
+          f"{f_err:.3e} (tol {KERNEL_TOL[dt]})"
           + (f", max over rows of max|err| / max|ref| {f_row:.3e} (tol "
              f"{FLASH_ROW_TOL:.3e}), mean|err| / mean|ref| {f_mean:.3e} "
              f"(tol {FLASH_MEAN_TOL:.3e})" if rows else "")
           + f", lse {l_err:.3e}, {fwd:.4f} ms (plain {fwd_plain:.4f} ms, "
-          f"sdpa {sdpa:.4f} ms, bound {f_bound[0]:.4f} ms {f_bound[1]}); "
+          f"sdpa {sdpa:.4f} ms, bound {f_bound[0]:.4g} ms {f_bound[1]}); "
           f"backward max_abs_err / max|grad| {rel:.3e} (tol {BWD_TOL[dt]}), "
           f"{bwd:.4f} ms (plain {bwd_plain:.4f} ms, sdpa backward "
-          f"{sdpa_bwd:.4f} ms, bound {b_bound[0]:.4f} ms {b_bound[1]}) "
+          f"{sdpa_bwd:.4f} ms, bound {b_bound[0]:.4g} ms {b_bound[1]}) "
           f"[{card}]", flush=True)
     if not (f_err <= KERNEL_TOL[dt] and l_err <= KERNEL_TOL["float32"]
             and rel <= BWD_TOL[dt] and (not rows or (
                 f_row <= FLASH_ROW_TOL and f_mean <= FLASH_MEAN_TOL))):
-        raise AssertionError(f"4k {label} MLA flash: {f_err}, {f_row}, "
-                             f"{f_mean}, {l_err}, {rel}")
+        raise AssertionError(f"{label}: {f_err}, {f_row}, {f_mean}, "
+                             f"{l_err}, {rel}")
+    return {fn: dict(route="cuda", source=f"src/repro_torch/csrc/{fn}.cu",
+                     replaces="src/repro/kernels/attention.py:63",
+                     max_abs_err=err, ms=ms, plain_ms=plain,
+                     bound_ms=bound[0], bound_by=bound[1], library_ms=lib)
+            for fn, err, ms, plain, bound, lib in (
+                ("flash_attention", f_err, fwd, fwd_plain, f_bound, sdpa),
+                ("flash_attention_bwd", b_err, bwd, bwd_plain, b_bound,
+                 sdpa_bwd))}
+
+
+def check_mla_flash(card: str, label: str, b: int, h: int, hd: int,
+                    hdv: int, t: int, dtype) -> dict:
+    """``check_flash_pair`` at one of MLA's (hd, hdv) instantiations,
+    causal, t long.  Returns the two kernels' records."""
+    recs = check_flash_pair(card, f"4k {label} flash", b, h, hd, hdv, t, t,
+                            dtype)
     return {f"{fn} mla {hd}x{hdv}": dict(
-        name=f"{fn} (MLA, hd {hd}, hdv {hdv})", route="cuda",
-        source=f"src/repro_torch/csrc/{fn}.cu",
-        replaces="src/repro/kernels/attention.py:63", max_abs_err=err, ms=ms,
-        plain_ms=plain, bound_ms=bound[0], bound_by=bound[1],
-        library_ms=lib)
-        for fn, err, ms, plain, bound, lib in (
-            ("flash_attention", f_err, fwd, fwd_plain, f_bound, sdpa),
-            ("flash_attention_bwd", b_err, bwd, bwd_plain, b_bound,
-             sdpa_bwd))}
+        name=f"{fn} (MLA, hd {hd}, hdv {hdv})", **rec)
+        for fn, rec in recs.items()}
 
 
 def moe_grads_rank(out_dir: str) -> None:
@@ -3877,6 +3963,261 @@ def moe_processes_alone(card: str) -> None:
     phi_four_cards(card)
 
 
+# ------------------------------------- phase 4l: the encoder-decoder family
+# whisper_tiny at its published widths (4 encoder and 4 decoder layers, d
+# 384, 6 heads of 64, d_ff 1536, vocab 51865, 1500 stub frames), trained
+# through launch/steps.make_train_step on batches that carry enc_frames:
+# 4 stacked peers x 8 rows (global batch 32), 449 tokens a row (t 448,
+# whisper's text context), --sync optinc --bits 8 --block 2048 and the
+# CLI's default lr
+WHISPER_PEERS, WHISPER_ROWS, WHISPER_T = 4, 8, 448
+WHISPER_STEPS = 10
+# (a)'s cases: (label, b, h, hd, sq, skv, dtype name): the encoder's
+# self-attention, the decoder's cross-attention over the encoder's 1500
+# frames, and SMOKE's ragged cross shape with more queries than keys
+WHISPER_FLASH = (("encoder", 8, 6, 64, 1500, 1500, "bfloat16"),
+                 ("cross", 8, 6, 64, 448, 1500, "bfloat16"),
+                 ("ragged sq > skv", 2, 2, 32, 37, 32, "float32"))
+
+
+def whisper_flash(card: str) -> dict:
+    """(a) The flash pair's non-causal mode (``check_flash_pair``) at
+    WHISPER_FLASH's shapes.  Returns the encoder shape's records (the
+    non-causal mode's launches are set by (b))."""
+    import torch
+    records = {}
+    for label, b, h, hd, sq, skv, dt in WHISPER_FLASH:
+        recs = check_flash_pair(card, f"4l (a) {label}", b, h, hd, hd, sq,
+                                skv, getattr(torch, dt), causal=False)
+        if label == "encoder":
+            records.update({f"{fn} full": dict(
+                name=f"{fn} (non-causal, whisper encoder)", **rec)
+                for fn, rec in recs.items()})
+    return records
+
+
+def whisper_batches(cfg, steps: int, seed: int) -> list:
+    """``steps`` global batches: SyntheticLM tokens (B, WHISPER_T + 1) and
+    enc_frames (B, frames, d) f32 from numpy's default_rng(seed), on the
+    card."""
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    b = WHISPER_PEERS * WHISPER_ROWS
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=WHISPER_T,
+                                  global_batch=b, seed=seed))
+    rng = np.random.default_rng(seed)
+    return [(torch.from_numpy(data.batch(i)).cuda(),
+             torch.from_numpy(rng.standard_normal(
+                 (b, cfg.enc_frames, cfg.d_model), dtype=np.float32)).cuda())
+            for i in range(steps)]
+
+
+def whisper_run(cfg, sync, batches, profile_card: str | None = None):
+    """One training run of whisper on 4 stacked peers from the seeded
+    init, a step a batch: (losses, step seconds, and with
+    ``profile_card`` the last step run under the profiler, its {kernel:
+    device us}, else None)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    opt = AdamWConfig()
+    params = lm.init_params(cfg, SEED, "cuda")
+    ostate = adamw_init(opt, params)
+    sstate = tsteps.init_sync_state(cfg, WHISPER_PEERS, sync, "cuda")
+    step = tsteps.make_train_step(cfg, WHISPER_PEERS, sync, opt, "cuda")
+    losses, times, dev = [], [], None
+    torch.cuda.synchronize()
+    for i, (tok, frames) in enumerate(batches):
+        prof = None
+        if profile_card and i == len(batches) - 1:
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            prof.__enter__()
+        t0 = time.perf_counter()
+        params, ostate, sstate, m = step(params, ostate, sstate, tok,
+                                         enc_frames=frames)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            dev = device_profile(prof, times[-1], profile_card,
+                                 "whisper_tiny step")
+    return losses, times, dev
+
+
+def whisper_full_width(card: str) -> dict:
+    """(b) whisper_tiny at its published widths: WHISPER_STEPS optinc
+    steps (launch counts reset just before, read just after, each split
+    by mask and held to the layers' count; pam4 once a bucket), then as
+    many psum steps as a yardstick, a profiled step; losses, step
+    p50/p99, tokens/s and frames/s, peak memory.  Returns the run's
+    launches {name: count} with the flash pair's by mode."""
+    import torch
+    from repro_torch.collectives.bucketizer import make_layout
+    from repro_torch.collectives.engine import SyncConfig
+    from repro_torch.configs import get
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves
+    cfg = get("whisper_tiny")
+    n = n_params(cfg)
+    sync = SyncConfig(mode="optinc", bits=8, block=2048)
+    layout = make_layout([(s, lm.torch_dtype(cfg)) for s in
+                          leaves(lm.param_shapes(cfg))], sync.bucket_bytes)
+    batches = whisper_batches(cfg, WHISPER_STEPS, SEED)
+    counters = _train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    flash = (counters["flash_attention"], counters["flash_attention_bwd"])
+    for fn in flash:
+        fn.launches_by_mode = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, dev = whisper_run(cfg, sync, batches, card)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    modes = {fn.__name__: dict(fn.launches_by_mode) for fn in flash}
+    p50, p99 = pct(times[1:-1], 0.5), pct(times[1:-1], 0.99)
+    b = WHISPER_PEERS * WHISPER_ROWS
+    print(f"4l (b) whisper_tiny (4 + 4 layers, d 384, 6 heads of 64, d_ff "
+          f"1536, vocab 51865, {n} parameters in "
+          f"{len(leaves(lm.param_shapes(cfg)))} leaves, {layout.n_buckets} "
+          f"buckets), {WHISPER_PEERS} stacked peers x {WHISPER_ROWS} rows, t "
+          f"{WHISPER_T}, {cfg.enc_frames} frames, --sync optinc --bits 8 "
+          f"--block 2048, {WHISPER_STEPS} steps: losses {losses}; step p50 "
+          f"{p50 * 1e3:.3f} ms p99 {p99 * 1e3:.3f} ms over steps 1-"
+          f"{WHISPER_STEPS - 2} (first {times[0] * 1e3:.3f} ms, the last "
+          f"profiled), "
+          f"{b * WHISPER_T / p50:.1f} tokens/s and "
+          f"{b * cfg.enc_frames / p50:.1f} frames/s at p50; peak memory "
+          f"{peak} bytes ({peak / 2 ** 30:.2f} GiB); launches {launches}, "
+          f"flash by mode {modes} [{card}]", flush=True)
+    check_falling("4l (b) whisper_tiny", losses)
+    per_step = WHISPER_STEPS * WHISPER_PEERS
+    want = {"full": per_step * (cfg.n_enc_layers + cfg.n_layers),
+            "causal": per_step * cfg.n_layers}
+    for name in modes:
+        if modes[name] != want:
+            raise AssertionError(f"4l (b) {name} launches by mode "
+                                 f"{modes[name]}, want {want}")
+    want_pam4 = WHISPER_STEPS * layout.n_buckets
+    if (launches["pam4_quantize_encode"] != want_pam4
+            or launches["pam4_decode_dequantize"] != want_pam4):
+        raise AssertionError(f"4l (b) pam4 launches {launches}: want one "
+                             f"encode and one decode a bucket, {want_pam4}")
+    if dev:
+        busy = sum(dev.values())
+        share = {}
+        for key, us in dev.items():
+            if "flash" in key or "pam4" in key:
+                name = kernel_name(key)
+                share[name] = share.get(name, 0.0) + 100 * us / busy
+        print(f"4l (b) the flash and pam4 kernels in the profiled step: "
+              + ", ".join(f"{k} {v:.2f}%" for k, v in sorted(share.items()))
+              + f" of the device time [{card}]", flush=True)
+    psum, ptimes, _ = whisper_run(cfg, SyncConfig(mode="psum"), batches)
+    print(f"4l (b) yardstick --sync psum, the same batches: losses {psum}; "
+          f"step p50 {pct(ptimes[1:], 0.5) * 1e3:.3f} ms p99 "
+          f"{pct(ptimes[1:], 0.99) * 1e3:.3f} ms over steps 1-"
+          f"{WHISPER_STEPS - 1} [{card}]", flush=True)
+    check_falling("4l (b) whisper_tiny psum", psum)
+    return {"launches": launches, "modes": modes}
+
+
+def whisper_card_vs_plain(card: str) -> None:
+    """(c) whisper's SMOKE config in f32: one step of 2 peers x 2 rows, t
+    37 (ragged), 32 frames, on the card and on the CPU from the same
+    weights, tokens and frames (the loss and the pre-sync gradients
+    within phase 5's tolerances), and the card's gradient stack synced
+    on the card and on the CPU, bit for bit.  The card's step runs the
+    f32 non-causal kernels at sq 37 > skv 32 (the cross-attention)."""
+    import numpy as np
+    import torch
+    from repro_torch.collectives.bucketizer import make_layout
+    from repro_torch.collectives.engine import SyncConfig, sync_flat
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import attention
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves, tree_map
+    cfg = dataclasses.replace(get_smoke("whisper_tiny"), dtype="float32")
+    params_cpu = lm.init_params(cfg, SEED, "cpu")
+    params_gpu = tree_map(lambda t: t.cuda(), params_cpu)
+    sync = SyncConfig(mode="optinc", bits=8, block=2048, error_feedback=True,
+                      bucket_bytes=2 ** 20)
+    layout = make_layout([(s, torch.float32) for s in
+                          leaves(lm.param_shapes(cfg))], sync.bucket_bytes)
+    rng = np.random.default_rng(SEED + 3)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 38)))
+    frames = torch.from_numpy(rng.standard_normal(
+        (4, cfg.enc_frames, cfg.d_model), dtype=np.float32))
+    flash = (attention.flash_attention, attention.flash_attention_bwd)
+    for fn in flash:
+        fn.launches_by_mode = {}
+    l_cpu, f_cpu = tsteps.peer_grad_stack(cfg, params_cpu, tok, 2,
+                                          layout.total, enc_frames=frames)
+    l_gpu, f_gpu = tsteps.peer_grad_stack(cfg, params_gpu, tok.cuda(), 2,
+                                          layout.total,
+                                          enc_frames=frames.cuda())
+    modes = {fn.__name__: dict(fn.launches_by_mode) for fn in flash}
+    loss_err = (l_gpu.cpu() - l_cpu).abs().max().item()
+    grad_err, start = 0.0, 0
+    for size in layout.sizes:          # each leaf against its own max
+        want = f_cpu[:, start:start + size]
+        got = f_gpu[:, start:start + size].cpu()
+        grad_err = max(grad_err, ((got - want).abs().max()
+                                  / want.abs().max().clamp_min(1e-30)).item())
+        start += size
+    res = torch.zeros_like(f_gpu)
+    out_gpu, res_gpu = sync_flat(f_gpu, layout.bounds, sync, res)
+    out_cpu, res_cpu = sync_flat(f_gpu.cpu(), layout.bounds, sync, res.cpu())
+    same = (torch.equal(out_gpu.cpu(), out_cpu),
+            torch.equal(res_gpu.cpu(), res_cpu))
+    print(f"4l (c) card vs plain, {cfg.name} f32, 2 peers x 2 rows, t 37, "
+          f"{cfg.enc_frames} frames, {layout.total} params: losses "
+          f"{l_gpu.tolist()} (CPU {l_cpu.tolist()}), max_abs_err "
+          f"{loss_err:.3e} (tol {TRAIN_LOSS_TOL:.0e}); pre-sync gradients "
+          f"max_abs_err / max|leaf| {grad_err:.3e} (tol "
+          f"{TRAIN_GRAD_TOL:.0e}); the card's stack synced on the CPU: "
+          f"synced bit-equal {same[0]}, residuals bit-equal {same[1]}; "
+          f"flash launches by mode {modes} [{card}]", flush=True)
+    want = {"full": 2 * (cfg.n_enc_layers + cfg.n_layers),
+            "causal": 2 * cfg.n_layers}
+    if not (loss_err <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_TOL
+            and all(same) and all(m == want for m in modes.values())):
+        raise AssertionError(f"4l (c) whisper SMOKE card vs plain: "
+                             f"{loss_err}, {grad_err}, {same}, {modes}")
+
+
+def whisper_phase(card: str) -> dict:
+    """Phase 4l: the encoder-decoder family on one card.  (a) the flash
+    pair's non-causal mode against its plain versions, timed; (b)
+    whisper_tiny at its published widths; (c) its SMOKE step card vs
+    CPU.  Returns (a)'s records with (b)'s non-causal launches."""
+    import torch
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    records = whisper_flash(card)
+    run = whisper_full_width(card)
+    for fn in ("flash_attention", "flash_attention_bwd"):
+        records[f"{fn} full"]["launches"] = run["modes"][fn]["full"]
+    whisper_card_vs_plain(card)
+    print(f"phase 4l took {time.perf_counter() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return records
+
+
+def whisper_alone(card: str) -> None:
+    """Phase 4l alone, the kernels built first."""
+    from repro_torch.kernels import _build
+    _build.build()
+    whisper_phase(card)
+
+
 # ----------------------------------------- phase 4d: the trained ONN
 # The paper's scenario 1 (examples/quickstart.py --scenario1): B 8, N 4,
 # K 4, 4-64-128-256-128-64-4 with layers 1-6 approximated, the full
@@ -4015,11 +4356,16 @@ def trained_onn_full_width(card: str) -> dict:
 NOISE_ARGV = ["--theta-drift-std", "0.02", "--shot-noise-std", "0.01"]
 
 
+# pallas steps of each PhaseNoise run (3 in PRs 23-30: ~5 s a step)
+NOISE_STEPS = 2
+
+
 def train_noise_full_width(card: str, onn, clean_losses, clean_times,
                            behavioral_bits2) -> int:
     """Phase 4e: the trained ONN's bits-8 mesh steps with thermal drift
     and shot noise: pallas (the kernel's drift branch, 6 x 42 launches a
-    step) for 3 steps, again with the same seed (the same losses), and
+    step) for NOISE_STEPS steps, again with the same seed (the same
+    losses), and
     xla (the drift in tensor ops, no drift launch) for 1; then bits 2
     with the same stds for 8 steps beside behavioral.  Returns the drift
     launches of the first pallas run."""
@@ -4036,8 +4382,8 @@ def train_noise_full_width(card: str, onn, clean_losses, clean_times,
                        onn["module"])
     per_step = 6 * n_buckets
     runs = {}
-    for name, backend, steps in (("pallas", "pallas", 3),
-                                 ("pallas again", "pallas", 3),
+    for name, backend, steps in (("pallas", "pallas", NOISE_STEPS),
+                                 ("pallas again", "pallas", NOISE_STEPS),
                                  ("xla", "xla", 1)):
         losses, times, launches, branches = mesh_run(
             card, ["--bits", "8", "--mesh-backend", backend] + NOISE_ARGV,
@@ -4845,7 +5191,7 @@ def card_vs_plain_onn_sync(card: str, f_gpu, bounds) -> None:
 def card_vs_plain_mesh_sync(card: str, f_gpu, bounds) -> None:
     """The mesh fidelity card vs CPU: bits 2 over the whole stack bit for
     bit (and equal to the card's behavioral sync); bits 8 through the
-    Table I row 1 ONN over MESH_ELEMS elements (one bucket): analog
+    Table I row 1 ONN over MESH_ELEMS elements (four blocks): analog
     outputs within ONN_TOL, codes bit for bit away from the thresholds;
     and the card's mesh outputs against the dense ONN of the same
     projected weights within MESH_DENSE_TOL."""
@@ -5113,39 +5459,50 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    records = check_kernels(card)
-    records.update(check_flash_kernels(card))
-    records.update(check_training_kernels(card))
-    records.update(check_onn_kernel(card))
-    records.update(check_mesh_kernel(card))
-    launches = serve_full_width(card)
+    def phase(label, fn, *args):
+        """fn(*args), its seconds printed on a line of their own."""
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {label}: {time.perf_counter() - t:.1f} s [{card}]",
+              flush=True)
+        return out
+
+    records = phase("2 paged", check_kernels, card)
+    records.update(phase("2 flash", check_flash_kernels, card))
+    records.update(phase("2b pam4", check_training_kernels, card))
+    records.update(phase("2c onn_layer", check_onn_kernel, card))
+    records.update(phase("2d mesh_scan", check_mesh_kernel, card))
+    launches = phase("3 serve", serve_full_width, card)
     for name in launches:
         records[name]["launches"] = launches[name]
-    train_launches, behavioral8, train_p50_ms, base = train_full_width(card)
+    train_launches, behavioral8, train_p50_ms, base = phase(
+        "4 train", train_full_width, card)
     for name in ("flash_attention_bwd", "pam4_quantize_encode",
                  "pam4_decode_dequantize"):
         records[name]["launches"] = train_launches[name]
-    sessions_full_width(card, train_p50_ms)
-    sync_modes_full_width(card, base)
-    processes_full_width(card)
-    sharded_full_width(card)
-    records.update(moe_full_width(card)["records"])
-    onn = trained_onn_full_width(card)
-    onn_launches, behavioral_bits2 = train_onn_full_width(card, behavioral8,
-                                                          onn)
+    phase("4f sessions", sessions_full_width, card, train_p50_ms)
+    phase("4g sync modes", sync_modes_full_width, card, base)
+    phase("4h processes", processes_full_width, card)
+    phase("4i sharding", sharded_full_width, card)
+    records.update(phase("4k moe", moe_full_width, card)["records"])
+    records.update(phase("4l whisper", whisper_phase, card))
+    onn = phase("4d trained onn", trained_onn_full_width, card)
+    onn_launches, behavioral_bits2 = phase(
+        "4b onn", train_onn_full_width, card, behavioral8, onn)
     records["onn_layer"]["launches"] = onn_launches["onn_layer"]
-    mesh_launches_, clean_losses, clean_times = train_mesh_full_width(
-        card, behavioral_bits2, behavioral8, onn)
+    mesh_launches_, clean_losses, clean_times = phase(
+        "4c mesh", train_mesh_full_width, card, behavioral_bits2,
+        behavioral8, onn)
     records["mesh_scan_blocks"]["launches"] = mesh_launches_[
         "mesh_scan_blocks"]
-    drift = train_noise_full_width(card, onn, clean_losses, clean_times,
-                                   behavioral_bits2)
+    drift = phase("4e phase noise", train_noise_full_width, card, onn,
+                  clean_losses, clean_times, behavioral_bits2)
     print(f"mesh_scan_blocks theta-drift launches on the PhaseNoise path: "
-          f"{drift} in 3 pallas steps [{card}]", flush=True)
-    resnet_full_width(card, onn)
-    card_vs_plain(card)
-    card_vs_plain_training(card)
-    card_vs_plain_sync_modes(card)
+          f"{drift} in {NOISE_STEPS} pallas steps [{card}]", flush=True)
+    phase("4j resnet", resnet_full_width, card, onn)
+    phase("5 card vs plain serving", card_vs_plain, card)
+    phase("5 card vs plain training", card_vs_plain_training, card)
+    phase("5 card vs plain sync modes", card_vs_plain_sync_modes, card)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

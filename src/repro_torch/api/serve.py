@@ -36,15 +36,15 @@ class ServeSession:
             raise SpecError("seq_shard_cache: the flash-decode seq-sharded "
                             "cache is not ported (the port decodes over "
                             "one paged pool on one device)")
-        spec.validate()
-        self.spec = spec
-        self.device = device_util.resolve(device, "ServeSession")
         self.cfg = cfg if cfg is not None else spec.model_config()
         if not kv_pool.supports_paged(self.cfg):
             raise NotImplementedError(
-                f"ServeSession covers the dense-attention families; "
-                f"{self.cfg.name} (ssm/enc-dec/moe) is not ported (the "
-                f"JAX engine serves no MoE model either)")
+                f"ServeSession covers the dense-attention families; the "
+                f"contiguous decode path of the ssm, enc-dec and MoE "
+                f"families ({self.cfg.name}) is not ported")
+        spec.validate()
+        self.spec = spec
+        self.device = device_util.resolve(device, "ServeSession")
         if params is not None:
             self.params, self.params_step = params, None
         else:

@@ -193,7 +193,13 @@ class RunSpec:
                     _SP_DEFECT if what.startswith("mesh.seq") else ""))
 
     def validate(self) -> "RunSpec":
-        self.model_config()
+        if self.model_config().enc_dec:
+            raise SpecError(
+                f"arch {self.arch!r} is an encoder-decoder model: JAX's "
+                f"trainer (TrainSession, the train CLI) feeds tokens only "
+                f"and no enc_frames, so neither package's session trains it; "
+                f"its entry point is repro_torch.launch.steps.make_train_step"
+                f" with a batch that carries enc_frames")
         self._refuse_unported()
         if self.steps < 1:
             raise SpecError(f"steps must be >= 1, got {self.steps}")

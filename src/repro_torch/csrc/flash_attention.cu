@@ -4,7 +4,11 @@
 // (flash_attention / _flash_kernel), in the GQA-aware form of its twin
 // repro/models/layers.py:blocked_attention: online-softmax attention with
 // f32 m/l/acc, causal mask cols <= rows + (skv - sq), ragged mask
-// cols < skv, -1e30 for masked scores, output acc / max(l, 1e-30).  For
+// cols < skv, -1e30 for masked scores, output acc / max(l, 1e-30).  The
+// non-causal mode (the Pallas kernel's causal=False: whisper's encoder and
+// cross-attention, any sq and skv) is the same code with the shift set to
+// skv, which no column reaches: every row then sees every column < skv,
+// each query tile visits every K/V tile, and only the ragged end masks.  For
 // training it also writes each row's log-sum-exp m + log l (f32), which
 // the backward (flash_attention_bwd.cu) rebuilds the probabilities from;
 // serving passes a null pointer and writes none.  Inputs may be strided
@@ -89,10 +93,10 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out,
                        float* __restrict__ lse, int h,
-                       int hkv, int sq, int skv, long long qsb, long long qsh,
-                       long long qss, long long ksb, long long ksh,
-                       long long kss, long long vsb, long long vsh,
-                       long long vss, float scale) {
+                       int hkv, int sq, int skv, int shift, long long qsb,
+                       long long qsh, long long qss, long long ksb,
+                       long long ksh, long long kss, long long vsb,
+                       long long vsh, long long vss, float scale) {
   static_assert(HDV % 2 == 0, "v head dim must be even");
   constexpr int LD = HD + 1;
   constexpr int LP = kBK + 1;
@@ -110,7 +114,6 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int r = tid >> 1;       // this thread's query row in the tile
   const int half = tid & 1;     // which half of the columns / head dims
   const int row = q0 + r;
-  const int shift = skv - sq;   // causal alignment at the sequence end
 
   const T* qb = q + bi * qsb + hq * qsh;
   const T* kb = k + bi * ksb + g * ksh;
@@ -225,7 +228,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ v,
                      __nv_bfloat16* __restrict__ out,
                      float* __restrict__ lse, int h, int hkv, int sq,
-                     int skv, long long qsb, long long qsh, long long qss,
+                     int skv, int shift, long long qsb, long long qsh,
+                     long long qss,
                      long long ksb, long long ksh, long long kss,
                      long long vsb, long long vsh, long long vss,
                      float scale) {
@@ -246,7 +250,6 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int g = hq / (h / hkv);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int quad = lane >> 2, tq = lane & 3;
-  const int shift = skv - sq;
   const __nv_bfloat16* kb = k + bi * ksb + g * ksh;
   const __nv_bfloat16* vb = v + bi * vsb + g * vsh;
 
@@ -363,7 +366,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int HD, int HDV>
 int launch_mma(const void* q, const void* k, const void* v, void* out,
-               float* lse, int b, int h, int hkv, int sq, int skv,
+               float* lse, int b, int h, int hkv, int sq, int skv, int shift,
                const long long* st, float scale, cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<HD, HDV>();
   auto kernel = flash_fwd_mma_kernel<HD, HDV>;
@@ -377,8 +380,8 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(out), lse, h, hkv, sq, skv, st[0], st[1],
-      st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale);
+      static_cast<__nv_bfloat16*>(out), lse, h, hkv, sq, skv, shift, st[0],
+      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale);
   return (int)cudaGetLastError();
 }
 
@@ -388,12 +391,13 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
   X(16, 16) X(32, 32) X(48, 48) X(64, 64) X(128, 128) X(192, 128) X(24, 16)
 
 int dispatch_mma(const void* q, const void* k, const void* v, void* out,
-                 float* lse, int b, int h, int hkv, int sq, int skv, int hd,
-                 int hdv, const long long* st, float scale, cudaStream_t s) {
+                 float* lse, int b, int h, int hkv, int sq, int skv,
+                 int shift, int hd, int hdv, const long long* st, float scale,
+                 cudaStream_t s) {
 #define FLASH_FWD_MMA_CASE(HD, HDV)                                          \
   if (hd == HD && hdv == HDV)                                              \
-    return launch_mma<HD, HDV>(q, k, v, out, lse, b, h, hkv, sq, skv, st,  \
-                               scale, s);
+    return launch_mma<HD, HDV>(q, k, v, out, lse, b, h, hkv, sq, skv,      \
+                               shift, st, scale, s);
   FLASH_HEAD_DIMS(FLASH_FWD_MMA_CASE)
 #undef FLASH_FWD_MMA_CASE
   return (int)cudaErrorInvalidValue;
@@ -402,7 +406,7 @@ int dispatch_mma(const void* q, const void* k, const void* v, void* out,
 // ------------------------------------------------ f32: CUDA cores
 template <typename T, int HD, int HDV>
 int launch(const void* q, const void* k, const void* v, void* out,
-           float* lse, int b, int h, int hkv, int sq, int skv,
+           float* lse, int b, int h, int hkv, int sq, int skv, int shift,
            const long long* st, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD, HDV>();
   auto kernel = flash_attention_kernel<T, HD, HDV>;
@@ -415,18 +419,20 @@ int launch(const void* q, const void* k, const void* v, void* out,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), lse, h, hkv, sq, skv,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale);
+      shift, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_hd(const void* q, const void* k, const void* v, void* out,
-                float* lse, int b, int h, int hkv, int sq, int skv, int hd,
-                int hdv, const long long* st, float scale, cudaStream_t s) {
+                float* lse, int b, int h, int hkv, int sq, int skv, int shift,
+                int hd, int hdv, const long long* st, float scale,
+                cudaStream_t s) {
 #define FLASH_FWD_CASE(HD, HDV)                                              \
   if (hd == HD && hdv == HDV)                                              \
-    return launch<T, HD, HDV>(q, k, v, out, lse, b, h, hkv, sq, skv, st,   \
-                              scale, s);
+    return launch<T, HD, HDV>(q, k, v, out, lse, b, h, hkv, sq, skv, shift, \
+                              st, scale, s);
   FLASH_HEAD_DIMS(FLASH_FWD_CASE)
 #undef FLASH_FWD_CASE
   return (int)cudaErrorInvalidValue;
@@ -438,8 +444,10 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* out,
 // element strides (batch, head, row) given and the last dim contiguous;
 // out: contiguous (b, h, sq, hdv); lse: contiguous (b, h, sq) f32, or
 // null to skip it.  dtype code: 0 = float32, 1 = bfloat16 (all four
-// tensors).  Returns the cudaError_t of the launch (0 = success); an
-// uninstantiated (hd, hdv) pair or dtype returns cudaErrorInvalidValue.
+// tensors).  causal: 1 masks row r to columns <= r + (skv - sq) (needs
+// skv >= sq), 0 lets every row see every column.  Returns the
+// cudaError_t of the launch (0 = success); an uninstantiated (hd, hdv)
+// pair, a dtype or a causal skv < sq returns cudaErrorInvalidValue.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, void* lse,
                                    int b, int h,
@@ -447,19 +455,22 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    long long qsb, long long qsh, long long qss,
                                    long long ksb, long long ksh, long long kss,
                                    long long vsb, long long vsh, long long vss,
-                                   float scale, int dtype,
+                                   float scale, int dtype, int causal,
                                    void* stream) {
+  if (causal && skv < sq) return (int)cudaErrorInvalidValue;
+  // no column reaches row + skv: the causal mask never applies
+  const int shift = causal ? skv - sq : skv;
   const long long st[9] = {qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss};
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return dispatch_hd<float>(q, k, v, out, static_cast<float*>(lse), b, h,
-                              hkv, sq, skv, hd, hdv, st, scale, s);
+                              hkv, sq, skv, shift, hd, hdv, st, scale, s);
   if (dtype == 1) {
     const void* ptrs[3] = {q, k, v};
     if (!fm::rows_aligned(ptrs, 3, st, 9))
       return (int)cudaErrorMisalignedAddress;
     return dispatch_mma(q, k, v, out, static_cast<float*>(lse), b, h, hkv,
-                        sq, skv, hd, hdv, st, scale, s);
+                        sq, skv, shift, hd, hdv, st, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -7,7 +7,11 @@
 // backward on the card.  It computes the flash-attention gradient from
 // the forward's output O and per-row log-sum-exp L, with the forward's
 // masks (causal cols <= rows + (skv - sq), ragged cols < skv) and GQA
-// (kv head = q head / rep):
+// (kv head = q head / rep).  Non-causal (whisper's encoder and cross-
+// attention, any sq and skv) it is the same code with the shift set to
+// skv, which no column reaches: each K/V tile then visits every query
+// tile from row 0, each query tile every K/V tile, and only the ragged
+// ends mask:
 //   P = exp(S - L),  D = rowsum(dO * O),  dS = P * (dO V^T - D),
 //   dV = P^T dO,  dK = scale dS^T Q,  dQ = scale dS K.
 //
@@ -207,7 +211,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const float* __restrict__ lse,
                       const float* __restrict__ dsum, T* __restrict__ dk,
                       T* __restrict__ dv, int h, int hkv, int sq, int skv,
-                      Strides st, float scale) {
+                      int shift, Strides st, float scale) {
   constexpr int LD = HD + 1, LDV = HDV + 1;
   extern __shared__ float smem[];
   float* qs = smem;
@@ -223,7 +227,6 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int g = blockIdx.y;
   const int bi = blockIdx.z;
   const int rep = h / hkv;
-  const int shift = skv - sq;
   const int c = threadIdx.x >> 1;     // this thread's kv row in the tile
   const int half = threadIdx.x & 1;   // which half of the head dims
 
@@ -284,7 +287,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ dsum, T* __restrict__ dq,
-                    int h, int hkv, int sq, int skv, Strides st,
+                    int h, int hkv, int sq, int skv, int shift, Strides st,
                     float scale) {
   constexpr int LD = HD + 1, LDV = HDV + 1;
   extern __shared__ float smem[];
@@ -300,7 +303,6 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int hq = blockIdx.y;
   const int bi = blockIdx.z;
   const int g = hq / (h / hkv);
-  const int shift = skv - sq;
   const int r = threadIdx.x >> 1;     // this thread's query row in the tile
   const int half = threadIdx.x & 1;
 
@@ -346,7 +348,7 @@ template <typename T, int HD, int HDV>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const float* lse, const void* dout, float* dsum, void* dq,
            void* dk, void* dv, int b, int h, int hkv, int sq, int skv,
-           const Strides& st, float scale, cudaStream_t stream) {
+           int shift, const Strides& st, float scale, cudaStream_t stream) {
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
@@ -375,13 +377,13 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const dim3 kv_grid((skv + kBK - 1) / kBK, hkv, b);
   kv_kernel<<<kv_grid, kThreads, smem, stream>>>(
       qt, kt, vt, dt, lse, dsum, static_cast<T*>(dk), static_cast<T*>(dv), h,
-      hkv, sq, skv, st, scale);
+      hkv, sq, skv, shift, st, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const dim3 q_grid((sq + kBQ - 1) / kBQ, h, b);
   q_kernel<<<q_grid, kThreads, smem, stream>>>(
-      qt, kt, vt, dt, lse, dsum, static_cast<T*>(dq), h, hkv, sq, skv, st,
-      scale);
+      qt, kt, vt, dt, lse, dsum, static_cast<T*>(dq), h, hkv, sq, skv, shift,
+      st, scale);
   return (int)cudaGetLastError();
 }
 
@@ -394,12 +396,12 @@ template <typename T>
 int dispatch_hd(int hd, int hdv, const void* q, const void* k,
                 const void* v, const void* o, const float* lse,
                 const void* dout, float* dsum, void* dq, void* dk, void* dv,
-                int b, int h, int hkv, int sq, int skv, const Strides& st,
-                float scale, cudaStream_t s) {
+                int b, int h, int hkv, int sq, int skv, int shift,
+                const Strides& st, float scale, cudaStream_t s) {
 #define FLASH_BWD_CASE(HD, HDV)                                             \
   if (hd == HD && hdv == HDV)                                             \
     return launch<T, HD, HDV>(q, k, v, o, lse, dout, dsum, dq, dk, dv, b, \
-                              h, hkv, sq, skv, st, scale, s);
+                              h, hkv, sq, skv, shift, st, scale, s);
   FLASH_HEAD_DIMS(FLASH_BWD_CASE)
 #undef FLASH_BWD_CASE
   return (int)cudaErrorInvalidValue;
@@ -466,8 +468,8 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
                           const float* __restrict__ lse,
                           const float* __restrict__ dsum,
                           bf16* __restrict__ dk, bf16* __restrict__ dv,
-                          int h, int hkv, int sq, int skv, Strides st,
-                          float scale) {
+                          int h, int hkv, int sq, int skv, int shift,
+                          Strides st, float scale) {
   static_assert(HDV % 16 == 0, "v head dim must be a multiple of 16");
   constexpr int E = fm::Tile<HD>::kElems;
   constexpr int EV = fm::Tile<HDV>::kElems;
@@ -487,7 +489,6 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
   const int g = blockIdx.x;
   const int bi = blockIdx.y;
   const int rep = h / hkv;
-  const int shift = skv - sq;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int quad = lane >> 2, tq = lane & 3;
 
@@ -621,7 +622,7 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
                         const float* __restrict__ lse,
                         const float* __restrict__ dsum,
                         bf16* __restrict__ dq, int h, int hkv, int sq,
-                        int skv, Strides st, float scale) {
+                        int skv, int shift, Strides st, float scale) {
   constexpr int E = fm::Tile<HD>::kElems;
   constexpr int EV = fm::Tile<HDV>::kElems;
   constexpr int NB = fm::Tile<HD>::kPad / 8;   // dQ blocks (stored width)
@@ -636,7 +637,6 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
   const int hq = blockIdx.x;
   const int bi = blockIdx.y;
   const int g = hq / (h / hkv);
-  const int shift = skv - sq;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int quad = lane >> 2, tq = lane & 3;
   const bf16* kb = k + bi * st.ksb + g * st.ksh;
@@ -738,7 +738,8 @@ template <int HD, int HDV>
 int launch_mma(const void* q, const void* k, const void* v, const void* o,
                const float* lse, const void* dout, float* dsum, void* dq,
                void* dk, void* dv, int b, int h, int hkv, int sq, int skv,
-               const Strides& st, float scale, cudaStream_t stream) {
+               int shift, const Strides& st, float scale,
+               cudaStream_t stream) {
   const bf16* qt = static_cast<const bf16*>(q);
   const bf16* kt = static_cast<const bf16*>(k);
   const bf16* vt = static_cast<const bf16*>(v);
@@ -760,25 +761,25 @@ int launch_mma(const void* q, const void* k, const void* v, const void* o,
   const dim3 kv_grid(hkv, b, (skv + fm::kRows - 1) / fm::kRows);
   kv_kernel<<<kv_grid, fm::kThreads, kv_smem, stream>>>(
       qt, kt, vt, dt, lse, dsum, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), h, hkv, sq, skv, st, scale);
+      static_cast<bf16*>(dv), h, hkv, sq, skv, shift, st, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const dim3 q_grid(h, b, (sq + fm::kRows - 1) / fm::kRows);
   q_kernel<<<q_grid, fm::kThreads, q_smem, stream>>>(
-      qt, kt, vt, dt, lse, dsum, static_cast<bf16*>(dq), h, hkv, sq, skv, st,
-      scale);
+      qt, kt, vt, dt, lse, dsum, static_cast<bf16*>(dq), h, hkv, sq, skv,
+      shift, st, scale);
   return (int)cudaGetLastError();
 }
 
 int dispatch_mma(int hd, int hdv, const void* q, const void* k,
                  const void* v, const void* o, const float* lse,
                  const void* dout, float* dsum, void* dq, void* dk, void* dv,
-                 int b, int h, int hkv, int sq, int skv, const Strides& st,
-                 float scale, cudaStream_t s) {
+                 int b, int h, int hkv, int sq, int skv, int shift,
+                 const Strides& st, float scale, cudaStream_t s) {
 #define FLASH_BWD_MMA_CASE(HD, HDV)                                         \
   if (hd == HD && hdv == HDV)                                             \
     return launch_mma<HD, HDV>(q, k, v, o, lse, dout, dsum, dq, dk, dv, b, \
-                               h, hkv, sq, skv, st, scale, s);
+                               h, hkv, sq, skv, shift, st, scale, s);
   FLASH_HEAD_DIMS(FLASH_BWD_MMA_CASE)
 #undef FLASH_BWD_MMA_CASE
   return (int)cudaErrorInvalidValue;
@@ -793,7 +794,8 @@ int dispatch_mma(int hd, int hdv, const void* q, const void* k,
 // dsum: (b, h, sq) f32 scratch; dq: contiguous (b, h, sq, hd), dk:
 // contiguous (b, hkv, skv, hd), dv: contiguous (b, hkv, skv, hdv).
 // dtype code: 0 = float32, 1 = bfloat16 (every tensor but lse and dsum).
-// Returns the cudaError_t of the launches.
+// causal: the forward's mask flag (1 needs skv >= sq).  Returns the
+// cudaError_t of the launches.
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* lse, const void* dout, void* dsum, void* dq, void* dk,
@@ -802,16 +804,18 @@ extern "C" int flash_attention_bwd(
     long long qsh, long long qss, long long ksb, long long ksh,
     long long kss, long long vsb, long long vsh, long long vss,
     long long gsb, long long gsh, long long gss, float scale, int dtype,
-    void* stream) {
-  if (hkv < 1 || h % hkv || skv < sq || sq < 1)
+    int causal, void* stream) {
+  if (hkv < 1 || h % hkv || (causal && skv < sq) || sq < 1 || skv < 1)
     return (int)cudaErrorInvalidValue;
+  // no column reaches row + skv: the causal mask never applies
+  const int shift = causal ? skv - sq : skv;
   const Strides st{qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, gsb, gsh, gss};
   auto s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* ds = static_cast<float*>(dsum);
   if (dtype == 0)
     return dispatch_hd<float>(hd, hdv, q, k, v, o, l, dout, ds, dq, dk, dv,
-                              b, h, hkv, sq, skv, st, scale, s);
+                              b, h, hkv, sq, skv, shift, st, scale, s);
   if (dtype == 1) {
     const void* ptrs[5] = {q, k, v, o, dout};
     const long long strides[12] = {qsb, qsh, qss, ksb, ksh, kss,
@@ -819,7 +823,7 @@ extern "C" int flash_attention_bwd(
     if (!fm::rows_aligned(ptrs, 5, strides, 12))
       return (int)cudaErrorMisalignedAddress;
     return dispatch_mma(hd, hdv, q, k, v, o, l, dout, ds, dq, dk, dv, b, h,
-                        hkv, sq, skv, st, scale, s);
+                        hkv, sq, skv, shift, st, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -12,8 +12,15 @@ tensors it launches the kernel or raises; any other device raises.
 The V head dim may differ from the QK one (deepseek-v3's MLA: QK 192 =
 128 + 64 rope dims, V 128): Q, K, dQ and dK are hd wide, V, O, dO and
 dV hdv wide, and the kernels are instantiated for the (hd, hdv) pairs
-of ``_HEAD_DIMS``.  Each wrapper counts its launches (``launches``) and,
-by (hd, hdv) pair, in ``launches_by_dims``.
+of ``_HEAD_DIMS``.
+
+Each takes ``causal``: True masks query row r to key columns c <= r +
+(skv - sq) (the decoder; skv >= sq), False lets every row see every
+column < skv, with any sq and skv (whisper's encoder self-attention
+and the decoder's cross-attention, the Pallas kernel's
+``causal=False``).  Each wrapper counts its launches (``launches``),
+by (hd, hdv) pair in ``launches_by_dims`` and by mask in
+``launches_by_mode`` ("causal" or "full").
 """
 from __future__ import annotations
 
@@ -31,10 +38,11 @@ _HEAD_DIMS = ((16, 16), (32, 32), (48, 48), (64, 64), (128, 128),
               (192, 128), (24, 16))
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 9
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                  + [ctypes.c_longlong] * 12
-                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p])
 
 
 _MAX_ROW_STRIDE = 1 << 24   # elements; flash_mma.cuh kMaxRowStride
@@ -52,13 +60,14 @@ def _kernel_rows(t: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    return_lse: bool = False):
-    """Causal multi-head GQA attention.  q: (b, h, sq, hd); k: (b, hkv,
+                    return_lse: bool = False, causal: bool = True):
+    """Multi-head GQA attention.  q: (b, h, sq, hd); k: (b, hkv,
     skv, hd), v: (b, hkv, skv, hdv) with h a multiple of hkv; the scale
     is hd^-0.5; f32 or bf16, all one dtype; each
     tensor's last dimension contiguous (other strides are free, so
-    transposed views need no copy).  Query row r sees key columns c <= r + (skv -
-    sq), which needs skv >= sq.  Returns (b, h, sq, hdv) in q.dtype, and
+    transposed views need no copy).  Causal: query row r sees key
+    columns c <= r + (skv - sq), which needs skv >= sq; not causal:
+    every column.  Returns (b, h, sq, hdv) in q.dtype, and
     with ``return_lse`` also the per-row log-sum-exp of the scaled scores
     (b, h, sq) f32, which the backward needs.  bf16 runs on the tensor
     cores, whose kernel reads rows by 16-byte copies: a view whose rows
@@ -73,7 +82,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or hkv < 1 or h % hkv):
         raise ValueError(f"flash_attention shape mismatch: q {tuple(q.shape)}"
                          f", k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if skv < sq:
+    if causal and skv < sq:
         raise ValueError(f"causal flash_attention needs skv >= sq "
                          f"(got sq={sq}, skv={skv})")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -81,7 +90,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if q.device.type == "cpu" and k.device.type == "cpu" \
             and v.device.type == "cpu":
-        out, lse = ref.attention_fwd_ref(q, k, v)
+        out, lse = ref.attention_fwd_ref(q, k, v, causal)
         return (out, lse) if return_lse else out
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(f"flash_attention runs on CPU or one CUDA device, "
@@ -101,22 +110,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              out.data_ptr(), lse.data_ptr() if return_lse else None,
              b, h, hkv, sq, skv, hd, hdv,
              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-             hd ** -0.5, _DTYPES[q.dtype],
+             hd ** -0.5, _DTYPES[q.dtype], int(causal),
              torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed "
                            f"(cudaError {err})")
-    flash_attention.launches += 1
-    _count_dims(flash_attention, hd, hdv)
+    _count(flash_attention, hd, hdv, causal)
     return (out, lse) if return_lse else out
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor,
-                        do: torch.Tensor):
+                        do: torch.Tensor, causal: bool = True):
     """Gradients (dq, dk, dv) of ``flash_attention`` given its output o,
-    its log-sum-exp lse and the output gradient do.  q/k/v as the
-    forward took them; do: (b, h, sq, hdv) with its last dim contiguous;
+    its log-sum-exp lse and the output gradient do.  q/k/v and
+    ``causal`` as the forward took them; do: (b, h, sq, hdv) with its
+    last dim contiguous;
     o: contiguous (b, h, sq, hdv), lse: contiguous (b, h, sq) f32.
     Returns dq (b, h, sq, hd), dk (b, hkv, skv, hd) and dv (b, hkv,
     skv, hdv), contiguous, in the input dtype.  Deterministic: no atomics.  bf16 runs on the
@@ -126,7 +135,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hkv, skv, hdv = k.shape[1], k.shape[2], v.shape[-1]
     if (o.shape != (b, h, sq, hdv) or do.shape != o.shape
             or lse.shape != (b, h, sq) or k.shape != (b, hkv, skv, hd)
-            or v.shape != (b, hkv, skv, hdv) or h % hkv or skv < sq):
+            or v.shape != (b, hkv, skv, hdv) or h % hkv
+            or (causal and skv < sq)):
         raise ValueError(f"flash_attention_bwd shape mismatch: q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}, o {tuple(o.shape)}, lse "
@@ -139,7 +149,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"{lse.dtype}")
     ts = (q, k, v, o, lse, do)
     if all(t.device.type == "cpu" for t in ts):
-        return ref.attention_bwd_ref(q, k, v, o, lse, do)
+        return ref.attention_bwd_ref(q, k, v, o, lse, do, causal)
     if not (q.is_cuda and all(t.device == q.device for t in ts)):
         raise ValueError(f"flash_attention_bwd runs on CPU or one CUDA "
                          f"device, got {[str(t.device) for t in ts]}")
@@ -163,40 +173,45 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, hkv, sq, skv,
              hd, hdv,
              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-             *do.stride()[:3], hd ** -0.5, _DTYPES[q.dtype],
+             *do.stride()[:3], hd ** -0.5, _DTYPES[q.dtype], int(causal),
              torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed "
                            f"(cudaError {err})")
-    flash_attention_bwd.launches += 1
-    _count_dims(flash_attention_bwd, hd, hdv)
+    _count(flash_attention_bwd, hd, hdv, causal)
     return dq, dk, dv
 
 
-def _count_dims(fn, hd: int, hdv: int) -> None:
+def _count(fn, hd: int, hdv: int, causal: bool) -> None:
+    """One launch of ``fn``: its total, its (hd, hdv) pair and its mask."""
+    fn.launches += 1
     key = f"{hd}x{hdv}"
     fn.launches_by_dims[key] = fn.launches_by_dims.get(key, 0) + 1
+    mode = "causal" if causal else "full"
+    fn.launches_by_mode[mode] = fn.launches_by_mode.get(mode, 0) + 1
 
 
-flash_attention.launches = 0
-flash_attention_bwd.launches = 0
-flash_attention.launches_by_dims = {}
-flash_attention_bwd.launches_by_dims = {}
+for _fn in (flash_attention, flash_attention_bwd):
+    _fn.launches = 0
+    _fn.launches_by_dims = {}
+    _fn.launches_by_mode = {}
 
 
 class FlashAttention(torch.autograd.Function):
     """``flash_attention`` with a gradient: the forward runs the forward
     kernel and, when a gradient is needed, keeps its output and
     log-sum-exp; the backward runs ``flash_attention_bwd`` (the backward
-    kernel on the card, ``ref.attention_bwd_ref`` on the CPU).  Without
-    a gradient (serving, ``torch.no_grad``) the forward writes no lse."""
+    kernel on the card, ``ref.attention_bwd_ref`` on the CPU) with the
+    same mask.  Without a gradient (serving, ``torch.no_grad``) the
+    forward writes no lse."""
 
     @staticmethod
-    def forward(ctx, q, k, v):
+    def forward(ctx, q, k, v, causal=True):
         if not any(ctx.needs_input_grad):
-            return flash_attention(q, k, v)
-        out, lse = flash_attention(q, k, v, return_lse=True)
+            return flash_attention(q, k, v, causal=causal)
+        out, lse = flash_attention(q, k, v, return_lse=True, causal=causal)
         ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
         return out
 
     @staticmethod
@@ -204,4 +219,5 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         if do.stride(-1) != 1:
             do = do.contiguous()
-        return flash_attention_bwd(q, k, v, out, lse, do)
+        return (*flash_attention_bwd(q, k, v, out, lse, do, ctx.causal),
+                None)

@@ -251,24 +251,27 @@ def mesh_scan_blocks_ref(signs: torch.Tensor, perm: torch.Tensor,
 
 # ---------------------------- attention -----------------------------
 
-def _causal_scores(q: torch.Tensor, k: torch.Tensor):
-    """Scaled, masked f32 scores (b, hkv, rep, sq, skv) of GQA attention
-    and the scaled queries (b, hkv, rep, sq, hd)."""
+def _masked_scores(q: torch.Tensor, k: torch.Tensor, causal: bool):
+    """Scaled f32 scores (b, hkv, rep, sq, skv) of GQA attention, causally
+    masked when ``causal``, and the scaled queries (b, hkv, rep, sq, hd)."""
     b, h, sq, hd = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     qf = q.float().reshape(b, hkv, h // hkv, sq, hd) * hd ** -0.5
     s = torch.einsum("bgrqd,bgkd->bgrqk", qf, k.float())
+    if not causal:
+        return s, qf
     rows = torch.arange(sq, device=q.device)[:, None]
     cols = torch.arange(skv, device=q.device)[None, :]
     return s.masked_fill(cols > rows + (skv - sq), NEG_INF), qf
 
 
-def attention_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+def attention_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True):
     """``attention_ref`` that also returns the per-row log-sum-exp of the
     scaled scores, (b, h, sq) f32: what the backward needs to rebuild the
     probabilities."""
     b, h, sq, _ = q.shape
-    s, _ = _causal_scores(q, k)
+    s, _ = _masked_scores(q, k, causal)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
@@ -277,31 +280,33 @@ def attention_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     return out.reshape(b, h, sq, v.shape[-1]).to(q.dtype), lse
 
 
-def attention_ref(q: torch.Tensor, k: torch.Tensor,
-                  v: torch.Tensor) -> torch.Tensor:
-    """Causal GQA attention, straight softmax in f32.  q: (b, h, sq, hd),
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True) -> torch.Tensor:
+    """GQA attention, straight softmax in f32.  q: (b, h, sq, hd),
     k: (b, hkv, skv, hd), v: (b, hkv, skv, hdv) with h a multiple of hkv
     (kv head = q head // rep, no repeat); hdv may differ from hd (MLA),
     and the scale is hd^-0.5.  The masks are those of
-    ``repro.models.layers.blocked_attention``: a query row r sees key
-    columns c <= r + (skv - sq).  Returns (b, h, sq, hdv) in q.dtype."""
-    return attention_fwd_ref(q, k, v)[0]
+    ``repro.models.layers.blocked_attention``: causal, a query row r sees
+    key columns c <= r + (skv - sq); not causal, every row sees every
+    column (any sq and skv: whisper's encoder and cross-attention).
+    Returns (b, h, sq, hdv) in q.dtype."""
+    return attention_fwd_ref(q, k, v, causal)[0]
 
 
 def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       o: torch.Tensor, lse: torch.Tensor,
-                      do: torch.Tensor):
+                      do: torch.Tensor, causal: bool = True):
     """The flash-attention backward, written out: with S the scaled
     masked scores, P = exp(S - lse), D = rowsum(dO * O),
     dV = P^T dO, dS = P * (dO V^T - D), dQ = scale dS K,
     dK = scale dS^T Q.  GQA: dK/dV of a kv head sum over its rep query
-    heads.  Shapes as ``attention_fwd_ref`` (o and do hdv wide); o is
-    its output, lse its log-sum-exp.  Returns (dq, dk, dv) in the input
-    dtypes, dv hdv wide."""
+    heads.  Shapes and ``causal`` as ``attention_fwd_ref`` (o and do hdv
+    wide); o is its output, lse its log-sum-exp.  Returns (dq, dk, dv)
+    in the input dtypes, dv hdv wide."""
     b, h, sq, hd = q.shape
     hkv = k.shape[1]
     rep = h // hkv
-    s, qf = _causal_scores(q, k)
+    s, qf = _masked_scores(q, k, causal)
     p = torch.exp(s - lse.reshape(b, hkv, rep, sq, 1))
     dof = do.float().reshape(b, hkv, rep, sq, -1)
     dv = torch.einsum("bgrqk,bgrqd->bgkd", p, dof)

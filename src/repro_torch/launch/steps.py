@@ -118,9 +118,12 @@ def _grads_from_hooks(loss, train, row: torch.Tensor, leaf_ready):
 def peer_grad_stack(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                     peers: int, total: int, leaf_ready=None,
                     out: torch.Tensor | None = None,
-                    ctx: ShardCtx = NO_SHARD):
+                    ctx: ShardCtx = NO_SHARD,
+                    enc_frames: torch.Tensor | None = None):
     """Each peer's loss and gradient on its rows of the global batch:
-    peer p takes rows [p B/N, (p+1) B/N), as shard_map splits them.
+    peer p takes rows [p B/N, (p+1) B/N), as shard_map splits them, of
+    the tokens and of ``enc_frames`` (B, frames, d), the enc-dec
+    family's encoder input, when given.
     Returns (losses (peers,) f32, gradients (peers, total) f32, leaves in
     sorted-key order), the gradients in ``out`` when given.  With
     ``leaf_ready`` the last peer's leaves are written from gradient hooks
@@ -136,7 +139,7 @@ def peer_grad_stack(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     losses = []
     for i in range(peers):
         loss, _ = lm.loss_fn(cfg, tparams,
-                             {"tokens": tokens[i * per:(i + 1) * per]}, ctx)
+                             _rows(tokens, enc_frames, i * per, per), ctx)
         if leaf_ready is not None and i == peers - 1:
             _grads_from_hooks(loss, train, flat[i], leaf_ready)
         else:
@@ -148,13 +151,25 @@ def peer_grad_stack(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     return torch.stack(losses), flat
 
 
+def _rows(tokens, enc_frames, start: int, n: int) -> dict:
+    """The batch of rows [start, start + n): its tokens and, for the
+    enc-dec family, its encoder frames."""
+    batch = {"tokens": tokens[start:start + n]}
+    if enc_frames is not None:
+        batch["enc_frames"] = enc_frames[start:start + n]
+    return batch
+
+
 def make_train_step(cfg: ModelConfig, peers: int, sync: SyncConfig,
                     opt: AdamWConfig, device="cuda", pods: int = 1,
                     world=None, ctx: ShardCtx | None = None):
-    """Returns ``step(params, opt_state, sync_state, tokens, key=None) ->
-    (params, opt_state, sync_state, metrics)`` over ``peers`` = pods * dp
-    peers; tokens: (B, t + 1) on ``device`` with B a multiple of
-    ``peers``; ``key``: the step's sync key (``prng``; the PhotonicsConfig
+    """Returns ``step(params, opt_state, sync_state, tokens, key=None,
+    enc_frames=None) -> (params, opt_state, sync_state, metrics)`` over
+    ``peers`` = pods * dp peers; tokens: (B, t + 1) on ``device`` with B
+    a multiple of ``peers``; ``enc_frames``: (B, frames, d), the enc-dec
+    family's encoder input (JAX's batch carries it beside the tokens,
+    split over the peers as they are); ``key``: the step's sync key
+    (``prng``; the PhotonicsConfig
     noise and Table-II injection draw from it); metrics: {"loss",
     "grad_norm"}.  With ``sync.overlap`` each call leaves its
     ``BucketStream`` in ``step.last_stream`` (launch order, ``early``).
@@ -165,6 +180,16 @@ def make_train_step(cfg: ModelConfig, peers: int, sync: SyncConfig,
     peers the stacked shards of ``to_local``."""
     if ctx is None:
         ctx = ShardCtx(dp=peers // pods, pods=pods)
+    if cfg.enc_dec and ctx.fsdp:
+        raise ValueError(
+            f"{cfg.name} with --fsdp: the reference cannot run it either "
+            f"(JAX's cross-attention projects the encoder output with the "
+            f"un-gathered FSDP shard of x_wk/x_wv; its dry run lists "
+            f"whisper-tiny in NO_FSDP)")
+    if cfg.enc_dec and ctx.tp > 1:
+        raise NotImplementedError(
+            f"{cfg.name} with tensor parallelism (tp {ctx.tp}): the "
+            f"enc-dec family is not ported at tp > 1 yet")
     if ctx.sharded:
         return _sharded_train_step(cfg, sync, opt, ctx, world)
     shapes = leaves(lm.param_shapes(cfg))
@@ -172,13 +197,15 @@ def make_train_step(cfg: ModelConfig, peers: int, sync: SyncConfig,
                          sync.bucket_bytes)
     local = peers if world is None else 1
 
-    def grads_and_sync(params, tokens, residual, key):
+    def grads_and_sync(params, tokens, residual, key, enc_frames):
         if world is not None:
             per = tokens.shape[0] // peers
-            tokens = tokens[world.rank * per:(world.rank + 1) * per]
+            batch = _rows(tokens, enc_frames, world.rank * per, per)
+            tokens, enc_frames = batch["tokens"], batch.get("enc_frames")
         if not sync.overlap:
             losses, flat = peer_grad_stack(cfg, params, tokens, local,
-                                           layout.total, ctx=ctx)
+                                           layout.total, ctx=ctx,
+                                           enc_frames=enc_frames)
             return losses, flat, *sync_flat(flat, layout.bounds, sync,
                                             residual, key, pods, world)
         flat = torch.empty((local, layout.total), dtype=torch.float32,
@@ -186,15 +213,19 @@ def make_train_step(cfg: ModelConfig, peers: int, sync: SyncConfig,
         stream = BucketStream(layout, sync, flat, residual, key, pods, world)
         step.last_stream = stream
         losses, _ = peer_grad_stack(cfg, params, tokens, local, layout.total,
-                                    stream.leaf_ready, flat, ctx)
+                                    stream.leaf_ready, flat, ctx, enc_frames)
         return losses, flat, *stream.finish()
 
-    def step(params, opt_state, sync_state, tokens, key=None):
+    def step(params, opt_state, sync_state, tokens, key=None,
+             enc_frames=None):
         if tokens.shape[0] % peers:
             raise ValueError(f"global batch {tokens.shape[0]} is not "
                              f"divisible by {peers} peers")
+        if enc_frames is not None:
+            enc_frames = enc_frames.to(device)
         losses, flat, synced, residual = grads_and_sync(
-            params, tokens.to(device), sync_state.get("rep"), key)
+            params, tokens.to(device), sync_state.get("rep"), key,
+            enc_frames)
         if world is not None:
             losses = world.gather_rows(losses)
         if sync.error_feedback:

@@ -1,5 +1,6 @@
 """Attention and MoE blocks (counterpart of ``repro.models.blocks``):
-the training/prefill branch of ``gqa_attention`` (differentiable:
+the training/prefill branch of ``gqa_attention`` (self-attention, or
+whisper's cross-attention over given K/V, causal or not; differentiable:
 attention goes through the flash kernels' autograd function, and
 nothing autograd saves is written in place), the paged decode step
 ``gqa_decode_paged``, the training branch of deepseek-v3's
@@ -39,7 +40,8 @@ def _gqa_qkv(cfg: ModelConfig, p, x, pos, ctx: ShardCtx = NO_SHARD,
              axes=None):
     """Shared q/k/v projection + RoPE of prefill and paged decode, so
     their per-token math stays identical.  x: (b, t, d);
-    pos: (t,) shared positions or (b, t) per-slot positions."""
+    pos: (t,) shared positions or (b, t) per-slot positions, or None for
+    no RoPE (JAX's ``pos is not None`` test)."""
     h = rmsnorm(x, p["norm"])
     b, t, _ = h.shape
     wq = gather_fsdp(ctx, axes, p["wq"], 0)
@@ -50,25 +52,36 @@ def _gqa_qkv(cfg: ModelConfig, p, x, pos, ctx: ShardCtx = NO_SHARD,
     q = (h @ wq).reshape(b, t, hl, cfg.hd)
     k = (h @ wk).reshape(b, t, kvl, cfg.hd)
     v = (h @ wv).reshape(b, t, kvl, cfg.hd)
-    q = rope(q, pos, cfg.rope_theta)
-    k = rope(k, pos, cfg.rope_theta)
+    if pos is not None:
+        q = rope(q, pos, cfg.rope_theta)
+        k = rope(k, pos, cfg.rope_theta)
     return q, k, v
 
 
 def gqa_attention(cfg: ModelConfig, p, x, pos, ctx: ShardCtx = NO_SHARD,
-                  axes=None):
-    """Causal self-attention over a whole sequence batch (the training
-    and prefill branch of the JAX ``gqa_attention``) on this rank's
-    heads.  x: (b, t, d), pos: (t,).  Returns (out (b, t, d), psummed
-    over 'model', {"k", "v": (b, kvl, t, hd)})."""
-    q, k, v = _gqa_qkv(cfg, p, x, pos, ctx, axes)
+                  axes=None, kv_ext=None, causal: bool = True):
+    """Self-attention over a whole sequence batch (the training and
+    prefill branch of the JAX ``gqa_attention``) on this rank's heads,
+    causal unless ``causal=False``.  x: (b, t, d), pos: (t,).  With
+    ``kv_ext`` = (k, v), each (b, kvl, te, hd), cross-attention (the
+    whisper decoder's): q = rmsnorm(x) @ wq with no RoPE, over the given
+    K/V.  Returns (out (b, t, d), psummed over 'model', {"k", "v": (b,
+    kvl, t, hd)}, or None with ``kv_ext``)."""
+    if kv_ext is None:
+        q, k, v = _gqa_qkv(cfg, p, x, pos, ctx, axes)
+        k = k.transpose(1, 2)
+        v = v.transpose(1, 2)
+        cache = {"k": k, "v": v}
+    else:
+        h = rmsnorm(x, p["norm"])
+        wq = gather_fsdp(ctx, axes, p["wq"], 0)
+        q = (h @ wq).reshape(*h.shape[:2], wq.shape[-1] // cfg.hd, cfg.hd)
+        (k, v), cache = kv_ext, None
     b, t, hl = q.shape[:3]
-    k = k.transpose(1, 2)
-    v = v.transpose(1, 2)
-    attn = blocked_attention(q.transpose(1, 2), k, v)
+    attn = blocked_attention(q.transpose(1, 2), k, v, causal)
     attn = attn.transpose(1, 2).reshape(b, t, hl * cfg.hd)
     out = attn @ gather_fsdp(ctx, axes, p["wo"], 1)
-    return psum_model(out, axes), {"k": k, "v": v}
+    return psum_model(out, axes), cache
 
 
 def gqa_decode_paged(cfg: ModelConfig, p, x, lengths, pool_kv, page_table):

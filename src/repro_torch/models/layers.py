@@ -148,11 +148,12 @@ def lm_loss(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
     return (lse - tgt).mean()
 
 
-def blocked_attention(q: torch.Tensor, k: torch.Tensor,
-                      v: torch.Tensor) -> torch.Tensor:
-    """Causal GQA attention with a gradient, through the flash kernels.
+def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True) -> torch.Tensor:
+    """GQA attention with a gradient, through the flash kernels; causal,
+    or with ``causal=False`` every query over every key (any sq, skv).
     q: (b, h, sq, hd), k/v: (b, hkv, skv, hd), last dims contiguous."""
-    return FlashAttention.apply(q, k, v)
+    return FlashAttention.apply(q, k, v, causal)
 
 
 def swiglu_mlp(x: torch.Tensor, w_gate, w_up, w_down,

@@ -1,7 +1,8 @@
 """Model assembly (counterpart of ``repro.models.lm``): parameter
 specs, shapes and seeded init, the JAX-parameter bridge, the training
-forward and loss (``forward_lm``, ``loss_fn``) of the dense and MoE
-families, and the two steps of the continuous-batching engine —
+forward and loss (``forward_lm``, ``loss_fn``) of the dense, MoE and
+encoder-decoder families, and the two steps of the continuous-batching
+engine —
 ``batched_prefill_step`` and ``paged_decode_step`` (dense only, and
 unsharded).
 
@@ -10,7 +11,9 @@ Parameters are a plain dict with the JAX package's layout: ``embed``
 stacks of per-layer weights on a leading L axis: ``layers`` (dense), or
 ``moe_layers``, ``dense_layers`` (``first_dense_layers``) and ``mtp``
 (one block, deepseek-v3's multi-token prediction) of the MoE family,
-whose attention is GQA or MLA.  A MoE layer's attention and its
+whose attention is GQA or MLA; ``encoder`` and ``decoder`` of the
+encoder-decoder family (whisper), the decoder's cross-attention leaves
+prefixed ``x_``.  A MoE layer's attention and its
 ``moe_block`` share one ``norm`` leaf, as JAX merges their specs.
 Weights are (in, out) and used as ``x @ w``.  The JAX package scans
 over the L axis; here a Python loop walks it, with JAX's two-level remat
@@ -46,23 +49,23 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def _check_ported(cfg: ModelConfig, what: str):
     """Refuse the families the port does not train."""
-    if cfg.ssm or cfg.enc_dec:
+    if cfg.ssm:
         raise NotImplementedError(
-            f"{what}: the {'ssm ' + cfg.ssm if cfg.ssm else 'enc-dec'} "
-            f"family ({cfg.name}) is not ported")
+            f"{what}: the ssm {cfg.ssm} family ({cfg.name}) is not ported")
     if cfg.qk_norm:
         raise NotImplementedError(f"qk_norm ({cfg.name}) is not ported")
 
 
 def _check_dense(cfg: ModelConfig, what: str):
-    """The serving steps take the dense family only: the JAX engine
-    serves no MoE model either (its paged steps assert ``not cfg.moe``)."""
+    """The serving steps take the dense family only: the JAX engine's
+    paged steps assert ``not cfg.moe``, and serving the encoder-decoder
+    family (JAX's contiguous decode with a cross cache) is not ported."""
     _check_ported(cfg, what)
-    if cfg.moe:
+    if cfg.moe or cfg.enc_dec:
         raise NotImplementedError(
-            f"{what} needs a dense-attention model, got {cfg.name}: MoE "
-            f"serving is not ported, and the JAX engine serves no MoE "
-            f"model either")
+            f"{what} needs a dense-attention model, got {cfg.name}: "
+            f"serving the {'MoE' if cfg.moe else 'enc-dec'} family is not "
+            f"ported")
 
 
 def pad_to(x: int, mult: int) -> int:
@@ -165,12 +168,23 @@ def mlp_param_specs(cfg: ModelConfig, ctx: ShardCtx, dims: ArchDims):
     return spec, shapes
 
 
+def cross_param_specs(cfg: ModelConfig, ctx: ShardCtx, dims: ArchDims):
+    """The whisper decoder's cross-attention (specs, shapes): JAX's
+    attention leaves, each prefixed ``x_``."""
+    spec, shapes = attn_param_specs(cfg, ctx, dims)
+    return ({f"x_{k}": v for k, v in spec.items()},
+            {f"x_{k}": v for k, v in shapes.items()})
+
+
 def param_specs(cfg: ModelConfig, ctx: ShardCtx = NO_SHARD):
     """(specs, global shapes) of the parameter tree (JAX
     ``param_specs``): ``layers`` of the dense family; ``moe_layers``,
     ``dense_layers`` and ``mtp`` of the MoE family, each stacking an
     attention block (GQA, or MLA) merged with its MoE block or MLP, so a
-    layer has one ``norm``."""
+    layer has one ``norm``; ``encoder`` (attention and MLP over
+    ``n_enc_layers``) and ``decoder`` (self-attention, the
+    cross-attention's leaves prefixed ``x_``, and the MLP) of the
+    encoder-decoder family."""
     _check_ported(cfg, "param_specs")
     dims = ArchDims.build(cfg, ctx)
     fa, ma = _fsdp(ctx), ctx.model_axis
@@ -188,6 +202,11 @@ def param_specs(cfg: ModelConfig, ctx: ShardCtx = NO_SHARD):
         specs[name] = sp
         shapes[name] = {k: (n,) + v for k, v in sh.items()}
 
+    if cfg.enc_dec:
+        add("encoder", cfg.n_enc_layers, attn_param_specs, mlp_param_specs)
+        add("decoder", cfg.n_layers, attn_param_specs, cross_param_specs,
+            mlp_param_specs)
+        return specs, shapes
     if not cfg.moe:
         add("layers", cfg.n_layers, attn_param_specs, mlp_param_specs)
         return specs, shapes
@@ -349,10 +368,10 @@ def layer_params(params: dict, name: str = "layers") -> list:
 
 
 def _attn_mlp_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, pos,
-                    ctx: ShardCtx = NO_SHARD, axes=None):
-    """One pre-norm transformer layer (attention + SwiGLU MLP); returns
-    (x, {"k", "v"})."""
-    a, kv = blocks.gqa_attention(cfg, p, x, pos, ctx, axes)
+                    ctx: ShardCtx = NO_SHARD, axes=None, causal: bool = True):
+    """One pre-norm transformer layer (attention, causal unless
+    ``causal=False``, + SwiGLU MLP); returns (x, {"k", "v"})."""
+    a, kv = blocks.gqa_attention(cfg, p, x, pos, ctx, axes, causal=causal)
     x = x + a
     x = x + swiglu_mlp(rmsnorm(x, p["mlp_norm"]), p["w_gate"], p["w_up"],
                        p["w_down"], ctx, axes)
@@ -412,19 +431,58 @@ def scan_layers(body, x, layers: list, remat_groups: int = 0):
         return group(x, layers)
 
 
+def _enc_dec(cfg: ModelConfig, params: dict, x: torch.Tensor, pos,
+             enc_frames: torch.Tensor, ctx: ShardCtx, axes):
+    """The encoder-decoder trunk (JAX's ``cfg.enc_dec`` branch): the
+    encoder's non-causal layers over the frames (positions 0..frames-1,
+    no final norm), then each decoder layer's causal self-attention and
+    MLP and its cross-attention over K/V = e @ x_wk, e @ x_wv, added to
+    the residual (no MLP after it).  Each stack checkpoints its layers
+    one by one when ``ctx.remat_groups`` > 0, as JAX's ``ckpt``."""
+    e = enc_frames.to(x.dtype)
+    epos = torch.arange(e.shape[1], device=e.device)
+
+    def enc_body(e, p):
+        return _attn_mlp_layer(cfg, p, e, epos, ctx, axes, causal=False)[0]
+
+    e = scan_layers(enc_body, e, layer_params(params, "encoder"),
+                    min(ctx.remat_groups, 1))
+    be, te = e.shape[:2]
+
+    def dec_body(x, p):
+        x = _attn_mlp_layer(cfg, p, x, pos, ctx, axes)[0]
+        xp = {k[2:]: v for k, v in p.items() if k.startswith("x_")}
+        kvl = xp["wk"].shape[-1] // cfg.hd
+        k = (e @ xp["wk"]).reshape(be, te, kvl, cfg.hd).transpose(1, 2)
+        v = (e @ xp["wv"]).reshape(be, te, kvl, cfg.hd).transpose(1, 2)
+        a, _ = blocks.gqa_attention(cfg, xp, x, None, ctx, axes,
+                                    kv_ext=(k, v), causal=False)
+        return x + a
+
+    return scan_layers(dec_body, x, layer_params(params, "decoder"),
+                       min(ctx.remat_groups, 1))
+
+
 def forward_lm(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-               ctx: ShardCtx = NO_SHARD, axes=None):
+               ctx: ShardCtx = NO_SHARD, axes=None,
+               enc_frames: torch.Tensor | None = None):
     """Training forward on this rank's shards (``axes``: the process
-    mesh, None for whole weights).  tokens: (b, t).  Returns (hidden
-    (b, t, d), aux loss: the MoE layers' summed aux, f32, or 0.0 for the
-    dense family).  The MoE family runs its dense layers first, each
-    checkpointed alone when ``ctx.remat_groups`` > 0 (JAX checkpoints
-    each), then its MoE layers through ``scan_layers`` with the aux
-    carried, as JAX's scan carries it."""
+    mesh, None for whole weights).  tokens: (b, t); ``enc_frames``: (b,
+    frames, d) the encoder's input (the enc-dec family only).  Returns
+    (hidden (b, t, d), aux loss: the MoE layers' summed aux, f32, or 0.0
+    for the dense and enc-dec families).  The MoE family runs its dense
+    layers first, each checkpointed alone when ``ctx.remat_groups`` > 0
+    (JAX checkpoints each), then its MoE layers through ``scan_layers``
+    with the aux carried, as JAX's scan carries it."""
     _check_ported(cfg, "forward_lm")
     pos = torch.arange(tokens.shape[1], device=tokens.device)
     emb = gather_fsdp(ctx, axes, params["embed"], 1)
     x = embed_lookup(emb, tokens, ctx, axes)
+    if cfg.enc_dec:
+        if enc_frames is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder model: its "
+                             f"batch needs enc_frames (b, frames, d)")
+        return _enc_dec(cfg, params, x, pos, enc_frames, ctx, axes), 0.0
     if not cfg.moe:
         def body(x, p):
             return _attn_mlp_layer(cfg, p, x, pos, ctx, axes)[0]
@@ -457,10 +515,12 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
     """Next-token NLL of a (b, t + 1) token batch, vocab-sharded over
     'model', plus the MoE aux loss (weight 0.01) and, with ``cfg.mtp``,
     the multi-token-prediction loss (weight 0.3): the ``mtp`` block on
-    the un-normed hidden state predicts the token after next.  Returns
-    (loss + 0.01 aux, {"nll": the NLL with the MTP term})."""
+    the un-normed hidden state predicts the token after next.  The
+    enc-dec family's batch also carries ``enc_frames`` (b, frames, d).
+    Returns (loss + 0.01 aux, {"nll": the NLL with the MTP term})."""
     tokens = batch["tokens"].long()
-    x, aux = forward_lm(cfg, params, tokens[:, :-1], ctx, axes)
+    x, aux = forward_lm(cfg, params, tokens[:, :-1], ctx, axes,
+                        batch.get("enc_frames"))
     h = rmsnorm(x, params["final_norm"])
     head = gather_fsdp(ctx, axes, params["lm_head"], 0)
     loss = lm_loss(h, head, tokens[:, 1:], ctx, axes)

@@ -520,6 +520,13 @@ def test_sessions_need_cuda_unless_a_device_is_given(monkeypatch):
             cls(spec())
     with pytest.raises(tapi.SpecError, match="seq-sharded"):
         tapi.ServeSession(spec(), device="cpu", seq_shard_cache=True)
+    # JAX's ServeSession decodes the MoE and enc-dec families over its
+    # contiguous cache; the port's paged one covers the dense family
+    for arch in ("phi35_moe_42b", "whisper_tiny"):
+        with pytest.raises(NotImplementedError, match="contiguous decode "
+                           "path of the ssm, enc-dec and MoE families"):
+            tapi.ServeSession(tapi.RunSpec(arch=arch, smoke=True),
+                              device="cpu")
 
 
 # ------------------------------------------------------- serving + reload

@@ -445,6 +445,92 @@ def test_flash_bwd_wrapper_rejects_bad_input():
         attention.flash_attention_bwd(*(a.to("meta") for a in args))
 
 
+# ------------------------------------------ flash, non-causal mode
+# whisper's encoder self-attention and its decoder's cross-attention: the
+# Pallas kernel's causal=False, every query over every key, any sq, skv
+@pytest.mark.parametrize("hd,sq,skv", [(16, 64, 64), (32, 32, 96),
+                                       (32, 96, 64)])
+def test_flash_plain_non_causal_matches_jax_kernel_per_head(hd, sq, skv):
+    """The single-head Pallas kernel with causal=False, per head, 32-row
+    tiles (several tiles a row, none skipped), fewer and more queries
+    than keys."""
+    rng = np.random.default_rng(hd + sq + 3 * skv)
+    b, h = 1, 2
+    q = rng.normal(size=(b, h, sq, hd)).astype(np.float32)
+    k = rng.normal(size=(b, h, skv, hd)).astype(np.float32)
+    v = rng.normal(size=(b, h, skv, hd)).astype(np.float32)
+    got = ref.attention_ref(_t(q), _t(k), _t(v), causal=False).numpy()
+    for i in range(h):
+        want = jax_flash(jnp.asarray(q[0, i]), jnp.asarray(k[0, i]),
+                         jnp.asarray(v[0, i]), causal=False, blk_q=32,
+                         blk_k=32, interpret=True)
+        np.testing.assert_allclose(got[0, i], np.asarray(want),
+                                   atol=FLASH_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("b,h,hkv,hd,sq,skv", [
+    (2, 4, 2, 16, 37, 37),    # GQA rep 2, ragged (not a tile multiple)
+    (2, 6, 6, 64, 21, 50),    # whisper's heads, cross: fewer queries
+    (1, 4, 2, 32, 37, 32),    # SMOKE's head dim, more queries than keys
+])
+def test_flash_plain_non_causal_matches_jax_blocked_attention(b, h, hkv, hd,
+                                                              sq, skv):
+    """The plain forward and backward with causal=False against JAX's
+    blocked_attention(causal=False), the function JAX trains whisper
+    through, and jax.vjp of it; the wrappers' CPU route is the plain
+    version and counts no launch."""
+    rng = np.random.default_rng(sq * skv + hd)
+    q = rng.normal(size=(b, h, sq, hd)).astype(np.float32)
+    k = rng.normal(size=(b, hkv, skv, hd)).astype(np.float32)
+    v = rng.normal(size=(b, hkv, skv, hd)).astype(np.float32)
+    do = rng.normal(size=(b, h, sq, hd)).astype(np.float32)
+    o, vjp = jax.vjp(lambda q, k, v: jax_blocked(
+        q, k, v, causal=False, blk_q=16, blk_kv=16),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    before = (dict(attention.flash_attention.launches_by_mode),
+              dict(attention.flash_attention_bwd.launches_by_mode))
+    out, lse = attention.flash_attention(_t(q), _t(k), _t(v),
+                                         return_lse=True, causal=False)
+    np.testing.assert_allclose(out.numpy(), np.asarray(o), atol=FLASH_TOL,
+                               rtol=0)
+    got = attention.flash_attention_bwd(_t(q), _t(k), _t(v), out, lse,
+                                        _t(do), causal=False)
+    for g, w, name in zip(got, vjp(jnp.asarray(do)), "qkv"):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=BWD_TOL,
+                                   rtol=0, err_msg=f"d{name}")
+    assert (attention.flash_attention.launches_by_mode,
+            attention.flash_attention_bwd.launches_by_mode) == before
+
+
+def test_flash_non_causal_autograd_on_cpu_and_the_causal_refusal():
+    """FlashAttention(causal=False) on the CPU is the plain non-causal
+    backward (autograd through attention_ref(causal=False)), with sq >
+    skv; the causal mode still refuses skv < sq, forward and backward."""
+    rng = np.random.default_rng(4)
+    q, k, v = (_t(rng.normal(size=s).astype(np.float32)).requires_grad_()
+               for s in ((2, 4, 13, 16), (2, 2, 9, 16), (2, 2, 9, 16)))
+    out = attention.FlashAttention.apply(q, k, v, False)
+    grads = torch.autograd.grad((out * out).sum(), (q, k, v))
+    want = torch.autograd.grad(
+        (ref.attention_ref(q, k, v, causal=False) ** 2).sum(), (q, k, v))
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g, w, atol=BWD_TOL, rtol=0)
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    with pytest.raises(ValueError, match="skv >= sq"):
+        attention.flash_attention(qd, kd, vd)
+    o, lse = attention.flash_attention(qd, kd, vd, return_lse=True,
+                                       causal=False)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        attention.flash_attention_bwd(qd, kd, vd, o, lse, qd)
+    # the non-causal rows see every key: the last key moves every row
+    k2 = kd.clone()
+    k2[:, :, -1] += 1
+    moved = (attention.flash_attention(qd, k2, vd, causal=False)
+             - attention.flash_attention(qd, kd, vd, causal=False)).abs()
+    assert (moved.amax(dim=-1) > 0).all()
+
+
 # ------------------------------------ the tensor-core kernels' rounding
 # chip_smoke.py's bf16 tolerances (kernel vs plain on the card): forward
 # output max abs, backward max abs over the largest |gradient|, lse max

@@ -69,7 +69,8 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 # ------------------------------------------------------------- configs
 @pytest.mark.parametrize("arch", ["paper_llama", "minitron_4b",
-                                  "phi35_moe_42b", "deepseek_v3_671b"])
+                                  "phi35_moe_42b", "deepseek_v3_671b",
+                                  "whisper_tiny"])
 def test_configs_are_copies_of_jax(arch):
     for getter in ("get", "get_smoke"):
         j = getattr(jax_configs, getter)(arch)
