@@ -174,7 +174,7 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    the 4-rank part needs 4 cards.
    4i. FSDP, tensor parallelism and remat groups (``sharded_full_width``;
    alone ``sharded_alone``): deepseek_coder_33b at its published widths
-   with 2 layers as a world of one on NCCL (``--fsdp --remat-groups 2
+   with 1 layer as a world of one on NCCL (``--fsdp --remat-groups 2
    --sync optinc --bits 8``, one sequence of 4096, 5 steps; its
    ``--train-layers`` rank worker cuts the depth): finite, falling
    losses, step p50, tokens/s, peak memory, launches; paper_llama's
@@ -194,7 +194,7 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    (each peer's ``resnet.loss_fn`` gradients, one ``sync_gradients``,
    SGD) at full width, 100 classes, 32 x 32 x 3 ``synthetic_images``, 4
    peers stacked on one card, 64 images a peer, TF32 off and cuDNN
-   deterministic: (a) 10 steps each of psum, ring, optinc bits 8
+   deterministic: (a) 6 steps each of psum, ring, optinc bits 8
    (twice), Table-II injection, bits 2 at behavioral, onn and mesh and
    cascade over 2 pods, then 3 onn and 2 mesh bits-8 steps through
    phase 4d's ONN; losses finite and falling, the bits-2 runs, the
@@ -251,6 +251,33 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    a bucket, the last step profiled; 10 psum steps as a yardstick; (c)
    its SMOKE step (2 peers x 2 rows, t 37, 32 frames, f32) card vs CPU,
    the synced gradients bit for bit.
+   4m. qk-norm and the Mamba-2 hybrid (``hybrid_phase``; alone
+   ``hybrid_alone``): (a) the flash forward and backward at the new
+   head dims against their plain versions, timed beside SDPA (GQA) and
+   the bound: qwen3_32b's shape (64 query and 8 KV heads of 80, one
+   sequence of 4096, bf16, with the lse), zamba2_7b's shared block's (32
+   heads of 112) and a ragged f32 case at each dim, with the ptxas lines
+   of the (80, 80) and (112, 112) instantiations; the paged decode
+   kernel at qwen3's head layout (hd 80, 64/8 heads, pages of 16,
+   lengths 1-256, bf16) against its plain version, timed beside gather
+   + SDPA; (b) qwen3_32b at its published widths cut to 1 layer, a
+   world of one on NCCL in this process (``--fsdp --mesh 1x1 --sync
+   optinc --bits 8``, the sync taking the replicated leaves only), seq
+   4096, lr 1e-5, 5 steps: finite falling losses, step p50/p99,
+   tokens/s, peak memory beside the reckoning, the flash launches (all
+   at 80 x 80), pam4 once a bucket of the replicated leaves; then
+   ServeEngine at those widths (8 requests, the paged kernel at hd 80);
+   (c) zamba2_7b at its published widths cut to 7 layers (6 mamba2
+   layers, one use of the shared block), every leaf synced, seq 4096, 8
+   steps: finite falling losses, step p50/p99 over steps 1-6, tokens/s,
+   peak memory beside the reckoning, buckets a step, the flash launches
+   at 112 x 112, the last step profiled for its busy share and the SSD
+   scan's share of it; (b) and (c) draw their seeded weights on the
+   card (``device_params``, the init_params recipe); (d) the qwen3,
+   chameleon and zamba2 SMOKE steps in f32 card vs CPU (chameleon's
+   SMOKE shapes are qwen3's: only the name differs), the synced
+   gradients bit for bit, and qwen3's SMOKE serving card vs CPU
+   (teacher-forced logits and greedy tokens, as phase 5).
 5. Card vs plain end to end: the f32 model with the same weights served
    through the kernels on the card and through the plain path on the
    CPU; teacher-forced logits must agree, greedy tokens must agree up to
@@ -416,7 +443,7 @@ def paged_case(b, h, hkv, hd, ps, lengths, dtype, seed):
 def paged_bounds(b, h, hkv, hd, ps, lengths, dtype):
     import torch
     item = torch.tensor([], dtype=dtype).element_size()
-    kv_bytes = sum(-(-n // ps) * ps for n in lengths) * hkv * hd * 2 * item
+    kv_bytes = sum(lengths) * hkv * hd * 2 * item   # the tokens held
     io_bytes = 2 * b * h * hd * item + 4 * b * (1 + -(-max(lengths) // ps))
     flops = 4 * sum(lengths) * h * hd
     t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
@@ -476,6 +503,20 @@ def flash_bwd_bounds(b, h, hkv, hd, sq, skv, dtype, hdv=None, causal=True):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def gather_sdpa(q, kp, vp, tb, ln):
+    """The paged kernel's yardstick: the same work through PyTorch calls,
+    each slot's pages gathered contiguous and SDPA (GQA where the pool
+    has fewer heads) under a boolean length mask, all inside the call."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    kg, vg = ref.paged_gather(kp, tb), ref.paged_gather(vp, tb)
+    mask = (torch.arange(kg.shape[2], device=q.device)[None, :]
+            < ln[:, None].long())[:, None, None, :]
+    return F.scaled_dot_product_attention(q, kg, vg, attn_mask=mask,
+                                          enable_gqa=q.shape[1] != kg.shape[1])
+
+
 def paged_build_report(card: str) -> None:
     """Registers, spills and shared memory of every kernel of the paged
     source (nvcc -Xptxas -v)."""
@@ -497,7 +538,6 @@ def check_kernels(card: str) -> dict:
     version the mean of its pages), so such rows are held to 0 and the
     others to the plain version."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import paged_attention, ref
 
     paged_build_report(card)
@@ -556,15 +596,6 @@ def check_kernels(card: str) -> dict:
         ins = copies_for(args)
         ms, host_ms = time_ms(paged_attention.paged_attention, ins)
         plain_ms, _ = time_ms(ref.paged_attention_ref, ins, iters=20)
-        # yardstick: the same work through PyTorch calls, each slot's
-        # pages gathered contiguous and SDPA under a boolean length mask
-        # (gather and mask inside the timed call)
-        def gather_sdpa(q, kp, vp, tb, ln):
-            kg, vg = ref.paged_gather(kp, tb), ref.paged_gather(vp, tb)
-            mask = (torch.arange(kg.shape[2], device=q.device)[None, :]
-                    < ln[:, None].long())[:, None, None, :]
-            return F.scaled_dot_product_attention(q, kg, vg, attn_mask=mask)
-
         lib_ms, _ = time_ms(gather_sdpa, ins)
         # the floor a launch sets, which a sub-microsecond bound cannot
         # show: an empty kernel through the same harness
@@ -3003,6 +3034,7 @@ DSC_ARGV = ["--arch", "deepseek_coder_33b", "--sync", "optinc", "--bits",
             "8", "--fsdp", "--remat-groups", "2", "--seq-len", "4096",
             "--lr", "1e-5", "--device", "cuda"]
 DSC_STEPS = 5
+DSC_LAYERS = 1         # the one-card world of one
 SHARD_STEPS = 3        # the one-card paper_llama checks
 TP_STEPS = 10          # (b): paper_llama --mesh 2x2
 # (b) bf16: the step-0 loss at tp 2 against the stacked dp 2 run (the
@@ -3364,7 +3396,7 @@ def fsdp_pods_vs_stacked(card: str) -> None:
 def sharded_full_width(card: str) -> dict:
     """Phase 4i: FSDP, tensor parallelism and remat groups over a (pod,
     data, model) mesh of processes.  One card: deepseek_coder_33b at its
-    published widths (2 layers) as a world of one with --fsdp
+    published widths (DSC_LAYERS layer) as a world of one with --fsdp
     --remat-groups 2; paper_llama --fsdp as a world of one against the
     stacked 1-peer --fsdp run, bit for bit; --remat-groups 2 against
     none; the flash kernels at hd 128.  4 cards: (a) --pods 2 --mesh 2x1
@@ -3381,10 +3413,11 @@ def sharded_full_width(card: str) -> dict:
     torch.cuda.empty_cache()
     dsc = get("deepseek_coder_33b")
     argv = DSC_ARGV + ["--mesh", "1x1", "--global-batch", "1"]
-    recs, report, wall = layers_run(1, 2, argv, DSC_STEPS)
+    recs, report, wall = layers_run(1, DSC_LAYERS, argv, DSC_STEPS)
     launches = report["ranks"][0]["launches"]
     print(f"4i deepseek_coder_33b (d 7168, 56/8 heads, d_ff 19200, vocab "
-          f"32256; 2 layers) world of one on NCCL, --fsdp --remat-groups 2 "
+          f"32256; {DSC_LAYERS} layer) world of one on NCCL, --fsdp "
+          f"--remat-groups 2 "
           f"--sync optinc --bits 8, seq 4096, {DSC_STEPS} steps "
           f"({wall:.1f} s of torchrun): {dsc_stats(recs, report, 4096)}; "
           f"launches { {k: v for k, v in launches.items() if v} } [{card}]",
@@ -3535,65 +3568,71 @@ def phi_full_width(card: str) -> dict:
     return launches
 
 
-def card_vs_plain_moe(card: str) -> dict:
-    """(b) phi35_moe_42b's and deepseek_v3_671b's SMOKE configs in f32:
-    one step of 2 peers on the card and on the CPU from the same weights
-    and tokens (the loss and the pre-sync gradients within phase 5's
-    tolerances), and the card's gradient stack synced on the card and on
-    the CPU, bit for bit.  deepseek's step runs MLA's (24, 16) flash
-    instantiation.  Returns the launches of each (hd, hdv) pair of the
-    flash kernels in these steps."""
+def smoke_card_vs_cpu(card: str, label: str, arch: str) -> None:
+    """``arch``'s SMOKE config in f32: one step of 2 peers (8 rows of 129
+    tokens) on the card and on the CPU from the same seeded weights and
+    tokens (the losses and the pre-sync gradients within phase 5's
+    tolerances, each leaf against its own largest entry), and the card's
+    gradient stack synced (optinc bits 8, error feedback) on the card
+    and on the CPU, bit for bit."""
     import torch
     from repro_torch.collectives.bucketizer import make_layout
     from repro_torch.collectives.engine import SyncConfig, sync_flat
     from repro_torch.configs import get_smoke
-    from repro_torch.kernels import attention
     from repro_torch.launch import steps as tsteps
     from repro_torch.models import lm
     from repro_torch.tree import leaves, tree_map
 
+    sync = SyncConfig(mode="optinc", bits=8, block=2048, error_feedback=True,
+                      bucket_bytes=2 ** 20)
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+    params_cpu = lm.init_params(cfg, SEED, "cpu")
+    params_gpu = tree_map(lambda t: t.cuda(), params_cpu)
+    layout = make_layout([(s, torch.float32) for s in
+                          leaves(lm.param_shapes(cfg))], sync.bucket_bytes)
+    g = torch.Generator().manual_seed(SEED + 3)
+    tok = torch.randint(0, cfg.vocab, (8, 129), generator=g)
+    l_cpu, f_cpu = tsteps.peer_grad_stack(cfg, params_cpu, tok, 2,
+                                          layout.total)
+    l_gpu, f_gpu = tsteps.peer_grad_stack(cfg, params_gpu, tok.cuda(), 2,
+                                          layout.total)
+    loss_err = (l_gpu.cpu() - l_cpu).abs().max().item()
+    grad_err, start = 0.0, 0
+    for size in layout.sizes:          # each leaf against its own max
+        want = f_cpu[:, start:start + size]
+        got = f_gpu[:, start:start + size].cpu()
+        grad_err = max(grad_err, ((got - want).abs().max()
+                                  / want.abs().max().clamp_min(1e-30)).item())
+        start += size
+    res = torch.zeros_like(f_gpu)
+    out_gpu, res_gpu = sync_flat(f_gpu, layout.bounds, sync, res)
+    out_cpu, res_cpu = sync_flat(f_gpu.cpu(), layout.bounds, sync, res.cpu())
+    same = (torch.equal(out_gpu.cpu(), out_cpu),
+            torch.equal(res_gpu.cpu(), res_cpu))
+    print(f"{label} card vs plain, {cfg.name} f32, 2 peers, {layout.total} "
+          f"params: losses {l_gpu.tolist()} (CPU {l_cpu.tolist()}), "
+          f"max_abs_err {loss_err:.3e} (tol {TRAIN_LOSS_TOL:.0e}); pre-sync "
+          f"gradients max_abs_err / max|leaf| {grad_err:.3e} (tol "
+          f"{TRAIN_GRAD_TOL:.0e}); the card's stack synced on the CPU: "
+          f"synced bit-equal {same[0]}, residuals bit-equal {same[1]} "
+          f"[{card}]", flush=True)
+    if not (loss_err <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_TOL
+            and all(same)):
+        raise AssertionError(f"{label} {arch}: card vs plain disagrees")
+
+
+def card_vs_plain_moe(card: str) -> dict:
+    """(b) phi35_moe_42b's and deepseek_v3_671b's SMOKE configs in f32,
+    card vs CPU (``smoke_card_vs_cpu``).  deepseek's step runs MLA's
+    (24, 16) flash instantiation.  Returns the launches of each (hd,
+    hdv) pair of the flash kernels in these steps."""
+    from repro_torch.kernels import attention
+
     counters = (attention.flash_attention, attention.flash_attention_bwd)
     for fn in counters:
         fn.launches_by_dims = {}
-    sync = SyncConfig(mode="optinc", bits=8, block=2048, error_feedback=True,
-                      bucket_bytes=2 ** 20)
     for arch in ("phi35_moe_42b", "deepseek_v3_671b"):
-        cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
-        params_cpu = lm.init_params(cfg, SEED, "cpu")
-        params_gpu = tree_map(lambda t: t.cuda(), params_cpu)
-        layout = make_layout([(s, torch.float32) for s in
-                              leaves(lm.param_shapes(cfg))], sync.bucket_bytes)
-        g = torch.Generator().manual_seed(SEED + 3)
-        tok = torch.randint(0, cfg.vocab, (8, 129), generator=g)
-        l_cpu, f_cpu = tsteps.peer_grad_stack(cfg, params_cpu, tok, 2,
-                                              layout.total)
-        l_gpu, f_gpu = tsteps.peer_grad_stack(cfg, params_gpu, tok.cuda(), 2,
-                                              layout.total)
-        loss_err = (l_gpu.cpu() - l_cpu).abs().max().item()
-        grad_err, start = 0.0, 0
-        for size in layout.sizes:          # each leaf against its own max
-            want = f_cpu[:, start:start + size]
-            got = f_gpu[:, start:start + size].cpu()
-            grad_err = max(grad_err, ((got - want).abs().max()
-                                      / want.abs().max().clamp_min(1e-30)
-                                      ).item())
-            start += size
-        res = torch.zeros_like(f_gpu)
-        out_gpu, res_gpu = sync_flat(f_gpu, layout.bounds, sync, res)
-        out_cpu, res_cpu = sync_flat(f_gpu.cpu(), layout.bounds, sync,
-                                     res.cpu())
-        same = (torch.equal(out_gpu.cpu(), out_cpu),
-                torch.equal(res_gpu.cpu(), res_cpu))
-        print(f"4k (b) card vs plain, {cfg.name} f32, 2 peers, "
-              f"{layout.total} params: losses {l_gpu.tolist()} (CPU "
-              f"{l_cpu.tolist()}), max_abs_err {loss_err:.3e} (tol "
-              f"{TRAIN_LOSS_TOL:.0e}); pre-sync gradients max_abs_err / "
-              f"max|leaf| {grad_err:.3e} (tol {TRAIN_GRAD_TOL:.0e}); the "
-              f"card's stack synced on the CPU: synced bit-equal {same[0]},"
-              f" residuals bit-equal {same[1]} [{card}]", flush=True)
-        if not (loss_err <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_TOL
-                and all(same)):
-            raise AssertionError(f"4k (b) {arch}: card vs plain disagrees")
+        smoke_card_vs_cpu(card, "4k (b)", arch)
     moe_bf16_repeats(card)
     by_dims = {fn.__name__: dict(fn.launches_by_dims) for fn in counters}
     print(f"4k (b) flash launches by (hd x hdv) in these steps: {by_dims} "
@@ -3697,18 +3736,20 @@ def mla_block_launches(card: str) -> dict:
 
 def check_flash_pair(card: str, label: str, b: int, h: int, hd: int,
                      hdv: int, sq: int, skv: int, dtype,
-                     causal: bool = True) -> dict:
+                     causal: bool = True, hkv: int | None = None) -> dict:
     """The flash forward and backward at one shape against their plain
     versions (bf16: under check_flash_hd128's limits, each (head, row)
     against its own scale too; f32: the f32 limits), each timed beside
-    its plain version, SDPA (which takes a V head dim of its own) and the
-    bound.  Returns {kernel: its record's numbers}."""
+    its plain version, SDPA (which takes a V head dim of its own, and
+    GQA) and the bound; ``hkv`` KV heads (h by default).  Returns
+    {kernel: its record's numbers}."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import attention, ref
     dt = str(dtype).split(".")[-1]
     big = b * h * sq * skv > 1 << 28
-    shape = (b, h, h, hd, sq, skv, dtype)
+    hkv = h if hkv is None else hkv
+    shape = (b, h, hkv, hd, sq, skv, dtype)
     q, k, v = flash_case(*shape, SEED, hdv=hdv)
     g = torch.Generator().manual_seed(SEED + 1)
     do = torch.randn((b, h, sq, hdv), generator=g).to(dtype).cuda()
@@ -3735,16 +3776,18 @@ def check_flash_pair(card: str, label: str, b: int, h: int, hd: int,
     fwd_plain = time_ms(lambda q, k, v, *_: ref.attention_fwd_ref(
         q, k, v, causal), ins, iters=slow)[0]
     sdpa = time_ms(lambda q, k, v, *_: F.scaled_dot_product_attention(
-        q, k, v, is_causal=causal), ins, iters=fast)[0]
+        q, k, v, is_causal=causal, enable_gqa=hkv != h), ins,
+        iters=fast)[0]
     bwd = time_ms(lambda *a: attention.flash_attention_bwd(*a, causal),
                   ins, iters=fast)[0]
     bwd_plain = time_ms(lambda *a: ref.attention_bwd_ref(*a, causal), ins,
                         iters=slow)[0]
-    sdpa_bwd = sdpa_bwd_ms(ins, causal=causal)
+    sdpa_bwd = sdpa_bwd_ms(ins, gqa=hkv != h, causal=causal)
     f_bound = flash_bounds(*shape, True, hdv=hdv, causal=causal)
     b_bound = flash_bwd_bounds(*shape, hdv=hdv, causal=causal)
     rows = dt == "bfloat16"
-    print(f"{label}: b={b} h={h} hd={hd} hdv={hdv} sq={sq} skv={skv} {dt}"
+    print(f"{label}: b={b} h={h} hkv={hkv} hd={hd} hdv={hdv} sq={sq} "
+          f"skv={skv} {dt}"
           f"{'' if causal else ' non-causal'}: forward max_abs_err "
           f"{f_err:.3e} (tol {KERNEL_TOL[dt]})"
           + (f", max over rows of max|err| / max|ref| {f_row:.3e} (tol "
@@ -4218,6 +4261,442 @@ def whisper_alone(card: str) -> None:
     whisper_phase(card)
 
 
+# ------------------------ phase 4m: qk-norm and the Mamba-2 hybrid
+HYBRID_STEPS = 5
+# (c)'s steps: step 0 warms up, steps 1 to ZAMBA_STEPS - 2 are timed and
+# the last is profiled
+ZAMBA_STEPS = 8
+# the trainers of (b) and (c): one peer on the card, one sequence of 4096
+QWEN_ARGV = ["--arch", "qwen3_32b", "--sync", "optinc", "--bits", "8",
+             "--fsdp", "--mesh", "1x1", "--global-batch", "1", "--seq-len",
+             "4096", "--lr", "1e-5", "--device", "cuda"]
+ZAMBA_ARGV = ["--arch", "zamba2_7b", "--sync", "optinc", "--bits", "8",
+              "--mesh", "1x1", "--global-batch", "1", "--seq-len", "4096",
+              "--lr", "1e-5", "--device", "cuda"]
+QWEN_LAYERS = 1         # 2.01 B parameters, 1.56 B of them the vocabulary's
+ZAMBA_LAYERS = 7        # 6 mamba2 layers and one use of the shared block
+# the bytes a parameter of phi35_moe_42b's world of one, whose every leaf
+# goes through the f32 sync stack (54.09 GB, NVIDIA H100 80GB HBM3,
+# 700 W): the reckoning of (c); (b)'s FSDP run is reckoned at
+# RECKON_BYTES_PER_PARAM, deepseek_coder_33b's FSDP world of one
+SYNCED_BYTES_PER_PARAM = 34.6
+# (a)'s flash cases: (label, b, h, hkv, hd, sq, skv, dtype name)
+HYBRID_FLASH = (("qwen3_32b", 1, 64, 8, 80, 4096, 4096, "bfloat16"),
+                ("zamba2_7b", 1, 32, 32, 112, 4096, 4096, "bfloat16"),
+                ("ragged hd 80", 2, 4, 2, 80, 37, 45, "float32"),
+                ("ragged hd 112", 2, 4, 4, 112, 37, 45, "float32"))
+
+
+def hybrid_flash(card: str) -> dict:
+    """(a) The ptxas lines of the (80, 80) and (112, 112) flash
+    instantiations; the flash pair at HYBRID_FLASH's shapes
+    (``check_flash_pair``) and the paged kernel at hd 80.  Returns the
+    bf16 cases' records and the paged one's (their launches are set by
+    (b) and (c))."""
+    import re
+    import torch
+    from repro_torch.kernels import _build, paged_attention, ref
+    paths = _build.build(["flash_attention", "flash_attention_bwd"])
+    for name, path in sorted(paths.items()):
+        for short, _, st in ptxas_stats(path):
+            if re.search(r"<(80, 80|112, 112)>", short):
+                spill = st["spill"]
+                print(f"  4m (a) {name}: {short}: {st.get('regs')} "
+                      f"registers, {spill[0]} bytes spill stores, "
+                      f"{spill[1]} bytes spill loads, {st.get('smem', 0)} "
+                      f"bytes static smem", flush=True)
+    records = {}
+    for label, b, h, hkv, hd, sq, skv, dt in HYBRID_FLASH:
+        recs = check_flash_pair(card, f"4m (a) {label}", b, h, hd, hd, sq,
+                                skv, getattr(torch, dt), hkv=hkv)
+        if dt == "bfloat16":
+            records.update({f"{fn} {hd}x{hd}": dict(
+                name=f"{fn} (hd {hd}, {label})", **rec)
+                for fn, rec in recs.items()})
+    b, h, hkv, hd, ps = 8, 64, 8, 80, 16
+    lengths = [1, 15, 16, 17, 100, 128, 255, 256]
+    args = paged_case(b, h, hkv, hd, ps, lengths, torch.bfloat16, SEED)
+    got = paged_attention.paged_attention(*args).float()
+    err = (got - ref.paged_attention_ref(*args).float()).abs().max().item()
+    p = paged_attention.plan(
+        b, h, hkv, ps, hd, args[3].shape[1], 2, 16,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    ins = copies_for(args)
+    ms = time_ms(paged_attention.paged_attention, ins)[0]
+    plain_ms = time_ms(ref.paged_attention_ref, ins, iters=20)[0]
+    lib_ms = time_ms(gather_sdpa, ins)[0]
+    bound, by = paged_bounds(b, h, hkv, hd, ps, lengths, torch.bfloat16)
+    print(f"4m (a) paged_attention at qwen3's heads: b={b} h={h} hkv={hkv} "
+          f"hd={hd} page={ps} lengths={lengths} bf16: max_abs_err "
+          f"{err:.3e} (tol {KERNEL_TOL['bfloat16']:.0e}); split {p.split} x "
+          f"{p.n_splits}, {p.vec_bytes}-byte loads, {p.rows} rows a block; "
+          f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, gather "
+          f"+ sdpa (GQA) {lib_ms * 1e3:.2f} us, bound {bound * 1e3:.3f} us "
+          f"({by}) [{card}]", flush=True)
+    if not err <= KERNEL_TOL["bfloat16"]:
+        raise AssertionError(f"4m (a) paged_attention hd 80: {err}")
+    records["paged_attention hd 80"] = dict(
+        name="paged_attention (hd 80, qwen3_32b)", route="cuda",
+        source="src/repro_torch/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention.py:108",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+        bound_by=by, library_ms=lib_ms)
+    return records
+
+
+def profile_step(at: int):
+    """A TrainSession callback that runs step ``at`` under torch.profiler
+    (started when step at - 1 ends, stopped when step at ends); its
+    ``prof`` and the step's ``wall_s`` afterwards."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.api.callbacks import Callback
+
+    class ProfileStep(Callback):
+        prof = wall_s = None
+
+        def on_step(self, session, record):
+            if record["step"] == at - 1:
+                self.prof = profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA])
+                self.prof.__enter__()
+            elif record["step"] == at and self.prof is not None:
+                self.prof.__exit__(None, None, None)
+                self.wall_s = record["time_s"]
+
+    return ProfileStep()
+
+
+def hybrid_session(argv, cfg, steps: int, callbacks=(), draw=None):
+    """A TrainSession on ``argv`` with ``cfg`` (the depth cut) and the
+    weights ``draw()`` gives (None: the host's seeded init) run for
+    ``steps`` steps, the flash and pam4 counts reset before its init and
+    the peak memory after it: (session, records, whole losses, seconds
+    of the init, launches {name: count}, flash launches by (hd x hdv),
+    peak bytes)."""
+    import torch
+    from repro_torch.api import TrainSession
+    from repro_torch.api.callbacks import default_callbacks
+    from repro_torch.launch import train
+    counters = _train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+        fn.launches_by_dims = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opts = train.parse_args(argv + ["--steps", str(steps)])
+    t = time.perf_counter()
+    session = TrainSession(opts.spec, default_callbacks(opts.spec,
+                                                        io.StringIO())
+                           + list(callbacks), device=opts.device,
+                           params=None if draw is None else draw(), cfg=cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    recs = session.run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [session.losses[i] for i in range(steps)]
+    launches = {name: fn.launches for name, fn in counters.items()}
+    dims = {name: dict(counters[name].launches_by_dims)
+            for name in ("flash_attention", "flash_attention_bwd")}
+    return session, recs, losses, init_s, launches, dims, peak
+
+
+def step_line(recs, losses, tokens: int) -> str:
+    times = [r["time_s"] for r in recs[1:]]
+    p50 = pct(times, 0.5)
+    return (f"losses {losses}; step p50 {p50 * 1e3:.1f} ms p99 "
+            f"{pct(times, 0.99) * 1e3:.1f} ms over steps 1-{len(recs) - 1} "
+            f"(first {recs[0]['time_s'] * 1e3:.1f} ms), {tokens / p50:.1f} "
+            f"tokens/s at p50")
+
+
+def device_params(cfg, seed: int, ctx=None, device="cuda") -> dict:
+    """Seeded weights of ``cfg`` (at the padded global shapes of ``ctx``)
+    drawn on the card by ``lm.init_leaf``, the init_params recipe, from a
+    CUDA generator: a session's or an engine's weights in a fraction of
+    a second, where the host's seeded init of billions of parameters
+    takes tens."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves_with_paths, set_path
+    g = torch.Generator(device=device).manual_seed(seed)
+    dt = lm.torch_dtype(cfg)
+    shapes = lm.param_shapes(cfg) if ctx is None else lm.param_shapes(cfg,
+                                                                      ctx)
+    out = {}
+    for path, shp in leaves_with_paths(shapes):
+        set_path(out, path, lm.init_leaf(
+            path, shp, dt, lambda s: torch.randn(s, generator=g,
+                                                 device=device),
+            device=device))
+    return out
+
+
+class world_of_one:
+    """The launch environment of a world of one in this process (rank 0
+    of 1, card 0, NCCL on a free localhost port) inside the ``with``
+    block: a TrainSession made there starts its process group and
+    ``session.close()`` ends it; the environment is restored after."""
+    KEYS = ("WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+            "MASTER_ADDR", "MASTER_PORT")
+
+    def __enter__(self):
+        import os
+        import socket
+        self.saved = {k: os.environ.get(k) for k in self.KEYS}
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        os.environ.update(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0",
+                          LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                          MASTER_PORT=str(port))
+        return self
+
+    def __exit__(self, *exc):
+        import os
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def qwen_full_width(card: str) -> dict:
+    """(b) qwen3_32b at its published widths (d 5120, 64/8 heads of 80
+    with qk-norm, d_ff 25600, vocab 151936) cut to QWEN_LAYERS layer, a
+    world of one on NCCL in this process with --fsdp (as phase 4i's
+    deepseek_coder_33b: the sync takes the replicated leaves only; the
+    stacked --fsdp step keeps a second copy of the state while it
+    restacks, which does not fit), the seeded weights drawn on the card
+    (``device_params``), seq 4096, HYBRID_STEPS steps: finite falling
+    losses, step p50/p99, tokens/s, peak memory beside the reckoning,
+    the launches (flash, all at 80 x 80, once a layer a step; pam4 once
+    a bucket of the replicated leaves: FSDP leaves skip the sync at pods
+    1); then ServeEngine at the same widths on seeded weights drawn on
+    the card, 8 requests (the paged kernel at hd 80).  Returns the flash
+    and paged launches."""
+    import torch
+    from repro_torch.collectives.bucketizer import make_layout
+    from repro_torch.configs import get
+    from repro_torch.kernels import attention, paged_attention
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.serving.config import ServeConfig
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.tree import leaves
+    cfg = dataclasses.replace(get("qwen3_32b"), n_layers=QWEN_LAYERS)
+    n = n_params(cfg)
+    spec = train.parse_args(QWEN_ARGV).spec
+    ctx = spec.mesh.ctx()
+    rep_buckets = make_layout(
+        [(s, lm.torch_dtype(cfg)) for s, m in zip(
+            leaves(lm.local_param_shapes(cfg, ctx)), lm.fsdp_leaves(cfg, ctx))
+         if not m], spec.resolved_sync().bucket_bytes).n_buckets
+    with world_of_one():
+        session, recs, losses, init_s, launches, _, peak = hybrid_session(
+            QWEN_ARGV, cfg, HYBRID_STEPS,
+            draw=lambda: device_params(cfg, spec.seed, ctx))
+        session.close()
+    del session
+    logits = 2 * 4096 * cfg.vocab * 4          # f32 logits and gradient
+    reckon = n * RECKON_BYTES_PER_PARAM + logits
+    print(f"4m (b) qwen3_32b (d 5120, 64/8 heads of 80, qk-norm, d_ff "
+          f"25600, vocab 151936; {QWEN_LAYERS} layer, {n} parameters) world "
+          f"of one on NCCL in process, --fsdp --sync optinc --bits 8 --lr "
+          f"1e-5, seq 4096, {HYBRID_STEPS} steps (session init with the "
+          f"weights drawn on the card {init_s:.2f} s): "
+          f"{step_line(recs, losses, 4096)}; peak {peak / 1e9:.2f} GB "
+          f"against the reckoning {reckon / 1e9:.2f} GB "
+          f"({RECKON_BYTES_PER_PARAM:.1f} B a parameter + {logits / 1e9:.2f}"
+          f" GB of f32 logits and their gradient), {peak / n:.1f} B a "
+          f"parameter measured; {rep_buckets} bucket(s) of replicated "
+          f"leaves a step; launches "
+          f"{ {k: v for k, v in launches.items() if v} } (the flash pair's "
+          f"all at 80 x 80: qwen3 has no other head dim) [{card}]",
+          flush=True)
+    check_falling("4m (b) qwen3_32b", losses)
+    want = HYBRID_STEPS * QWEN_LAYERS
+    if not (launches["flash_attention"] == want
+            and launches["flash_attention_bwd"] == want
+            and launches["pam4_quantize_encode"] == HYBRID_STEPS
+            * rep_buckets
+            and launches["pam4_decode_dequantize"] == HYBRID_STEPS
+            * rep_buckets):
+        raise AssertionError(f"4m (b) launches {launches}: want {want} of "
+                             f"each flash kernel, {HYBRID_STEPS} x "
+                             f"{rep_buckets} of each pam4")
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve = ServeConfig(page_size=16, max_active=8, max_seq=512)
+    eng = ServeEngine(cfg, serve, device_params(cfg, SEED + 6),
+                      device="cuda")
+    prompts = make_prompts(8, cfg.vocab, 64, 256, SEED + 5)
+    drive(eng, prompts[:1], 2, stagger=False)            # warm
+    for fn in (attention.flash_attention, paged_attention.paged_attention):
+        fn.launches = 0
+    torch.cuda.synchronize()
+    _, times, wall = drive(eng, prompts, 32, stagger=True)
+    served = {"flash_attention": attention.flash_attention.launches,
+              "paged_attention": paged_attention.paged_attention.launches}
+    print(f"4m (b) qwen3_32b ({QWEN_LAYERS} layer, bf16) served by "
+          f"ServeEngine: 8 staggered requests of 64-256 prompt tokens x 32 "
+          f"new in {len(times)} engine steps, {wall:.3f} s, "
+          f"{8 * 32 / wall:.1f} tokens/s, step p50 "
+          f"{pct([t for t, _ in times], 0.5) * 1e3:.2f} ms; launches "
+          f"{served} [{card}]", flush=True)
+    if not all(served.values()):
+        raise AssertionError(f"4m (b) serving launched {served}")
+    del eng
+    return {"flash": launches["flash_attention"],
+            "flash_bwd": launches["flash_attention_bwd"],
+            "paged": served["paged_attention"]}
+
+
+def ssd_scan_ms(cfg, t: int) -> float:
+    """Device ms of one mamba2 layer's SSD scan, forward and backward,
+    at the run's shapes (b 1, t, nh heads of 64, ssm_state N, chunk 128,
+    f32), on seeded inputs: the scan's part of a step, measured alone."""
+    import torch
+    from repro_torch.models import blocks
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    nh, n = 2 * cfg.d_model // 64, cfg.ssm_state
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale
+                ).requires_grad_()
+    ins = [rand(1, t, nh, 64), (torch.rand((1, t, nh), generator=g,
+                                           device="cuda") + 0.5
+                                ).requires_grad_(),
+           (-torch.ones(nh, device="cuda")).requires_grad_(),
+           rand(1, t, n), rand(1, t, n)]
+
+    def run():
+        y, st = blocks.ssd_chunk_scan(*ins, 128)
+        torch.autograd.grad(y.sum() + st.sum(), ins)
+    run()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 3
+
+
+def zamba_full_width(card: str) -> dict:
+    """(c) zamba2_7b at its published widths (d 3584, d_inner 7168 in 112
+    SSD heads of 64, ssm_state 64; the shared block's 32 heads of 112,
+    d_ff 14336; vocab 32000) cut to ZAMBA_LAYERS layers (6 mamba2 layers,
+    one use of the shared block), one peer, every leaf synced, the seeded
+    weights drawn on the card, seq 4096, ZAMBA_STEPS steps, the last
+    profiled: finite falling losses, step p50/p99 over the unprofiled
+    steps after the first, tokens/s, peak memory beside the reckoning,
+    buckets a step, the flash launches at 112 x 112 (one use a step),
+    pam4 once a bucket, the busy share and the SSD scan's share of the
+    device time.
+    Returns the flash launches by dims."""
+    from repro_torch.collectives.bucketizer import make_layout
+    from repro_torch.configs import get
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves
+    cfg = dataclasses.replace(get("zamba2_7b"), n_layers=ZAMBA_LAYERS)
+    n = n_params(cfg)
+    prof = profile_step(ZAMBA_STEPS - 1)
+    session, recs, losses, init_s, launches, dims, peak = hybrid_session(
+        ZAMBA_ARGV, cfg, ZAMBA_STEPS, [prof],
+        draw=lambda: device_params(cfg, SEED))
+    buckets = make_layout([(s, lm.torch_dtype(cfg)) for s in
+                           leaves(lm.param_shapes(cfg))],
+                          session.sync.bucket_bytes).n_buckets
+    session.close()
+    del session
+    n_attn = cfg.n_layers // cfg.attn_every
+    n_mamba = cfg.n_layers - n_attn
+    print(f"4m (c) zamba2_7b (d 3584, d_inner 7168 in 112 SSD heads of 64, "
+          f"ssm_state 64, shared block 32 heads of 112, d_ff 14336, vocab "
+          f"32000; {ZAMBA_LAYERS} layers: {n_mamba} mamba2 and {n_attn} "
+          f"use(s) of the shared block, {n} parameters, {buckets} buckets) "
+          f"one peer "
+          f"--sync optinc --bits 8 --lr 1e-5, seq 4096, {ZAMBA_STEPS} steps "
+          f"(session init with the weights drawn on the card {init_s:.2f} "
+          f"s; the last step profiled): "
+          f"{step_line(recs[:-1], losses[:-1], 4096)}; last loss "
+          f"{losses[-1]}; peak memory {peak} bytes ({peak / 1e9:.2f} GB) "
+          f"against the reckoning {n * SYNCED_BYTES_PER_PARAM / 1e9:.2f} GB "
+          f"({SYNCED_BYTES_PER_PARAM} B a parameter), {peak / n:.1f} B a "
+          f"parameter measured; launches {launches}, flash by (hd x hdv) "
+          f"{dims} [{card}]", flush=True)
+    check_falling("4m (c) zamba2_7b", losses)
+    want = ZAMBA_STEPS * n_attn
+    if not (all(d == {"112x112": want} for d in dims.values())
+            and launches["pam4_quantize_encode"] == ZAMBA_STEPS * buckets
+            and launches["pam4_decode_dequantize"] == ZAMBA_STEPS * buckets):
+        raise AssertionError(f"4m (c) launches {launches}, {dims}: want "
+                             f"{want} flash at 112 x 112 and "
+                             f"{ZAMBA_STEPS * buckets} of each pam4")
+    dev = (device_profile(prof.prof, prof.wall_s, card, "zamba2_7b step")
+           if prof.prof is not None else {})
+    if dev:
+        busy_ms = sum(dev.values()) / 1e3
+        ssd_ms = ssd_scan_ms(cfg, 4096)
+        print(f"4m (c) the SSD scan alone, forward and backward at the "
+              f"step's shapes: {ssd_ms:.3f} ms a layer, x {n_mamba} layers "
+              f"= {n_mamba * ssd_ms:.3f} ms, "
+              f"{100 * n_mamba * ssd_ms / busy_ms:.2f}% of the profiled "
+              f"step's {busy_ms:.3f} ms of device time [{card}]", flush=True)
+    return dims
+
+
+def hybrid_card_vs_plain(card: str) -> None:
+    """(d) The qwen3, chameleon and zamba2 SMOKE steps card vs CPU
+    (``smoke_card_vs_cpu``), and qwen3's SMOKE serving card vs CPU
+    (``serving_card_vs_cpu``)."""
+    from repro_torch.configs import get_smoke
+    for arch in ("qwen3_32b", "chameleon_34b", "zamba2_7b"):
+        smoke_card_vs_cpu(card, "4m (d)", arch)
+    serving_card_vs_cpu(card, "4m (d) serving", dataclasses.replace(
+        get_smoke("qwen3_32b"), dtype="float32"))
+
+
+def hybrid_phase(card: str) -> dict:
+    """Phase 4m: qk-norm and the Mamba-2 hybrid on one card, (a)-(d).
+    Returns (a)'s records with the launches of (b) and (c)."""
+    import torch
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts = {}       # seconds of each part
+
+    def part(key, fn):
+        t = time.perf_counter()
+        out = fn(card)
+        parts[key] = time.perf_counter() - t
+        return out
+    records = part("a", hybrid_flash)
+    qwen = part("b", qwen_full_width)
+    zamba = part("c", zamba_full_width)
+    records["flash_attention 80x80"]["launches"] = qwen["flash"]
+    records["flash_attention_bwd 80x80"]["launches"] = qwen["flash_bwd"]
+    for fn in ("flash_attention", "flash_attention_bwd"):
+        records[f"{fn} 112x112"]["launches"] = zamba[fn]["112x112"]
+    records["paged_attention hd 80"]["launches"] = qwen["paged"]
+    part("d", hybrid_card_vs_plain)
+    print(f"phase 4m took {time.perf_counter() - t_phase:.1f} s ("
+          + ", ".join(f"({k}) {v:.1f} s" for k, v in parts.items())
+          + f") [{card}]", flush=True)
+    return records
+
+
+def hybrid_alone(card: str) -> None:
+    """Phase 4m alone, the kernels built first."""
+    from repro_torch.kernels import _build
+    _build.build()
+    hybrid_phase(card)
+
+
 # ----------------------------------------- phase 4d: the trained ONN
 # The paper's scenario 1 (examples/quickstart.py --scenario1): B 8, N 4,
 # K 4, 4-64-128-256-128-64-4 with layers 1-6 approximated, the full
@@ -4448,7 +4927,7 @@ def trained_onn_and_noise(card: str) -> None:
 # features of order one
 RESNET_PEERS = 4
 RESNET_BATCH = 256
-RESNET_STEPS = 10
+RESNET_STEPS = 6
 RESNET_LR = 0.002
 # (a)'s runs: label -> (SyncConfig and PhotonicsConfig fields, pods,
 # steps); the bits-8 onn and mesh runs go through phase 4d's ONN
@@ -4471,8 +4950,8 @@ RESNET_RUNS = {
 }
 # (c): 4 ranks of these against the stacked runs of (a)
 RESNET_PROC_RUNS = ("optinc bits 8", "ring", "cascade pods 2", "psum")
-# ring against psum, each loss of the 10 steps: the two sum the 4 f32
-# gradient rows in other orders (an ulp or two an element), and SGD
+# ring against psum, each loss of RESNET_STEPS steps: the two sum the 4
+# f32 gradient rows in other orders (an ulp or two an element), and SGD
 # carries that into the weights; a ring that got a chunk or 1/N wrong
 # would move step 1's loss (O(5)) by far more
 RESNET_RING_TOL = 1e-3
@@ -4664,7 +5143,8 @@ def resnet_stacked_runs(card: str, labels, onn=None) -> dict:
     """(a)'s runs of ``labels`` (RESNET_RUNS keys), each with the launch
     counts set to 0 just before it and read just after: {label: (losses,
     step seconds, launches)}; raises on a non-finite loss, a loss that
-    does not fall over 10 steps or a launch count off its want."""
+    does not fall over RESNET_STEPS steps or a launch count off its
+    want."""
     import torch
     from repro_torch.models import resnet
     from repro_torch.photonics import error_model, runtime
@@ -5388,14 +5868,23 @@ def teacher_forced_logits(cfg, params, prompts, forced, device):
 
 
 def card_vs_plain(card: str) -> None:
+    from repro_torch import configs
+    serving_card_vs_cpu(card, "card vs plain", dataclasses.replace(
+        configs.get("paper_llama"), dtype="float32"))
+
+
+def serving_card_vs_cpu(card: str, label: str, cfg) -> None:
+    """``cfg`` (f32) served by ServeEngine on the card and on the CPU from
+    the same seeded weights, 4 requests x 16 tokens: the teacher-forced
+    logits (prefill and every paged decode step) within LOGIT_TOL, and
+    the greedy tokens equal up to the first position where the plain
+    top-2 margin is thinner than 2 LOGIT_TOL."""
     import numpy as np
     import torch
-    from repro_torch import configs
     from repro_torch.models import lm
     from repro_torch.serving.config import ServeConfig
     from repro_torch.serving.engine import ServeEngine
 
-    cfg = dataclasses.replace(configs.get("paper_llama"), dtype="float32")
     serve = ServeConfig(page_size=16, max_active=8, max_seq=256)
     params_cpu = lm.init_params(cfg, SEED, "cpu")
     params_gpu = {k: ({kk: vv.cuda() for kk, vv in v.items()}
@@ -5411,7 +5900,7 @@ def card_vs_plain(card: str) -> None:
     lg_cpu = teacher_forced_logits(cfg, params_cpu, prompts, forced, "cpu")
     lg_gpu = teacher_forced_logits(cfg, params_gpu, prompts, forced, "cuda")
     err = (lg_cpu - lg_gpu).abs().max().item()
-    print(f"card vs plain (paper_llama f32, 4 requests x {new} tokens): "
+    print(f"{label} ({cfg.name} f32, 4 requests x {new} tokens): "
           f"teacher-forced logits max_abs_err {err:.3e} (tol {LOGIT_TOL:.0e})"
           f", |logits| max {lg_cpu.abs().max().item():.3f}", flush=True)
     if not err <= LOGIT_TOL:
@@ -5426,12 +5915,12 @@ def card_vs_plain(card: str) -> None:
                 f"request {rid}: card tokens {card_out[rid].tolist()} != "
                 f"plain {plain[rid].tolist()} before position {upto}")
         if thin.size:
-            print(f"request {rid}: plain top-2 margin below "
+            print(f"{label} request {rid}: plain top-2 margin below "
                   f"{2 * LOGIT_TOL:.0e} first at position {upto}; tokens "
                   f"compared up to it", flush=True)
     equal = sum(np.array_equal(card_out[r], plain[r]) for r in plain)
-    print(f"greedy tokens: {equal}/{len(plain)} requests identical on card "
-          f"and plain [{card}]", flush=True)
+    print(f"{label} greedy tokens: {equal}/{len(plain)} requests identical "
+          f"on card and plain [{card}]", flush=True)
 
 
 def main() -> int:
@@ -5486,6 +5975,7 @@ def main() -> int:
     phase("4i sharding", sharded_full_width, card)
     records.update(phase("4k moe", moe_full_width, card)["records"])
     records.update(phase("4l whisper", whisper_phase, card))
+    records.update(phase("4m qk-norm and mamba2", hybrid_phase, card))
     onn = phase("4d trained onn", trained_onn_full_width, card)
     onn_launches, behavioral_bits2 = phase(
         "4b onn", train_onn_full_width, card, behavioral8, onn)

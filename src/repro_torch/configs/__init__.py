@@ -1,17 +1,20 @@
 """Architecture registry of the port: ``get(arch)`` / ``get_smoke(arch)``
 resolve ``repro_torch.configs.<arch>`` (counterpart of
-``repro.configs``).  Registered: the dense-attention architectures and
-the MoE family (phi35_moe_42b: GQA with routed experts; deepseek_v3_671b:
-MLA, shared and routed experts, MTP) and the encoder-decoder family
-(whisper_tiny, trained through ``launch.steps.make_train_step`` on
-batches that carry ``enc_frames``), which the port trains; it serves
-the dense ones only.  The SSM and xLSTM families are not ported."""
+``repro.configs``).  Registered: the dense-attention architectures
+(with qk-norm: qwen3_32b, chameleon_34b), the MoE family
+(phi35_moe_42b: GQA with routed experts; deepseek_v3_671b: MLA, shared
+and routed experts, MTP), the encoder-decoder family (whisper_tiny,
+trained through ``launch.steps.make_train_step`` on batches that carry
+``enc_frames``) and the Mamba-2 hybrid (zamba2_7b: mamba2 layers with
+one shared attention block), which the port trains; it serves the
+dense ones only.  The xLSTM family is not ported."""
 from __future__ import annotations
 
 import importlib
 
 ARCHS = ["paper_llama", "minitron_4b", "deepseek_coder_33b", "llama3_405b",
-         "phi35_moe_42b", "deepseek_v3_671b", "whisper_tiny"]
+         "phi35_moe_42b", "deepseek_v3_671b", "whisper_tiny", "qwen3_32b",
+         "chameleon_34b", "zamba2_7b"]
 
 
 def _module(arch: str):

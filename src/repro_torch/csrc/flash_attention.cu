@@ -388,7 +388,8 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
 // The (QK, V) head dim pairs instantiated: the equal dims, and MLA's at
 // deepseek-v3's published widths (192, 128) and its SMOKE config (24, 16)
 #define FLASH_HEAD_DIMS(X) \
-  X(16, 16) X(32, 32) X(48, 48) X(64, 64) X(128, 128) X(192, 128) X(24, 16)
+  X(16, 16) X(32, 32) X(48, 48) X(64, 64) X(80, 80) X(112, 112) \
+  X(128, 128) X(192, 128) X(24, 16)
 
 int dispatch_mma(const void* q, const void* k, const void* v, void* out,
                  float* lse, int b, int h, int hkv, int sq, int skv,

@@ -390,7 +390,8 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 // The (QK, V) head dim pairs instantiated: the equal dims, and MLA's at
 // deepseek-v3's published widths (192, 128) and its SMOKE config (24, 16)
 #define FLASH_HEAD_DIMS(X) \
-  X(16, 16) X(32, 32) X(48, 48) X(64, 64) X(128, 128) X(192, 128) X(24, 16)
+  X(16, 16) X(32, 32) X(48, 48) X(64, 64) X(80, 80) X(112, 112) \
+  X(128, 128) X(192, 128) X(24, 16)
 
 template <typename T>
 int dispatch_hd(int hd, int hdv, const void* q, const void* k,

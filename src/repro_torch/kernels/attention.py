@@ -32,10 +32,11 @@ from . import _build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (QK head dim, V head dim) pairs instantiated in flash_attention.cu and
-# flash_attention_bwd.cu: the equal dims, and MLA's at deepseek-v3's
-# published widths (192, 128) and its SMOKE config (24, 16)
-_HEAD_DIMS = ((16, 16), (32, 32), (48, 48), (64, 64), (128, 128),
-              (192, 128), (24, 16))
+# flash_attention_bwd.cu: the equal dims (80: qwen3_32b's 5120 / 64;
+# 112: zamba2_7b's 3584 / 32), and MLA's at deepseek-v3's published
+# widths (192, 128) and its SMOKE config (24, 16)
+_HEAD_DIMS = ((16, 16), (32, 32), (48, 48), (64, 64), (80, 80), (112, 112),
+              (128, 128), (192, 128), (24, 16))
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 9
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])

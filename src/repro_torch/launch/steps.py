@@ -190,6 +190,12 @@ def make_train_step(cfg: ModelConfig, peers: int, sync: SyncConfig,
         raise NotImplementedError(
             f"{cfg.name} with tensor parallelism (tp {ctx.tp}): the "
             f"enc-dec family is not ported at tp > 1 yet")
+    if cfg.ssm and ctx.sharded:
+        raise NotImplementedError(
+            f"{cfg.name} with "
+            + ("--fsdp" if ctx.fsdp else f"tensor parallelism (tp {ctx.tp})")
+            + ": the ssm family is not ported sharded yet (JAX runs it with "
+            f"its SSD heads over 'model' and its weights over 'data')")
     if ctx.sharded:
         return _sharded_train_step(cfg, sync, opt, ctx, world)
     shapes = leaves(lm.param_shapes(cfg))

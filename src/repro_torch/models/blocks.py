@@ -1,12 +1,17 @@
-"""Attention and MoE blocks (counterpart of ``repro.models.blocks``):
+"""Attention, MoE and Mamba-2 blocks (counterpart of
+``repro.models.blocks``):
 the training/prefill branch of ``gqa_attention`` (self-attention, or
 whisper's cross-attention over given K/V, causal or not; differentiable:
 attention goes through the flash kernels' autograd function, and
 nothing autograd saves is written in place), the paged decode step
 ``gqa_decode_paged``, the training branch of deepseek-v3's
-``mla_attention`` (the flash kernels with a V head dim of their own)
-and ``moe_block`` (top-k routed experts with expert-side top-C token
-selection, expert-parallel over 'model', and the shared experts).
+``mla_attention`` (the flash kernels with a V head dim of their own),
+``moe_block`` (top-k routed experts with expert-side top-C token
+selection, expert-parallel over 'model', and the shared experts) and
+the training/prefill branch of the Mamba-2 block (``mamba2_block`` over
+``ssd_chunk_scan``, plain torch ops: the JAX package has no kernel for
+it).  qwen3's and chameleon's qk-norm runs in ``_gqa_qkv``, which
+training, prefill and paged decode share.
 
 Under tensor parallelism each rank holds its heads: hl = h_pad / tp
 query heads and kvl = kv_pad / tp KV heads (``_heads_local`` and
@@ -38,10 +43,13 @@ def _kv_local(kv: int, tp: int) -> int:
 
 def _gqa_qkv(cfg: ModelConfig, p, x, pos, ctx: ShardCtx = NO_SHARD,
              axes=None):
-    """Shared q/k/v projection + RoPE of prefill and paged decode, so
-    their per-token math stays identical.  x: (b, t, d);
+    """Shared q/k/v projection + qk-norm + RoPE of prefill and paged
+    decode, so their per-token math stays identical.  x: (b, t, d);
     pos: (t,) shared positions or (b, t) per-slot positions, or None for
-    no RoPE (JAX's ``pos is not None`` test)."""
+    no RoPE (JAX's ``pos is not None`` test).  With ``cfg.qk_norm`` q and
+    k are normed per head (each rank its own heads) before RoPE: JAX's
+    ``_qk_headnorm`` is ``rmsnorm`` over hd (eps 1e-6, f32, cast back,
+    times the (hd,) weight)."""
     h = rmsnorm(x, p["norm"])
     b, t, _ = h.shape
     wq = gather_fsdp(ctx, axes, p["wq"], 0)
@@ -52,6 +60,9 @@ def _gqa_qkv(cfg: ModelConfig, p, x, pos, ctx: ShardCtx = NO_SHARD,
     q = (h @ wq).reshape(b, t, hl, cfg.hd)
     k = (h @ wk).reshape(b, t, kvl, cfg.hd)
     v = (h @ wv).reshape(b, t, kvl, cfg.hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"])
+        k = rmsnorm(k, p["k_norm"])
     if pos is not None:
         q = rope(q, pos, cfg.rope_theta)
         k = rope(k, pos, cfg.rope_theta)
@@ -64,9 +75,10 @@ def gqa_attention(cfg: ModelConfig, p, x, pos, ctx: ShardCtx = NO_SHARD,
     prefill branch of the JAX ``gqa_attention``) on this rank's heads,
     causal unless ``causal=False``.  x: (b, t, d), pos: (t,).  With
     ``kv_ext`` = (k, v), each (b, kvl, te, hd), cross-attention (the
-    whisper decoder's): q = rmsnorm(x) @ wq with no RoPE, over the given
-    K/V.  Returns (out (b, t, d), psummed over 'model', {"k", "v": (b,
-    kvl, t, hd)}, or None with ``kv_ext``)."""
+    whisper decoder's): q = rmsnorm(x) @ wq with no RoPE (normed per
+    head under ``cfg.qk_norm``, as JAX does), over the given K/V.
+    Returns (out (b, t, d), psummed over 'model', {"k", "v": (b, kvl,
+    t, hd)}, or None with ``kv_ext``)."""
     if kv_ext is None:
         q, k, v = _gqa_qkv(cfg, p, x, pos, ctx, axes)
         k = k.transpose(1, 2)
@@ -76,6 +88,8 @@ def gqa_attention(cfg: ModelConfig, p, x, pos, ctx: ShardCtx = NO_SHARD,
         h = rmsnorm(x, p["norm"])
         wq = gather_fsdp(ctx, axes, p["wq"], 0)
         q = (h @ wq).reshape(*h.shape[:2], wq.shape[-1] // cfg.hd, cfg.hd)
+        if cfg.qk_norm:
+            q = rmsnorm(q, p["q_norm"])
         (k, v), cache = kv_ext, None
     b, t, hl = q.shape[:3]
     attn = blocked_attention(q.transpose(1, 2), k, v, causal)
@@ -198,3 +212,107 @@ def moe_block(cfg: ModelConfig, p, x, ctx: ShardCtx = NO_SHARD, axes=None):
     me = gates.mean(dim=0)
     ce = (full > 0).float().mean(dim=0)
     return out, cfg.n_experts * (me * ce).sum()
+
+
+# =============================== Mamba-2 ===============================
+
+def ssd_chunk_scan(xh, dt, a, bmat, cmat, chunk: int):
+    """SSD chunked scan (Mamba-2; JAX's ``_ssd_chunk_scan``), the
+    training and prefill form.  xh: (b, t, nh, hp); dt: (b, t, nh)
+    post-softplus; a: (nh,) negative (-exp(a_log)); bmat/cmat: (b, t, N);
+    all f32.  t is padded to whole chunks (dt 0 there); within a chunk
+    cum is the cumsum of dt * a, and
+
+        y_i = sum_{j <= i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j
+              + (C_i . S) exp(cum_i),
+        S <- S exp(cum_last) + sum_j exp(cum_last - cum_j) dt_j B_j x_j^T
+
+    with S the state carried from chunk to chunk (zero at first).
+    Returns y (b, t, nh, hp) and the final state (b, nh, hp, N).
+
+    The two terms a chunk adds that do not depend on S (the intra-chunk
+    y and the state a chunk contributes) are computed for all chunks at
+    once; only the recurrence of S loops over the chunks.  The f32 sums
+    therefore run in other orders than JAX's scan: the tests hold y and
+    the gradients to 1e-5 of each one's largest entry.
+
+    A repair of the reference's gradient: JAX builds the decay as
+    ``where(mask, exp(rel), 0)``.  Above the diagonal rel = cum_i - cum_j
+    is positive and grows by about |a| dt a token, so exp(rel) overflows
+    to inf once a chunk holds more than ~90 tokens at zamba2's init (a
+    -1, dt ~ 0.97); the forward drops it, but the backward multiplies the
+    inf by the zero cotangent: NaN.  Here the decay is ``exp(where(mask,
+    rel, -inf))``: the forward is the same, bit for bit, and the gradient
+    is JAX's wherever JAX's is finite, and 0 where JAX's is 0 * inf."""
+    b, t, nh, hp = xh.shape
+    n = bmat.shape[-1]
+    pad = (-t) % chunk
+    if pad:
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        bmat = F.pad(bmat, (0, 0, 0, pad))
+        cmat = F.pad(cmat, (0, 0, 0, pad))
+    nc = xh.shape[1] // chunk
+    xc = xh.reshape(b, nc, chunk, nh, hp).permute(0, 1, 3, 2, 4)  # (b,c,h,Q,p)
+    dtc = dt.reshape(b, nc, chunk, nh).transpose(2, 3)            # (b,c,h,Q)
+    bc = bmat.reshape(b, nc, chunk, n)
+    cc = cmat.reshape(b, nc, chunk, n)
+    cum = torch.cumsum(dtc * a[:, None], dim=-1)                  # <= 0
+    mask = torch.ones((chunk, chunk), dtype=torch.bool,
+                      device=xh.device).tril()
+    dec = torch.exp(torch.where(mask, cum[..., :, None] - cum[..., None, :],
+                                float("-inf")))                   # (b,c,h,Q,Q)
+    cb = cc @ bc.transpose(-1, -2)                                # (b,c,Q,Q)
+    y = (cb[:, :, None] * dec * dtc[..., None, :]) @ xc           # intra
+    wj = torch.exp(cum[..., -1:] - cum) * dtc                     # (b,c,h,Q)
+    s_chunk = (wj[..., None] * xc).transpose(-1, -2) @ bc[:, :, None]
+    decay = torch.exp(cum[..., -1])                               # (b,c,h)
+    state = torch.zeros((b, nh, hp, n), dtype=torch.float32,
+                        device=xh.device)
+    before = []
+    for c in range(nc):
+        before.append(state)
+        state = state * decay[:, c, :, None, None] + s_chunk[:, c]
+    prev = torch.stack(before, dim=1)                             # (b,c,h,p,N)
+    y = y + (cc[:, :, None] @ prev.transpose(-1, -2)) * torch.exp(
+        cum)[..., None]                                           # inter
+    y = y.permute(0, 1, 3, 2, 4).reshape(b, nc * chunk, nh, hp)[:, :t]
+    return y, state
+
+
+def _causal_conv(sig: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """JAX's ``dconv`` without a carried state: the causal depthwise
+    conv of sig (b, t, c) with w (k, c), summed as JAX's Python ``sum``
+    (0 + p_0 + p_1 + ...)."""
+    k, t = w.shape[0], sig.shape[1]
+    padded = F.pad(sig, (0, 0, k - 1, 0))
+    return sum(padded[:, i:i + t] * w[i] for i in range(k))
+
+
+def mamba2_block(cfg: ModelConfig, p, x, chunk: int = 128):
+    """The Mamba-2 (SSD) block, the training/prefill branch of JAX's
+    ``mamba2_block`` (``state is None``), unsharded: in-projections of
+    rmsnorm(x) to x (d_inner), the gate z, B|C (2N) and dt (nh heads);
+    the causal depthwise conv (k 4) on the x and B|C paths; SiLU, dt =
+    softplus(dt_raw + dt_bias) and a = -exp(a_log) in f32; the SSD scan;
+    the d_skip skip, the gate silu(z), cast to x's dtype, and w_out.
+    jax.nn.softplus is ``logaddexp(x, 0)``, and so is this one
+    (``F.softplus`` returns x above 20, which in f32 is the same value,
+    but it is 2 ulp off XLA's below).  Returns (out (b, t, d), the SSD's
+    final state (b, nh, hp, N))."""
+    h = rmsnorm(x, p["norm"])
+    b, t, _ = h.shape
+    n = cfg.ssm_state
+    nh = p["a_log"].shape[0]
+    hp = p["w_x"].shape[-1] // nh
+    xs = _causal_conv(h @ p["w_x"], p["conv_x"])
+    z = h @ p["w_z"]
+    bc = F.silu(_causal_conv(h @ p["w_bc"], p["conv_bc"]).float())
+    xh = F.silu(xs.float()).reshape(b, t, nh, hp)
+    dt = torch.logaddexp((h @ p["w_dt"]).float() + p["dt_bias"],
+                         torch.zeros((), device=x.device))
+    a = -torch.exp(p["a_log"].float())
+    y, state = ssd_chunk_scan(xh, dt, a, bc[..., :n], bc[..., n:], chunk)
+    y = y + xh * p["d_skip"][:, None]
+    y = (y.reshape(b, t, -1) * F.silu(z.float())).to(x.dtype)
+    return y @ p["w_out"], state

@@ -1,10 +1,9 @@
 """Model assembly (counterpart of ``repro.models.lm``): parameter
 specs, shapes and seeded init, the JAX-parameter bridge, the training
-forward and loss (``forward_lm``, ``loss_fn``) of the dense, MoE and
-encoder-decoder families, and the two steps of the continuous-batching
-engine —
-``batched_prefill_step`` and ``paged_decode_step`` (dense only, and
-unsharded).
+forward and loss (``forward_lm``, ``loss_fn``) of the dense (with
+qk-norm too), MoE, encoder-decoder and Mamba-2 hybrid families, and the
+two steps of the continuous-batching engine — ``batched_prefill_step``
+and ``paged_decode_step`` (dense only, and unsharded).
 
 Parameters are a plain dict with the JAX package's layout: ``embed``
 (V, d), ``final_norm`` (d,), ``lm_head`` (d, V), and per family the
@@ -13,7 +12,11 @@ stacks of per-layer weights on a leading L axis: ``layers`` (dense), or
 (one block, deepseek-v3's multi-token prediction) of the MoE family,
 whose attention is GQA or MLA; ``encoder`` and ``decoder`` of the
 encoder-decoder family (whisper), the decoder's cross-attention leaves
-prefixed ``x_``.  A MoE layer's attention and its
+prefixed ``x_``; ``mamba`` of the hybrid (zamba2), with ``shared_attn``,
+one attention and MLP block that is not stacked (it runs after every
+group of mamba layers).  With qk-norm an attention block has
+``q_norm`` and ``k_norm`` (hd,) (MLA's ``q_norm`` is its latent's
+norm, another leaf).  A MoE layer's attention and its
 ``moe_block`` share one ``norm`` leaf, as JAX merges their specs.
 Weights are (in, out) and used as ``x @ w``.  The JAX package scans
 over the L axis; here a Python loop walks it, with JAX's two-level remat
@@ -49,23 +52,23 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def _check_ported(cfg: ModelConfig, what: str):
     """Refuse the families the port does not train."""
-    if cfg.ssm:
+    if cfg.ssm and cfg.ssm != "mamba2":
         raise NotImplementedError(
             f"{what}: the ssm {cfg.ssm} family ({cfg.name}) is not ported")
-    if cfg.qk_norm:
-        raise NotImplementedError(f"qk_norm ({cfg.name}) is not ported")
 
 
 def _check_dense(cfg: ModelConfig, what: str):
     """The serving steps take the dense family only: the JAX engine's
     paged steps assert ``not cfg.moe``, and serving the encoder-decoder
-    family (JAX's contiguous decode with a cross cache) is not ported."""
+    and ssm families (JAX's contiguous decode with a cross cache or a
+    recurrent state) is not ported."""
     _check_ported(cfg, what)
-    if cfg.moe or cfg.enc_dec:
+    family = ("MoE" if cfg.moe else "enc-dec" if cfg.enc_dec
+              else "ssm" if cfg.ssm else None)
+    if family:
         raise NotImplementedError(
             f"{what} needs a dense-attention model, got {cfg.name}: "
-            f"serving the {'MoE' if cfg.moe else 'enc-dec'} family is not "
-            f"ported")
+            f"serving the {family} family is not ported")
 
 
 def pad_to(x: int, mult: int) -> int:
@@ -103,7 +106,8 @@ def _fsdp(ctx: ShardCtx):
 
 def attn_param_specs(cfg: ModelConfig, ctx: ShardCtx, dims: ArchDims):
     """Per-layer attention (specs, shapes), JAX's ``attn_param_specs``
-    (the specs with the leading layer entry)."""
+    (the specs with the leading layer entry); with qk-norm also the
+    replicated per-head norms ``q_norm`` and ``k_norm`` (hd,)."""
     fa, ma = _fsdp(ctx), ctx.model_axis
     hd = cfg.hd
     spec = {"norm": (None, None), "wq": (None, fa, ma),
@@ -114,6 +118,9 @@ def attn_param_specs(cfg: ModelConfig, ctx: ShardCtx, dims: ArchDims):
               "wk": (cfg.d_model, dims.kv_pad * hd),
               "wv": (cfg.d_model, dims.kv_pad * hd),
               "wo": (dims.h_pad * hd, cfg.d_model)}
+    if cfg.qk_norm:
+        spec.update(q_norm=(None, None), k_norm=(None, None))
+        shapes.update(q_norm=(hd,), k_norm=(hd,))
     return spec, shapes
 
 
@@ -168,6 +175,26 @@ def mlp_param_specs(cfg: ModelConfig, ctx: ShardCtx, dims: ArchDims):
     return spec, shapes
 
 
+def mamba_param_specs(cfg: ModelConfig, ctx: ShardCtx, dims: ArchDims):
+    """Per-layer Mamba-2 (specs, shapes), JAX's ``mamba_param_specs``:
+    d_inner 2d in heads of 64, its heads over 'model'."""
+    fa, ma = _fsdp(ctx), ctx.model_axis
+    d, n = cfg.d_model, cfg.ssm_state
+    di = 2 * d
+    nh = di // 64
+    spec = {"norm": (None, None), "w_x": (None, fa, ma),
+            "w_z": (None, fa, ma), "w_bc": (None, fa, None),
+            "w_dt": (None, None, ma), "conv_x": (None, None, ma),
+            "conv_bc": (None, None, None), "dt_bias": (None, ma),
+            "a_log": (None, ma), "d_skip": (None, ma),
+            "w_out": (None, ma, fa)}
+    shapes = {"norm": (d,), "w_x": (d, di), "w_z": (d, di),
+              "w_bc": (d, 2 * n), "w_dt": (d, nh), "conv_x": (4, di),
+              "conv_bc": (4, 2 * n), "dt_bias": (nh,), "a_log": (nh,),
+              "d_skip": (nh,), "w_out": (di, d)}
+    return spec, shapes
+
+
 def cross_param_specs(cfg: ModelConfig, ctx: ShardCtx, dims: ArchDims):
     """The whisper decoder's cross-attention (specs, shapes): JAX's
     attention leaves, each prefixed ``x_``."""
@@ -184,7 +211,10 @@ def param_specs(cfg: ModelConfig, ctx: ShardCtx = NO_SHARD):
     layer has one ``norm``; ``encoder`` (attention and MLP over
     ``n_enc_layers``) and ``decoder`` (self-attention, the
     cross-attention's leaves prefixed ``x_``, and the MLP) of the
-    encoder-decoder family."""
+    encoder-decoder family; ``mamba`` (the mamba2 layers) and
+    ``shared_attn`` (one attention and MLP block, not stacked: its specs
+    lose the layer entry, as JAX strips it) of the hybrid, whose
+    n_layers counts n_layers // attn_every uses of the shared block."""
     _check_ported(cfg, "param_specs")
     dims = ArchDims.build(cfg, ctx)
     fa, ma = _fsdp(ctx), ctx.model_axis
@@ -194,14 +224,26 @@ def param_specs(cfg: ModelConfig, ctx: ShardCtx = NO_SHARD):
               "lm_head": (cfg.d_model, dims.v_pad)}
 
     def add(name, n, *builders):
+        """The merged blocks as the stack ``name`` of n layers, or with n
+        None as one block (its specs without the layer entry)."""
         sp, sh = {}, {}
         for build in builders:
             bsp, bsh = build(cfg, ctx, dims)
             sp.update(bsp)
             sh.update(bsh)
+        if n is None:
+            specs[name] = {k: v[1:] for k, v in sp.items()}
+            shapes[name] = sh
+            return
         specs[name] = sp
         shapes[name] = {k: (n,) + v for k, v in sh.items()}
 
+    if cfg.ssm:
+        n_attn = _n_shared(cfg)
+        add("mamba", cfg.n_layers - n_attn, mamba_param_specs)
+        if n_attn:
+            add("shared_attn", None, attn_param_specs, mlp_param_specs)
+        return specs, shapes
     if cfg.enc_dec:
         add("encoder", cfg.n_enc_layers, attn_param_specs, mlp_param_specs)
         add("decoder", cfg.n_layers, attn_param_specs, cross_param_specs,
@@ -218,6 +260,11 @@ def param_specs(cfg: ModelConfig, ctx: ShardCtx = NO_SHARD):
     if cfg.mtp:
         add("mtp", 1, attn, mlp_param_specs)
     return specs, shapes
+
+
+def _n_shared(cfg: ModelConfig) -> int:
+    """Uses of the hybrid's shared attention block (JAX's n_attn)."""
+    return cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
 
 
 def param_shapes(cfg: ModelConfig, ctx: ShardCtx = NO_SHARD) -> dict:
@@ -296,10 +343,28 @@ def assemble_leaf(shards: torch.Tensor, spec, ctx: ShardCtx) -> torch.Tensor:
     return torch.cat(rows, dim=dd) if dd is not None else rows[0]
 
 
+_SSM_INITS = {"a_log": 0.0, "dt_bias": 0.5, "d_skip": 1.0}
+
+
+def init_leaf(path: tuple, shp: tuple, dt: torch.dtype, randn,
+              device=None) -> torch.Tensor:
+    """One leaf of the ``init_params`` recipe at ``path`` and shape
+    ``shp`` in dtype ``dt``; ``randn(shape)`` draws its f32 normals (on
+    ``device``) when the recipe draws."""
+    if path[-1] in _SSM_INITS:
+        return torch.full(shp, _SSM_INITS[path[-1]], dtype=dt, device=device)
+    if len(shp) == 1 or shp[-1] == 1 or path[-1].endswith("norm"):
+        return torch.ones(shp, dtype=dt, device=device)
+    fan_in = shp[-2] if len(shp) >= 2 else shp[-1]
+    return (randn(shp) * (0.02 if fan_in > 8 else 0.5)).to(dt)
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
                 ctx: ShardCtx = NO_SHARD, coords: tuple | None = None) -> dict:
     """Seeded parameters, the JAX ``init_params`` recipe: normal * 0.02
-    (0.5 when fan_in <= 8), norms = 1, cast to the config dtype, at the
+    (0.5 when fan_in <= 8), norms = 1, the mamba2 layers' ``a_log`` 0
+    (A = -1), ``dt_bias`` 0.5 and ``d_skip`` 1 (JAX's
+    ``_fix_special_inits``), cast to the config dtype, at the
     padded global shapes of ``ctx``; with ``coords`` = (pod, d, m) the
     shards of that rank.  Draws come from one CPU ``torch.Generator``
     in sorted-leaf order, leaf by leaf, so the weights depend on neither
@@ -311,12 +376,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
     out: dict = {}
     for (path, shp), spec in zip(
             tree_util.leaves_with_paths(param_shapes(cfg, ctx)), specs):
-        fan_in = shp[-2] if len(shp) >= 2 else shp[-1]
-        if len(shp) == 1 or shp[-1] == 1 or path[-1].endswith("norm"):
-            w = torch.ones(shp, dtype=dt)
-        else:
-            w = (torch.randn(shp, generator=gen, dtype=torch.float32)
-                 * (0.02 if fan_in > 8 else 0.5)).to(dt)
+        w = init_leaf(path, shp, dt, lambda s: torch.randn(
+            s, generator=gen, dtype=torch.float32))
         if coords is not None:
             w = shard_leaf(w, spec, ctx, coords)
         tree_util.set_path(out, path, w.to(device))
@@ -463,6 +524,36 @@ def _enc_dec(cfg: ModelConfig, params: dict, x: torch.Tensor, pos,
                        min(ctx.remat_groups, 1))
 
 
+def _hybrid(cfg: ModelConfig, params: dict, x: torch.Tensor, pos,
+            ctx: ShardCtx, axes):
+    """The Mamba-2 hybrid's trunk (JAX's ``cfg.ssm == "mamba2"`` branch,
+    its grouped forward): for each of the n_attn uses of the shared
+    block, per = n_mamba // n_attn mamba layers (x + mamba2_block(x))
+    and then ``shared_attn``'s attention and MLP layer; then the
+    remaining mamba layers.  The shared block's gradient is the sum
+    over its uses.  With ``ctx.remat_groups`` > 0 every mamba layer and
+    every group is checkpointed, as JAX's ``ckpt``."""
+    remat = min(ctx.remat_groups, 1)
+
+    def mamba_body(x, p):
+        return x + blocks.mamba2_block(cfg, p, x)[0]
+
+    def group_body(x, ps):
+        x = scan_layers(mamba_body, x, ps, remat)
+        return _attn_mlp_layer(cfg, params["shared_attn"], x, pos, ctx,
+                               axes)[0]
+
+    layers = layer_params(params, "mamba")
+    n_attn = _n_shared(cfg)
+    per = len(layers) // n_attn if n_attn else 0
+    with set_checkpoint_early_stop(False):
+        for i in range(n_attn):
+            group = layers[i * per:(i + 1) * per]
+            x = (checkpoint(group_body, x, group, use_reentrant=False)
+                 if remat else group_body(x, group))
+    return scan_layers(mamba_body, x, layers[n_attn * per:], remat)
+
+
 def forward_lm(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                ctx: ShardCtx = NO_SHARD, axes=None,
                enc_frames: torch.Tensor | None = None):
@@ -470,7 +561,7 @@ def forward_lm(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     mesh, None for whole weights).  tokens: (b, t); ``enc_frames``: (b,
     frames, d) the encoder's input (the enc-dec family only).  Returns
     (hidden (b, t, d), aux loss: the MoE layers' summed aux, f32, or 0.0
-    for the dense and enc-dec families).  The MoE family runs its dense
+    for the dense, enc-dec and hybrid families).  The MoE family runs its dense
     layers first, each checkpointed alone when ``ctx.remat_groups`` > 0
     (JAX checkpoints each), then its MoE layers through ``scan_layers``
     with the aux carried, as JAX's scan carries it."""
@@ -483,6 +574,8 @@ def forward_lm(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             raise ValueError(f"{cfg.name} is an encoder-decoder model: its "
                              f"batch needs enc_frames (b, frames, d)")
         return _enc_dec(cfg, params, x, pos, enc_frames, ctx, axes), 0.0
+    if cfg.ssm:
+        return _hybrid(cfg, params, x, pos, ctx, axes), 0.0
     if not cfg.moe:
         def body(x, p):
             return _attn_mlp_layer(cfg, p, x, pos, ctx, axes)[0]

@@ -54,7 +54,8 @@ class ServeEngine:
             raise NotImplementedError(
                 f"paged serving covers the dense-attention families; "
                 f"{cfg.name} (ssm/enc-dec/moe) is not ported (the JAX "
-                f"engine serves no MoE model either)")
+                f"engine serves none of them either: JAX's ServeSession "
+                f"serves them on its contiguous cache path only)")
         if serve.top_k and serve.temperature == 0.0:
             raise ValueError("top_k needs temperature > 0")
         self.cfg = cfg

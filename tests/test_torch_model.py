@@ -70,7 +70,8 @@ def _np(t: torch.Tensor) -> np.ndarray:
 # ------------------------------------------------------------- configs
 @pytest.mark.parametrize("arch", ["paper_llama", "minitron_4b",
                                   "phi35_moe_42b", "deepseek_v3_671b",
-                                  "whisper_tiny"])
+                                  "whisper_tiny", "qwen3_32b",
+                                  "chameleon_34b", "zamba2_7b"])
 def test_configs_are_copies_of_jax(arch):
     for getter in ("get", "get_smoke"):
         j = getattr(jax_configs, getter)(arch)
@@ -78,7 +79,7 @@ def test_configs_are_copies_of_jax(arch):
         assert dataclasses.asdict(j) == dataclasses.asdict(t)
         assert j.hd == t.hd
     with pytest.raises(ValueError, match="unknown arch"):
-        port_configs.get("zamba2_7b")
+        port_configs.get("xlstm_125m")
 
 
 # ---------------------------------------------------------- parameters

@@ -251,9 +251,10 @@ def test_engine_needs_cuda_unless_a_device_is_given(monkeypatch):
     with pytest.raises(NotImplementedError, match="not ported"):
         ServeEngine(dataclasses.replace(cfg, ssm="xlstm"), ServeConfig(),
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="qk_norm"):
-        ServeEngine(dataclasses.replace(cfg, qk_norm=True), ServeConfig(),
-                    device="cpu")
+    qk = ServeEngine(dataclasses.replace(cfg, qk_norm=True),
+                     ServeConfig(page_size=4, max_seq=32), device="cpu")
+    assert qk.params["layers"]["q_norm"].shape == (cfg.n_layers, cfg.hd)
+    assert torch.all(qk.params["layers"]["k_norm"] == 1)
     eng = ServeEngine(cfg, ServeConfig(page_size=4, max_seq=32),
                       device="cpu")
     assert eng.pool["layers"]["k"].device.type == "cpu"
