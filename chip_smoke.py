@@ -278,6 +278,22 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    SMOKE shapes are qwen3's: only the name differs), the synced
    gradients bit for bit, and qwen3's SMOKE serving card vs CPU
    (teacher-forced logits and greedy tokens, as phase 5).
+   4o. The xLSTM family (``xlstm_phase``; alone ``xlstm_alone``): (a)
+   xlstm_125m at its published widths and depth (12 layers: 3 x (3 mLSTM
+   + 1 sLSTM), d 768, vocab 50304), bf16, 4 stacked peers x 8 rows, t
+   512, ``--sync optinc --bits 8 --mesh 4x1 --lr 3e-4``, weights drawn
+   on the card, 7 steps, the last profiled (the device alone): finite
+   falling losses, every gradient of a peer finite at t 512 after the
+   run, step p50/p99, tokens/s, peak memory beside the reckoning, pam4
+   once a bucket, the busy share; the sLSTM loop alone as training runs
+   it (CUDA graphs) and dispatched op by op, gradients bit for bit, and
+   its share of the wall; the mLSTM chunk scan alone and its share of
+   the device time; (b) ServeSession at those widths, 8 prompts of 128
+   tokens x 32 new: prefill ms, decode step p50/p99, tokens/s, equal to
+   ``generate``; (c) the SMOKE step in f32 card vs CPU (synced
+   gradients bit for bit) and ServeSession card vs CPU (teacher-forced
+   logits, greedy tokens, as phase 5).  The phase prints each part's
+   seconds.
 5. Card vs plain end to end: the f32 model with the same weights served
    through the kernels on the card and through the plain path on the
    CPU; teacher-forced logits must agree, greedy tokens must agree up to
@@ -4344,10 +4360,12 @@ def hybrid_flash(card: str) -> dict:
     return records
 
 
-def profile_step(at: int):
+def profile_step(at: int, cpu: bool = True):
     """A TrainSession callback that runs step ``at`` under torch.profiler
     (started when step at - 1 ends, stopped when step at ends); its
-    ``prof`` and the step's ``wall_s`` afterwards."""
+    ``prof`` and the step's ``wall_s`` afterwards.  ``cpu`` False traces
+    the device alone (the host's ops of a loop-bound step are too many to
+    trace cheaply)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.api.callbacks import Callback
 
@@ -4356,8 +4374,8 @@ def profile_step(at: int):
 
         def on_step(self, session, record):
             if record["step"] == at - 1:
-                self.prof = profile(activities=[ProfilerActivity.CPU,
-                                                ProfilerActivity.CUDA])
+                self.prof = profile(activities=[ProfilerActivity.CUDA]
+                                    + [ProfilerActivity.CPU] * cpu)
                 self.prof.__enter__()
             elif record["step"] == at and self.prof is not None:
                 self.prof.__exit__(None, None, None)
@@ -4695,6 +4713,367 @@ def hybrid_alone(card: str) -> None:
     from repro_torch.kernels import _build
     _build.build()
     hybrid_phase(card)
+
+
+# ------------------------------------------- phase 4o: the xLSTM family
+# (a)'s steps: step 0 warms up, steps 1 to XLSTM_STEPS - 2 are timed and
+# the last is profiled
+XLSTM_STEPS = 7
+# (a): xlstm_125m at its published widths and depth, the JAX CLI's
+# defaults for the sync, mesh, batch and sequence (phase 4's), lr 3e-4
+XLSTM_ARGV = ["--arch", "xlstm_125m", "--sync", "optinc", "--bits", "8",
+              "--mesh", "4x1", "--global-batch", "32", "--seq-len", "512",
+              "--lr", "3e-4", "--device", "cuda"]
+XLSTM_PEERS, XLSTM_ROWS, XLSTM_T = 4, 8, 512
+# (b): ServeSession, 8 prompts of 128 tokens, 32 new
+XLSTM_SERVE = (8, 128, 32)
+# the optimiser's and the sync's bytes a parameter of a stacked run:
+# bf16 weights 2, f32 moments 8, the f32 gradient stack 4 a peer, and
+# while AdamW updates: the new moments 8 and the synced and the clipped
+# gradients 4 each
+STATE_BYTES_PER_PARAM = 2 + 8 + 8 + 4 + 4
+
+
+def xlstm_reckoning(cfg, peers: int, b: int, t: int) -> dict:
+    """The peak bytes a stacked xLSTM step should take, from the shapes:
+    the state (STATE_BYTES_PER_PARAM + 4 a peer for the gradient stack)
+    and one peer's activations, which autograd keeps until its backward:
+    the f32 logits, their softmax and gradient (3 b t V); per mLSTM layer
+    about 16 f32 tensors of the sequence at d_inner (q, k, v, the gate,
+    the scan's terms), the chunk terms C (b, chunks, nh, hp, hp) and the
+    states before each chunk, and 4 (b, chunks, nh, Q, Q) decay and
+    weight tensors; per sLSTM layer about 16 f32 tensors of (b, d) a
+    step."""
+    n = n_params(cfg)
+    n_s = cfg.n_layers // cfg.slstm_every
+    n_m = cfg.n_layers - n_s
+    nh, d, q = cfg.n_heads, cfg.d_model, 128
+    hp, nc = 2 * d // nh, -(-t // q)
+    state = n * (STATE_BYTES_PER_PARAM + 4 * peers)
+    logits = 3 * b * t * cfg.vocab * 4
+    mlstm = n_m * 4 * (16 * b * t * 2 * d + 2 * b * nc * nh * hp * hp
+                       + 4 * b * nc * nh * q * q)
+    slstm = n_s * 4 * 16 * b * t * d
+    return {"state": state, "logits": logits, "mlstm": mlstm,
+            "slstm": slstm, "total": state + logits + mlstm + slstm}
+
+
+def _timed_block(fn, device_time: bool) -> float:
+    """ms of fn() (forward and backward of one block), warmed once: by
+    CUDA events over 3 calls (the device's time), or with
+    ``device_time`` False by the host's clock to a synchronize (the
+    wall, which a host-bound loop sets)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    if device_time:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / 3
+    t = time.perf_counter()
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / 3 * 1e3
+
+
+def xlstm_block_ms(cfg) -> dict:
+    """At one peer's shapes of the step (b 8, t 512): the device ms of one
+    mLSTM layer's chunk scan (``mlstm_chunk_scan`` alone, forward and
+    backward, f32, chunk 128), and the wall ms of one sLSTM layer's loop
+    forward and backward, as training runs it (``SLSTMScan``: CUDA
+    graphs) and dispatched op by op (its two loops called as written),
+    with the two gradients held bit for bit.  Each timed over 3 calls
+    after a warm one."""
+    import torch
+    from repro_torch.models import blocks
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    b, t, d, nh = XLSTM_ROWS, XLSTM_T, cfg.d_model, cfg.n_heads
+    hp = 2 * d // nh
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale
+                ).requires_grad_()
+    scan_in = [rand(b, t, nh, hp, scale=hp ** -0.5), rand(b, t, nh, hp),
+               rand(b, t, nh, hp), rand(b, t, nh, scale=0.1), rand(b, t, nh)]
+
+    def scan():
+        q, k, v, f, i = scan_in
+        y, c, n = blocks.mlstm_chunk_scan(
+            q, k, v, torch.nn.functional.logsigmoid(f), i, 128)
+        torch.autograd.grad(y.sum() + c.sum() + n.sum(), scan_in)
+    hs = d // nh
+    gates, r = rand(t, nh, b, 4 * hs), rand(nh, hs, hs, scale=0.02)
+    d_h = torch.randn((t, nh, b, hs), generator=g, device="cuda")
+    zeros = torch.zeros((nh, b, hs), device="cuda")
+    init = (zeros, zeros, zeros, zeros - 30.0)
+    grads = {}
+
+    def graphed():
+        out = blocks.SLSTMScan.apply(gates, r, *init)
+        grads["graphed"] = torch.autograd.grad(out[0], (gates, r), d_h)
+
+    def dispatched():
+        with torch.no_grad():
+            out = blocks._slstm_forward(gates, r, *init)
+            grads["dispatched"] = blocks._slstm_backward(
+                d_h, None, None, None, r, *out, *init)
+    times = {"mlstm_scan": _timed_block(scan, True),
+             "slstm_graphed": _timed_block(graphed, False),
+             "slstm_dispatched": _timed_block(dispatched, False)}
+    times["slstm_equal"] = all(torch.equal(a, b_) for a, b_ in zip(
+        grads["graphed"], grads["dispatched"]))
+    blocks.clear_graphs()
+    return times
+
+
+def xlstm_grads_finite(cfg, session) -> int:
+    """The non-finite leaves of one peer's gradient (8 rows of the step-0
+    batch, t 512) at the run's last parameters."""
+    import torch
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.tree import leaves
+    tokens = torch.from_numpy(session.data.batch(0)[:XLSTM_ROWS]).cuda()
+    sizes = [t.numel() for t in leaves(session.params)]
+    _, flat = tsteps.peer_grad_stack(cfg, session.params, tokens, 1,
+                                     sum(sizes))
+    return sum(not torch.isfinite(g).all().item()
+               for g in flat[0].split(sizes))
+
+
+def xlstm_train_full_width(card: str) -> dict:
+    """(a) xlstm_125m at its published widths and depth (12 layers: 3 x (3
+    mLSTM + 1 sLSTM); d 768, 4 heads, vocab 50304), bf16, 4 stacked
+    peers x 8 rows, t 512, ``--sync optinc --bits 8 --mesh 4x1 --lr
+    3e-4``, the seeded weights drawn on the card, XLSTM_STEPS steps, the
+    last profiled: finite falling losses, every gradient of a peer finite
+    at t 512 after the run, step p50/p99 over the unprofiled steps after
+    the first, tokens/s, peak memory beside the reckoning, pam4 once a
+    bucket, the busy share, the sLSTM loops' share of the wall and the
+    mLSTM chunk scans' share of the device time.  Returns the launches."""
+    from repro_torch.collectives.bucketizer import make_layout
+    from repro_torch.configs import get
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves
+    cfg = get("xlstm_125m")
+    n = n_params(cfg)
+    n_s = cfg.n_layers // cfg.slstm_every
+    n_m = cfg.n_layers - n_s
+    prof = profile_step(XLSTM_STEPS - 1, cpu=False)
+    session, recs, losses, init_s, launches, _, peak = hybrid_session(
+        XLSTM_ARGV, cfg, XLSTM_STEPS, [prof],
+        draw=lambda: device_params(cfg, SEED))
+    buckets = make_layout([(s, lm.torch_dtype(cfg)) for s in
+                           leaves(lm.param_shapes(cfg))],
+                          session.sync.bucket_bytes).n_buckets
+    bad = xlstm_grads_finite(cfg, session)
+    n_leaves = len(leaves(session.params))
+    session.close()
+    del session
+    reckon = xlstm_reckoning(cfg, XLSTM_PEERS, XLSTM_ROWS, XLSTM_T)
+    tokens = XLSTM_PEERS * XLSTM_ROWS * XLSTM_T
+    print(f"4o (a) xlstm_125m (d 768; {n_m} mLSTM layers of d_inner 1536 "
+          f"in 4 heads of 384, {n_s} sLSTM layers of 4 heads of 192; vocab "
+          f"50304; {n} parameters, {buckets} buckets) {XLSTM_PEERS} stacked "
+          f"peers x {XLSTM_ROWS} rows, --sync optinc --bits 8 --lr 3e-4, "
+          f"seq {XLSTM_T}, {XLSTM_STEPS} steps (session init with the "
+          f"weights drawn on the card {init_s:.2f} s; the last step "
+          f"profiled): {step_line(recs[:-1], losses[:-1], tokens)}; last "
+          f"loss {losses[-1]}; non-finite gradient leaves of a peer at t "
+          f"{XLSTM_T} after the run: {bad} of {n_leaves}; peak "
+          f"memory {peak} bytes ({peak / 1e9:.2f} GB) against the "
+          f"reckoning {reckon['total'] / 1e9:.2f} GB (state "
+          f"{reckon['state'] / 1e9:.2f}, logits {reckon['logits'] / 1e9:.2f}"
+          f", mLSTM {reckon['mlstm'] / 1e9:.2f}, sLSTM "
+          f"{reckon['slstm'] / 1e9:.2f}); launches {launches} [{card}]",
+          flush=True)
+    check_falling("4o (a) xlstm_125m", losses)
+    if bad:
+        raise AssertionError(f"4o (a): {bad} non-finite gradient leaves")
+    want = XLSTM_STEPS * buckets
+    if not (launches["pam4_quantize_encode"] == want
+            and launches["pam4_decode_dequantize"] == want):
+        raise AssertionError(f"4o (a) launches {launches}: want {want} of "
+                             f"each pam4 (once a bucket a step)")
+    step_ms = pct([r["time_s"] for r in recs[1:-1]], 0.5) * 1e3
+    ms = xlstm_block_ms(cfg)
+    slstm_ms = XLSTM_PEERS * n_s * ms["slstm_graphed"]
+    print(f"4o (a) the sLSTM loop alone, forward and backward at a peer's "
+          f"shapes (b {XLSTM_ROWS}, t {XLSTM_T}): "
+          f"{ms['slstm_graphed']:.3f} ms of wall a layer as CUDA graphs "
+          f"(dispatched op by op from the host: "
+          f"{ms['slstm_dispatched']:.3f} ms; gradients bit-equal "
+          f"{ms['slstm_equal']}), x {n_s} layers x {XLSTM_PEERS} peers = "
+          f"{slstm_ms:.3f} ms, {100 * slstm_ms / step_ms:.2f}% of the step's "
+          f"p50 {step_ms:.3f} ms [{card}]", flush=True)
+    if not ms["slstm_equal"]:
+        raise AssertionError("4o (a): the graphed sLSTM loop's gradients "
+                             "differ from the dispatched loop's")
+    t = time.perf_counter()
+    dev = (device_profile(prof.prof, prof.wall_s, card, "xlstm_125m step")
+           if prof.prof is not None else {})
+    print(f"4o (a) the profiler's report of the step took "
+          f"{time.perf_counter() - t:.1f} s [{card}]", flush=True)
+    if dev:
+        busy_ms = sum(dev.values()) / 1e3
+        scan_ms = XLSTM_PEERS * n_m * ms["mlstm_scan"]
+        print(f"4o (a) the mLSTM chunk scan alone, forward and backward at "
+              f"a peer's shapes: {ms['mlstm_scan']:.3f} ms of device time a "
+              f"layer, x {n_m} layers x {XLSTM_PEERS} peers = "
+              f"{scan_ms:.3f} ms, {100 * scan_ms / busy_ms:.2f}% of the "
+              f"profiled step's {busy_ms:.3f} ms of device time [{card}]",
+              flush=True)
+    return launches
+
+
+def xlstm_serve_full_width(card: str) -> None:
+    """(b) ServeSession on xlstm_125m at its published widths (bf16,
+    seeded weights drawn on the card): 8 prompts of 128 tokens, one
+    prefill (the mLSTM's chunk scan, the sLSTM's loop) and 32 greedy
+    tokens a prompt through the recurrent decode step: prefill ms, decode
+    step p50/p99, output tokens/s over the prefill and the decodes."""
+    import torch
+    from repro_torch.api import RunSpec, ServeSession
+    from repro_torch.configs import get
+    cfg = get("xlstm_125m")
+    b, t, new = XLSTM_SERVE
+    sess = ServeSession(RunSpec(arch="xlstm_125m"),
+                        params=device_params(cfg, SEED + 1), device="cuda")
+    prompts = torch.randint(0, cfg.vocab, (b, t), device="cuda",
+                            generator=torch.Generator(
+                                device="cuda").manual_seed(SEED + 2))
+    sess.generate(prompts[:1, :16], 2)                   # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = sess.prefill(prompts)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    tok = logits.argmax(-1)[:, None]
+    out, times = [tok], []
+    for i in range(new - 1):
+        t1 = time.perf_counter()
+        logits, state = sess.decode(state, tok, t + i)
+        tok = logits.argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        out.append(tok)
+    wall = time.perf_counter() - t0
+    gen = torch.cat(out, dim=1)
+    same = torch.equal(gen, sess.generate(prompts, new))
+    state_mb = sum(v.numel() * 4 for kind in state.values()
+                   for v in kind.values()) / 1e6
+    print(f"4o (b) xlstm_125m (bf16) served by ServeSession: {b} prompts "
+          f"of {t} tokens x {new} new: prefill {prefill_s * 1e3:.2f} ms, "
+          f"decode step p50 {pct(times, 0.5) * 1e3:.2f} ms p99 "
+          f"{pct(times, 0.99) * 1e3:.2f} ms over {len(times)} steps, "
+          f"{b * new / wall:.1f} output tokens/s ({wall:.3f} s); recurrent "
+          f"state {state_mb:.1f} MB for the batch, whatever the length; "
+          f"generate() gives the same tokens: {same} [{card}]", flush=True)
+    if not (same and torch.isfinite(logits).all()):
+        raise AssertionError("4o (b) serving disagrees with generate()")
+
+
+def recurrent_forced_logits(sess, prompts, forced) -> "torch.Tensor":
+    """Logits of ServeSession's prefill and each decode step, feeding
+    ``forced`` tokens (n, steps) instead of sampling: (n, steps, V) on
+    the CPU."""
+    import torch
+    logits, state = sess.prefill(prompts)
+    out = [logits]
+    for j in range(forced.shape[1] - 1):
+        logits, state = sess.decode(state, forced[:, j:j + 1],
+                                    prompts.shape[1] + j)
+        out.append(logits)
+    return torch.stack(out, dim=1).float().cpu()
+
+
+def recurrent_serving_card_vs_cpu(card: str, label: str, arch: str) -> None:
+    """``arch``'s SMOKE config (f32) served by ServeSession on the card
+    and on the CPU from the same seeded weights, 4 prompts of 40 tokens x
+    16 new: the teacher-forced logits within LOGIT_TOL, and the greedy
+    tokens equal up to the first position where the plain top-2 margin
+    is thinner than 2 LOGIT_TOL (phase 5's rule)."""
+    import numpy as np
+    import torch
+    from repro_torch.api import RunSpec, ServeSession
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+    spec = RunSpec(arch=arch, smoke=True)
+    params = lm.init_params(cfg, SEED, "cpu")
+    cpu = ServeSession(spec, params, device="cpu", cfg=cfg)
+    gpu = ServeSession(spec, tree_map(lambda t: t.cuda(), params),
+                       device="cuda", cfg=cfg)
+    prompts = torch.randint(0, cfg.vocab, (4, 40),
+                            generator=torch.Generator().manual_seed(SEED))
+    new = 16
+    plain = cpu.generate(prompts, new)
+    card_out = gpu.generate(prompts, new).cpu()
+    lg_cpu = recurrent_forced_logits(cpu, prompts, plain)
+    lg_gpu = recurrent_forced_logits(gpu, prompts.cuda(), plain.cuda())
+    err = (lg_cpu - lg_gpu).abs().max().item()
+    print(f"{label} ({cfg.name} f32, ServeSession, 4 prompts of 40 tokens x "
+          f"{new}): teacher-forced logits max_abs_err {err:.3e} (tol "
+          f"{LOGIT_TOL:.0e}), |logits| max {lg_cpu.abs().max().item():.3f}",
+          flush=True)
+    if not err <= LOGIT_TOL:
+        raise AssertionError(f"{label}: card logits disagree: {err}")
+    top2 = lg_cpu.topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).numpy()
+    for i in range(len(prompts)):
+        thin = np.nonzero(margin[i] < 2 * LOGIT_TOL)[0]
+        upto = int(thin[0]) if thin.size else new
+        if not torch.equal(card_out[i, :upto], plain[i, :upto]):
+            raise AssertionError(
+                f"{label} prompt {i}: card tokens {card_out[i].tolist()} != "
+                f"plain {plain[i].tolist()} before position {upto}")
+    equal = sum(torch.equal(card_out[i], plain[i]) for i in range(len(plain)))
+    print(f"{label} greedy tokens: {equal}/{len(plain)} prompts identical on "
+          f"card and plain [{card}]", flush=True)
+
+
+def xlstm_card_vs_plain(card: str) -> None:
+    """(c) The xLSTM SMOKE step in f32 card vs CPU (``smoke_card_vs_cpu``:
+    t 128, the loss and the gradients within phase 5's tolerances, the
+    synced gradients bit for bit) and its ServeSession card vs CPU."""
+    smoke_card_vs_cpu(card, "4o (c)", "xlstm_125m")
+    recurrent_serving_card_vs_cpu(card, "4o (c) serving", "xlstm_125m")
+
+
+def xlstm_phase(card: str) -> dict:
+    """Phase 4o: the xLSTM family on one card, (a)-(c).  Returns (a)'s
+    launches."""
+    import torch
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts = {}
+
+    def part(key, fn):
+        t = time.perf_counter()
+        out = fn(card)
+        parts[key] = time.perf_counter() - t
+        return out
+    launches = part("a", xlstm_train_full_width)
+    part("b", xlstm_serve_full_width)
+    part("c", xlstm_card_vs_plain)
+    print(f"phase 4o took {time.perf_counter() - t_phase:.1f} s ("
+          + ", ".join(f"({k}) {v:.1f} s" for k, v in parts.items())
+          + f") [{card}]", flush=True)
+    return launches
+
+
+def xlstm_alone(card: str) -> None:
+    """Phase 4o alone, the kernels built first."""
+    from repro_torch.kernels import _build
+    _build.build()
+    xlstm_phase(card)
 
 
 # ----------------------------------------- phase 4d: the trained ONN
@@ -5976,6 +6355,7 @@ def main() -> int:
     records.update(phase("4k moe", moe_full_width, card)["records"])
     records.update(phase("4l whisper", whisper_phase, card))
     records.update(phase("4m qk-norm and mamba2", hybrid_phase, card))
+    phase("4o xlstm", xlstm_phase, card)
     onn = phase("4d trained onn", trained_onn_full_width, card)
     onn_launches, behavioral_bits2 = phase(
         "4b onn", train_onn_full_width, card, behavioral8, onn)

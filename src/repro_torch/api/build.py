@@ -8,9 +8,13 @@ and ``decode_cache_specs`` are PartitionSpecs for shard_map and get no
 twin: a rank's shard shapes come from ``models.lm.local_param_shapes``
 (slices: ``lm.shard_params``) and its residual sizes from
 ``launch.steps._local_leaf_sizes``; the serving decode cache is a paged
-pool with a fixed block table (``new_decode_cache``).
+pool with a fixed block table (``new_decode_cache``), or for the xLSTM
+family its recurrent state (``lm.init_cache``): the serving builders
+route by family.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -96,8 +100,12 @@ def build_prefill_step(spec: RunSpec, cfg=None):
     """step(params, tokens, lengths=None) -> (logits (b, V) f32 at each
     row's last valid position, prefill cache) through
     ``lm.batched_prefill_step`` (attention: the flash forward kernel).
-    ``lengths`` None = every row is whole."""
+    ``lengths`` None = every row is whole.  For the xLSTM family
+    step(params, tokens) -> (logits at the last position, recurrent
+    state) through ``lm.prefill_step``."""
     cfg = _cfg(spec, cfg)
+    if cfg.ssm == "xlstm":
+        return functools.partial(lm.prefill_step, cfg)
 
     def step(params, tokens, lengths=None):
         if lengths is None:
@@ -112,7 +120,11 @@ def new_decode_cache(spec: RunSpec, cfg, batch: int, max_seq: int,
     """A decode cache for ``batch`` sequences of up to ``max_seq``
     tokens: a paged pool (``spec.serve.page_size``, ``kv_dtype``) in
     which sequence i owns the ``ceil(max_seq / page_size)`` pages of row
-    i of a fixed block table (page 0 is the null page)."""
+    i of a fixed block table (page 0 is the null page); for the xLSTM
+    family the zero recurrent state (``lm.init_cache``), whatever
+    ``max_seq``."""
+    if cfg.ssm == "xlstm":
+        return lm.init_cache(cfg, batch, device)
     ps = spec.serve.page_size
     nb = -(-max_seq // ps)
     pool = kv_pool.init_pool(cfg, 1 + batch * nb, ps,
@@ -126,8 +138,12 @@ def build_decode_step(spec: RunSpec, cfg=None):
     """step(params, cache, token (b, 1), pos) -> (logits (b, V) f32,
     cache): every row's token at position ``pos`` through
     ``lm.paged_decode_step`` (attention: the paged_attention kernel);
-    the pool is written in place."""
+    the pool is written in place.  For the xLSTM family the step of
+    ``lm.decode_step``, which carries the recurrent state (``pos``
+    unused)."""
     cfg = _cfg(spec, cfg)
+    if cfg.ssm == "xlstm":
+        return functools.partial(lm.decode_step, cfg)
 
     def step(params, cache, token, pos: int):
         lengths = torch.full((token.shape[0],), pos, dtype=torch.int32,

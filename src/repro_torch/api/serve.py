@@ -6,15 +6,22 @@ the spec's checkpoint directory when ``ckpt.resume`` is set (serve a
 trained run), or a fresh seeded init — the ``serving.reload`` resolution
 the continuous-batching ServeEngine uses too.
 
-The port has one decode path, the paged kernel's.  JAX's session decodes
-over a contiguous cache in plain jnp; here the session's cache is a
-paged pool in which each sequence owns ``ceil(max_seq / page_size)``
-pages through a fixed block table (``build.new_decode_cache``).
-``generate`` runs one prefill over the whole prompt batch
-(``lm.batched_prefill_step``: the flash forward kernel), scatters its KV
-into the pages and decodes greedily through ``lm.paged_decode_step``
-(the paged_attention kernel).  JAX's token-by-token replay exists for
-its flash-decode seq-sharded cache and has no twin:
+The port has two decode paths, picked by family (``api.build``).  JAX's
+session decodes every family over a contiguous cache in plain jnp.
+Here the dense-attention families decode over a paged pool in which
+each sequence owns ``ceil(max_seq / page_size)`` pages through a fixed
+block table (``build.new_decode_cache``): ``generate`` runs one prefill
+over the whole prompt batch (``lm.batched_prefill_step``: the flash
+forward kernel), scatters its KV into the pages and decodes greedily
+through ``lm.paged_decode_step`` (the paged_attention kernel).  The
+xLSTM family decodes on JAX's contiguous path: its cache is its
+recurrent state (``lm.init_cache``), which ``lm.prefill_step`` returns
+after the prompt and ``lm.decode_step`` carries a token at a time, and
+``generate`` decodes from the prefill's state as it is (JAX's
+``_seed_cache`` takes leaves of the decode cache's shape as they are).
+The other families' contiguous paths (zamba2's mixed state, whisper's
+cross cache, the MoE caches) are not ported.  JAX's token-by-token
+replay exists for its flash-decode seq-sharded cache and has no twin:
 ``seq_shard_cache=True`` is refused.
 """
 from __future__ import annotations
@@ -37,11 +44,13 @@ class ServeSession:
                             "cache is not ported (the port decodes over "
                             "one paged pool on one device)")
         self.cfg = cfg if cfg is not None else spec.model_config()
-        if not kv_pool.supports_paged(self.cfg):
+        self.recurrent = self.cfg.ssm == "xlstm"
+        if not (kv_pool.supports_paged(self.cfg) or self.recurrent):
             raise NotImplementedError(
-                f"ServeSession covers the dense-attention families; the "
-                f"contiguous decode path of the ssm, enc-dec and MoE "
-                f"families ({self.cfg.name}) is not ported")
+                f"ServeSession covers the dense-attention families (paged) "
+                f"and xLSTM; the contiguous decode path of the ssm, enc-dec "
+                f"and MoE families is ported for xLSTM only, not for "
+                f"{self.cfg.name}")
         spec.validate()
         self.spec = spec
         self.device = device_util.resolve(device, "ServeSession")
@@ -54,26 +63,31 @@ class ServeSession:
         self._decode = build.build_decode_step(spec, self.cfg)
 
     def _tokens(self, tokens) -> torch.Tensor:
+        if isinstance(tokens, torch.Tensor):     # a card's argmax, say
+            return tokens.to(self.device, torch.int64)
         return torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
                                device=self.device)
 
     # ------------------------------------------------------------ serving
     @torch.inference_mode()
     def prefill(self, tokens):
-        """(logits (b, V) f32 at the last position, prefill cache
-        {"layers": {"k","v": (L, b, kvl, t, hd)}}) for a prompt batch."""
+        """(logits (b, V) f32 at the last position, prefill cache) for a
+        prompt batch: {"layers": {"k","v": (L, b, kvl, t, hd)}}, or the
+        xLSTM family's recurrent state after the prompt."""
         return self._prefill(self.params, self._tokens(tokens))
 
     def new_cache(self, batch: int, max_seq: int) -> dict:
-        """An empty paged decode cache for ``batch`` sequences of up to
-        ``max_seq`` tokens."""
+        """An empty decode cache for ``batch`` sequences of up to
+        ``max_seq`` tokens: a paged pool, or the xLSTM family's zero
+        state."""
         return build.new_decode_cache(self.spec, self.cfg, batch, max_seq,
                                       self.device)
 
     @torch.inference_mode()
     def decode(self, cache, token, pos: int):
-        """One decode step of every row at position ``pos``; the cache's
-        pool is written in place.  Returns (logits (b, V) f32, cache)."""
+        """One decode step of every row at position ``pos``; a paged
+        cache's pool is written in place.  Returns (logits (b, V) f32,
+        cache)."""
         return self._decode(self.params, cache, self._tokens(token), pos)
 
     def engine(self):
@@ -86,12 +100,16 @@ class ServeSession:
     @torch.inference_mode()
     def generate(self, prompts, gen_len: int, max_seq: int | None = None):
         """Greedy decode: one prefill over the prompt batch, its KV
-        scattered into each row's pages, then argmax sampling one token
+        scattered into each row's pages (or, for xLSTM, its recurrent
+        state taken as the decode cache), then argmax sampling one token
         per decode step.  Returns (batch, gen_len) int64 token ids."""
         prompts = self._tokens(prompts)
         batch, prompt_len = prompts.shape
         max_seq = max_seq or prompt_len + gen_len
         assert max_seq >= prompt_len + gen_len, (max_seq, prompt_len, gen_len)
+        if self.recurrent:
+            logits, cache = self._prefill(self.params, prompts)
+            return self._greedy(logits, cache, prompt_len, gen_len)
         ps = self.spec.serve.page_size
         t_pad = -(-prompt_len // ps) * ps      # whole pages for the scatter
         cache = self.new_cache(batch, max(max_seq, t_pad))
@@ -103,6 +121,11 @@ class ServeSession:
         logits, pre = self._prefill(self.params, padded, lengths)
         kv_pool.write_prompts(cache["pool"], pre,
                               cache["page_table"][:, :t_pad // ps], lengths)
+        return self._greedy(logits, cache, prompt_len, gen_len)
+
+    def _greedy(self, logits, cache, prompt_len: int, gen_len: int):
+        """The argmax of the prefill's logits, then gen_len - 1 decode
+        steps from ``cache``, each feeding the last argmax."""
         vocab = self.cfg.vocab
         tok = logits[:, :vocab].argmax(-1)[:, None]
         out = [tok]

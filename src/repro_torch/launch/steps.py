@@ -194,8 +194,9 @@ def make_train_step(cfg: ModelConfig, peers: int, sync: SyncConfig,
         raise NotImplementedError(
             f"{cfg.name} with "
             + ("--fsdp" if ctx.fsdp else f"tensor parallelism (tp {ctx.tp})")
-            + ": the ssm family is not ported sharded yet (JAX runs it with "
-            f"its SSD heads over 'model' and its weights over 'data')")
+            + ": the ssm family (mamba2, xLSTM) is not ported sharded yet "
+            f"(JAX runs it with its heads, the SSD's or the mLSTM's and "
+            f"sLSTM's, over 'model' and its weights over 'data')")
     if ctx.sharded:
         return _sharded_train_step(cfg, sync, opt, ctx, world)
     shapes = leaves(lm.param_shapes(cfg))

@@ -1,4 +1,4 @@
-"""Attention, MoE and Mamba-2 blocks (counterpart of
+"""Attention, MoE, Mamba-2 and xLSTM blocks (counterpart of
 ``repro.models.blocks``):
 the training/prefill branch of ``gqa_attention`` (self-attention, or
 whisper's cross-attention over given K/V, causal or not; differentiable:
@@ -10,8 +10,12 @@ nothing autograd saves is written in place), the paged decode step
 selection, expert-parallel over 'model', and the shared experts) and
 the training/prefill branch of the Mamba-2 block (``mamba2_block`` over
 ``ssd_chunk_scan``, plain torch ops: the JAX package has no kernel for
-it).  qwen3's and chameleon's qk-norm runs in ``_gqa_qkv``, which
-training, prefill and paged decode share.
+it), and the xLSTM family's two blocks, each with its prefill and
+decode branches: the mLSTM (``mlstm_block`` over ``mlstm_chunk_scan``,
+the SSD's form) and the sLSTM (``slstm_block`` over ``SLSTMScan``, its
+loop over t with a backward written by hand).  qwen3's and chameleon's
+qk-norm runs in ``_gqa_qkv``, which training, prefill and paged decode
+share.
 
 Under tensor parallelism each rank holds its heads: hl = h_pad / tp
 query heads and kvl = kv_pad / tp KV heads (``_heads_local`` and
@@ -316,3 +320,348 @@ def mamba2_block(cfg: ModelConfig, p, x, chunk: int = 128):
     y = y + xh * p["d_skip"][:, None]
     y = (y.reshape(b, t, -1) * F.silu(z.float())).to(x.dtype)
     return y @ p["w_out"], state
+
+
+# ================================ xLSTM ================================
+
+def _max1(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.maximum(x, 1.0)``: at a tie the gradient is halved, as
+    JAX's and torch's ``maximum`` both do (``clamp_min`` passes it
+    whole; the sLSTM's normaliser is 1 exactly after its first step)."""
+    return torch.maximum(x, x.new_ones(()))
+
+
+def mlstm_chunk_scan(q, k, v, log_f, i_raw, chunk: int):
+    """The mLSTM's chunkwise-parallel scan (the ``state is None`` branch
+    of JAX's ``mlstm_block``), the training and prefill form.  q (scaled
+    by hp^-0.5), k, v: (b, t, nh, hp); log_f = log sigmoid(f_raw) and
+    i_raw: (b, t, nh); all f32.  t is padded to whole chunks (q, k, v and
+    log_f 0, i_raw -30 there); log_f is clipped to [-30, 0] and i_raw to
+    [-30, 10], i = exp(i_raw); within a chunk cum is the cumsum of log_f,
+    and
+
+        h~_i = sum_{j <= i} (q_i . k_j) exp(cum_i - cum_j) i_j v_j
+               + (q_i C) exp(cum_i),
+        n_i  = sum_{j <= i} (q_i . k_j) exp(cum_i - cum_j) i_j
+               + (q_i . n) exp(cum_i),
+        y_i  = h~_i / max(|n_i|, 1),
+        C <- C exp(cum_last) + sum_j exp(cum_last - cum_j) i_j k_j v_j^T,
+        n <- n exp(cum_last) + sum_j exp(cum_last - cum_j) i_j k_j
+
+    with the matrix memory C (hp, hp) and the normaliser n (hp) carried
+    from chunk to chunk (zero at first).  Returns y (b, t, nh, hp) and
+    the final C (b, nh, hp, hp) and n (b, nh, hp).
+
+    As in ``ssd_chunk_scan``, the terms a chunk adds that do not depend
+    on the carried state are computed for all chunks at once, and only
+    the recurrence of (C, n) loops over the chunks; the f32 sums run in
+    other orders than JAX's scan.
+
+    The same repair of the reference's gradient as the SSD's: JAX builds
+    the decay as ``where(mask, exp(rel), 0)``, and above the diagonal rel
+    = -sum log sigmoid(f) >= 0 grows by about 0.69 a token at init
+    (log sigmoid(0)), so a chunk of 128 reaches exp(88), f32's overflow;
+    the forward drops the inf, the backward gives 0 * inf = NaN.  Here
+    the decay is ``exp(where(mask, rel, -inf))``: the same forward, bit
+    for bit, and JAX's gradient wherever JAX's is finite."""
+    b, t, nh, hp = q.shape
+    pad = (-t) % chunk
+    if pad:
+        q, k, v = (F.pad(a, (0, 0, 0, 0, 0, pad)) for a in (q, k, v))
+        log_f = F.pad(log_f, (0, 0, 0, pad))
+        i_raw = F.pad(i_raw, (0, 0, 0, pad), value=-30.0)
+    nc = q.shape[1] // chunk
+
+    def heads(a):                       # (b, tc, h, p) -> (b, c, h, Q, p)
+        return a.reshape(b, nc, chunk, nh, hp).permute(0, 1, 3, 2, 4)
+
+    def gates(a):                       # (b, tc, h) -> (b, c, h, Q)
+        return a.reshape(b, nc, chunk, nh).transpose(2, 3)
+    qc, kc, vc = heads(q), heads(k), heads(v)
+    cum = torch.cumsum(gates(log_f.clamp(-30.0, 0.0)), dim=-1)   # <= 0
+    ic = torch.exp(gates(i_raw.clamp(-30.0, 10.0)))
+    mask = torch.ones((chunk, chunk), dtype=torch.bool,
+                      device=q.device).tril()
+    dec = torch.exp(torch.where(mask, cum[..., :, None] - cum[..., None, :],
+                                float("-inf")))                  # (b,c,h,Q,Q)
+    w = (qc @ kc.transpose(-1, -2)) * dec * ic[..., None, :]
+    y = w @ vc                                                   # intra
+    n_q = w.sum(-1)                                              # (b,c,h,Q)
+    kw = kc * (torch.exp(cum[..., -1:] - cum) * ic)[..., None]
+    c_chunk = kw.transpose(-1, -2) @ vc                          # (b,c,h,p,p)
+    n_chunk = kw.sum(-2)                                         # (b,c,h,p)
+    decay = torch.exp(cum[..., -1])                              # (b,c,h)
+    c_state = q.new_zeros((b, nh, hp, hp))
+    n_state = q.new_zeros((b, nh, hp))
+    c_before, n_before = [], []
+    for c in range(nc):
+        c_before.append(c_state)
+        n_before.append(n_state)
+        c_state = c_state * decay[:, c, :, None, None] + c_chunk[:, c]
+        n_state = n_state * decay[:, c, :, None] + n_chunk[:, c]
+    ed = torch.exp(cum)
+    y = y + (qc @ torch.stack(c_before, dim=1)) * ed[..., None]  # inter
+    n_q = n_q + (qc @ torch.stack(n_before, dim=1)[..., None])[..., 0] * ed
+    y = y / _max1(n_q.abs())[..., None]
+    y = y.permute(0, 1, 3, 2, 4).reshape(b, nc * chunk, nh, hp)[:, :t]
+    return y, c_state, n_state
+
+
+def mlstm_block(cfg: ModelConfig, p, x, state=None, chunk: int = 128):
+    """The mLSTM (matrix memory) block, JAX's ``mlstm_block``, unsharded:
+    rmsnorm(x) projected to q, k, v, the gate z (d_inner 2d each, nh
+    heads of hp = 2d / nh) and the input and forget gates (nh each); in
+    f32 q scaled by hp^-0.5, log_f = log sigmoid(f); the chunkwise scan
+    (``mlstm_chunk_scan``) over the sequence, or with ``state`` = {"c":
+    (b, nh, hp, hp), "n": (b, nh, hp)} one decode step (t 1):
+
+        C <- f C + i k v^T,  n <- f n + i k,  y = q C / max(|q . n|, 1)
+
+    with f = exp(clip(log_f, -30, 0)) and i = exp(clip(i_raw, -30, 10));
+    then the gate silu(z), cast to x's dtype, and w_out.  Returns (out
+    (b, t, d), the new state {"c", "n"} in f32: the prefill's final state
+    or the decode step's)."""
+    h = rmsnorm(x, p["norm"])
+    b, t, _ = h.shape
+    nh = p["w_if"].shape[-1] // 2
+    hp = p["w_q"].shape[-1] // nh
+    q = (h @ p["w_q"]).reshape(b, t, nh, hp).float() * hp ** -0.5
+    k = (h @ p["w_k"]).reshape(b, t, nh, hp).float()
+    v = (h @ p["w_v"]).reshape(b, t, nh, hp).float()
+    z = h @ p["w_z"]
+    gif = (h @ p["w_if"]).float()
+    i_raw = gif[..., :nh]
+    log_f = F.logsigmoid(gif[..., nh:])                          # <= 0
+    if state is None:
+        y, c_state, n_state = mlstm_chunk_scan(q, k, v, log_f, i_raw, chunk)
+    else:
+        f1 = torch.exp(log_f[:, 0].clamp(-30.0, 0.0))[..., None]  # (b,h,1)
+        i1 = torch.exp(i_raw[:, 0].clamp(-30.0, 10.0))[..., None]
+        q1, k1, v1 = q[:, 0], k[:, 0], v[:, 0]                   # (b,h,p)
+        c_state = (state["c"] * f1[..., None]
+                   + i1[..., None] * (k1[..., :, None] * v1[..., None, :]))
+        n_state = state["n"] * f1 + i1 * k1
+        num = (q1[..., None, :] @ c_state)[..., 0, :]            # (b,h,p)
+        den = _max1((q1 * n_state).sum(-1).abs())
+        y = (num / den[..., None])[:, None]
+    y = (y.reshape(b, t, -1) * F.silu(z.float())).to(x.dtype)
+    return y @ p["w_out"], {"c": c_state, "n": n_state}
+
+
+def _tie(a: torch.Tensor, b) -> torch.Tensor:
+    """d max(a, b) / da as JAX's (and torch's) ``maximum`` gives it: 1
+    where a > b, 0.5 at a tie, 0 below."""
+    return (a > b).float() + 0.5 * (a == b).float()
+
+
+def _slstm_forward(gates, r, h0, c0, n0, m0):
+    """``SLSTMScan``'s loop: (the gates after the recurrent add, H, C, N,
+    M), each state (t, nh, b, hp).  Every per-step slice is made before
+    the loop (``unbind``), so a step dispatches only its ~16 ops."""
+    t, nh, b, hp4 = gates.shape
+    hp = hp4 // 4
+    r4 = r.repeat(1, 1, 4)
+    g_all = torch.empty_like(gates)
+    states = [gates.new_empty((t, nh, b, hp)) for _ in range(4)]
+    z, i, f, o = (x.unbind(0) for x in g_all.view(t, nh, b, 4, hp).unbind(3))
+    g_in, g_out = gates.unbind(0), g_all.unbind(0)
+    hs, cs, ns, ms = (x.unbind(0) for x in states)
+    h, c, n, m = h0, c0, n0, m0
+    one = gates.new_ones(())
+    for s in range(t):
+        torch.baddbmm(g_in[s], h, r4, out=g_out[s])
+        lfm = F.logsigmoid(f[s]) + m
+        m = torch.maximum(lfm, i[s], out=ms[s])
+        i_p = torch.exp(i[s] - m)
+        f_p = torch.exp(lfm - m)
+        c = torch.addcmul(f_p * c, i_p, torch.tanh(z[s]), out=cs[s])
+        n = torch.addcmul(i_p, f_p, n, out=ns[s])
+        h = torch.div(torch.sigmoid(o[s]) * c, torch.maximum(n, one),
+                      out=hs[s])
+    return (g_all, *states)
+
+
+def _slstm_backward(d_h, d_c, d_n, d_m, r, g_all, big_h, big_c, big_n,
+                    big_m, h0, c0, n0, m0):
+    """``SLSTMScan``'s backward: (d gates, d r) from the gradients of the
+    four state outputs (None: unused) and what the forward kept."""
+    t, nh, b, hp4 = g_all.shape
+    hp = hp4 // 4
+    zi, ii, ff, oo = g_all.view(t, nh, b, 4, hp).unbind(3)
+
+    def prev(x, x0):
+        return torch.cat([x0[None], x[:-1]])
+    h_prev, c_prev, n_prev, m_prev = (
+        prev(x, x0) for x, x0 in zip((big_h, big_c, big_n, big_m),
+                                     (h0, c0, n0, m0)))
+    one = g_all.new_ones(())
+    lfm = F.logsigmoid(ff) + m_prev
+    i_p = torch.exp(ii - big_m)
+    f_p = torch.exp(lfm - big_m)
+    zt = torch.tanh(zi)
+    o_p = torch.sigmoid(oo)
+    den = torch.maximum(big_n, one)
+    per_step = [x.unbind(0) for x in (
+        o_p / den,                                 # dh -> dc
+        -(big_h / den) * _tie(big_n, one),         # dh -> dn
+        i_p * (1 - zt * zt),                       # dc -> dz
+        big_c / den * o_p * (1 - o_p),             # dh -> do
+        _tie(lfm, ii), _tie(ii, lfm),              # dm -> da, di
+        torch.sigmoid(-ff),                        # dlog sig(f) -> df
+        n_prev, c_prev, zt, i_p, f_p)]
+    d_g = g_all.new_empty((t, nh, b, 4, hp))
+    d_gs = d_g.unbind(0)
+    d_z, d_i, d_f, d_o = (x.unbind(0) for x in d_g.unbind(3))
+    d_in = [None if d is None else d.unbind(0) for d in (d_h, d_c, d_n, d_m)]
+    zeros = g_all.new_zeros((nh, b, hp))
+    dh_rec, dc, dn, dm = zeros, zeros, zeros, zeros
+    r_t = r.transpose(-1, -2)
+    for s in reversed(range(t)):
+        (to_c, to_n, to_z, to_o, to_a, to_i, to_f, n_p, c_p, z_t, i_s,
+         f_s) = (x[s] for x in per_step)
+        dh = dh_rec if d_in[0] is None else dh_rec + d_in[0][s]
+        if d_in[1] is not None:
+            dc = dc + d_in[1][s]
+        if d_in[2] is not None:
+            dn = dn + d_in[2][s]
+        if d_in[3] is not None:
+            dm = dm + d_in[3][s]
+        dct = torch.addcmul(dc, dh, to_c)
+        dnt = torch.addcmul(dn, dh, to_n)
+        u = torch.addcmul(dnt * n_p, dct, c_p) * f_s
+        v = torch.addcmul(dnt, dct, z_t) * i_s
+        dmt = dm - u - v
+        da = torch.addcmul(u, dmt, to_a)
+        torch.mul(dct, to_z, out=d_z[s])
+        torch.addcmul(v, dmt, to_i, out=d_i[s])
+        torch.mul(da, to_f, out=d_f[s])
+        torch.mul(dh, to_o, out=d_o[s])
+        dc, dn, dm = dct * f_s, dnt * f_s, da
+        dh_rec = torch.bmm(d_gs[s].sum(2), r_t)
+    d_r = torch.einsum("tnbp,tnbq->npq", h_prev, d_g.sum(3))
+    return d_g.view(t, nh, b, hp4), d_r
+
+
+_GRAPHS: dict = {}
+
+
+def clear_graphs() -> None:
+    """Drop the CUDA graphs ``SLSTMScan`` captured (and their memory)."""
+    _GRAPHS.clear()
+
+
+def _graphed(key, fn, inputs):
+    """fn(*inputs) on the card through a CUDA graph of fn captured at the
+    first call with this ``key`` (fn's shapes): the inputs are copied into
+    the graph's own, and its outputs are cloned out, so each call's
+    results are its own.  The first call runs fn once on a side stream
+    (cuBLAS sets up there, outside the capture), then captures it."""
+    entry = _GRAPHS.get(key)
+    if entry is None:
+        static_in = [x.clone() for x in inputs]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(*static_in)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            static_out = fn(*static_in)
+        entry = _GRAPHS[key] = (graph, static_in, static_out)
+    graph, static_in, static_out = entry
+    for dst, src in zip(static_in, inputs):
+        dst.copy_(src)
+    graph.replay()
+    return tuple(x.clone() for x in static_out)
+
+
+class SLSTMScan(torch.autograd.Function):
+    """The sLSTM's loop over t with a backward written by hand.
+
+    forward(gates (t, nh, b, 4hp) f32, r (nh, hp, hp) f32, h0, c0, n0,
+    m0 (nh, b, hp)) -> (H, C, N, M), each (t, nh, b, hp): every step's
+    h, c, n and m.  Each step is
+
+        g = gates_t + h r (r repeated 4 times along its output: one
+            ``baddbmm`` adds h r to the z, i, f and o gates),
+        a = log sigmoid(f) + m,  m' = max(a, i),
+        i' = exp(i - m'),  f' = exp(a - m'),
+        c <- f' c + i' tanh(z),  n <- f' n + i',
+        h = sigmoid(o) c / max(n, 1),
+
+    JAX's ``slstm_block`` step, in its order of operations.  Autograd
+    through such a loop records ~50 nodes a step, and its engine's time
+    a node, not the card, bounds the loop; here the forward records
+    none, and the backward is one reverse loop of ~20 tensor ops a step
+    over what the forward kept (the gates after the recurrent add and
+    the four states; everything else it recomputes for all steps at
+    once).  The maximums' gradients follow JAX's: halved at a tie (n is
+    1 exactly after a step from the zero state).  The initial state
+    takes no gradient (the training forward starts from zeros).
+
+    On a card, when the gates take a gradient (training), both loops run
+    as CUDA graphs captured once for each shape (``_graphed``): a replay
+    launches the ~8,000 kernels of a 512-token loop at once, where the
+    host would dispatch them one by one.  Elsewhere (the CPU, serving)
+    they run as written."""
+
+    @staticmethod
+    def forward(ctx, gates, r, h0, c0, n0, m0):
+        ctx.set_materialize_grads(False)
+        init = (h0, c0, n0, m0)
+        ctx.graphed = gates.is_cuda and ctx.needs_input_grad[0]
+        if ctx.graphed:
+            out = _graphed(("fwd", gates.shape, gates.device),
+                           _slstm_forward, (gates, r, *init))
+        else:
+            out = _slstm_forward(gates, r, *init)
+        ctx.save_for_backward(r, *out, *init)
+        return out[1:]
+
+    @staticmethod
+    def backward(ctx, d_h, d_c, d_n, d_m):
+        saved = ctx.saved_tensors
+        if ctx.graphed and d_h is not None and d_c is d_n is d_m is None:
+            d_g, d_r = _graphed(
+                ("bwd", d_h.shape, d_h.device),
+                lambda dh, *rest: _slstm_backward(dh, None, None, None,
+                                                  *rest),
+                (d_h, *saved))
+        else:
+            d_g, d_r = _slstm_backward(d_h, d_c, d_n, d_m, *saved)
+        return d_g, d_r, None, None, None, None
+
+
+def slstm_block(cfg: ModelConfig, p, x, state=None):
+    """The sLSTM (scalar memory, exponential gating with a stabiliser)
+    block, JAX's ``slstm_block``, unsharded: the gate inputs rmsnorm(x) @
+    w_in (4d, head-major: each of the nh heads of hp = d / nh holds its
+    z, i, f and o gates, hp each), in f32, then the loop over t
+    (``SLSTMScan``, head-major) carrying (h, c, n, m) from zeros and m =
+    -30, or from ``state`` = {"h", "c", "n", "m"}, each (b, nh, hp).
+    The h of every step, cast to x's dtype, goes through w_out.  Returns
+    (out (b, t, d), the final {"h", "c", "n", "m"} when ``state`` was
+    given, else None: JAX returns no state from the training forward,
+    and its prefill passes a zero state).  Outside training on a card the
+    loop dispatches its ~16 kernels a step from the host, which bounds
+    it."""
+    hn = rmsnorm(x, p["norm"])
+    b, t, _ = hn.shape
+    nh = p["r"].shape[0]
+    hp = p["r"].shape[-1]
+    gates = (hn @ p["w_in"]).float().reshape(b, t, nh, 4 * hp)
+    gates = gates.permute(1, 2, 0, 3).contiguous()               # (t,h,b,4p)
+    if state is None:
+        zeros = hn.new_zeros((nh, b, hp), dtype=torch.float32)
+        init = (zeros, zeros, zeros, zeros - 30.0)
+    else:
+        init = tuple(state[k].transpose(0, 1) for k in ("h", "c", "n", "m"))
+        if any(v.requires_grad for v in init):
+            raise NotImplementedError("slstm_block: no gradient of the "
+                                      "carried state (JAX's training "
+                                      "forward carries none)")
+    states = SLSTMScan.apply(gates, p["r"].float(), *init)
+    y = states[0].permute(2, 0, 1, 3).reshape(b, t, nh * hp)
+    new_state = None if state is None else {
+        k: v[-1].transpose(0, 1) for k, v in zip("hcnm", states)}
+    return y.to(x.dtype) @ p["w_out"], new_state

@@ -1,9 +1,12 @@
 """Model assembly (counterpart of ``repro.models.lm``): parameter
 specs, shapes and seeded init, the JAX-parameter bridge, the training
 forward and loss (``forward_lm``, ``loss_fn``) of the dense (with
-qk-norm too), MoE, encoder-decoder and Mamba-2 hybrid families, and the
-two steps of the continuous-batching engine — ``batched_prefill_step``
-and ``paged_decode_step`` (dense only, and unsharded).
+qk-norm too), MoE, encoder-decoder, Mamba-2 hybrid and xLSTM families,
+the two steps of the continuous-batching engine — ``batched_prefill_step``
+and ``paged_decode_step`` (dense only, and unsharded) — and the
+contiguous serving steps of the xLSTM family, whose cache is its
+recurrent state: ``init_cache``, ``prefill_step`` and ``decode_step``
+(JAX's serve every family; here xLSTM only, unsharded).
 
 Parameters are a plain dict with the JAX package's layout: ``embed``
 (V, d), ``final_norm`` (d,), ``lm_head`` (d, V), and per family the
@@ -14,9 +17,10 @@ whose attention is GQA or MLA; ``encoder`` and ``decoder`` of the
 encoder-decoder family (whisper), the decoder's cross-attention leaves
 prefixed ``x_``; ``mamba`` of the hybrid (zamba2), with ``shared_attn``,
 one attention and MLP block that is not stacked (it runs after every
-group of mamba layers).  With qk-norm an attention block has
-``q_norm`` and ``k_norm`` (hd,) (MLA's ``q_norm`` is its latent's
-norm, another leaf).  A MoE layer's attention and its
+group of mamba layers); ``mlstm`` and ``slstm`` of the xLSTM family (an
+sLSTM layer after every group of mLSTM layers).  With qk-norm an
+attention block has ``q_norm`` and ``k_norm`` (hd,) (MLA's ``q_norm``
+is its latent's norm, another leaf).  A MoE layer's attention and its
 ``moe_block`` share one ``norm`` leaf, as JAX merges their specs.
 Weights are (in, out) and used as ``x @ w``.  The JAX package scans
 over the L axis; here a Python loop walks it, with JAX's two-level remat
@@ -50,25 +54,32 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def _check_ported(cfg: ModelConfig, what: str):
-    """Refuse the families the port does not train."""
-    if cfg.ssm and cfg.ssm != "mamba2":
-        raise NotImplementedError(
-            f"{what}: the ssm {cfg.ssm} family ({cfg.name}) is not ported")
-
-
 def _check_dense(cfg: ModelConfig, what: str):
-    """The serving steps take the dense family only: the JAX engine's
-    paged steps assert ``not cfg.moe``, and serving the encoder-decoder
-    and ssm families (JAX's contiguous decode with a cross cache or a
-    recurrent state) is not ported."""
-    _check_ported(cfg, what)
+    """The paged serving steps take the dense family only: the JAX
+    engine's paged steps assert ``not cfg.moe``; the xLSTM family serves
+    on the contiguous steps (``prefill_step``, ``decode_step``), and
+    serving the other encoder-decoder and ssm families (JAX's contiguous
+    decode with a cross cache or zamba2's mixed state) is not ported."""
     family = ("MoE" if cfg.moe else "enc-dec" if cfg.enc_dec
               else "ssm" if cfg.ssm else None)
+    if family == "ssm" and cfg.ssm == "xlstm":
+        raise NotImplementedError(
+            f"{what} needs a dense-attention model, got {cfg.name}: the "
+            f"ssm family's xLSTM serves on the contiguous steps "
+            f"(lm.prefill_step, lm.decode_step; ServeSession)")
     if family:
         raise NotImplementedError(
             f"{what} needs a dense-attention model, got {cfg.name}: "
             f"serving the {family} family is not ported")
+
+
+def _check_recurrent(cfg: ModelConfig, what: str):
+    """The contiguous serving steps take the xLSTM family only."""
+    if cfg.ssm != "xlstm":
+        raise NotImplementedError(
+            f"{what} serves the xLSTM family's recurrent state; the "
+            f"contiguous decode path of the other families ({cfg.name}) "
+            f"is not ported")
 
 
 def pad_to(x: int, mult: int) -> int:
@@ -195,6 +206,35 @@ def mamba_param_specs(cfg: ModelConfig, ctx: ShardCtx, dims: ArchDims):
     return spec, shapes
 
 
+def mlstm_param_specs(cfg: ModelConfig, ctx: ShardCtx, dims: ArchDims):
+    """Per-layer mLSTM (specs, shapes), JAX's ``mlstm_param_specs``:
+    q, k, v and the gate z of d_inner 2d, the input and forget gates one
+    a head (nh = h_pad), the heads over 'model'."""
+    fa, ma = _fsdp(ctx), ctx.model_axis
+    d = cfg.d_model
+    spec = {"norm": (None, None), "w_q": (None, fa, ma),
+            "w_k": (None, fa, ma), "w_v": (None, fa, ma),
+            "w_z": (None, fa, ma), "w_if": (None, None, ma),
+            "w_out": (None, ma, fa)}
+    shapes = {"norm": (d,), "w_q": (d, 2 * d), "w_k": (d, 2 * d),
+              "w_v": (d, 2 * d), "w_z": (d, 2 * d),
+              "w_if": (d, 2 * dims.h_pad), "w_out": (2 * d, d)}
+    return spec, shapes
+
+
+def slstm_param_specs(cfg: ModelConfig, ctx: ShardCtx, dims: ArchDims):
+    """Per-layer sLSTM (specs, shapes), JAX's ``slstm_param_specs``: the
+    four gates' inputs (4d), the recurrent ``r`` (nh, hp, hp) with hp =
+    d / nh, the heads over 'model'."""
+    fa, ma = _fsdp(ctx), ctx.model_axis
+    d, nh = cfg.d_model, dims.h_pad
+    spec = {"norm": (None, None), "w_in": (None, fa, ma),
+            "r": (None, ma, None, None), "w_out": (None, ma, fa)}
+    shapes = {"norm": (d,), "w_in": (d, 4 * d), "r": (nh, d // nh, d // nh),
+              "w_out": (d, d)}
+    return spec, shapes
+
+
 def cross_param_specs(cfg: ModelConfig, ctx: ShardCtx, dims: ArchDims):
     """The whisper decoder's cross-attention (specs, shapes): JAX's
     attention leaves, each prefixed ``x_``."""
@@ -214,8 +254,9 @@ def param_specs(cfg: ModelConfig, ctx: ShardCtx = NO_SHARD):
     encoder-decoder family; ``mamba`` (the mamba2 layers) and
     ``shared_attn`` (one attention and MLP block, not stacked: its specs
     lose the layer entry, as JAX strips it) of the hybrid, whose
-    n_layers counts n_layers // attn_every uses of the shared block."""
-    _check_ported(cfg, "param_specs")
+    n_layers counts n_layers // attn_every uses of the shared block;
+    ``mlstm`` and ``slstm`` (n_layers // slstm_every of them) of the
+    xLSTM family."""
     dims = ArchDims.build(cfg, ctx)
     fa, ma = _fsdp(ctx), ctx.model_axis
     specs = {"embed": (ma, fa), "final_norm": (None,), "lm_head": (fa, ma)}
@@ -238,6 +279,12 @@ def param_specs(cfg: ModelConfig, ctx: ShardCtx = NO_SHARD):
         specs[name] = sp
         shapes[name] = {k: (n,) + v for k, v in sh.items()}
 
+    if cfg.ssm == "xlstm":
+        n_s = _n_slstm(cfg)
+        add("mlstm", cfg.n_layers - n_s, mlstm_param_specs)
+        if n_s:
+            add("slstm", n_s, slstm_param_specs)
+        return specs, shapes
     if cfg.ssm:
         n_attn = _n_shared(cfg)
         add("mamba", cfg.n_layers - n_attn, mamba_param_specs)
@@ -265,6 +312,11 @@ def param_specs(cfg: ModelConfig, ctx: ShardCtx = NO_SHARD):
 def _n_shared(cfg: ModelConfig) -> int:
     """Uses of the hybrid's shared attention block (JAX's n_attn)."""
     return cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+
+
+def _n_slstm(cfg: ModelConfig) -> int:
+    """sLSTM layers of the xLSTM family (JAX's n_s)."""
+    return cfg.n_layers // cfg.slstm_every if cfg.slstm_every else 0
 
 
 def param_shapes(cfg: ModelConfig, ctx: ShardCtx = NO_SHARD) -> dict:
@@ -554,6 +606,41 @@ def _hybrid(cfg: ModelConfig, params: dict, x: torch.Tensor, pos,
     return scan_layers(mamba_body, x, layers[n_attn * per:], remat)
 
 
+def _xlstm_groups(params: dict):
+    """The xLSTM trunk's order (JAX's ``cfg.ssm == "xlstm"`` branch):
+    (groups, tail), each group (per = n_m // n_s mLSTM layers' weights,
+    then one sLSTM layer's), the tail the remaining mLSTM layers."""
+    mls = layer_params(params, "mlstm")
+    sls = layer_params(params, "slstm") if "slstm" in params else []
+    per = len(mls) // len(sls) if sls else 0
+    groups = [(mls[g * per:(g + 1) * per], p) for g, p in enumerate(sls)]
+    return groups, mls[len(sls) * per:]
+
+
+def _xlstm(cfg: ModelConfig, params: dict, x: torch.Tensor, ctx: ShardCtx):
+    """The xLSTM trunk of training: for each of the n_s sLSTM layers,
+    per mLSTM layers (x + mlstm_block(x)) and then the sLSTM layer (x +
+    slstm_block(x)); then the tail of mLSTM layers (at the published 12
+    layers, 3 x (3 mLSTM + 1 sLSTM); at SMOKE m, s, m, s).  With
+    ``ctx.remat_groups`` > 0 every mLSTM layer and every group is
+    checkpointed, as JAX's ``ckpt``."""
+    remat = min(ctx.remat_groups, 1)
+
+    def mlstm_body(x, p):
+        return x + blocks.mlstm_block(cfg, p, x)[0]
+
+    def group_body(x, group):
+        x = scan_layers(mlstm_body, x, group[0], remat)
+        return x + blocks.slstm_block(cfg, group[1], x)[0]
+
+    groups, tail = _xlstm_groups(params)
+    with set_checkpoint_early_stop(False):
+        for group in groups:
+            x = (checkpoint(group_body, x, group, use_reentrant=False)
+                 if remat else group_body(x, group))
+    return scan_layers(mlstm_body, x, tail, remat)
+
+
 def forward_lm(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                ctx: ShardCtx = NO_SHARD, axes=None,
                enc_frames: torch.Tensor | None = None):
@@ -561,11 +648,11 @@ def forward_lm(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     mesh, None for whole weights).  tokens: (b, t); ``enc_frames``: (b,
     frames, d) the encoder's input (the enc-dec family only).  Returns
     (hidden (b, t, d), aux loss: the MoE layers' summed aux, f32, or 0.0
-    for the dense, enc-dec and hybrid families).  The MoE family runs its dense
-    layers first, each checkpointed alone when ``ctx.remat_groups`` > 0
-    (JAX checkpoints each), then its MoE layers through ``scan_layers``
-    with the aux carried, as JAX's scan carries it."""
-    _check_ported(cfg, "forward_lm")
+    for the dense, enc-dec, hybrid and xLSTM families).  The MoE family
+    runs its dense layers first, each checkpointed alone when
+    ``ctx.remat_groups`` > 0 (JAX checkpoints each), then its MoE layers
+    through ``scan_layers`` with the aux carried, as JAX's scan carries
+    it."""
     pos = torch.arange(tokens.shape[1], device=tokens.device)
     emb = gather_fsdp(ctx, axes, params["embed"], 1)
     x = embed_lookup(emb, tokens, ctx, axes)
@@ -574,6 +661,8 @@ def forward_lm(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             raise ValueError(f"{cfg.name} is an encoder-decoder model: its "
                              f"batch needs enc_frames (b, frames, d)")
         return _enc_dec(cfg, params, x, pos, enc_frames, ctx, axes), 0.0
+    if cfg.ssm == "xlstm":
+        return _xlstm(cfg, params, x, ctx), 0.0
     if cfg.ssm:
         return _hybrid(cfg, params, x, pos, ctx, axes), 0.0
     if not cfg.moe:
@@ -678,3 +767,83 @@ def paged_decode_step(cfg: ModelConfig, params: dict, pool: dict,
         x = x + swiglu_mlp(rmsnorm(x, p["mlp_norm"]), p["w_gate"], p["w_up"],
                            p["w_down"])
     return _logits(params, x), pool
+
+
+def _slstm_zero_state(cfg: ModelConfig, batch: int, device) -> dict:
+    """The sLSTM layers' zero state (JAX's): h, c, n 0 and m -30, each
+    (n_s, b, nh, d / nh) in f32."""
+    nh = ArchDims.build(cfg).h_pad
+    z = torch.zeros((_n_slstm(cfg), batch, nh, cfg.d_model // nh),
+                    dtype=torch.float32, device=device)
+    return {"h": z, "c": z, "n": z, "m": z - 30.0}
+
+
+def init_cache(cfg: ModelConfig, batch: int, device="cuda") -> dict:
+    """The xLSTM family's decode cache, JAX's ``init_cache`` (unsharded):
+    its recurrent state, stacked on the layer axis, in f32: {"mlstm":
+    {"c": (n_m, b, nh, hp, hp), "n": (n_m, b, nh, hp)}, "slstm": {"h",
+    "c", "n": zeros and "m": -30, each (n_s, b, nh, d / nh)}} with hp =
+    2d / nh.  Its size does not grow with the sequence."""
+    _check_recurrent(cfg, "init_cache")
+    n_m = cfg.n_layers - _n_slstm(cfg)
+    nh = ArchDims.build(cfg).h_pad
+    hp = 2 * cfg.d_model // nh
+    cache = {"mlstm": {
+        "c": torch.zeros((n_m, batch, nh, hp, hp), device=device),
+        "n": torch.zeros((n_m, batch, nh, hp), device=device)}}
+    if _n_slstm(cfg):
+        cache["slstm"] = _slstm_zero_state(cfg, batch, device)
+    return cache
+
+
+def _xlstm_serve(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                 cache: dict | None):
+    """x through the xLSTM trunk carrying its state: one decode step from
+    ``cache``, or with cache None the prefill, in which each mLSTM scans
+    from a zero state and each sLSTM starts from the zero state, as
+    JAX's ``prefill_step`` passes it.  Returns (x, the new cache)."""
+    groups, tail = _xlstm_groups(params)
+    if cache is None:
+        cache = {"mlstm": None}
+        if groups:
+            cache["slstm"] = _slstm_zero_state(cfg, x.shape[0], x.device)
+    new = {kind: [] for kind in cache}
+
+    def layer(kind, block, p, x):
+        i, states = len(new[kind]), cache[kind]
+        y, st = block(cfg, p, x, None if states is None
+                      else {k: v[i] for k, v in states.items()})
+        new[kind].append(st)
+        return x + y
+
+    for group, p_s in groups:
+        for p in group:
+            x = layer("mlstm", blocks.mlstm_block, p, x)
+        x = layer("slstm", blocks.slstm_block, p_s, x)
+    for p in tail:
+        x = layer("mlstm", blocks.mlstm_block, p, x)
+    return x, {kind: {k: torch.stack([st[k] for st in states])
+                      for k in states[0]} for kind, states in new.items()}
+
+
+def prefill_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
+    """Contiguous serving prefill of the xLSTM family (JAX's
+    ``prefill_step``): the forward over the whole prompt batch (b, t).
+    Returns (logits (b, V) f32 at the last position, the recurrent state
+    after the prompt, ``init_cache``'s layout)."""
+    _check_recurrent(cfg, "prefill_step")
+    x, cache = _xlstm_serve(cfg, params, embed_lookup(params["embed"],
+                                                      tokens), None)
+    return _logits(params, x[:, -1:]), cache
+
+
+def decode_step(cfg: ModelConfig, params: dict, cache: dict,
+                token: torch.Tensor, pos=None):
+    """One contiguous decode step of the xLSTM family (JAX's
+    ``decode_step``): token (b, 1) -> (logits (b, V) f32, the new
+    cache).  ``pos`` is unused, as in JAX: the state carries the
+    position."""
+    _check_recurrent(cfg, "decode_step")
+    x, cache = _xlstm_serve(cfg, params, embed_lookup(params["embed"],
+                                                      token), cache)
+    return _logits(params, x), cache

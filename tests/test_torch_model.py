@@ -71,7 +71,8 @@ def _np(t: torch.Tensor) -> np.ndarray:
 @pytest.mark.parametrize("arch", ["paper_llama", "minitron_4b",
                                   "phi35_moe_42b", "deepseek_v3_671b",
                                   "whisper_tiny", "qwen3_32b",
-                                  "chameleon_34b", "zamba2_7b"])
+                                  "chameleon_34b", "zamba2_7b",
+                                  "xlstm_125m"])
 def test_configs_are_copies_of_jax(arch):
     for getter in ("get", "get_smoke"):
         j = getattr(jax_configs, getter)(arch)
@@ -79,7 +80,7 @@ def test_configs_are_copies_of_jax(arch):
         assert dataclasses.asdict(j) == dataclasses.asdict(t)
         assert j.hd == t.hd
     with pytest.raises(ValueError, match="unknown arch"):
-        port_configs.get("xlstm_125m")
+        port_configs.get("no_such_arch")
 
 
 # ---------------------------------------------------------- parameters
