@@ -323,6 +323,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import io
 import json
@@ -4978,26 +4979,31 @@ def xlstm_serve_full_width(card: str) -> None:
         raise AssertionError("4o (b) serving disagrees with generate()")
 
 
-def recurrent_forced_logits(sess, prompts, forced) -> "torch.Tensor":
-    """Logits of ServeSession's prefill and each decode step, feeding
-    ``forced`` tokens (n, steps) instead of sampling: (n, steps, V) on
-    the CPU."""
+def session_forced_logits(sess, prompts, forced) -> "torch.Tensor":
+    """Logits of ServeSession's prefill and each decode step over the
+    contiguous cache (the prefill's seeded into a long enough one),
+    feeding ``forced`` tokens (n, steps) instead of sampling: (n, steps,
+    V) on the CPU."""
     import torch
-    logits, state = sess.prefill(prompts)
+    from repro_torch.api import build
+    n, t = prompts.shape
+    logits, pre = sess.prefill(prompts)
+    cache = build.seed_cache(sess.new_cache(n, t + forced.shape[1]), pre)
     out = [logits]
     for j in range(forced.shape[1] - 1):
-        logits, state = sess.decode(state, forced[:, j:j + 1],
-                                    prompts.shape[1] + j)
+        logits, cache = sess.decode(cache, forced[:, j:j + 1], t + j)
         out.append(logits)
     return torch.stack(out, dim=1).float().cpu()
 
 
-def recurrent_serving_card_vs_cpu(card: str, label: str, arch: str) -> None:
-    """``arch``'s SMOKE config (f32) served by ServeSession on the card
-    and on the CPU from the same seeded weights, 4 prompts of 40 tokens x
-    16 new: the teacher-forced logits within LOGIT_TOL, and the greedy
-    tokens equal up to the first position where the plain top-2 margin
-    is thinner than 2 LOGIT_TOL (phase 5's rule)."""
+def contiguous_serving_card_vs_cpu(card: str, label: str,
+                                   arch: str) -> None:
+    """``arch``'s SMOKE config (f32) served by ServeSession on its
+    contiguous path on the card and on the CPU from the same seeded
+    weights, 4 prompts of 40 tokens x 16 new: the teacher-forced logits
+    within LOGIT_TOL, and the greedy tokens equal up to the first
+    position where the plain top-2 margin is thinner than 2 LOGIT_TOL
+    (phase 5's rule)."""
     import numpy as np
     import torch
     from repro_torch.api import RunSpec, ServeSession
@@ -5015,8 +5021,8 @@ def recurrent_serving_card_vs_cpu(card: str, label: str, arch: str) -> None:
     new = 16
     plain = cpu.generate(prompts, new)
     card_out = gpu.generate(prompts, new).cpu()
-    lg_cpu = recurrent_forced_logits(cpu, prompts, plain)
-    lg_gpu = recurrent_forced_logits(gpu, prompts.cuda(), plain.cuda())
+    lg_cpu = session_forced_logits(cpu, prompts, plain)
+    lg_gpu = session_forced_logits(gpu, prompts.cuda(), plain.cuda())
     err = (lg_cpu - lg_gpu).abs().max().item()
     print(f"{label} ({cfg.name} f32, ServeSession, 4 prompts of 40 tokens x "
           f"{new}): teacher-forced logits max_abs_err {err:.3e} (tol "
@@ -5043,7 +5049,7 @@ def xlstm_card_vs_plain(card: str) -> None:
     t 128, the loss and the gradients within phase 5's tolerances, the
     synced gradients bit for bit) and its ServeSession card vs CPU."""
     smoke_card_vs_cpu(card, "4o (c)", "xlstm_125m")
-    recurrent_serving_card_vs_cpu(card, "4o (c) serving", "xlstm_125m")
+    contiguous_serving_card_vs_cpu(card, "4o (c) serving", "xlstm_125m")
 
 
 def xlstm_phase(card: str) -> dict:
@@ -5074,6 +5080,243 @@ def xlstm_alone(card: str) -> None:
     from repro_torch.kernels import _build
     _build.build()
     xlstm_phase(card)
+
+
+# ------------------- phase 4p: ServeSession on the MoE and hybrid families
+# (b)-(d): the published widths, depth cut to fit one card (phi35 as 4k
+# cuts it; deepseek_v3 to its 3 dense layers and 1 MoE layer; zamba2 as
+# 4m cuts it: 6 mamba2 layers and one use of the shared block); weights
+# drawn on the card; XLSTM_SERVE's traffic, 8 prompts of 128 x 32 new
+SERVE_FAMILIES = (("b", "phi35_moe_42b", 1), ("c", "deepseek_v3_671b", 4),
+                  ("d", "zamba2_7b", 7))
+# (a): the paged kernel over a contiguous cache (b, hkv, S, hd) taken as
+# b pages of S positions, one a row: (label, b, h, hkv, hd, S, lengths,
+# dtype); the timed shape is each model's decode at 8 x (128 + 16)
+PAGED_ROWS = (("phi35_moe_42b", 8, 32, 8, 128, 160,
+               list(range(129, 161, 4)), "bfloat16"),
+              ("zamba2_7b", 8, 32, 32, 112, 160,
+               list(range(129, 161, 4)), "bfloat16"),
+              ("ragged f32", 3, 4, 2, 48, 37, [1, 20, 37], "float32"))
+
+
+def one_page_a_row(b, h, hkv, hd, s_len, lengths, dtype, seed):
+    """q (b, h, 1, hd) and a contiguous cache (b, hkv, S, hd) on the card,
+    with the table arange(b)[:, None] and the lengths: what
+    ``blocks.gqa_decode`` hands the paged kernel."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((b, h, 1, hd), generator=g).to(dtype)
+    kc = torch.randn((b, hkv, s_len, hd), generator=g).to(dtype)
+    vc = torch.randn((b, hkv, s_len, hd), generator=g).to(dtype)
+    table = torch.arange(b, dtype=torch.int32)[:, None]
+    ln = torch.tensor(lengths, dtype=torch.int32)
+    return [t.cuda() for t in (q, kc, vc, table, ln)]
+
+
+def sdpa_rows(q, kc, vc, tb, ln, n: int):
+    """The yardstick of a decode over the contiguous cache: SDPA of the
+    pending queries over the cache's first n = pos + 1 columns (every
+    row's length; given on the host, as the model's step knows pos),
+    GQA where the cache has fewer heads."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(
+        q, kc[:, :, :n], vc[:, :, :n], enable_gqa=q.shape[1] != kc.shape[1])
+
+
+def paged_rows_check(card: str) -> dict:
+    """(a) The paged kernel with one page a row against its plain version
+    at PAGED_ROWS, its plan and the build report's lines for the
+    instantiations it takes; the bf16 cases timed at all rows of length
+    144 (decode step 16 after 128 prompt tokens) beside the plain
+    version, SDPA and the bound.  Returns their records (launches set by
+    (b)-(d))."""
+    import re
+    import torch
+    from repro_torch.kernels import _build, paged_attention, ref
+    path = _build.build(["paged_attention"])["paged_attention"]
+    stats = ptxas_stats(path)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    records = {}
+    for label, b, h, hkv, hd, s_len, lengths, dt in PAGED_ROWS:
+        dtype = getattr(torch, dt)
+        args = one_page_a_row(b, h, hkv, hd, s_len, lengths, dtype, SEED)
+        got = paged_attention.paged_attention(*args).float()
+        err = (got - ref.paged_attention_ref(*args).float()).abs().max().item()
+        p = paged_attention.plan(b, h, hkv, s_len, hd, 1,
+                                 args[1].element_size(), 16, sms)
+        tol = KERNEL_TOL[dt]
+        print(f"4p (a) paged_attention one page a row, {label}: b={b} h={h} "
+              f"hkv={hkv} hd={hd} S={s_len} lengths={lengths} {dt}: "
+              f"max_abs_err {err:.3e} (tol {tol:.0e}); split {p.split} x "
+              f"{p.n_splits}, {p.vec_bytes}-byte loads, {p.rows} rows a "
+              f"block", flush=True)
+        if not err <= tol:
+            raise AssertionError(f"4p (a) paged {label}: {err} > {tol}")
+        tmpl = "bfloat16" if dt == "bfloat16" else "float"
+        for short, _, st in stats:
+            if re.search(rf"paged_split_kernel<[^,]*{tmpl}[^,]*, "
+                         rf"{p.vec_bytes}, {p.rows}>", short):
+                print(f"  4p (a) {short}: {st.get('regs')} registers, "
+                      f"{st['spill'][0]} bytes spill stores, "
+                      f"{st['spill'][1]} bytes spill loads", flush=True)
+        if not any(re.search(rf"paged_split_kernel<[^,]*{tmpl}[^,]*, "
+                             rf"{p.vec_bytes}, {p.rows}>", short)
+                   for short, _, _ in stats):
+            print("  4p (a) no demangled paged_split_kernel name matched: "
+                  "phase 2's build report lists them all", flush=True)
+        if dt != "bfloat16":
+            continue
+        timed = [144] * b
+        args[4] = torch.full((b,), 144, dtype=torch.int32, device="cuda")
+        ins = copies_for(args)
+        ms = time_ms(paged_attention.paged_attention, ins)[0]
+        plain_ms = time_ms(ref.paged_attention_ref, ins, iters=20)[0]
+        lib_ms = time_ms(functools.partial(sdpa_rows, n=144), ins)[0]
+        bound, by = paged_bounds(b, h, hkv, hd, s_len, timed, dtype)
+        print(f"4p (a) paged_attention one page a row, {label}, all rows "
+              f"at length 144 of S {s_len}: kernel {ms * 1e3:.2f} us, plain "
+              f"{plain_ms * 1e3:.2f} us, SDPA over the first 144 columns "
+              f"{lib_ms * 1e3:.2f} us, bound {bound * 1e3:.3f} us ({by}) "
+              f"[{card}]", flush=True)
+        records[f"paged_attention row {label}"] = dict(
+            name=f"paged_attention (one page a row, hd {hd}, {label})",
+            route="cuda", source="src/repro_torch/csrc/paged_attention.cu",
+            replaces="src/repro/kernels/paged_attention.py:108",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by=by, library_ms=lib_ms, launches=0)
+    return records
+
+
+def cache_bytes(tree) -> int:
+    from repro_torch.tree import leaves
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def serve_family_full_width(card: str, part: str, arch: str,
+                            layers: int) -> dict:
+    """ServeSession on ``arch`` at its published widths cut to ``layers``
+    (bf16, seeded weights drawn on the card): XLSTM_SERVE's 8 prompts of
+    128 tokens, one prefill and 31 decode steps over the contiguous
+    cache seeded to 160 positions: prefill ms, decode step p50/p99,
+    output tokens/s, peak memory beside the reckoning (the weights and
+    both caches), and the flash launches by head dims and the paged
+    launches of that run (counts set to 0 just before it): one flash
+    launch an attention layer for the prefill, one paged launch a GQA
+    layer a decode step.  The tokens must equal ``generate``'s.  Returns
+    {kernel: launches}."""
+    import torch
+    from repro_torch.api import RunSpec, ServeSession, build
+    from repro_torch.configs import get
+    from repro_torch.kernels import attention, paged_attention
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get(arch), n_layers=layers)
+    b, t, new = XLSTM_SERVE
+    gc.collect()
+    torch.cuda.empty_cache()
+    sess = ServeSession(RunSpec(arch=arch), params=device_params(
+        cfg, SEED + 3), device="cuda", cfg=cfg)
+    weights = cache_bytes(sess.params)
+    prompts = torch.randint(0, cfg.vocab, (b, t), device="cuda",
+                            generator=torch.Generator(
+                                device="cuda").manual_seed(SEED + 4))
+    sess.generate(prompts[:1, :16], 2)                   # warm
+    flash, paged = attention.flash_attention, paged_attention.paged_attention
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash.launches, flash.launches_by_dims = 0, {}
+    paged.launches = 0
+    t0 = time.perf_counter()
+    logits, pre = sess.prefill(prompts)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    cache = build.seed_cache(sess.new_cache(b, t + new), pre)
+    tok = logits.argmax(-1)[:, None]
+    out, times = [tok], []
+    for i in range(new - 1):
+        t1 = time.perf_counter()
+        logits, cache = sess.decode(cache, tok, t + i)
+        tok = logits.argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        out.append(tok)
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": flash.launches,
+                "paged_attention": paged.launches}
+    dims = dict(flash.launches_by_dims)
+    peak = torch.cuda.max_memory_allocated()
+    reckon = weights + cache_bytes(pre) + cache_bytes(cache)
+    gen = torch.cat(out, dim=1)
+    same = torch.equal(gen, sess.generate(prompts, new))
+    n_attn = (layers // cfg.attn_every if cfg.ssm else layers)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for i in range(4):               # positions 128-131 written again
+            sess.decode(cache, tok, t + i)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t1
+    n_gqa = 0 if cfg.mla else n_attn
+    print(f"4p ({part}) {arch} ({layers} layers of {get(arch).n_layers}, "
+          f"{n_params(cfg):,} parameters, bf16) served by ServeSession: {b} "
+          f"prompts of {t} tokens x {new} new: prefill {prefill_s * 1e3:.2f} "
+          f"ms, decode step p50 {pct(times, 0.5) * 1e3:.2f} ms p99 "
+          f"{pct(times, 0.99) * 1e3:.2f} ms over {len(times)} steps, "
+          f"{b * new / wall:.1f} output tokens/s ({wall:.3f} s); peak "
+          f"{peak / 1e9:.2f} GB beside the reckoning {reckon / 1e9:.2f} GB "
+          f"(weights {weights / 1e9:.2f}, the caches "
+          f"{(reckon - weights) / 1e6:.1f} MB); flash launches by dims "
+          f"{dims}, paged launches {launches['paged_attention']}; "
+          f"generate() gives the same tokens: {same} [{card}]", flush=True)
+    device_profile(prof, prof_s, card, f"4p ({part}) {arch}, 4 decode "
+                   f"steps (after the counted run)")
+    want = {"flash_attention": n_attn, "paged_attention": n_gqa * (new - 1)}
+    if launches != want:
+        raise AssertionError(f"4p ({part}) {arch}: launches {launches}, want "
+                             f"{want}")
+    if not (same and torch.isfinite(logits).all()):
+        raise AssertionError(f"4p ({part}) {arch}: decode disagrees with "
+                             f"generate() or the logits are not finite")
+    del sess, pre, cache
+    return launches
+
+
+def serve_families_phase(card: str) -> dict:
+    """Phase 4p: ServeSession on the MoE family and the Mamba-2 hybrid, on
+    one card, (a)-(e).  Returns (a)'s records, their launches from
+    (b)-(d)."""
+    import torch
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts = {}
+    t = time.perf_counter()
+    records = paged_rows_check(card)
+    parts["a"] = time.perf_counter() - t
+    for part, arch, layers in SERVE_FAMILIES:
+        t = time.perf_counter()
+        launches = serve_family_full_width(card, part, arch, layers)
+        parts[part] = time.perf_counter() - t
+        for rec in records.values():
+            if arch in rec["name"]:
+                rec["launches"] = launches["paged_attention"]
+    t = time.perf_counter()
+    for arch in ("phi35_moe_42b", "deepseek_v3_671b", "zamba2_7b"):
+        contiguous_serving_card_vs_cpu(card, "4p (e)", arch)
+    parts["e"] = time.perf_counter() - t
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 4p took {time.perf_counter() - t_phase:.1f} s ("
+          + ", ".join(f"({k}) {v:.1f} s" for k, v in parts.items())
+          + f") [{card}]", flush=True)
+    return records
+
+
+def serve_families_alone(card: str) -> None:
+    """Phase 4p alone, the kernels built first."""
+    from repro_torch.kernels import _build
+    _build.build()
+    serve_families_phase(card)
 
 
 # ----------------------------------------- phase 4d: the trained ONN
@@ -6356,6 +6599,7 @@ def main() -> int:
     records.update(phase("4l whisper", whisper_phase, card))
     records.update(phase("4m qk-norm and mamba2", hybrid_phase, card))
     phase("4o xlstm", xlstm_phase, card)
+    records.update(phase("4p serve families", serve_families_phase, card))
     onn = phase("4d trained onn", trained_onn_full_width, card)
     onn_launches, behavioral_bits2 = phase(
         "4b onn", train_onn_full_width, card, behavioral8, onn)

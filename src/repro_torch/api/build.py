@@ -8,9 +8,10 @@ and ``decode_cache_specs`` are PartitionSpecs for shard_map and get no
 twin: a rank's shard shapes come from ``models.lm.local_param_shapes``
 (slices: ``lm.shard_params``) and its residual sizes from
 ``launch.steps._local_leaf_sizes``; the serving decode cache is a paged
-pool with a fixed block table (``new_decode_cache``), or for the xLSTM
-family its recurrent state (``lm.init_cache``): the serving builders
-route by family.
+pool with a fixed block table (``new_decode_cache``) for the dense
+family, or JAX's contiguous cache (``lm.init_cache``) for the MoE and
+ssm families: the serving builders route by family
+(``lm.serves_contiguous``).
 """
 from __future__ import annotations
 
@@ -100,11 +101,11 @@ def build_prefill_step(spec: RunSpec, cfg=None):
     """step(params, tokens, lengths=None) -> (logits (b, V) f32 at each
     row's last valid position, prefill cache) through
     ``lm.batched_prefill_step`` (attention: the flash forward kernel).
-    ``lengths`` None = every row is whole.  For the xLSTM family
-    step(params, tokens) -> (logits at the last position, recurrent
-    state) through ``lm.prefill_step``."""
+    ``lengths`` None = every row is whole.  For the MoE and ssm families
+    step(params, tokens) -> (logits at the last position, the contiguous
+    prefill cache) through ``lm.prefill_step``."""
     cfg = _cfg(spec, cfg)
-    if cfg.ssm == "xlstm":
+    if lm.serves_contiguous(cfg):
         return functools.partial(lm.prefill_step, cfg)
 
     def step(params, tokens, lengths=None):
@@ -120,11 +121,10 @@ def new_decode_cache(spec: RunSpec, cfg, batch: int, max_seq: int,
     """A decode cache for ``batch`` sequences of up to ``max_seq``
     tokens: a paged pool (``spec.serve.page_size``, ``kv_dtype``) in
     which sequence i owns the ``ceil(max_seq / page_size)`` pages of row
-    i of a fixed block table (page 0 is the null page); for the xLSTM
-    family the zero recurrent state (``lm.init_cache``), whatever
-    ``max_seq``."""
-    if cfg.ssm == "xlstm":
-        return lm.init_cache(cfg, batch, device)
+    i of a fixed block table (page 0 is the null page); for the MoE and
+    ssm families JAX's zero contiguous cache (``lm.init_cache``)."""
+    if lm.serves_contiguous(cfg):
+        return lm.init_cache(cfg, batch, max_seq, device)
     ps = spec.serve.page_size
     nb = -(-max_seq // ps)
     pool = kv_pool.init_pool(cfg, 1 + batch * nb, ps,
@@ -134,15 +134,33 @@ def new_decode_cache(spec: RunSpec, cfg, batch: int, max_seq: int,
     return {"pool": pool, "page_table": table}
 
 
+def seed_cache(full: dict, pre: dict) -> dict:
+    """A prefill cache put into a fresh contiguous decode cache (JAX's
+    ``ServeSession._seed_cache``): a leaf whose shape matches (a
+    recurrent state) is taken as it is, in the decode cache's dtype; a
+    KV or compressed-cache leaf, t long on its sequence axis, is written
+    at offset 0 of ``full``'s leaf, in place."""
+    out = {}
+    for k, f in full.items():
+        p = pre[k]
+        if isinstance(f, dict):
+            out[k] = seed_cache(f, p)
+        elif f.shape == p.shape:
+            out[k] = p.to(f.dtype)
+        else:
+            f[tuple(slice(0, n) for n in p.shape)] = p.to(f.dtype)
+            out[k] = f
+    return out
+
+
 def build_decode_step(spec: RunSpec, cfg=None):
     """step(params, cache, token (b, 1), pos) -> (logits (b, V) f32,
     cache): every row's token at position ``pos`` through
     ``lm.paged_decode_step`` (attention: the paged_attention kernel);
-    the pool is written in place.  For the xLSTM family the step of
-    ``lm.decode_step``, which carries the recurrent state (``pos``
-    unused)."""
+    the pool is written in place.  For the MoE and ssm families the step
+    of ``lm.decode_step`` over the contiguous cache."""
     cfg = _cfg(spec, cfg)
-    if cfg.ssm == "xlstm":
+    if lm.serves_contiguous(cfg):
         return functools.partial(lm.decode_step, cfg)
 
     def step(params, cache, token, pos: int):

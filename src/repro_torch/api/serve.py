@@ -6,23 +6,24 @@ the spec's checkpoint directory when ``ckpt.resume`` is set (serve a
 trained run), or a fresh seeded init — the ``serving.reload`` resolution
 the continuous-batching ServeEngine uses too.
 
-The port has two decode paths, picked by family (``api.build``).  JAX's
-session decodes every family over a contiguous cache in plain jnp.
-Here the dense-attention families decode over a paged pool in which
-each sequence owns ``ceil(max_seq / page_size)`` pages through a fixed
-block table (``build.new_decode_cache``): ``generate`` runs one prefill
-over the whole prompt batch (``lm.batched_prefill_step``: the flash
-forward kernel), scatters its KV into the pages and decodes greedily
-through ``lm.paged_decode_step`` (the paged_attention kernel).  The
-xLSTM family decodes on JAX's contiguous path: its cache is its
-recurrent state (``lm.init_cache``), which ``lm.prefill_step`` returns
-after the prompt and ``lm.decode_step`` carries a token at a time, and
-``generate`` decodes from the prefill's state as it is (JAX's
-``_seed_cache`` takes leaves of the decode cache's shape as they are).
-The other families' contiguous paths (zamba2's mixed state, whisper's
-cross cache, the MoE caches) are not ported.  JAX's token-by-token
-replay exists for its flash-decode seq-sharded cache and has no twin:
-``seq_shard_cache=True`` is refused.
+The port has two decode paths, picked by family (``api.build``).  The
+dense-attention families decode over a paged pool in which each
+sequence owns ``ceil(max_seq / page_size)`` pages through a fixed block
+table (``build.new_decode_cache``): ``generate`` runs one prefill over
+the whole prompt batch (``lm.batched_prefill_step``: the flash forward
+kernel), scatters its KV into the pages and decodes greedily through
+``lm.paged_decode_step`` (the paged_attention kernel).  The MoE family
+(GQA, or MLA over its int8 compressed cache) and the ssm families (the
+Mamba-2 hybrid, xLSTM) decode on JAX's contiguous path: ``generate``
+runs ``lm.prefill_step`` over the unpadded prompt (padding would change
+the MoE's token count, and so its expert capacity, and a recurrent
+state), seeds its cache into ``lm.init_cache(batch, max_seq)``
+(``build.seed_cache``, JAX's ``_seed_cache``) and decodes through
+``lm.decode_step`` (GQA attention on the paged kernel, the contiguous
+cache one page a row).  The enc-dec family's contiguous path (whisper's
+cross cache) is not ported, nor is JAX's token-by-token replay, which
+exists for its flash-decode seq-sharded cache: ``seq_shard_cache=True``
+is refused.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ import numpy as np
 import torch
 
 from .. import device as device_util
+from ..models import lm
 from ..serving import kv_pool
 from ..serving import reload as serving_reload
 from . import build
@@ -44,13 +46,14 @@ class ServeSession:
                             "cache is not ported (the port decodes over "
                             "one paged pool on one device)")
         self.cfg = cfg if cfg is not None else spec.model_config()
-        self.recurrent = self.cfg.ssm == "xlstm"
-        if not (kv_pool.supports_paged(self.cfg) or self.recurrent):
+        self.contiguous = lm.serves_contiguous(self.cfg)
+        if not (kv_pool.supports_paged(self.cfg) or self.contiguous):
             raise NotImplementedError(
                 f"ServeSession covers the dense-attention families (paged) "
-                f"and xLSTM; the contiguous decode path of the ssm, enc-dec "
-                f"and MoE families is ported for xLSTM only, not for "
-                f"{self.cfg.name}")
+                f"and the MoE and ssm families (contiguous); the contiguous "
+                f"decode path of the enc-dec family is not ported "
+                f"({self.cfg.name}: the reference's cross cache is sized to "
+                f"max_seq, not to the encoder's frames)")
         spec.validate()
         self.spec = spec
         self.device = device_util.resolve(device, "ServeSession")
@@ -73,21 +76,21 @@ class ServeSession:
     def prefill(self, tokens):
         """(logits (b, V) f32 at the last position, prefill cache) for a
         prompt batch: {"layers": {"k","v": (L, b, kvl, t, hd)}}, or the
-        xLSTM family's recurrent state after the prompt."""
+        contiguous families' cache of the prompt (``lm.prefill_step``)."""
         return self._prefill(self.params, self._tokens(tokens))
 
     def new_cache(self, batch: int, max_seq: int) -> dict:
         """An empty decode cache for ``batch`` sequences of up to
-        ``max_seq`` tokens: a paged pool, or the xLSTM family's zero
-        state."""
+        ``max_seq`` tokens: a paged pool, or JAX's contiguous cache
+        (``lm.init_cache``)."""
         return build.new_decode_cache(self.spec, self.cfg, batch, max_seq,
                                       self.device)
 
     @torch.inference_mode()
     def decode(self, cache, token, pos: int):
         """One decode step of every row at position ``pos``; a paged
-        cache's pool is written in place.  Returns (logits (b, V) f32,
-        cache)."""
+        pool and a contiguous KV cache are written in place.  Returns
+        (logits (b, V) f32, cache)."""
         return self._decode(self.params, cache, self._tokens(token), pos)
 
     def engine(self):
@@ -100,15 +103,17 @@ class ServeSession:
     @torch.inference_mode()
     def generate(self, prompts, gen_len: int, max_seq: int | None = None):
         """Greedy decode: one prefill over the prompt batch, its KV
-        scattered into each row's pages (or, for xLSTM, its recurrent
-        state taken as the decode cache), then argmax sampling one token
-        per decode step.  Returns (batch, gen_len) int64 token ids."""
+        scattered into each row's pages (or, for the contiguous
+        families, the prompt's cache seeded into a ``max_seq`` one),
+        then argmax sampling one token per decode step.  Returns (batch,
+        gen_len) int64 token ids."""
         prompts = self._tokens(prompts)
         batch, prompt_len = prompts.shape
         max_seq = max_seq or prompt_len + gen_len
         assert max_seq >= prompt_len + gen_len, (max_seq, prompt_len, gen_len)
-        if self.recurrent:
-            logits, cache = self._prefill(self.params, prompts)
+        if self.contiguous:
+            logits, pre = self._prefill(self.params, prompts)
+            cache = build.seed_cache(self.new_cache(batch, max_seq), pre)
             return self._greedy(logits, cache, prompt_len, gen_len)
         ps = self.spec.serve.page_size
         t_pad = -(-prompt_len // ps) * ps      # whole pages for the scatter

@@ -3,7 +3,10 @@
 ``repro.kernels.paged_attention.paged_attention``).
 
 One pending query per slot attends over that slot's pages of the shared
-KV pool in place — no contiguous copy of the cache.  For a CPU tensor the
+KV pool in place — no contiguous copy of the cache.  A contiguous cache
+(b, hkv, S, hd) is such a pool too, b pages of S positions with the
+table ``arange(b)[:, None]`` (``models.blocks.gqa_decode``; ``plan``
+then gives one split of the whole row).  For a CPU tensor the
 wrapper runs the plain version (``ref.paged_attention_ref``, the gather
 path); for a CUDA tensor it launches the kernel or raises; any other
 device raises.  There is no platform switch and no fallback.

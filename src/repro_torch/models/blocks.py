@@ -3,26 +3,28 @@
 the training/prefill branch of ``gqa_attention`` (self-attention, or
 whisper's cross-attention over given K/V, causal or not; differentiable:
 attention goes through the flash kernels' autograd function, and
-nothing autograd saves is written in place), the paged decode step
-``gqa_decode_paged``, the training branch of deepseek-v3's
-``mla_attention`` (the flash kernels with a V head dim of their own),
-``moe_block`` (top-k routed experts with expert-side top-C token
-selection, expert-parallel over 'model', and the shared experts) and
-the training/prefill branch of the Mamba-2 block (``mamba2_block`` over
-``ssd_chunk_scan``, plain torch ops: the JAX package has no kernel for
-it), and the xLSTM family's two blocks, each with its prefill and
-decode branches: the mLSTM (``mlstm_block`` over ``mlstm_chunk_scan``,
-the SSD's form) and the sLSTM (``slstm_block`` over ``SLSTMScan``, its
-loop over t with a backward written by hand).  qwen3's and chameleon's
-qk-norm runs in ``_gqa_qkv``, which training, prefill and paged decode
-share.
+nothing autograd saves is written in place), its decode branch over a
+contiguous cache ``gqa_decode`` and the paged decode step
+``gqa_decode_paged`` (both on the paged kernel), deepseek-v3's
+``mla_attention`` (the training/prefill branch on the flash kernels with
+a V head dim of their own, which also returns the int8 compressed cache,
+and the absorbed decode over that cache), ``moe_block`` (top-k routed
+experts with expert-side top-C token selection, expert-parallel over
+'model', and the shared experts), the Mamba-2 block (``mamba2_block``
+over ``ssd_chunk_scan``, or one decode step from its carried state;
+plain torch ops: the JAX package has no kernel for it), and the xLSTM
+family's two blocks, each with its prefill and decode branches: the
+mLSTM (``mlstm_block`` over ``mlstm_chunk_scan``, the SSD's form) and
+the sLSTM (``slstm_block`` over ``SLSTMScan``, its loop over t with a
+backward written by hand).  qwen3's and chameleon's qk-norm runs in
+``_gqa_qkv``, which training, prefill and both decodes share.
 
 Under tensor parallelism each rank holds its heads: hl = h_pad / tp
 query heads and kvl = kv_pad / tp KV heads (``_heads_local`` and
 ``_kv_local``; kv < tp replicates the KV heads, one a rank), so the
 flash kernels run on the local heads, and the out-projection closes
 with the psum over 'model'.  FSDP shards of wq/wk/wv/wo are gathered
-where they are used."""
+where they are used.  The serving branches are unsharded."""
 from __future__ import annotations
 
 import torch
@@ -31,8 +33,10 @@ import torch.nn.functional as F
 from ..kernels.paged_attention import paged_attention
 from .collectives import all_gather_model, psum_model
 from .config import ModelConfig
-from .layers import (NO_SHARD, ShardCtx, blocked_attention, gather_fsdp,
-                     paged_update_cache, rmsnorm, rope, tp_index)
+from ..kernels.ref import fma_f32
+from .layers import (NEG_INF, NO_SHARD, ShardCtx, blocked_attention,
+                     gather_fsdp, paged_update_cache, rmsnorm, rope,
+                     tp_index, update_cache)
 
 
 def _heads_local(h: int, tp: int) -> int:
@@ -102,6 +106,44 @@ def gqa_attention(cfg: ModelConfig, p, x, pos, ctx: ShardCtx = NO_SHARD,
     return psum_model(out, axes), cache
 
 
+def _decode_qkv(cfg: ModelConfig, p, x, pos):
+    """``_gqa_qkv`` of one pending token a row at ``pos`` ((1,) shared or
+    (b, 1) per slot), as (b, heads, 1, hd) each."""
+    q, k, v = _gqa_qkv(cfg, p, x, pos)
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def _decode_out(cfg: ModelConfig, p, q, kc, vc, page_table, lengths):
+    """Attention of the pending queries q (b, hl, 1, hd) over the pools
+    kc/vc (P, hkv, page, hd) through ``kernels.paged_attention`` (the
+    CUDA kernel for CUDA tensors, its plain version, JAX's gather math,
+    for CPU tensors), then wo: (b, 1, d)."""
+    attn = paged_attention(q, kc, vc, page_table, lengths)
+    b, hl = q.shape[:2]
+    return attn.transpose(1, 2).reshape(b, 1, hl * cfg.hd) @ p["wo"]
+
+
+def gqa_decode(cfg: ModelConfig, p, x, pos: int, cache_kv,
+               ctx: ShardCtx = NO_SHARD):
+    """One decode step of GQA self-attention over a contiguous cache (the
+    ``cache is not None`` branch of the JAX ``gqa_attention``), every
+    row at position ``pos``.  x: (b, 1, d); cache_kv: {"k","v"} (b, kvl,
+    S, hd), written IN PLACE at ``pos`` (``update_cache``).  The cache is
+    a paged pool of b pages of S positions, page i row i's (the table
+    ``arange(b)[:, None]``, the lengths pos + 1), so attention runs the
+    paged kernel with no copy: the same per-token math as JAX's
+    ``decode_attention``.  Returns (out (b, 1, d), cache_kv)."""
+    b = x.shape[0]
+    q, k, v = _decode_qkv(cfg, p, x, torch.full((1,), pos,
+                                                device=x.device))
+    kc = update_cache(cache_kv["k"], k, pos, ctx)
+    vc = update_cache(cache_kv["v"], v, pos, ctx)
+    table = torch.arange(b, dtype=torch.int32, device=x.device)[:, None]
+    lengths = torch.full((b,), pos + 1, dtype=torch.int32, device=x.device)
+    return (_decode_out(cfg, p, q, kc, vc, table, lengths),
+            {"k": kc, "v": vc})
+
+
 def gqa_decode_paged(cfg: ModelConfig, p, x, lengths, pool_kv, page_table):
     """One paged decode step of GQA self-attention over a packed slot
     batch.  x: (b, 1, d) each slot's pending token; lengths: (b,) int32
@@ -110,52 +152,102 @@ def gqa_decode_paged(cfg: ModelConfig, p, x, lengths, pool_kv, page_table):
     page_table: (b, nb) int32 per-slot page ids.  Returns (out, pool_kv).
 
     Attention reads the pool in place through ``kernels.paged_attention``
-    (the JAX ``decode_backend='paged'`` path): the CUDA kernel for CUDA
-    tensors, its plain version (the JAX gather math) for CPU tensors."""
+    (the JAX ``decode_backend='paged'`` path), as ``gqa_decode`` does."""
     ps = pool_kv["k"].shape[2]
-    q, k, v = _gqa_qkv(cfg, p, x, lengths[:, None])
-    q = q.transpose(1, 2)                            # (b, hl, 1, hd)
-    k = k.transpose(1, 2)                            # (b, kvl, 1, hd)
-    v = v.transpose(1, 2)
+    q, k, v = _decode_qkv(cfg, p, x, lengths[:, None])
     lengths_l = lengths.long()
     page_ids = page_table.long().gather(1, (lengths_l // ps)[:, None])[:, 0]
     offsets = lengths_l % ps
     kp = paged_update_cache(pool_kv["k"], k, page_ids, offsets)
     vp = paged_update_cache(pool_kv["v"], v, page_ids, offsets)
-    attn = paged_attention(q, kp, vp, page_table, lengths + 1)
-    b, hl = q.shape[:2]
-    attn = attn.transpose(1, 2).reshape(b, 1, hl * cfg.hd)
-    return attn @ p["wo"], {"k": kp, "v": vp}
+    return (_decode_out(cfg, p, q, kp, vp, page_table, lengths + 1),
+            {"k": kp, "v": vp})
 
 
 # ========================= MLA (deepseek-v3) ==========================
 
+_R127 = float(torch.tensor(1.0) / 127.0)        # f32(1/127) as a float
+
+
+def quantize_ckv(ckv: torch.Tensor):
+    """The int8 compressed cache of MLA (JAX's ``max|ckv| / 127.0 +
+    1e-8`` per token, ``round(ckv / sc)`` as int8), in the arithmetic
+    XLA compiles it to: the divide by 127 is the product with the f32
+    reciprocal; in f32 the product and the + 1e-8 are one FMA; in bf16
+    the product is rounded to bf16 and the bf16 epsilon added in f32,
+    the f32 scale leaf keeping that sum (XLA drops the bf16 round trip),
+    while ``ckv / sc`` divides by the scale rounded to bf16 and rounds
+    the quotient to bf16.  round is half to even, and the cast to int8
+    saturates as XLA's does (a bf16 quotient of 127.5 rounds to 128,
+    which is 127, not torch's wrapped -128).  ckv: (..., kvr).  Returns
+    (codes int8, scale f32 (..., 1))."""
+    m = ckv.abs().amax(dim=-1, keepdim=True)
+    if ckv.dtype == torch.float32:
+        scale = fma_f32(m, m.new_tensor(_R127), m.new_tensor(1e-8))
+    else:
+        eps = torch.tensor(1e-8, dtype=ckv.dtype).float()
+        scale = (m.float() * _R127).to(ckv.dtype).float() + eps
+    q = (ckv.float() / scale.to(ckv.dtype).float()).to(ckv.dtype)
+    return torch.round(q.float()).clamp(-128, 127).to(torch.int8), scale
+
+
 def mla_attention(cfg: ModelConfig, p, x, pos, ctx: ShardCtx = NO_SHARD,
-                  axes=None):
-    """Multi-head Latent Attention, the training/prefill branch of the
-    JAX ``mla_attention``: per-head K/V materialised from the compressed
-    kv, the rope part of K one head shared by every local head, and
-    attention with a QK head dim hd + rd and a V head dim hd through the
-    flash kernels (scale (hd + rd)^-0.5).  Returns (out (b, t, d),
-    psummed over 'model', None): the compressed decode cache is not
-    ported (the JAX engine serves no MoE model)."""
+                  axes=None, cache=None, cache_pos=None):
+    """Multi-head Latent Attention (deepseek-v3), JAX's
+    ``mla_attention``.  Without ``cache`` the training/prefill branch:
+    per-head K/V materialised from the compressed kv, the rope part of K
+    one head shared by every local head, and attention with a QK head
+    dim hd + rd and a V head dim hd through the flash kernels (scale (hd
+    + rd)^-0.5); it also returns the compressed cache of the sequence,
+    {"ckv": int8 (b, t, kvr), "scale": f32 (b, t, 1), "krope": (b, t,
+    rd)} (``quantize_ckv``; training drops it).  With ``cache`` (those
+    leaves at (b, S, ...)) one decode step (t 1) at ``cache_pos``, the
+    absorbed form over the compressed cache: q_c = q_nope . wk, the
+    token's compressed kv quantised and written IN PLACE, then in f32
+    (JAX's ``astype``s) the dequantised cache, scores (q_c . c + q_rope
+    . k_rope) (hd + rd)^-0.5 with the columns past ``cache_pos`` masked,
+    softmax, o_c = w . c and o_c . wv; plain torch ops, as JAX's are jnp
+    (no kernel).  Returns (out (b, t, d), psummed over 'model', the
+    cache)."""
     hd, rd, kvr = cfg.hd, cfg.qk_rope_dim, cfg.kv_lora_rank
     h = rmsnorm(x, p["norm"])
     b, t, _ = h.shape
     hl = p["wq_b"].shape[-1] // (hd + rd)
     cq = rmsnorm(h @ gather_fsdp(ctx, axes, p["wq_a"], 0), p["q_norm"])
     q = (cq @ p["wq_b"]).reshape(b, t, hl, hd + rd)
-    q_rope = rope(q[..., hd:], pos, cfg.rope_theta)
+    q_nope, q_rope = q[..., :hd], rope(q[..., hd:], pos, cfg.rope_theta)
     ckv_full = h @ gather_fsdp(ctx, axes, p["wkv_a"], 0)   # (b, t, kvr + rd)
     ckv = rmsnorm(ckv_full[..., :kvr], p["kv_norm"])
     k_rope = rope(ckv_full[..., None, kvr:], pos, cfg.rope_theta)
-    kv = (ckv @ p["wkv_b"]).reshape(b, t, hl, 2 * hd)
-    k = torch.cat([kv[..., :hd], k_rope.expand(b, t, hl, rd)], dim=-1)
-    qf = torch.cat([q[..., :hd], q_rope], dim=-1)
-    attn = blocked_attention(qf.transpose(1, 2), k.transpose(1, 2),
-                             kv[..., hd:].transpose(1, 2))
-    attn = attn.transpose(1, 2).reshape(b, t, hl * hd)
-    return psum_model(attn @ gather_fsdp(ctx, axes, p["wo"], 1), axes), None
+    wo = gather_fsdp(ctx, axes, p["wo"], 1)
+    if cache is None:
+        kv = (ckv @ p["wkv_b"]).reshape(b, t, hl, 2 * hd)
+        k = torch.cat([kv[..., :hd], k_rope.expand(b, t, hl, rd)], dim=-1)
+        qf = torch.cat([q_nope, q_rope], dim=-1)
+        attn = blocked_attention(qf.transpose(1, 2), k.transpose(1, 2),
+                                 kv[..., hd:].transpose(1, 2))
+        attn = attn.transpose(1, 2).reshape(b, t, hl * hd)
+        with torch.no_grad():                 # the codes take no gradient
+            codes, scale = quantize_ckv(ckv)
+        return psum_model(attn @ wo, axes), {
+            "ckv": codes, "scale": scale, "krope": k_rope[:, :, 0]}
+    wkv_b = p["wkv_b"].reshape(kvr, hl, 2 * hd)
+    wk, wv = wkv_b[..., :hd], wkv_b[..., hd:]
+    q_c = torch.einsum("bthd,rhd->bthr", q_nope, wk)      # (b, 1, hl, kvr)
+    codes, scale = quantize_ckv(ckv[:, 0])
+    cache["ckv"][:, cache_pos] = codes
+    cache["scale"][:, cache_pos] = scale
+    cache["krope"][:, cache_pos] = k_rope[:, 0, 0].to(cache["krope"].dtype)
+    cdeq = cache["ckv"].float() * cache["scale"]            # (b, S, kvr)
+    s = (torch.einsum("bthr,bsr->bths", q_c.float(), cdeq)
+         + torch.einsum("bthd,bsd->bths", q_rope.float(),
+                        cache["krope"].float())) * (hd + rd) ** -0.5
+    valid = torch.arange(cdeq.shape[1], device=x.device) <= cache_pos
+    w = torch.softmax(torch.where(valid, s, NEG_INF), dim=-1)
+    o_c = torch.einsum("bths,bsr->bthr", w, cdeq)
+    attn = torch.einsum("bthr,rhd->bthd", o_c, wv.float())
+    attn = attn.to(x.dtype).reshape(b, t, hl * hd)
+    return psum_model(attn @ wo, axes), cache
 
 
 # ================================ MoE =================================
@@ -284,42 +376,68 @@ def ssd_chunk_scan(xh, dt, a, bmat, cmat, chunk: int):
     return y, state
 
 
-def _causal_conv(sig: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """JAX's ``dconv`` without a carried state: the causal depthwise
-    conv of sig (b, t, c) with w (k, c), summed as JAX's Python ``sum``
-    (0 + p_0 + p_1 + ...)."""
+def _causal_conv(sig: torch.Tensor, w: torch.Tensor, prev=None):
+    """JAX's ``dconv``: the causal depthwise conv of sig (b, t, c) with w
+    (k, c) over sig padded in front by k - 1 zero rows, or with ``prev``
+    (b, k - 1, c) by the carried rows (f32: the concatenation promotes,
+    so a decode step's conv runs in f32 where the prefill's runs in the
+    model dtype), summed as JAX's Python ``sum`` (0 + p_0 + p_1 + ...).
+    Returns (out (b, t, c), the last k - 1 rows of the padded signal)."""
     k, t = w.shape[0], sig.shape[1]
-    padded = F.pad(sig, (0, 0, k - 1, 0))
-    return sum(padded[:, i:i + t] * w[i] for i in range(k))
+    if prev is None:
+        padded = F.pad(sig, (0, 0, k - 1, 0))
+    else:
+        padded = torch.cat([prev, sig.to(prev.dtype)], dim=1)
+    return (sum(padded[:, i:i + t] * w[i] for i in range(k)),
+            padded[:, t:])
 
 
-def mamba2_block(cfg: ModelConfig, p, x, chunk: int = 128):
-    """The Mamba-2 (SSD) block, the training/prefill branch of JAX's
-    ``mamba2_block`` (``state is None``), unsharded: in-projections of
-    rmsnorm(x) to x (d_inner), the gate z, B|C (2N) and dt (nh heads);
-    the causal depthwise conv (k 4) on the x and B|C paths; SiLU, dt =
-    softplus(dt_raw + dt_bias) and a = -exp(a_log) in f32; the SSD scan;
+def mamba2_block(cfg: ModelConfig, p, x, state=None, chunk: int = 128):
+    """The Mamba-2 (SSD) block, JAX's ``mamba2_block``, unsharded:
+    in-projections of rmsnorm(x) to x (d_inner), the gate z, B|C (2N)
+    and dt (nh heads); the causal depthwise conv (k 4) on the x and B|C
+    paths; SiLU, dt = softplus(dt_raw + dt_bias) and a = -exp(a_log) in
+    f32; the SSD scan (``ssd_chunk_scan``) over the sequence, or with
+    ``state`` = {"ssm": (b, nh, hp, N), "conv_x": (b, 3, d_inner),
+    "conv_bc": (b, 3, 2N)} one decode step (t 1): the convs continue
+    from the carried rows, and
+
+        S <- S exp(dt a) + dt B x^T,  y = C . S;
+
     the d_skip skip, the gate silu(z), cast to x's dtype, and w_out.
     jax.nn.softplus is ``logaddexp(x, 0)``, and so is this one
     (``F.softplus`` returns x above 20, which in f32 is the same value,
-    but it is 2 ulp off XLA's below).  Returns (out (b, t, d), the SSD's
-    final state (b, nh, hp, N))."""
+    but it is 2 ulp off XLA's below).  Returns (out (b, t, d), the new
+    state in f32: the SSD's final state and each conv's last 3 rows of
+    its input, the prefill's or the decode step's)."""
     h = rmsnorm(x, p["norm"])
     b, t, _ = h.shape
     n = cfg.ssm_state
     nh = p["a_log"].shape[0]
     hp = p["w_x"].shape[-1] // nh
-    xs = _causal_conv(h @ p["w_x"], p["conv_x"])
+    st = state or {}
+    xs, conv_x = _causal_conv(h @ p["w_x"], p["conv_x"], st.get("conv_x"))
     z = h @ p["w_z"]
-    bc = F.silu(_causal_conv(h @ p["w_bc"], p["conv_bc"]).float())
+    bc, conv_bc = _causal_conv(h @ p["w_bc"], p["conv_bc"],
+                               st.get("conv_bc"))
+    bc = F.silu(bc.float())
     xh = F.silu(xs.float()).reshape(b, t, nh, hp)
     dt = torch.logaddexp((h @ p["w_dt"]).float() + p["dt_bias"],
                          torch.zeros((), device=x.device))
     a = -torch.exp(p["a_log"].float())
-    y, state = ssd_chunk_scan(xh, dt, a, bc[..., :n], bc[..., n:], chunk)
+    bmat, cmat = bc[..., :n], bc[..., n:]
+    if state is None:
+        y, ssm = ssd_chunk_scan(xh, dt, a, bmat, cmat, chunk)
+    else:
+        dt1, b1, x1 = dt[:, 0], bmat[:, 0], xh[:, 0]
+        upd = (dt1[:, :, None, None] * b1[:, None, None, :]
+               * x1[..., None])                            # (b, h, p, N)
+        ssm = state["ssm"] * torch.exp(dt1 * a)[..., None, None] + upd
+        y = (ssm @ cmat[:, 0, None, :, None])[..., 0][:, None]
     y = y + xh * p["d_skip"][:, None]
     y = (y.reshape(b, t, -1) * F.silu(z.float())).to(x.dtype)
-    return y @ p["w_out"], state
+    return y @ p["w_out"], {"ssm": ssm, "conv_x": conv_x.float(),
+                            "conv_bc": conv_bc.float()}
 
 
 # ================================ xLSTM ================================

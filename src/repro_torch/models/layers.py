@@ -36,7 +36,7 @@ from .collectives import all_gather_data, pmax_model, psum_model
 __all__ = ["NEG_INF", "ShardCtx", "NO_SHARD", "tp_index", "gather_fsdp",
            "rmsnorm", "rope", "embed_lookup", "lm_loss",
            "blocked_attention", "decode_attention", "swiglu_mlp",
-           "paged_update_cache", "paged_gather"]
+           "update_cache", "paged_update_cache", "paged_gather"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,6 +165,20 @@ def swiglu_mlp(x: torch.Tensor, w_gate, w_up, w_down,
     u = x @ gather_fsdp(ctx, axes, w_up, 0)
     h = F.silu(g.float()).to(x.dtype) * u
     return psum_model(h @ gather_fsdp(ctx, axes, w_down, 1), axes)
+
+
+def update_cache(cache: torch.Tensor, new: torch.Tensor, pos: int,
+                 ctx: ShardCtx = NO_SHARD) -> torch.Tensor:
+    """Write one decode step's K or V into the contiguous cache at
+    position ``pos``, IN PLACE (JAX's ``update_cache``, whose new cache
+    replaces the donated one).  cache: (b, hkv, S, hd), new: (b, hkv, 1,
+    hd).  The sequence-sharded cache (``ctx.seq_shard_cache``) is not
+    ported."""
+    if ctx.seq_shard_cache:
+        raise NotImplementedError("update_cache: the seq-sharded cache "
+                                  "(seq_shard_cache) is not ported")
+    cache[:, :, pos] = new[:, :, 0].to(cache.dtype)
+    return cache
 
 
 # -------------------------- paged KV cache ---------------------------

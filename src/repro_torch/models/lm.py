@@ -3,10 +3,13 @@ specs, shapes and seeded init, the JAX-parameter bridge, the training
 forward and loss (``forward_lm``, ``loss_fn``) of the dense (with
 qk-norm too), MoE, encoder-decoder, Mamba-2 hybrid and xLSTM families,
 the two steps of the continuous-batching engine — ``batched_prefill_step``
-and ``paged_decode_step`` (dense only, and unsharded) — and the
-contiguous serving steps of the xLSTM family, whose cache is its
-recurrent state: ``init_cache``, ``prefill_step`` and ``decode_step``
-(JAX's serve every family; here xLSTM only, unsharded).
+and ``paged_decode_step`` (dense only, and unsharded) — and JAX's
+contiguous serving steps ``init_cache``, ``prefill_step`` and
+``decode_step`` of the MoE family (GQA KV caches, or MLA's int8
+compressed cache), the Mamba-2 hybrid (the SSD and conv states and a KV
+cache for each use of the shared block) and the xLSTM family (its
+recurrent state), unsharded (JAX's serve every family; the enc-dec
+family's contiguous path is not ported).
 
 Parameters are a plain dict with the JAX package's layout: ``embed``
 (V, d), ``final_norm`` (d,), ``lm_head`` (d, V), and per family the
@@ -54,18 +57,26 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
+def serves_contiguous(cfg: ModelConfig) -> bool:
+    """Whether ``cfg`` serves on JAX's contiguous steps (``init_cache``,
+    ``prefill_step``, ``decode_step``): the MoE family (GQA or MLA) and
+    the ssm families (the Mamba-2 hybrid, xLSTM).  The dense family
+    serves on the paged steps; the enc-dec family's contiguous path is
+    not ported."""
+    return bool(cfg.moe or cfg.ssm) and not cfg.enc_dec
+
+
 def _check_dense(cfg: ModelConfig, what: str):
     """The paged serving steps take the dense family only: the JAX
-    engine's paged steps assert ``not cfg.moe``; the xLSTM family serves
-    on the contiguous steps (``prefill_step``, ``decode_step``), and
-    serving the other encoder-decoder and ssm families (JAX's contiguous
-    decode with a cross cache or zamba2's mixed state) is not ported."""
+    engine's paged steps assert ``not (cfg.ssm or cfg.enc_dec or
+    cfg.moe)``; the MoE and ssm families serve on the contiguous steps,
+    and serving the encoder-decoder family is not ported."""
     family = ("MoE" if cfg.moe else "enc-dec" if cfg.enc_dec
               else "ssm" if cfg.ssm else None)
-    if family == "ssm" and cfg.ssm == "xlstm":
+    if family and serves_contiguous(cfg):
         raise NotImplementedError(
             f"{what} needs a dense-attention model, got {cfg.name}: the "
-            f"ssm family's xLSTM serves on the contiguous steps "
+            f"{family} family serves on the contiguous steps "
             f"(lm.prefill_step, lm.decode_step; ServeSession)")
     if family:
         raise NotImplementedError(
@@ -73,13 +84,16 @@ def _check_dense(cfg: ModelConfig, what: str):
             f"serving the {family} family is not ported")
 
 
-def _check_recurrent(cfg: ModelConfig, what: str):
-    """The contiguous serving steps take the xLSTM family only."""
-    if cfg.ssm != "xlstm":
+def _check_contiguous(cfg: ModelConfig, what: str):
+    """The contiguous serving steps take the MoE and ssm families."""
+    if cfg.enc_dec:
         raise NotImplementedError(
-            f"{what} serves the xLSTM family's recurrent state; the "
-            f"contiguous decode path of the other families ({cfg.name}) "
-            f"is not ported")
+            f"{what}: the contiguous decode path of the enc-dec family "
+            f"({cfg.name}: the decoder's cross cache) is not ported")
+    if not serves_contiguous(cfg):
+        raise NotImplementedError(
+            f"{what}: {cfg.name} is dense and serves on the paged steps "
+            f"(batched_prefill_step, paged_decode_step)")
 
 
 def pad_to(x: int, mult: int) -> int:
@@ -481,29 +495,48 @@ def layer_params(params: dict, name: str = "layers") -> list:
 
 
 def _attn_mlp_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, pos,
-                    ctx: ShardCtx = NO_SHARD, axes=None, causal: bool = True):
+                    ctx: ShardCtx = NO_SHARD, axes=None, causal: bool = True,
+                    cache=None, cache_pos=None):
     """One pre-norm transformer layer (attention, causal unless
-    ``causal=False``, + SwiGLU MLP); returns (x, {"k", "v"})."""
-    a, kv = blocks.gqa_attention(cfg, p, x, pos, ctx, axes, causal=causal)
+    ``causal=False``, + SwiGLU MLP); with ``cache`` ({"k", "v"} (b, kvl,
+    S, hd)) a decode step at ``cache_pos`` (``blocks.gqa_decode``, the
+    cache written in place).  Returns (x, {"k", "v"}: the sequence's,
+    or the cache)."""
+    a, kv = _self_attention(cfg, p, x, pos, ctx, axes, cache, cache_pos,
+                            causal)
     x = x + a
     x = x + swiglu_mlp(rmsnorm(x, p["mlp_norm"]), p["w_gate"], p["w_up"],
                        p["w_down"], ctx, axes)
     return x, kv
 
 
+def _self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, pos, ctx,
+                    axes, cache=None, cache_pos=None, causal: bool = True):
+    """GQA self-attention over the sequence (``blocks.gqa_attention``),
+    or with ``cache`` one decode step at ``cache_pos``
+    (``blocks.gqa_decode``): JAX's ``gqa_attention`` branches."""
+    if cache is None:
+        return blocks.gqa_attention(cfg, p, x, pos, ctx, axes,
+                                    causal=causal)
+    return blocks.gqa_decode(cfg, p, x, cache_pos, cache, ctx)
+
+
 def _mla_moe_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, pos,
                    ctx: ShardCtx = NO_SHARD, axes=None,
-                   dense_mlp: bool = False):
+                   dense_mlp: bool = False, cache=None, cache_pos=None):
     """One layer of the MoE family (JAX's ``_mla_moe_layer``): MLA or
-    GQA attention, then the MoE block, or with ``dense_mlp`` the SwiGLU
-    MLP.  Returns (x, aux loss; 0.0 with ``dense_mlp``)."""
-    attn = blocks.mla_attention if cfg.mla else blocks.gqa_attention
-    x = x + attn(cfg, p, x, pos, ctx, axes)[0]
+    GQA attention (a decode step at ``cache_pos`` with ``cache``), then
+    the MoE block, or with ``dense_mlp`` the SwiGLU MLP.  Returns (x,
+    the layer's cache (the sequence's, or ``cache`` written in place),
+    aux loss; 0.0 with ``dense_mlp``)."""
+    attn = blocks.mla_attention if cfg.mla else _self_attention
+    a, kv = attn(cfg, p, x, pos, ctx, axes, cache, cache_pos)
+    x = x + a
     if dense_mlp:
         return x + swiglu_mlp(rmsnorm(x, p["mlp_norm"]), p["w_gate"],
-                              p["w_up"], p["w_down"], ctx, axes), 0.0
+                              p["w_up"], p["w_down"], ctx, axes), kv, 0.0
     y, aux = blocks.moe_block(cfg, p, x, ctx, axes)
-    return x + y, aux
+    return x + y, kv, aux
 
 
 # ============================== training ==============================
@@ -680,7 +713,7 @@ def forward_lm(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
     def moe_body(carry, p):
         x, aux = carry
-        x, a = _mla_moe_layer(cfg, p, x, pos, ctx, axes)
+        x, _, a = _mla_moe_layer(cfg, p, x, pos, ctx, axes)
         return x, aux + a
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -709,7 +742,7 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
     if cfg.mtp:
         pos = torch.arange(x.shape[1], device=x.device)
         p1 = {k: v[0] for k, v in params["mtp"].items()}
-        x2, _ = _mla_moe_layer(cfg, p1, x, pos, ctx, axes, True)
+        x2 = _mla_moe_layer(cfg, p1, x, pos, ctx, axes, True)[0]
         h2 = rmsnorm(x2[:, :-1], params["final_norm"])
         loss = loss + 0.3 * lm_loss(h2, head, tokens[:, 2:], ctx, axes)
     return loss + 0.01 * aux, {"nll": loss}
@@ -778,22 +811,75 @@ def _slstm_zero_state(cfg: ModelConfig, batch: int, device) -> dict:
     return {"h": z, "c": z, "n": z, "m": z - 30.0}
 
 
-def init_cache(cfg: ModelConfig, batch: int, device="cuda") -> dict:
-    """The xLSTM family's decode cache, JAX's ``init_cache`` (unsharded):
-    its recurrent state, stacked on the layer axis, in f32: {"mlstm":
-    {"c": (n_m, b, nh, hp, hp), "n": (n_m, b, nh, hp)}, "slstm": {"h",
-    "c", "n": zeros and "m": -30, each (n_s, b, nh, d / nh)}} with hp =
-    2d / nh.  Its size does not grow with the sequence."""
-    _check_recurrent(cfg, "init_cache")
-    n_m = cfg.n_layers - _n_slstm(cfg)
-    nh = ArchDims.build(cfg).h_pad
-    hp = 2 * cfg.d_model // nh
-    cache = {"mlstm": {
-        "c": torch.zeros((n_m, batch, nh, hp, hp), device=device),
-        "n": torch.zeros((n_m, batch, nh, hp), device=device)}}
-    if _n_slstm(cfg):
-        cache["slstm"] = _slstm_zero_state(cfg, batch, device)
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               device="cuda") -> dict:
+    """The decode cache of the contiguous families, JAX's ``init_cache``
+    (unsharded), stacked on the layer axis:
+
+    - GQA MoE: {"moe": kv(n_moe)} and, with ``first_dense_layers``,
+      {"dense": kv(n_dense)}, kv(n) = {"k", "v": (n, b, kvl, max_seq,
+      hd)} in the model dtype;
+    - MLA: the same keys, each {"ckv": int8 (n, b, max_seq, kvr),
+      "scale": f32 (n, b, max_seq, 1), "krope": (n, b, max_seq, rd)};
+    - the Mamba-2 hybrid: {"mamba": {"ssm": (n_mamba, b, nh, 64, N),
+      "conv_x": (n_mamba, b, 3, d_inner), "conv_bc": (n_mamba, b, 3,
+      2N)} in f32, "attn": kv(n_shared)} (a KV cache for each use of
+      the shared block);
+    - xLSTM: its recurrent state in f32, {"mlstm": {"c": (n_m, b, nh,
+      hp, hp), "n": (n_m, b, nh, hp)}, "slstm": {"h", "c", "n": zeros
+      and "m": -30, each (n_s, b, nh, d / nh)}} with hp = 2d / nh,
+      whatever ``max_seq`` (its size does not grow with the sequence).
+    """
+    _check_contiguous(cfg, "init_cache")
+    dt = torch_dtype(cfg)
+    dims = ArchDims.build(cfg)
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def kv(n):
+        return {"k": zeros(n, batch, dims.kv_pad, max_seq, cfg.hd, dtype=dt),
+                "v": zeros(n, batch, dims.kv_pad, max_seq, cfg.hd, dtype=dt)}
+
+    def mla(n):
+        return {"ckv": zeros(n, batch, max_seq, cfg.kv_lora_rank,
+                             dtype=torch.int8),
+                "scale": zeros(n, batch, max_seq, 1),
+                "krope": zeros(n, batch, max_seq, cfg.qk_rope_dim, dtype=dt)}
+
+    if cfg.ssm == "xlstm":
+        n_m = cfg.n_layers - _n_slstm(cfg)
+        hp = 2 * cfg.d_model // dims.h_pad
+        cache = {"mlstm": {"c": zeros(n_m, batch, dims.h_pad, hp, hp),
+                           "n": zeros(n_m, batch, dims.h_pad, hp)}}
+        if _n_slstm(cfg):
+            cache["slstm"] = _slstm_zero_state(cfg, batch, device)
+        return cache
+    if cfg.ssm:
+        n_attn = _n_shared(cfg)
+        n_ssm, di = cfg.n_layers - n_attn, 2 * cfg.d_model
+        cache = {"mamba": {
+            "ssm": zeros(n_ssm, batch, di // 64, 64, cfg.ssm_state),
+            "conv_x": zeros(n_ssm, batch, 3, di),
+            "conv_bc": zeros(n_ssm, batch, 3, 2 * cfg.ssm_state)}}
+        if n_attn:
+            cache["attn"] = kv(n_attn)
+        return cache
+    layer = mla if cfg.mla else kv
+    cache = {"moe": layer(cfg.n_layers - cfg.first_dense_layers)}
+    if cfg.first_dense_layers:
+        cache["dense"] = layer(cfg.first_dense_layers)
     return cache
+
+
+def _stack(states: list) -> dict:
+    """Per-layer cache dicts stacked on a leading layer axis."""
+    return {k: torch.stack([st[k] for st in states]) for k in states[0]}
+
+
+def _layer(cache: dict, i: int) -> dict:
+    """Layer i's views of a stacked cache (a decode step writes them)."""
+    return {k: v[i] for k, v in cache.items()}
 
 
 def _xlstm_serve(cfg: ModelConfig, params: dict, x: torch.Tensor,
@@ -812,7 +898,7 @@ def _xlstm_serve(cfg: ModelConfig, params: dict, x: torch.Tensor,
     def layer(kind, block, p, x):
         i, states = len(new[kind]), cache[kind]
         y, st = block(cfg, p, x, None if states is None
-                      else {k: v[i] for k, v in states.items()})
+                      else _layer(states, i))
         new[kind].append(st)
         return x + y
 
@@ -822,28 +908,103 @@ def _xlstm_serve(cfg: ModelConfig, params: dict, x: torch.Tensor,
         x = layer("slstm", blocks.slstm_block, p_s, x)
     for p in tail:
         x = layer("mlstm", blocks.mlstm_block, p, x)
-    return x, {kind: {k: torch.stack([st[k] for st in states])
-                      for k in states[0]} for kind, states in new.items()}
+    return x, {kind: _stack(states) for kind, states in new.items()}
+
+
+def _hybrid_serve(cfg: ModelConfig, params: dict, x: torch.Tensor, pos,
+                  cache: dict | None, cache_pos: int | None):
+    """x through the hybrid's trunk in JAX's grouped order (per mamba
+    layers, then the shared block, n_attn times; then the tail): the
+    prefill with cache None, each mamba layer's state and each use's KV
+    collected; or one decode step at ``cache_pos``, every state and KV
+    cache written in place.  Returns (x, the cache)."""
+    layers = layer_params(params, "mamba")
+    n_attn = _n_shared(cfg)
+    per = len(layers) // n_attn if n_attn else 0
+    states, kvs = [], []
+
+    def mamba(x, i):
+        st = None if cache is None else _layer(cache["mamba"], i)
+        y, new = blocks.mamba2_block(cfg, layers[i], x, st)
+        if cache is None:
+            states.append(new)
+        else:
+            for k, v in new.items():
+                st[k].copy_(v)
+        return x + y
+
+    for g in range(n_attn):
+        for i in range(g * per, (g + 1) * per):
+            x = mamba(x, i)
+        x, kv = _attn_mlp_layer(
+            cfg, params["shared_attn"], x, pos, cache=None if cache is None
+            else _layer(cache["attn"], g), cache_pos=cache_pos)
+        kvs.append(kv)
+    for i in range(n_attn * per, len(layers)):
+        x = mamba(x, i)
+    if cache is not None:
+        return x, cache
+    out = {"mamba": _stack(states)}
+    if kvs:
+        out["attn"] = _stack(kvs)
+    return x, out
+
+
+def _moe_serve(cfg: ModelConfig, params: dict, x: torch.Tensor, pos,
+               cache: dict | None, cache_pos: int | None):
+    """x through the MoE family's layers (the dense ones first): the
+    prefill with cache None, each layer's KV or compressed cache
+    collected; or one decode step at ``cache_pos`` (each layer's cache
+    written in place; the b tokens routed with the capacity rule of b
+    tokens).  MTP is not used in serving, as in JAX.  Returns (x, the
+    cache)."""
+    out = {}
+    for kind, name in (("dense", "dense_layers"), ("moe", "moe_layers")):
+        if kind == "dense" and not cfg.first_dense_layers:
+            continue
+        kvs = []
+        for i, p in enumerate(layer_params(params, name)):
+            x, kv, _ = _mla_moe_layer(
+                cfg, p, x, pos, dense_mlp=kind == "dense",
+                cache=None if cache is None else _layer(cache[kind], i),
+                cache_pos=cache_pos)
+            kvs.append(kv)
+        if cache is None and kvs:
+            out[kind] = _stack(kvs)
+    return x, (out if cache is None else cache)
 
 
 def prefill_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
-    """Contiguous serving prefill of the xLSTM family (JAX's
-    ``prefill_step``): the forward over the whole prompt batch (b, t).
-    Returns (logits (b, V) f32 at the last position, the recurrent state
-    after the prompt, ``init_cache``'s layout)."""
-    _check_recurrent(cfg, "prefill_step")
-    x, cache = _xlstm_serve(cfg, params, embed_lookup(params["embed"],
-                                                      tokens), None)
+    """Contiguous serving prefill (JAX's ``prefill_step``) of the MoE and
+    ssm families: the forward over the whole prompt batch (b, t), with
+    attention on the flash kernel.  Returns (logits (b, V) f32 at the
+    last position, the prefill cache: ``init_cache``'s layout with the
+    sequence axis t long (the recurrent states as they are))."""
+    _check_contiguous(cfg, "prefill_step")
+    x = embed_lookup(params["embed"], tokens)
+    if cfg.ssm == "xlstm":
+        x, cache = _xlstm_serve(cfg, params, x, None)
+    else:
+        pos = torch.arange(tokens.shape[1], device=tokens.device)
+        serve = _hybrid_serve if cfg.ssm else _moe_serve
+        x, cache = serve(cfg, params, x, pos, None, None)
     return _logits(params, x[:, -1:]), cache
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
-                token: torch.Tensor, pos=None):
-    """One contiguous decode step of the xLSTM family (JAX's
-    ``decode_step``): token (b, 1) -> (logits (b, V) f32, the new
-    cache).  ``pos`` is unused, as in JAX: the state carries the
-    position."""
-    _check_recurrent(cfg, "decode_step")
-    x, cache = _xlstm_serve(cfg, params, embed_lookup(params["embed"],
-                                                      token), cache)
+                token: torch.Tensor, pos: int):
+    """One contiguous decode step (JAX's ``decode_step``): token (b, 1),
+    every row at position ``pos`` -> (logits (b, V) f32, the cache).
+    The KV and compressed caches and the hybrid's states are written IN
+    PLACE (GQA attention on the paged kernel, the cache one page a row);
+    the xLSTM family returns its new state (``pos`` unused, as in JAX:
+    the state carries the position)."""
+    _check_contiguous(cfg, "decode_step")
+    x = embed_lookup(params["embed"], token)
+    if cfg.ssm == "xlstm":
+        x, cache = _xlstm_serve(cfg, params, x, cache)
+    else:
+        pos_arr = torch.full((1,), pos, device=token.device)
+        serve = _hybrid_serve if cfg.ssm else _moe_serve
+        x, cache = serve(cfg, params, x, pos_arr, cache, pos)
     return _logits(params, x), cache

@@ -53,9 +53,10 @@ class ServeEngine:
         if not kv_pool.supports_paged(cfg):
             raise NotImplementedError(
                 f"paged serving covers the dense-attention families; "
-                f"{cfg.name} (ssm/enc-dec/moe) is not ported (the JAX "
-                f"engine serves none of them either: JAX's ServeSession "
-                f"serves them on its contiguous cache path only)")
+                f"{cfg.name} (ssm/enc-dec/moe) is not ported to the paged "
+                f"engine (the JAX engine serves none of them either; "
+                f"ServeSession serves the MoE and ssm families on JAX's "
+                f"contiguous cache path)")
         if serve.top_k and serve.temperature == 0.0:
             raise ValueError("top_k needs temperature > 0")
         self.cfg = cfg

@@ -189,22 +189,30 @@ def test_moe_block_matches_jax(arch):
 def test_mla_training_branch_matches_jax():
     """deepseek_v3 SMOKE's MLA block (QK head dim 16 + 8 rope dims, V 16)
     through the flash autograd function's plain route: output and the
-    gradients of sum(out * w) against JAX's training branch."""
+    gradients of sum(out * w) against JAX's training branch, and the
+    compressed cache it also returns (which prefill collects) against
+    JAX's: the scales and the rope keys within SHARD_GRAD_RTOL, the int8
+    codes equal but where the two quotients straddle a rounding edge."""
     jcfg, cfg, p, x, w = _block_pair("deepseek_v3_671b", "mla")
     pos = np.arange(x.shape[1])
 
     def jf(p, x, w):
         f = lambda p, x: jnp.sum(jblocks.mla_attention(
             ctx, jcfg, p, x, jnp.asarray(pos))[0] * w)
-        return (jblocks.mla_attention(ctx, jcfg, p, x, jnp.asarray(pos))[0],
+        return (jblocks.mla_attention(ctx, jcfg, p, x, jnp.asarray(pos)),
                 jax.grad(f, argnums=(0, 1))(p, x))
     call, ctx = jax_tp1(jf)
-    jout, (jgp, jgx) = call(p, jnp.asarray(x), jnp.asarray(w))
+    (jout, jcache), (jgp, jgx) = call(p, jnp.asarray(x), jnp.asarray(w))
 
     tp = {k: v.requires_grad_() for k, v in to_torch(p).items()}
     tx = torch.from_numpy(x).requires_grad_()
     out, cache = blocks.mla_attention(cfg, tp, tx, torch.from_numpy(pos))
-    assert cache is None
+    assert sorted(cache) == sorted(jcache)
+    for k in ("scale", "krope"):
+        assert_rel(cache[k].detach().numpy(), jcache[k], SHARD_GRAD_RTOL, k)
+    codes = cache["ckv"].numpy()
+    assert codes.dtype == np.int8
+    assert (codes != np.asarray(jcache["ckv"])).mean() < 1e-3
     grads = torch.autograd.grad((out * torch.from_numpy(w)).sum(),
                                 [tx, *tp.values()])
     assert_rel(out.detach().numpy(), jout, SHARD_GRAD_RTOL, "out")

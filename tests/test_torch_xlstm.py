@@ -510,7 +510,7 @@ def test_serving_steps_match_jax():
             got.append(tlm.decode_step(cfg, params, got[-1][1],
                                        torch.from_numpy(toks[i]).long(),
                                        37 + i))
-    empty = tlm.init_cache(cfg, 2, "cpu")
+    empty = tlm.init_cache(cfg, 2, 64, "cpu")
     for (logits, cache), (jlogits, jcache) in zip(got, want):
         assert logits.shape == (2, cfg.vocab)
         assert_rel(logits.numpy(), jlogits, SERVE_RTOL, "logits")
@@ -561,7 +561,8 @@ def test_make_train_step_refuses_sharding(ctx, match):
 def test_paged_serving_refuses_xlstm():
     """ServeEngine (paged, continuous batching) refuses xLSTM, as JAX's
     engine does; so do the paged steps, naming the contiguous ones; the
-    contiguous steps refuse the families whose state is not ported."""
+    contiguous steps refuse the family whose cache is not ported
+    (whisper's)."""
     _, cfg = cfg_pair()
     with pytest.raises(NotImplementedError, match="not ported"):
         ServeEngine(cfg, ServeConfig(), device="cpu")
@@ -569,6 +570,6 @@ def test_paged_serving_refuses_xlstm():
         tlm.batched_prefill_step(cfg, {}, torch.zeros((1, 4),
                                                       dtype=torch.long),
                                  torch.ones(1))
-    zamba = get("zamba2_7b")
+    whisper = get("whisper_tiny")
     with pytest.raises(NotImplementedError, match="contiguous decode path"):
-        tlm.init_cache(zamba, 1, "cpu")
+        tlm.init_cache(whisper, 1, 16, "cpu")

@@ -22,7 +22,7 @@ What is held:
   ``make_train_step`` on a 2-device data mesh, and a 2-rank gloo world
   of the same step against the stacked run, bit for bit; remat and the
   CLI;
-* the refusals: tp > 1 and ``--fsdp`` (not ported yet), serving (JAX
+* the refusals: tp > 1 and ``--fsdp`` (not ported yet), paged serving (JAX
   serves the family on its contiguous path only).
 """
 import dataclasses
@@ -248,7 +248,7 @@ def test_mamba2_block_matches_jax():
     grads = torch.autograd.grad((out * torch.from_numpy(w)).sum(),
                                 [tx, *tp.values()])
     assert_rel(out.detach().numpy(), jout, SSD_RTOL, "out")
-    assert_rel(st.detach().numpy(), jst, SSD_RTOL, "state")
+    assert_rel(st["ssm"].detach().numpy(), jst, SSD_RTOL, "state")
     assert_rel(grads[0].numpy(), jgx, GRAD_RTOL, "dx")
     for k, g in zip(tp, grads[1:]):
         assert np.abs(np.asarray(jgp[k])).max() > 0, k
@@ -562,11 +562,13 @@ def test_make_train_step_refuses_sharding(ctx, match):
 
 
 def test_serving_refuses_the_ssm_family():
-    """JAX serves zamba2 on its contiguous ServeSession path only; the
-    port's paged serving refuses it by name."""
+    """JAX serves zamba2 on its contiguous ServeSession path only, and so
+    does the port (tests/test_torch_serve_families.py holds it against
+    JAX); the port's paged serving refuses it by name."""
     _, cfg = cfg_pair()
-    with pytest.raises(NotImplementedError, match="contiguous decode path"):
-        tapi.ServeSession(tapi.RunSpec(arch=ARCH, smoke=True), device="cpu")
+    sess = tapi.ServeSession(tapi.RunSpec(arch=ARCH, smoke=True),
+                             device="cpu", cfg=cfg)
+    assert sess.contiguous and sess.generate([[1, 2, 3]], 2).shape == (1, 2)
     with pytest.raises(NotImplementedError, match="not ported"):
         ServeEngine(cfg, ServeConfig(), device="cpu")
     with pytest.raises(NotImplementedError, match="ssm family"):
