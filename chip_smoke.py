@@ -263,9 +263,10 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    + SDPA; (b) qwen3_32b at its published widths cut to 1 layer, a
    world of one on NCCL in this process (``--fsdp --mesh 1x1 --sync
    optinc --bits 8``, the sync taking the replicated leaves only), seq
-   4096, lr 1e-5, 5 steps: finite falling losses, step p50/p99,
-   tokens/s, peak memory beside the reckoning, the flash launches (all
-   at 80 x 80), pam4 once a bucket of the replicated leaves; then
+   4096, lr 1e-5, 5 steps and a 6th traced on the device: finite
+   falling losses, step p50/p99, tokens/s, peak memory beside the
+   reckoning, the flash launches (all at 80 x 80), pam4 once a bucket of
+   the replicated leaves, the traced step's busy share; then
    ServeEngine at those widths (8 requests, the paged kernel at hd 80);
    (c) zamba2_7b at its published widths cut to 7 layers (6 mamba2
    layers, one use of the shared block), every leaf synced, seq 4096, 8
@@ -294,6 +295,31 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    gradients bit for bit) and ServeSession card vs CPU (teacher-forced
    logits, greedy tokens, as phase 5).  The phase prints each part's
    seconds.
+   4p. ServeSession on the MoE family and the Mamba-2 hybrid
+   (``serve_families_phase``; alone ``serve_families_alone``): the paged
+   kernel one page a row at their heads, phi35_moe_42b, deepseek_v3_671b
+   and zamba2_7b at their published widths (depth cut) over JAX's
+   contiguous caches, and their SMOKE configs card vs CPU.
+   4q. ServeSession on the enc-dec family and lm_loss's sequence chunks
+   (``whisper_serve_phase``; alone ``whisper_serve_alone``): (a) the
+   paged kernel one page a row at whisper's heads (b 8, 6/6, hd 64, S
+   1500): the self rows (lengths 129-160) and the cross rows (every
+   column), and a ragged f32 case, against the plain version, with its
+   plan; the bf16 cases timed beside the plain version, SDPA over the
+   same columns, the bound and the same K/V in a pool of 16-position
+   pages, and the flash forward at the prefill's cross shape; (b)
+   whisper_tiny at its published widths and depth, bf16, weights drawn
+   on the card, 8 prompts of 128 tokens x 32 new with seeded frames,
+   max_seq 1500 (the frame count): prefill ms, decode p50/p99, tokens/s,
+   peak memory beside the reckoning, a profiled window, flash 12 a
+   prefill (8 non-causal, 4 causal) and paged 8 a decode step, exactly,
+   and the tokens of ``generate``; (c) the SMOKE config in f32 card vs
+   CPU (teacher-forced logits, greedy tokens, as phase 5); (d)
+   ``lm_loss`` at qwen3_32b's vocabulary, b 1, t 4096, d 5120, bf16:
+   the chunked loss and gradients against the one-chunk form, each
+   form's peak memory and time, and the time of the chunked form with
+   its chunks summed by the host-read ``kernels.ref.fma_f32`` (the
+   recompute's cost and the host stalls' apart).
 5. Card vs plain end to end: the f32 model with the same weights served
    through the kernels on the card and through the plain path on the
    CPU; teacher-forced logits must agree, greedy tokens must agree up to
@@ -4488,11 +4514,13 @@ def qwen_full_width(card: str) -> dict:
     deepseek_coder_33b: the sync takes the replicated leaves only; the
     stacked --fsdp step keeps a second copy of the state while it
     restacks, which does not fit), the seeded weights drawn on the card
-    (``device_params``), seq 4096, HYBRID_STEPS steps: finite falling
-    losses, step p50/p99, tokens/s, peak memory beside the reckoning,
+    (``device_params``), seq 4096, HYBRID_STEPS steps and one more traced
+    on the device: finite falling losses, step p50/p99 (the untraced
+    steps after the first), tokens/s, peak memory beside the reckoning,
     the launches (flash, all at 80 x 80, once a layer a step; pam4 once
     a bucket of the replicated leaves: FSDP leaves skip the sync at pods
-    1); then ServeEngine at the same widths on seeded weights drawn on
+    1), the traced step's busy share and heaviest kernels; then
+    ServeEngine at the same widths on seeded weights drawn on
     the card, 8 requests (the paged kernel at hd 80).  Returns the flash
     and paged launches."""
     import torch
@@ -4512,9 +4540,11 @@ def qwen_full_width(card: str) -> dict:
         [(s, lm.torch_dtype(cfg)) for s, m in zip(
             leaves(lm.local_param_shapes(cfg, ctx)), lm.fsdp_leaves(cfg, ctx))
          if not m], spec.resolved_sync().bucket_bytes).n_buckets
+    steps = HYBRID_STEPS + 1                 # the last one profiled
+    prof = profile_step(HYBRID_STEPS, cpu=False)
     with world_of_one():
         session, recs, losses, init_s, launches, _, peak = hybrid_session(
-            QWEN_ARGV, cfg, HYBRID_STEPS,
+            QWEN_ARGV, cfg, steps, [prof],
             draw=lambda: device_params(cfg, spec.seed, ctx))
         session.close()
     del session
@@ -4523,9 +4553,10 @@ def qwen_full_width(card: str) -> dict:
     print(f"4m (b) qwen3_32b (d 5120, 64/8 heads of 80, qk-norm, d_ff "
           f"25600, vocab 151936; {QWEN_LAYERS} layer, {n} parameters) world "
           f"of one on NCCL in process, --fsdp --sync optinc --bits 8 --lr "
-          f"1e-5, seq 4096, {HYBRID_STEPS} steps (session init with the "
-          f"weights drawn on the card {init_s:.2f} s): "
-          f"{step_line(recs, losses, 4096)}; peak {peak / 1e9:.2f} GB "
+          f"1e-5, seq 4096, {steps} steps (session init with the "
+          f"weights drawn on the card {init_s:.2f} s; the last step "
+          f"profiled): {step_line(recs[:-1], losses[:-1], 4096)}; last "
+          f"loss {losses[-1]}; peak {peak / 1e9:.2f} GB "
           f"against the reckoning {reckon / 1e9:.2f} GB "
           f"({RECKON_BYTES_PER_PARAM:.1f} B a parameter + {logits / 1e9:.2f}"
           f" GB of f32 logits and their gradient), {peak / n:.1f} B a "
@@ -4535,16 +4566,16 @@ def qwen_full_width(card: str) -> dict:
           f"all at 80 x 80: qwen3 has no other head dim) [{card}]",
           flush=True)
     check_falling("4m (b) qwen3_32b", losses)
-    want = HYBRID_STEPS * QWEN_LAYERS
+    want = steps * QWEN_LAYERS
     if not (launches["flash_attention"] == want
             and launches["flash_attention_bwd"] == want
-            and launches["pam4_quantize_encode"] == HYBRID_STEPS
-            * rep_buckets
-            and launches["pam4_decode_dequantize"] == HYBRID_STEPS
-            * rep_buckets):
+            and launches["pam4_quantize_encode"] == steps * rep_buckets
+            and launches["pam4_decode_dequantize"] == steps * rep_buckets):
         raise AssertionError(f"4m (b) launches {launches}: want {want} of "
-                             f"each flash kernel, {HYBRID_STEPS} x "
+                             f"each flash kernel, {steps} x "
                              f"{rep_buckets} of each pam4")
+    if prof.prof is not None:
+        device_profile(prof.prof, prof.wall_s, card, "qwen3_32b step")
     gc.collect()
     torch.cuda.empty_cache()
     serve = ServeConfig(page_size=16, max_active=8, max_seq=512)
@@ -4979,16 +5010,19 @@ def xlstm_serve_full_width(card: str) -> None:
         raise AssertionError("4o (b) serving disagrees with generate()")
 
 
-def session_forced_logits(sess, prompts, forced) -> "torch.Tensor":
+def session_forced_logits(sess, prompts, forced, max_seq=None,
+                          **frames) -> "torch.Tensor":
     """Logits of ServeSession's prefill and each decode step over the
-    contiguous cache (the prefill's seeded into a long enough one),
-    feeding ``forced`` tokens (n, steps) instead of sampling: (n, steps,
-    V) on the CPU."""
+    contiguous cache (the prefill's seeded into one of ``max_seq``, by
+    default just long enough), feeding ``forced`` tokens (n, steps)
+    instead of sampling: (n, steps, V) on the CPU.  ``frames``: the
+    enc-dec family's ``enc_frames``."""
     import torch
     from repro_torch.api import build
     n, t = prompts.shape
-    logits, pre = sess.prefill(prompts)
-    cache = build.seed_cache(sess.new_cache(n, t + forced.shape[1]), pre)
+    logits, pre = sess.prefill(prompts, **frames)
+    cache = build.seed_cache(sess.new_cache(
+        n, max_seq or t + forced.shape[1]), pre)
     out = [logits]
     for j in range(forced.shape[1] - 1):
         logits, cache = sess.decode(cache, forced[:, j:j + 1], t + j)
@@ -5003,7 +5037,8 @@ def contiguous_serving_card_vs_cpu(card: str, label: str,
     weights, 4 prompts of 40 tokens x 16 new: the teacher-forced logits
     within LOGIT_TOL, and the greedy tokens equal up to the first
     position where the plain top-2 margin is thinner than 2 LOGIT_TOL
-    (phase 5's rule)."""
+    (phase 5's rule).  The enc-dec family takes 4 prompts of 16 tokens
+    with seeded frames, over caches of its frame count (32)."""
     import numpy as np
     import torch
     from repro_torch.api import RunSpec, ServeSession
@@ -5016,15 +5051,21 @@ def contiguous_serving_card_vs_cpu(card: str, label: str,
     cpu = ServeSession(spec, params, device="cpu", cfg=cfg)
     gpu = ServeSession(spec, tree_map(lambda t: t.cuda(), params),
                        device="cuda", cfg=cfg)
-    prompts = torch.randint(0, cfg.vocab, (4, 40),
-                            generator=torch.Generator().manual_seed(SEED))
-    new = 16
-    plain = cpu.generate(prompts, new)
-    card_out = gpu.generate(prompts, new).cpu()
-    lg_cpu = session_forced_logits(cpu, prompts, plain)
-    lg_gpu = session_forced_logits(gpu, prompts.cuda(), plain.cuda())
+    g = torch.Generator().manual_seed(SEED)
+    t, new = (16, 16) if cfg.enc_dec else (40, 16)
+    prompts = torch.randint(0, cfg.vocab, (4, t), generator=g)
+    kw, kw_gpu = {}, {}
+    if cfg.enc_dec:
+        frames = torch.randn((4, cfg.enc_frames, cfg.d_model), generator=g)
+        kw = {"max_seq": cfg.enc_frames, "enc_frames": frames}
+        kw_gpu = {**kw, "enc_frames": frames.cuda()}
+    plain = cpu.generate(prompts, new, **kw)
+    card_out = gpu.generate(prompts, new, **kw_gpu).cpu()
+    lg_cpu = session_forced_logits(cpu, prompts, plain, **kw)
+    lg_gpu = session_forced_logits(gpu, prompts.cuda(), plain.cuda(),
+                                   **kw_gpu)
     err = (lg_cpu - lg_gpu).abs().max().item()
-    print(f"{label} ({cfg.name} f32, ServeSession, 4 prompts of 40 tokens x "
+    print(f"{label} ({cfg.name} f32, ServeSession, 4 prompts of {t} tokens x "
           f"{new}): teacher-forced logits max_abs_err {err:.3e} (tol "
           f"{LOGIT_TOL:.0e}), |logits| max {lg_cpu.abs().max().item():.3f}",
           flush=True)
@@ -5317,6 +5358,408 @@ def serve_families_alone(card: str) -> None:
     from repro_torch.kernels import _build
     _build.build()
     serve_families_phase(card)
+
+
+# -------------------------- phase 4q: ServeSession on the enc-dec family
+# whisper_tiny at its published widths and depth (4 + 4 layers, d 384, 6
+# heads of 64, vocab 51865, 1500 frames), bf16, weights drawn on the
+# card; XLSTM_SERVE's traffic (8 prompts of 128 x 32 new) over caches of
+# WHISPER_MAX_SEQ = the frame count, the one length whose decode has no
+# zero cross column
+WHISPER_MAX_SEQ = 1500
+# (a): the paged kernel one page a row at whisper's heads over S 1500:
+# the decode's self rows (lengths of positions 129-160) and cross rows
+# (every column), and a ragged f32 case; (label, b, h, hkv, hd, S,
+# lengths, dtype)
+WHISPER_PAGED_ROWS = (
+    ("self", 8, 6, 6, 64, 1500, list(range(129, 157, 4)) + [160], "bfloat16"),
+    ("cross", 8, 6, 6, 64, 1500, [1500] * 8, "bfloat16"),
+    ("ragged f32", 3, 6, 6, 64, 37, [1, 20, 37], "float32"))
+# the other form timed beside the plan's one split of the whole row:
+# the same K/V copied into a pool of pages of this many positions, which
+# the plan splits over the SMs (a split is a whole number of pages)
+WHISPER_POOL_PAGE = 16
+# (d): lm_loss at qwen3_32b's vocabulary and width, b 1, t 4096, bf16
+# head; the chunked form against one chunk: the loss relative to its
+# value (f32 sums of 4096 NLLs in another grouping) and each gradient
+# relative to its largest entry (bf16 outputs, one rounding apart)
+LM_LOSS_SHAPE = (1, 4096, 5120, 151936)
+LM_LOSS_RTOL = 1e-5
+LM_LOSS_GRAD_RTOL = 1e-2
+LM_LOSS_REPS = 5        # timed calls of each form, after one to warm up
+
+
+def whisper_paged_rows(card: str) -> dict:
+    """(a) The paged kernel with the contiguous cache as one page a row
+    at whisper's heads against its plain version (WHISPER_PAGED_ROWS),
+    its plan and the build report's line for the instantiation it takes;
+    the bf16 cases timed (self: every row at length 144, decode step 16
+    after 128 prompt tokens; cross: every row at 1500) beside the plain
+    version, SDPA over the same columns, the bound, and the kernel over
+    the same K/V in a pool of WHISPER_POOL_PAGE-position pages (the form
+    the plan can split).  Returns the cross case's record (launches set
+    by (b))."""
+    import re
+    import torch
+    from repro_torch.kernels import _build, paged_attention, ref
+    path = _build.build(["paged_attention"])["paged_attention"]
+    stats = ptxas_stats(path)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    records = {}
+    for label, b, h, hkv, hd, s_len, lengths, dt in WHISPER_PAGED_ROWS:
+        dtype = getattr(torch, dt)
+        args = one_page_a_row(b, h, hkv, hd, s_len, lengths, dtype, SEED + 1)
+        got = paged_attention.paged_attention(*args).float()
+        err = (got - ref.paged_attention_ref(*args).float()).abs().max().item()
+        p = paged_attention.plan(b, h, hkv, s_len, hd, 1,
+                                 args[1].element_size(), 16, sms)
+        tol = KERNEL_TOL[dt]
+        print(f"4q (a) paged_attention one page a row, whisper {label}: b={b}"
+              f" h={h} hkv={hkv} hd={hd} S={s_len} lengths {min(lengths)}-"
+              f"{max(lengths)} {dt}: max_abs_err {err:.3e} (tol {tol:.0e}); "
+              f"plan: split {p.split} x {p.n_splits}, grid {p.grid} = "
+              f"{math.prod(p.grid)} blocks for {sms} SMs, {p.vec_bytes}-byte "
+              f"loads, {p.rows} rows a block", flush=True)
+        if not err <= tol:
+            raise AssertionError(f"4q (a) paged {label}: {err} > {tol}")
+        tmpl = "__nv_bfloat16" if dt == "bfloat16" else "float"
+        pat = rf"paged_split_kernel<{tmpl}, {p.vec_bytes}, {p.rows}>"
+        for short, _, st in stats:
+            if re.search(pat, short):
+                print(f"  4q (a) {short}: {st.get('regs')} registers, "
+                      f"{st['spill'][0]} bytes spill stores, "
+                      f"{st['spill'][1]} bytes spill loads", flush=True)
+        if dt != "bfloat16":
+            continue
+        n = 144 if label == "self" else s_len
+        args[4] = torch.full((b,), n, dtype=torch.int32, device="cuda")
+        ins = copies_for(args)
+        ms = time_ms(paged_attention.paged_attention, ins)[0]
+        plain_ms = time_ms(ref.paged_attention_ref, ins, iters=20)[0]
+        lib_ms = time_ms(functools.partial(sdpa_rows, n=n), ins)[0]
+        pool = as_page_pool(*args, WHISPER_POOL_PAGE)
+        pool_ms = time_ms(paged_attention.paged_attention,
+                          copies_for(pool))[0]
+        pp = paged_attention.plan(b, h, hkv, WHISPER_POOL_PAGE, hd,
+                                  pool[3].shape[1], 2, 16, sms)
+        bound, by = paged_bounds(b, h, hkv, hd, s_len, [n] * b, dtype)
+        print(f"4q (a) paged_attention one page a row, whisper {label}, all "
+              f"rows at length {n} of S {s_len}: kernel {ms * 1e3:.2f} us "
+              f"(the plan's one split a row), plain {plain_ms * 1e3:.2f} us,"
+              f" SDPA over the first {n} columns {lib_ms * 1e3:.2f} us, "
+              f"bound {bound * 1e3:.3f} us ({by}); the same K/V in a pool "
+              f"of {WHISPER_POOL_PAGE}-position pages {pool_ms * 1e3:.2f} us "
+              f"(split {pp.split} x {pp.n_splits}, grid {pp.grid}) "
+              f"[{card}]", flush=True)
+        if label == "cross":
+            records["paged_attention row whisper_tiny"] = dict(
+                name="paged_attention (one page a row, hd 64, whisper_tiny:"
+                     " the cross rows timed; launches: every self and cross"
+                     " decode of 4q (b))",
+                route="cuda", source="src/repro_torch/csrc/paged_attention.cu",
+                replaces="src/repro/kernels/paged_attention.py:108",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=lib_ms, launches=0)
+    return records
+
+
+def whisper_cross_flash(card: str) -> dict:
+    """(a) The flash forward, non-causal, at the serving prefill's cross
+    shape (8 prompts of 128 queries over 1500 frames, 6 heads of 64,
+    bf16, no lse: serving takes no gradient) against its plain version
+    (bf16 limits, each row against its own scale too), timed beside the
+    plain version, SDPA and the bound.  (The encoder's 8 x 1500^2 shape
+    is phase 4l's.)  Returns its record (launches set by (b))."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import attention, ref
+    shape = (8, 6, 6, 64, 128, 1500, torch.bfloat16)
+    q, k, v = flash_case(*shape, SEED + 2)
+    o = attention.flash_attention(q, k, v, causal=False)
+    want = ref.attention_fwd_ref(q, k, v, False)[0]
+    err = (o.float() - want.float()).abs().max().item()
+    row, mean = row_and_mean_errs(o, want)
+    ins = copies_for([q, k, v])
+    ms = time_ms(lambda q, k, v: attention.flash_attention(
+        q, k, v, causal=False), ins)[0]
+    plain_ms = time_ms(lambda q, k, v: ref.attention_fwd_ref(
+        q, k, v, False), ins, iters=10)[0]
+    lib_ms = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+        q, k, v), ins)[0]
+    bound, by = flash_bounds(*shape, causal=False)
+    print(f"4q (a) flash_attention non-causal at the prefill's cross shape "
+          f"b=8 h=6 hd=64 sq=128 skv=1500 bfloat16: max_abs_err {err:.3e} "
+          f"(tol {KERNEL_TOL['bfloat16']}), max over rows of max|err| / "
+          f"max|ref| {row:.3e} (tol {FLASH_ROW_TOL:.3e}), mean|err| / "
+          f"mean|ref| {mean:.3e} (tol {FLASH_MEAN_TOL:.3e}); kernel "
+          f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, SDPA "
+          f"{lib_ms * 1e3:.2f} us, bound {bound * 1e3:.3f} us ({by}) "
+          f"[{card}]", flush=True)
+    if not (err <= KERNEL_TOL["bfloat16"] and row <= FLASH_ROW_TOL
+            and mean <= FLASH_MEAN_TOL):
+        raise AssertionError(f"4q (a) flash cross: {err}, {row}, {mean}")
+    return {"flash_attention serve cross": dict(
+        name="flash_attention (non-causal, whisper_tiny's serving cross: "
+             "launches: every flash launch of 4q (b)'s prefill)",
+        route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/attention.py:63", max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+        library_ms=lib_ms, launches=0)}
+
+
+def as_page_pool(q, kc, vc, table, ln, page: int):
+    """The contiguous cache (b, hkv, S, hd) copied into a pool of pages
+    of ``page`` positions (S padded with zeros to a whole page; pool page
+    0 the null page), with each row's table: (q, k pool, v pool, table,
+    lengths), what the paged engine's decode hands the kernel."""
+    import torch
+    import torch.nn.functional as F
+    b, hkv, s_len, hd = kc.shape
+    nb = -(-s_len // page)
+
+    def pool(c):
+        c = F.pad(c, (0, 0, 0, nb * page - s_len))
+        c = c.reshape(b, hkv, nb, page, hd).transpose(1, 2)
+        return F.pad(c.reshape(b * nb, hkv, page, hd),
+                     (0, 0, 0, 0, 0, 0, 1, 0)).contiguous()
+    rows = 1 + torch.arange(b * nb, dtype=torch.int32, device=kc.device)
+    return q, pool(kc), pool(vc), rows.reshape(b, nb), ln
+
+
+def whisper_frames(cfg, b: int, seed: int):
+    """Seeded ``enc_frames`` (b, frames, d) f32 on the card (the conv
+    front end is a stub in both packages: the frames are its output)."""
+    import torch
+    return torch.randn((b, cfg.enc_frames, cfg.d_model), device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(
+                           seed))
+
+
+def whisper_serve_full_width(card: str) -> dict:
+    """(b) ServeSession on whisper_tiny at its published widths and depth
+    (bf16, seeded weights drawn on the card): XLSTM_SERVE's 8 prompts of
+    128 tokens with seeded frames, one prefill and 31 decode steps over
+    caches of WHISPER_MAX_SEQ: prefill ms, decode step p50/p99, output
+    tokens/s, peak memory beside the reckoning (the weights, the
+    prefill's and the decode's caches), a profiled window of 4 decode
+    steps, and the launches of the counted run (counts set to 0 just
+    before it): flash 8 non-causal (4 encoder layers, 4 cross) and 4
+    causal a prefill, paged 8 a decode step (4 self, 4 cross).  The
+    tokens must equal ``generate``'s.  Returns {kernel: launches}."""
+    import torch
+    from repro_torch.api import RunSpec, ServeSession, build
+    from repro_torch.configs import get
+    from repro_torch.kernels import attention, paged_attention
+    cfg = get("whisper_tiny")
+    b, t, new = XLSTM_SERVE
+    gc.collect()
+    torch.cuda.empty_cache()
+    sess = ServeSession(RunSpec(arch="whisper_tiny"),
+                        params=device_params(cfg, SEED + 5), device="cuda",
+                        cfg=cfg)
+    weights = cache_bytes(sess.params)
+    prompts = torch.randint(0, cfg.vocab, (b, t), device="cuda",
+                            generator=torch.Generator(
+                                device="cuda").manual_seed(SEED + 6))
+    frames = whisper_frames(cfg, b, SEED + 7)
+    sess.generate(prompts[:1, :16], 2, max_seq=WHISPER_MAX_SEQ,
+                  enc_frames=frames[:1])                       # warm
+    flash, paged = attention.flash_attention, paged_attention.paged_attention
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash.launches, flash.launches_by_mode = 0, {}
+    paged.launches = 0
+    t0 = time.perf_counter()
+    logits, pre = sess.prefill(prompts, enc_frames=frames)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    by_mode = dict(flash.launches_by_mode)
+    cache = build.seed_cache(sess.new_cache(b, WHISPER_MAX_SEQ), pre)
+    tok = logits.argmax(-1)[:, None]
+    out, times = [tok], []
+    for i in range(new - 1):
+        t1 = time.perf_counter()
+        logits, cache = sess.decode(cache, tok, t + i)
+        tok = logits.argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        out.append(tok)
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": flash.launches,
+                "paged_attention": paged.launches}
+    peak = torch.cuda.max_memory_allocated()
+    caches = cache_bytes(pre) + cache_bytes(cache)
+    gen = torch.cat(out, dim=1)
+    same = torch.equal(gen, sess.generate(prompts, new,
+                                          max_seq=WHISPER_MAX_SEQ,
+                                          enc_frames=frames))
+    t1 = time.perf_counter()
+    sess.prefill(prompts, enc_frames=frames)
+    torch.cuda.synchronize()
+    prefill_again_s = time.perf_counter() - t1
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for i in range(4):               # positions 128-131 written again
+            sess.decode(cache, tok, t + i)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t1
+    print(f"4q (b) whisper_tiny ({cfg.n_enc_layers} + {cfg.n_layers} layers,"
+          f" {n_params(cfg):,} parameters, bf16) served by ServeSession: {b}"
+          f" prompts of {t} tokens x {new} new, {cfg.enc_frames} frames, "
+          f"max_seq {WHISPER_MAX_SEQ}: prefill {prefill_s * 1e3:.2f} ms "
+          f"(the first at this shape; {prefill_again_s * 1e3:.2f} ms after "
+          f"generate()), "
+          f"decode step p50 {pct(times, 0.5) * 1e3:.2f} ms p99 "
+          f"{pct(times, 0.99) * 1e3:.2f} ms over {len(times)} steps, "
+          f"{b * new / wall:.1f} output tokens/s ({wall:.3f} s); peak "
+          f"{peak / 1e9:.3f} GB beside the reckoning "
+          f"{(weights + caches) / 1e9:.3f} GB (weights {weights / 1e6:.1f} "
+          f"MB, the caches {caches / 1e6:.1f} MB: the decode's self and "
+          f"cross {cache_bytes(cache['self']) / 1e6:.1f} + "
+          f"{cache_bytes(cache['cross']) / 1e6:.1f} MB); flash launches of "
+          f"the prefill by mode {by_mode}, paged launches "
+          f"{launches['paged_attention']}; generate() gives the same "
+          f"tokens: {same} [{card}]", flush=True)
+    device_profile(prof, prof_s, card, "4q (b) whisper_tiny, 4 decode steps"
+                   " (after the counted run)")
+    want = {"flash_attention": cfg.n_enc_layers + 2 * cfg.n_layers,
+            "paged_attention": 2 * cfg.n_layers * (new - 1)}
+    want_mode = {"full": cfg.n_enc_layers + cfg.n_layers,
+                 "causal": cfg.n_layers}
+    if launches != want or by_mode != want_mode:
+        raise AssertionError(f"4q (b): launches {launches} by mode {by_mode},"
+                             f" want {want} and {want_mode}")
+    if not (same and torch.isfinite(logits).all()):
+        raise AssertionError("4q (b) whisper_tiny: decode disagrees with "
+                             "generate() or the logits are not finite")
+    del sess, pre, cache
+    return launches
+
+
+def lm_loss_chunks(card: str) -> None:
+    """(d) ``layers.lm_loss`` at qwen3_32b's vocabulary and width
+    (LM_LOSS_SHAPE, x and the head bf16, seeded on the card): the
+    chunked loss (1024 positions a chunk under checkpoint) and its
+    gradients against the one-chunk form (``chunk`` past t), each
+    form's peak memory above the inputs, and the time of a forward and
+    backward (CUDA events, LM_LOSS_REPS calls after one to warm up; the
+    host's wall beside).  A third form, the chunked loss with its chunks
+    summed by ``kernels.ref.fma_f32`` (which reads on the host whether a
+    sum needs its correction, a stall a chunk), prices those stalls: the
+    chunked form less the one-chunk form is the recompute's cost, the
+    third form less the chunked one the stalls'."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.models import layers
+    b, t, d, v = LM_LOSS_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    gc.collect()
+    torch.cuda.empty_cache()
+    x = torch.randn((b, t, d), device="cuda", generator=g).bfloat16()
+    head = (torch.randn((d, v), device="cuda", generator=g) * 0.02
+            ).bfloat16()
+    tg = torch.randint(0, v, (b, t), device="cuda", generator=g)
+    sync_free = layers.fma_round_once
+
+    def host_read(a, b_, c):
+        return ref.fma_f32(a[None], b_[None], c[None])[0]
+    res = {}
+    for label, chunk, fma in (("chunked", layers.LOSS_CHUNK, sync_free),
+                              ("one chunk", t + 1, sync_free),
+                              ("chunked, host-read FMA", layers.LOSS_CHUNK,
+                               host_read)):
+        layers.fma_round_once = fma
+        try:
+            xs = x.clone().requires_grad_()
+            hs = head.clone().requires_grad_()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            loss = layers.lm_loss(xs, hs, tg, chunk=chunk)
+            gx, gh = torch.autograd.grad(loss, (xs, hs))
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            dev, wall = [], []
+            for _ in range(LM_LOSS_REPS):
+                e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                t0 = time.perf_counter()
+                e0.record()
+                torch.autograd.grad(layers.lm_loss(xs, hs, tg, chunk=chunk),
+                                    (xs, hs))
+                e1.record()
+                torch.cuda.synchronize()
+                wall.append(time.perf_counter() - t0)
+                dev.append(e0.elapsed_time(e1))
+        finally:
+            layers.fma_round_once = sync_free
+        res[label] = (loss.item(), gx, gh, peak, pct(dev, 0.5),
+                      pct(wall, 0.5) * 1e3)
+        del xs, hs, loss
+    (l0, gx0, gh0, p0, d0, w0), (l1, gx1, gh1, p1, d1, w1), \
+        (l2, gx2, gh2, _, d2, w2) = res.values()
+    errs = [abs(l0 - l1) / abs(l1)] + [
+        ((a.float() - c.float()).abs().max() / c.float().abs().max()).item()
+        for a, c in ((gx0, gx1), (gh0, gh1))]
+    same = l2 == l0 and torch.equal(gx2, gx0) and torch.equal(gh2, gh0)
+    print(f"4q (d) lm_loss at b {b}, t {t}, d {d}, vocab {v} (bf16 head): "
+          f"chunked loss {l0:.6f} vs one chunk {l1:.6f} (relative "
+          f"{errs[0]:.3e}, tol {LM_LOSS_RTOL:.0e}); gradients x, head "
+          f"{errs[1]:.3e}, {errs[2]:.3e} of their largest entry (tol "
+          f"{LM_LOSS_GRAD_RTOL:.0e}); peak above the inputs: chunked "
+          f"{p0 / 1e9:.3f} GB, one chunk {p1 / 1e9:.3f} GB (the f32 logits "
+          f"of one chunk {b * min(t, 1024) * v * 4 / 1e9:.3f} GB, of the "
+          f"row {b * t * v * 4 / 1e9:.3f} GB) [{card}]", flush=True)
+    print(f"4q (d) lm_loss forward and backward, p50 of {LM_LOSS_REPS} "
+          f"(CUDA events; host wall): chunked {d0:.2f} ms ({w0:.2f}), one "
+          f"chunk {d1:.2f} ms ({w1:.2f}), chunked with the host-read FMA "
+          f"{d2:.2f} ms ({w2:.2f}; loss and gradients bit-equal to the "
+          f"chunked form's: {same}): the recompute {d0 - d1:.2f} ms, the "
+          f"host's stalls {d2 - d0:.2f} ms [{card}]", flush=True)
+    if not (errs[0] <= LM_LOSS_RTOL and max(errs[1:]) <= LM_LOSS_GRAD_RTOL
+            and p0 < p1 and same):
+        raise AssertionError(f"4q (d) lm_loss: chunked vs one chunk {errs}, "
+                             f"peaks {p0} vs {p1}, host-read FMA same {same}")
+    del x, head, gx0, gh0, gx1, gh1, gx2, gh2, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def whisper_serve_phase(card: str) -> dict:
+    """Phase 4q: ServeSession on the enc-dec family and lm_loss's chunks,
+    on one card, (a)-(d).  Returns (a)'s records, their launches from
+    (b)."""
+    import torch
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts = {}
+
+    def part(key, fn, *args):
+        t = time.perf_counter()
+        out = fn(card, *args)
+        parts[key] = time.perf_counter() - t
+        return out
+    records = part("a", lambda card: {**whisper_paged_rows(card),
+                                      **whisper_cross_flash(card)})
+    launches = part("b", whisper_serve_full_width)
+    for key, rec in records.items():
+        rec["launches"] = launches[key.split()[0]]
+    part("c", contiguous_serving_card_vs_cpu, "4q (c)", "whisper_tiny")
+    part("d", lm_loss_chunks)
+    print(f"phase 4q took {time.perf_counter() - t_phase:.1f} s ("
+          + ", ".join(f"({k}) {v:.1f} s" for k, v in parts.items())
+          + f") [{card}]", flush=True)
+    return records
+
+
+def whisper_serve_alone(card: str) -> None:
+    """Phase 4q alone, the kernels built first."""
+    from repro_torch.kernels import _build
+    _build.build()
+    whisper_serve_phase(card)
 
 
 # ----------------------------------------- phase 4d: the trained ONN
@@ -6600,6 +7043,7 @@ def main() -> int:
     records.update(phase("4m qk-norm and mamba2", hybrid_phase, card))
     phase("4o xlstm", xlstm_phase, card)
     records.update(phase("4p serve families", serve_families_phase, card))
+    records.update(phase("4q whisper serve", whisper_serve_phase, card))
     onn = phase("4d trained onn", trained_onn_full_width, card)
     onn_launches, behavioral_bits2 = phase(
         "4b onn", train_onn_full_width, card, behavioral8, onn)

@@ -101,9 +101,11 @@ def build_prefill_step(spec: RunSpec, cfg=None):
     """step(params, tokens, lengths=None) -> (logits (b, V) f32 at each
     row's last valid position, prefill cache) through
     ``lm.batched_prefill_step`` (attention: the flash forward kernel).
-    ``lengths`` None = every row is whole.  For the MoE and ssm families
-    step(params, tokens) -> (logits at the last position, the contiguous
-    prefill cache) through ``lm.prefill_step``."""
+    ``lengths`` None = every row is whole.  For the MoE, enc-dec and ssm
+    families step(params, tokens, enc_frames=None) -> (logits at the
+    last position, the contiguous prefill cache) through
+    ``lm.prefill_step`` (``enc_frames`` (b, frames, d): the enc-dec
+    family's encoder input)."""
     cfg = _cfg(spec, cfg)
     if lm.serves_contiguous(cfg):
         return functools.partial(lm.prefill_step, cfg)
@@ -121,8 +123,9 @@ def new_decode_cache(spec: RunSpec, cfg, batch: int, max_seq: int,
     """A decode cache for ``batch`` sequences of up to ``max_seq``
     tokens: a paged pool (``spec.serve.page_size``, ``kv_dtype``) in
     which sequence i owns the ``ceil(max_seq / page_size)`` pages of row
-    i of a fixed block table (page 0 is the null page); for the MoE and
-    ssm families JAX's zero contiguous cache (``lm.init_cache``)."""
+    i of a fixed block table (page 0 is the null page); for the MoE,
+    enc-dec and ssm families JAX's zero contiguous cache
+    (``lm.init_cache``)."""
     if lm.serves_contiguous(cfg):
         return lm.init_cache(cfg, batch, max_seq, device)
     ps = spec.serve.page_size
@@ -134,19 +137,30 @@ def new_decode_cache(spec: RunSpec, cfg, batch: int, max_seq: int,
     return {"pool": pool, "page_table": table}
 
 
-def seed_cache(full: dict, pre: dict) -> dict:
+def seed_cache(full: dict, pre: dict, path: tuple = ()) -> dict:
     """A prefill cache put into a fresh contiguous decode cache (JAX's
     ``ServeSession._seed_cache``): a leaf whose shape matches (a
-    recurrent state) is taken as it is, in the decode cache's dtype; a
-    KV or compressed-cache leaf, t long on its sequence axis, is written
-    at offset 0 of ``full``'s leaf, in place."""
+    recurrent state; whisper's cross K/V at ``max_seq`` equal to the
+    frame count) is taken as it is, in the decode cache's dtype; a KV,
+    cross or compressed-cache leaf shorter on its sequence axis is
+    written at offset 0 of ``full``'s leaf, in place.  A longer leaf
+    raises, where JAX's ``dynamic_update_slice`` raises: the reference's
+    cross cache needs ``max_seq`` >= the encoder's frames."""
     out = {}
     for k, f in full.items():
         p = pre[k]
         if isinstance(f, dict):
-            out[k] = seed_cache(f, p)
+            out[k] = seed_cache(f, p, path + (k,))
         elif f.shape == p.shape:
             out[k] = p.to(f.dtype)
+        elif any(n > m for n, m in zip(p.shape, f.shape)):
+            raise ValueError(
+                f"seed_cache: the prefill's {'/'.join(path + (k,))} "
+                f"{tuple(p.shape)} is longer than the decode cache's "
+                f"{tuple(f.shape)}" + (
+                    ": the reference's cross cache is max_seq long and "
+                    "needs max_seq >= the encoder's frame count"
+                    if "cross" in path else ""))
         else:
             f[tuple(slice(0, n) for n in p.shape)] = p.to(f.dtype)
             out[k] = f
@@ -157,8 +171,9 @@ def build_decode_step(spec: RunSpec, cfg=None):
     """step(params, cache, token (b, 1), pos) -> (logits (b, V) f32,
     cache): every row's token at position ``pos`` through
     ``lm.paged_decode_step`` (attention: the paged_attention kernel);
-    the pool is written in place.  For the MoE and ssm families the step
-    of ``lm.decode_step`` over the contiguous cache."""
+    the pool is written in place.  For the MoE, enc-dec and ssm
+    families the step of ``lm.decode_step`` over the contiguous cache
+    (the enc-dec family's encoder output lives in its cross cache)."""
     cfg = _cfg(spec, cfg)
     if lm.serves_contiguous(cfg):
         return functools.partial(lm.decode_step, cfg)

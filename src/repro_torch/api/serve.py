@@ -13,17 +13,31 @@ table (``build.new_decode_cache``): ``generate`` runs one prefill over
 the whole prompt batch (``lm.batched_prefill_step``: the flash forward
 kernel), scatters its KV into the pages and decodes greedily through
 ``lm.paged_decode_step`` (the paged_attention kernel).  The MoE family
-(GQA, or MLA over its int8 compressed cache) and the ssm families (the
-Mamba-2 hybrid, xLSTM) decode on JAX's contiguous path: ``generate``
-runs ``lm.prefill_step`` over the unpadded prompt (padding would change
-the MoE's token count, and so its expert capacity, and a recurrent
-state), seeds its cache into ``lm.init_cache(batch, max_seq)``
+(GQA, or MLA over its int8 compressed cache), the enc-dec family
+(whisper: self and cross KV caches) and the ssm families (the Mamba-2
+hybrid, xLSTM) decode on JAX's contiguous path: ``generate`` runs
+``lm.prefill_step`` over the unpadded prompt (padding would change the
+MoE's token count, and so its expert capacity, and a recurrent state),
+seeds its cache into ``lm.init_cache(batch, max_seq)``
 (``build.seed_cache``, JAX's ``_seed_cache``) and decodes through
-``lm.decode_step`` (GQA attention on the paged kernel, the contiguous
-cache one page a row).  The enc-dec family's contiguous path (whisper's
-cross cache) is not ported, nor is JAX's token-by-token replay, which
-exists for its flash-decode seq-sharded cache: ``seq_shard_cache=True``
-is refused.
+``lm.decode_step`` (attention on the paged kernel, the contiguous cache
+one page a row).
+
+The enc-dec family takes ``enc_frames`` (b, frames, d), the encoder's
+input, in ``prefill`` and ``generate``.  The reference's cross cache is
+sized to ``max_seq``, not to the frames: the prefill's cross K/V is
+written at offset 0, and each decode step attends over all ``max_seq``
+columns without a mask, as JAX's does.  So only ``max_seq`` equal to the
+frame count gives a decode without zero columns; a longer cache weighs
+its zero columns in the softmax (the tokens change, in JAX too), and a
+shorter one raises.
+
+Serving runs in one process, unsharded.  A mesh it would not compute as
+JAX shards it is refused by name (``RunSpec.check_serves``: tp > 1, the
+MoE family over data shards, the enc-dec family with FSDP); dense and
+recurrent rows at dp > 1 or with FSDP are JAX's rows.  JAX's
+token-by-token replay, which exists for its flash-decode seq-sharded
+cache, is not ported: ``seq_shard_cache=True`` is refused.
 """
 from __future__ import annotations
 
@@ -47,14 +61,8 @@ class ServeSession:
                             "one paged pool on one device)")
         self.cfg = cfg if cfg is not None else spec.model_config()
         self.contiguous = lm.serves_contiguous(self.cfg)
-        if not (kv_pool.supports_paged(self.cfg) or self.contiguous):
-            raise NotImplementedError(
-                f"ServeSession covers the dense-attention families (paged) "
-                f"and the MoE and ssm families (contiguous); the contiguous "
-                f"decode path of the enc-dec family is not ported "
-                f"({self.cfg.name}: the reference's cross cache is sized to "
-                f"max_seq, not to the encoder's frames)")
         spec.validate()
+        spec.check_serves(self.cfg)
         self.spec = spec
         self.device = device_util.resolve(device, "ServeSession")
         if params is not None:
@@ -72,12 +80,27 @@ class ServeSession:
                                device=self.device)
 
     # ------------------------------------------------------------ serving
+    def _frames(self, enc_frames):
+        """``enc_frames`` on the session's device; refused by name where
+        the family has no encoder (``lm.prefill_step`` refuses a missing
+        one where it has)."""
+        if enc_frames is None:
+            return {}
+        if not self.cfg.enc_dec:
+            raise ValueError(f"enc_frames given to {self.cfg.name}, which "
+                             f"has no encoder")
+        if not isinstance(enc_frames, torch.Tensor):
+            enc_frames = torch.from_numpy(np.array(enc_frames))
+        return {"enc_frames": enc_frames.to(self.device)}
+
     @torch.inference_mode()
-    def prefill(self, tokens):
+    def prefill(self, tokens, enc_frames=None):
         """(logits (b, V) f32 at the last position, prefill cache) for a
         prompt batch: {"layers": {"k","v": (L, b, kvl, t, hd)}}, or the
-        contiguous families' cache of the prompt (``lm.prefill_step``)."""
-        return self._prefill(self.params, self._tokens(tokens))
+        contiguous families' cache of the prompt (``lm.prefill_step``;
+        the enc-dec family's with its ``enc_frames`` (b, frames, d))."""
+        return self._prefill(self.params, self._tokens(tokens),
+                             **self._frames(enc_frames))
 
     def new_cache(self, batch: int, max_seq: int) -> dict:
         """An empty decode cache for ``batch`` sequences of up to
@@ -101,18 +124,21 @@ class ServeSession:
                                      device=self.device, cfg=self.cfg)
 
     @torch.inference_mode()
-    def generate(self, prompts, gen_len: int, max_seq: int | None = None):
+    def generate(self, prompts, gen_len: int, max_seq: int | None = None,
+                 enc_frames=None):
         """Greedy decode: one prefill over the prompt batch, its KV
         scattered into each row's pages (or, for the contiguous
-        families, the prompt's cache seeded into a ``max_seq`` one),
-        then argmax sampling one token per decode step.  Returns (batch,
-        gen_len) int64 token ids."""
+        families, the prompt's cache seeded into a ``max_seq`` one; the
+        enc-dec family's cross cache too, which the module docstring's
+        caveat on ``max_seq`` concerns), then argmax sampling one token
+        per decode step.  Returns (batch, gen_len) int64 token ids."""
+        frames = self._frames(enc_frames)
         prompts = self._tokens(prompts)
         batch, prompt_len = prompts.shape
         max_seq = max_seq or prompt_len + gen_len
         assert max_seq >= prompt_len + gen_len, (max_seq, prompt_len, gen_len)
         if self.contiguous:
-            logits, pre = self._prefill(self.params, prompts)
+            logits, pre = self._prefill(self.params, prompts, **frames)
             cache = build.seed_cache(self.new_cache(batch, max_seq), pre)
             return self._greedy(logits, cache, prompt_len, gen_len)
         ps = self.spec.serve.page_size

@@ -73,6 +73,7 @@ class TrainSession:
     def __init__(self, spec: RunSpec, callbacks: list | None = None, *,
                  device=None, params=None, cfg=None):
         spec.validate()
+        spec.check_trains(cfg)
         launched = distributed.launched()
         spec.check_launch(launched,
                           distributed.world_size() if launched else 0)

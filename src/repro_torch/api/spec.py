@@ -193,13 +193,7 @@ class RunSpec:
                     _SP_DEFECT if what.startswith("mesh.seq") else ""))
 
     def validate(self) -> "RunSpec":
-        if self.model_config().enc_dec:
-            raise SpecError(
-                f"arch {self.arch!r} is an encoder-decoder model: JAX's "
-                f"trainer (TrainSession, the train CLI) feeds tokens only "
-                f"and no enc_frames, so neither package's session trains it; "
-                f"its entry point is repro_torch.launch.steps.make_train_step"
-                f" with a batch that carries enc_frames")
+        self.model_config()
         self._refuse_unported()
         if self.steps < 1:
             raise SpecError(f"steps must be >= 1, got {self.steps}")
@@ -271,6 +265,49 @@ class RunSpec:
                 f"runs as one process a device; launch {m.devices} "
                 f"processes with python -m torch.distributed.run "
                 f"--nproc-per-node {m.devices}")
+
+    def check_trains(self, cfg=None) -> None:
+        """Raise for an encoder-decoder arch: the training entry points
+        (``TrainSession``, the train CLI) feed tokens only, as JAX's do.
+        Serving takes it (``ServeSession.generate(..., enc_frames=)``)."""
+        cfg = cfg if cfg is not None else self.model_config()
+        if cfg.enc_dec:
+            raise SpecError(
+                f"arch {self.arch!r} is an encoder-decoder model: JAX's "
+                f"trainer (TrainSession, the train CLI) feeds tokens only "
+                f"and no enc_frames, so neither package's session trains it; "
+                f"its entry point is repro_torch.launch.steps.make_train_step"
+                f" with a batch that carries enc_frames")
+
+    def check_serves(self, cfg=None) -> None:
+        """Raise for a mesh that serving would not run as JAX shards it
+        (the port serves in one process, unsharded): tp > 1 (JAX splits
+        the heads and the vocabulary over 'model', with bf16 psums), the
+        MoE family at pods * dp > 1 (JAX routes each data shard's rows
+        with the capacity of that shard's token count) and the enc-dec
+        family with FSDP at pods * dp > 1 (JAX projects the encoder
+        output with the un-gathered shard of x_wk/x_wv).  Dense and
+        recurrent rows are computed as JAX's data shards compute them, so
+        dp > 1 and FSDP (an exact all-gather of the weights) are taken."""
+        cfg = cfg if cfg is not None else self.model_config()
+        m = self.mesh
+        what = ("is not ported to serving (one process, unsharded; the "
+                "sharded-serving slice brings it)")
+        if m.tp > 1:
+            raise SpecError(
+                f"mesh.tp={m.tp} (--mesh {m.dp}x{m.tp}): tensor-parallel "
+                f"serving {what}")
+        if cfg.moe and m.peers > 1:
+            raise SpecError(
+                f"mesh.pods * mesh.dp = {m.peers} with {cfg.name}: MoE "
+                f"serving over data shards, each routing its own rows "
+                f"with the capacity of its own token count, {what}")
+        if cfg.enc_dec and m.fsdp and m.peers > 1:
+            raise SpecError(
+                f"mesh.fsdp (--fsdp) at mesh.pods * mesh.dp = {m.peers} "
+                f"with {cfg.name}: the reference projects the encoder "
+                f"output with the un-gathered FSDP shard of x_wk/x_wv, "
+                f"and the port refuses it as its trainer does")
 
     # ------------------------------------------------ JSON round-trip
     def to_json_dict(self) -> dict:

@@ -107,8 +107,8 @@ from . import distributed
 
 def parse_args(argv=None) -> argparse.Namespace:
     """Namespace(spec=<validated RunSpec>, device=<name or None>); a JAX
-    flag the port does not run yet exits naming it (``RunSpec.validate``
-    and the configs' own checks)."""
+    flag the port does not run yet exits naming it (``RunSpec.validate``,
+    ``check_trains`` and the configs' own checks)."""
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.train", description=__doc__,
         argument_default=argparse.SUPPRESS,
@@ -119,6 +119,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     device = ns.pop("device", None)
     try:
         spec = RunSpec.from_cli_dict(ns)
+        spec.check_trains()
     except SpecError as e:
         raise SystemExit(f"error: {e}")
     return argparse.Namespace(spec=spec, device=device)

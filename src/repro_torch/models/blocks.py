@@ -4,8 +4,9 @@ the training/prefill branch of ``gqa_attention`` (self-attention, or
 whisper's cross-attention over given K/V, causal or not; differentiable:
 attention goes through the flash kernels' autograd function, and
 nothing autograd saves is written in place), its decode branch over a
-contiguous cache ``gqa_decode`` and the paged decode step
-``gqa_decode_paged`` (both on the paged kernel), deepseek-v3's
+contiguous cache ``gqa_decode``, the paged decode step
+``gqa_decode_paged`` and whisper's cross-attention decode over its cross
+cache ``cross_decode`` (all on the paged kernel), deepseek-v3's
 ``mla_attention`` (the training/prefill branch on the flash kernels with
 a V head dim of their own, which also returns the int8 compressed cache,
 and the absorbed decode over that cache), ``moe_block`` (top-k routed
@@ -93,17 +94,23 @@ def gqa_attention(cfg: ModelConfig, p, x, pos, ctx: ShardCtx = NO_SHARD,
         v = v.transpose(1, 2)
         cache = {"k": k, "v": v}
     else:
-        h = rmsnorm(x, p["norm"])
-        wq = gather_fsdp(ctx, axes, p["wq"], 0)
-        q = (h @ wq).reshape(*h.shape[:2], wq.shape[-1] // cfg.hd, cfg.hd)
-        if cfg.qk_norm:
-            q = rmsnorm(q, p["q_norm"])
+        q = _cross_q(cfg, p, x, ctx, axes)
         (k, v), cache = kv_ext, None
     b, t, hl = q.shape[:3]
     attn = blocked_attention(q.transpose(1, 2), k, v, causal)
     attn = attn.transpose(1, 2).reshape(b, t, hl * cfg.hd)
     out = attn @ gather_fsdp(ctx, axes, p["wo"], 1)
     return psum_model(out, axes), cache
+
+
+def _cross_q(cfg: ModelConfig, p, x, ctx: ShardCtx = NO_SHARD, axes=None):
+    """The cross-attention's queries (JAX's ``kv_ext`` branch): rmsnorm(x)
+    @ wq, no RoPE, normed per head under ``cfg.qk_norm``; (b, t, hl,
+    hd)."""
+    h = rmsnorm(x, p["norm"])
+    wq = gather_fsdp(ctx, axes, p["wq"], 0)
+    q = (h @ wq).reshape(*h.shape[:2], wq.shape[-1] // cfg.hd, cfg.hd)
+    return rmsnorm(q, p["q_norm"]) if cfg.qk_norm else q
 
 
 def _decode_qkv(cfg: ModelConfig, p, x, pos):
@@ -123,6 +130,14 @@ def _decode_out(cfg: ModelConfig, p, q, kc, vc, page_table, lengths):
     return attn.transpose(1, 2).reshape(b, 1, hl * cfg.hd) @ p["wo"]
 
 
+def _rows_as_pages(b: int, length: int, device):
+    """(page table, lengths) that read a contiguous cache (b, kvl, S, hd)
+    as a pool of b pages of S positions, page i row i's, every row
+    ``length`` long."""
+    return (torch.arange(b, dtype=torch.int32, device=device)[:, None],
+            torch.full((b,), length, dtype=torch.int32, device=device))
+
+
 def gqa_decode(cfg: ModelConfig, p, x, pos: int, cache_kv,
                ctx: ShardCtx = NO_SHARD):
     """One decode step of GQA self-attention over a contiguous cache (the
@@ -138,10 +153,25 @@ def gqa_decode(cfg: ModelConfig, p, x, pos: int, cache_kv,
                                                 device=x.device))
     kc = update_cache(cache_kv["k"], k, pos, ctx)
     vc = update_cache(cache_kv["v"], v, pos, ctx)
-    table = torch.arange(b, dtype=torch.int32, device=x.device)[:, None]
-    lengths = torch.full((b,), pos + 1, dtype=torch.int32, device=x.device)
-    return (_decode_out(cfg, p, q, kc, vc, table, lengths),
+    return (_decode_out(cfg, p, q, kc, vc, *_rows_as_pages(b, pos + 1,
+                                                           x.device)),
             {"k": kc, "v": vc})
+
+
+def cross_decode(cfg: ModelConfig, p, x, cross_kv):
+    """One decode step of the whisper decoder's cross-attention (JAX's
+    ``gqa_attention`` with ``kv_ext`` at t 1): the queries of
+    ``_cross_q`` over every column of the cross cache, non-causal and
+    unmasked as JAX attends (``blocked_attention(causal=False)``), so
+    the zero columns past the encoder's frames weigh in the softmax when
+    the cache is longer than them.  x: (b, 1, d); cross_kv: {"k","v"}
+    (b, kvl, S, hd), read as b pages of S positions through the paged
+    kernel (the table ``arange(b)[:, None]``, every row's length S).
+    Returns out (b, 1, d), before the residual."""
+    kc, vc = cross_kv["k"], cross_kv["v"]
+    q = _cross_q(cfg, p, x).transpose(1, 2)            # (b, hl, 1, hd)
+    return _decode_out(cfg, p, q, kc, vc,
+                       *_rows_as_pages(x.shape[0], kc.shape[2], x.device))
 
 
 def gqa_decode_paged(cfg: ModelConfig, p, x, lengths, pool_kv, page_table):

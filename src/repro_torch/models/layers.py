@@ -25,9 +25,11 @@ the paged kernel's plain version uses, are defined in ``kernels.ref``.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.attention import FlashAttention
 from ..kernels.ref import NEG_INF, decode_attention, paged_gather
@@ -121,31 +123,100 @@ def embed_lookup(emb: torch.Tensor, ids: torch.Tensor,
     return psum_model(x, axes)
 
 
-def lm_loss(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
-            ctx: ShardCtx = NO_SHARD, axes=None) -> torch.Tensor:
-    """Vocab-sharded cross-entropy: x (b, t, d), head (d, V_local) this
-    rank's vocabulary shard, targets (b, t) global token ids.  Returns
-    the mean NLL, f32: the stability shift is the pmax over 'model' of
-    the detached logits' max, the log-sum-exp and the target logit
-    (where it lies in this shard, else 0) are psummed over 'model'.  The
-    JAX version scans sequence chunks of 1024 under ``jax.checkpoint``
-    to bound the live logits; that memory device is not ported (one
-    chunk here)."""
+LOSS_CHUNK = 1024          # JAX's lm_loss chunk
+
+
+def _chunk_nll(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
+               mask, ctx: ShardCtx, axes) -> torch.Tensor:
+    """The NLL of one sequence chunk, f32: the mean over its tokens, or
+    with ``mask`` (b, t) 0/1 the masked mean sum(nll * mask) /
+    max(sum(mask), 1)."""
     logits = (x @ head).float()                        # (b, t, V_local)
     m = pmax_model(logits.detach().amax(dim=-1), axes)  # stability shift
     sumexp = psum_model(torch.exp(logits - m[..., None]).sum(dim=-1), axes)
     lse = torch.log(sumexp) + m
     if ctx.tp == 1:
         tgt = logits.gather(-1, targets.long()[..., None])[..., 0]
-        return (lse - tgt).mean()
-    v_local = head.shape[-1]
-    lo = tp_index(ctx, axes) * v_local
-    local_t = (targets.long() - lo).clamp(0, v_local - 1)
-    tgt = logits.gather(-1, local_t[..., None])[..., 0]
-    in_shard = (targets >= lo) & (targets < lo + v_local)
-    tgt = psum_model(torch.where(in_shard, tgt, torch.zeros(
-        (), dtype=tgt.dtype, device=tgt.device)), axes)
-    return (lse - tgt).mean()
+    else:
+        v_local = head.shape[-1]
+        lo = tp_index(ctx, axes) * v_local
+        local_t = (targets.long() - lo).clamp(0, v_local - 1)
+        tgt = logits.gather(-1, local_t[..., None])[..., 0]
+        in_shard = (targets >= lo) & (targets < lo + v_local)
+        tgt = psum_model(torch.where(in_shard, tgt, torch.zeros(
+            (), dtype=tgt.dtype, device=tgt.device)), axes)
+    nll = lse - tgt
+    if mask is None:
+        return nll.mean()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def lm_loss(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
+            ctx: ShardCtx = NO_SHARD, axes=None,
+            chunk: int = LOSS_CHUNK) -> torch.Tensor:
+    """Vocab-sharded cross-entropy (JAX's ``lm_loss``): x (b, t, d), head
+    (d, V_local) this rank's vocabulary shard, targets (b, t) global
+    token ids.  Returns the mean NLL, f32: the stability shift is the
+    pmax over 'model' of the detached logits' max, the log-sum-exp and
+    the target logit (where it lies in this shard, else 0) are psummed
+    over 'model'.  At t > ``chunk`` the sequence is padded to a multiple
+    of ``chunk`` with a 0/1 mask and taken a chunk at a time under
+    ``torch.utils.checkpoint``, so only one chunk's (b, chunk, V_local)
+    f32 logits are live, in the forward and in the backward; the chunks'
+    masked means are summed as JAX's scan sums them, acc + mean * count
+    in f32 (one FMA, as XLA compiles it), and the total divided by the
+    count."""
+    t = x.shape[1]
+    if t <= chunk:
+        return _chunk_nll(x, head, targets, None, ctx, axes)
+    pad = (-t) % chunk
+    mask = torch.ones(targets.shape, dtype=torch.float32, device=x.device)
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, x.shape[1], chunk):
+        sl = slice(lo, lo + chunk)
+        mean = checkpoint(_chunk_nll, x[:, sl], head, targets[:, sl],
+                          mask[:, sl], ctx, axes, use_reentrant=False)
+        n = mask[:, sl].sum()
+        tot = _FMA.apply(mean, n, tot)
+        cnt = cnt + n
+    return tot / cnt.clamp_min(1.0)
+
+
+def fma_round_once(a: torch.Tensor, b: torch.Tensor,
+                   c: torch.Tensor) -> torch.Tensor:
+    """a * b + c rounded once to f32, for f32 tensors, with no branch and
+    no read by the host: the product is exact in f64, the f64 sum s is
+    rounded to odd (stepped to its odd neighbour toward the exact sum
+    where the TwoSum error is not 0 and s is even), and a value rounded
+    to odd with 29 bits to spare rounds to f32 as the exact sum does."""
+    ab = a.double() * b.double()
+    cd = c.double()
+    s = ab + cd
+    bb = s - ab
+    err = (ab - (s - bb)) + (cd - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, math.inf, -math.inf).to(s.dtype)
+    return torch.where((err != 0) & even, torch.nextafter(s, toward),
+                       s).float()
+
+
+class _FMA(torch.autograd.Function):
+    """``fma_round_once`` with the gradient of a * b + c."""
+
+    @staticmethod
+    def forward(ctx, a, b, c):
+        ctx.save_for_backward(a, b)
+        return fma_round_once(a, b, c)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        return g * b, g * a, g
 
 
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -6,10 +6,10 @@ the two steps of the continuous-batching engine — ``batched_prefill_step``
 and ``paged_decode_step`` (dense only, and unsharded) — and JAX's
 contiguous serving steps ``init_cache``, ``prefill_step`` and
 ``decode_step`` of the MoE family (GQA KV caches, or MLA's int8
-compressed cache), the Mamba-2 hybrid (the SSD and conv states and a KV
+compressed cache), the encoder-decoder family (the decoder's self and
+cross KV caches), the Mamba-2 hybrid (the SSD and conv states and a KV
 cache for each use of the shared block) and the xLSTM family (its
-recurrent state), unsharded (JAX's serve every family; the enc-dec
-family's contiguous path is not ported).
+recurrent state), unsharded.
 
 Parameters are a plain dict with the JAX package's layout: ``embed``
 (V, d), ``final_norm`` (d,), ``lm_head`` (d, V), and per family the
@@ -59,37 +59,28 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def serves_contiguous(cfg: ModelConfig) -> bool:
     """Whether ``cfg`` serves on JAX's contiguous steps (``init_cache``,
-    ``prefill_step``, ``decode_step``): the MoE family (GQA or MLA) and
-    the ssm families (the Mamba-2 hybrid, xLSTM).  The dense family
-    serves on the paged steps; the enc-dec family's contiguous path is
-    not ported."""
-    return bool(cfg.moe or cfg.ssm) and not cfg.enc_dec
+    ``prefill_step``, ``decode_step``): the MoE family (GQA or MLA), the
+    encoder-decoder family and the ssm families (the Mamba-2 hybrid,
+    xLSTM).  The dense family serves on the paged steps."""
+    return bool(cfg.moe or cfg.ssm or cfg.enc_dec)
 
 
 def _check_dense(cfg: ModelConfig, what: str):
     """The paged serving steps take the dense family only: the JAX
     engine's paged steps assert ``not (cfg.ssm or cfg.enc_dec or
-    cfg.moe)``; the MoE and ssm families serve on the contiguous steps,
-    and serving the encoder-decoder family is not ported."""
-    family = ("MoE" if cfg.moe else "enc-dec" if cfg.enc_dec
-              else "ssm" if cfg.ssm else None)
-    if family and serves_contiguous(cfg):
+    cfg.moe)``; those families serve on the contiguous steps."""
+    if serves_contiguous(cfg):
+        family = ("MoE" if cfg.moe else "enc-dec" if cfg.enc_dec
+                  else "ssm")
         raise NotImplementedError(
             f"{what} needs a dense-attention model, got {cfg.name}: the "
             f"{family} family serves on the contiguous steps "
             f"(lm.prefill_step, lm.decode_step; ServeSession)")
-    if family:
-        raise NotImplementedError(
-            f"{what} needs a dense-attention model, got {cfg.name}: "
-            f"serving the {family} family is not ported")
 
 
 def _check_contiguous(cfg: ModelConfig, what: str):
-    """The contiguous serving steps take the MoE and ssm families."""
-    if cfg.enc_dec:
-        raise NotImplementedError(
-            f"{what}: the contiguous decode path of the enc-dec family "
-            f"({cfg.name}: the decoder's cross cache) is not ported")
+    """The contiguous serving steps take the MoE, enc-dec and ssm
+    families."""
     if not serves_contiguous(cfg):
         raise NotImplementedError(
             f"{what}: {cfg.name} is dense and serves on the paged steps "
@@ -577,33 +568,61 @@ def scan_layers(body, x, layers: list, remat_groups: int = 0):
         return group(x, layers)
 
 
-def _enc_dec(cfg: ModelConfig, params: dict, x: torch.Tensor, pos,
-             enc_frames: torch.Tensor, ctx: ShardCtx, axes):
-    """The encoder-decoder trunk (JAX's ``cfg.enc_dec`` branch): the
-    encoder's non-causal layers over the frames (positions 0..frames-1,
-    no final norm), then each decoder layer's causal self-attention and
-    MLP and its cross-attention over K/V = e @ x_wk, e @ x_wv, added to
-    the residual (no MLP after it).  Each stack checkpoints its layers
-    one by one when ``ctx.remat_groups`` > 0, as JAX's ``ckpt``."""
-    e = enc_frames.to(x.dtype)
+def _encode(cfg: ModelConfig, params: dict, enc_frames: torch.Tensor,
+            dtype: torch.dtype, ctx: ShardCtx = NO_SHARD, axes=None):
+    """The encoder (JAX's enc-dec branch): its non-causal layers over the
+    frames cast to ``dtype`` (positions 0..frames-1, no final norm), each
+    checkpointed when ``ctx.remat_groups`` > 0, as JAX's ``ckpt``."""
+    e = enc_frames.to(dtype)
     epos = torch.arange(e.shape[1], device=e.device)
 
     def enc_body(e, p):
         return _attn_mlp_layer(cfg, p, e, epos, ctx, axes, causal=False)[0]
 
-    e = scan_layers(enc_body, e, layer_params(params, "encoder"),
-                    min(ctx.remat_groups, 1))
+    return scan_layers(enc_body, e, layer_params(params, "encoder"),
+                       min(ctx.remat_groups, 1))
+
+
+def _cross_params(p: dict) -> dict:
+    """A decoder layer's cross-attention leaves without their ``x_``."""
+    return {k[2:]: v for k, v in p.items() if k.startswith("x_")}
+
+
+def _dec_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, pos, e, ctx,
+               axes, cache=None, cache_pos=None):
+    """One decoder layer: causal self-attention and MLP, then the
+    cross-attention added to the residual (no MLP after it).  Over the
+    sequence, the cross K/V are e @ x_wk, e @ x_wv (frames long,
+    non-causal); with ``cache`` ({"self", "cross"}: this layer's (b,
+    kvl, S, hd) K/V) a decode step at ``cache_pos``, the self cache
+    written in place and the cross cache read whole
+    (``blocks.cross_decode``).  Returns (x, self K/V, cross K/V)."""
+    x, skv = _attn_mlp_layer(cfg, p, x, pos, ctx, axes,
+                             cache=None if cache is None else cache["self"],
+                             cache_pos=cache_pos)
+    xp = _cross_params(p)
+    if cache is not None:
+        return (x + blocks.cross_decode(cfg, xp, x, cache["cross"]), skv,
+                cache["cross"])
     be, te = e.shape[:2]
+    kvl = xp["wk"].shape[-1] // cfg.hd
+    k = (e @ xp["wk"]).reshape(be, te, kvl, cfg.hd).transpose(1, 2)
+    v = (e @ xp["wv"]).reshape(be, te, kvl, cfg.hd).transpose(1, 2)
+    a, _ = blocks.gqa_attention(cfg, xp, x, None, ctx, axes, kv_ext=(k, v),
+                                causal=False)
+    return x + a, skv, {"k": k, "v": v}
+
+
+def _enc_dec(cfg: ModelConfig, params: dict, x: torch.Tensor, pos,
+             enc_frames: torch.Tensor, ctx: ShardCtx, axes):
+    """The encoder-decoder trunk of training (JAX's ``cfg.enc_dec``
+    branch): the encoder over the frames (``_encode``), then each decoder
+    layer (``_dec_layer``), checkpointed one by one when
+    ``ctx.remat_groups`` > 0, as JAX's ``ckpt``."""
+    e = _encode(cfg, params, enc_frames, x.dtype, ctx, axes)
 
     def dec_body(x, p):
-        x = _attn_mlp_layer(cfg, p, x, pos, ctx, axes)[0]
-        xp = {k[2:]: v for k, v in p.items() if k.startswith("x_")}
-        kvl = xp["wk"].shape[-1] // cfg.hd
-        k = (e @ xp["wk"]).reshape(be, te, kvl, cfg.hd).transpose(1, 2)
-        v = (e @ xp["wv"]).reshape(be, te, kvl, cfg.hd).transpose(1, 2)
-        a, _ = blocks.gqa_attention(cfg, xp, x, None, ctx, axes,
-                                    kv_ext=(k, v), causal=False)
-        return x + a
+        return _dec_layer(cfg, p, x, pos, e, ctx, axes)[0]
 
     return scan_layers(dec_body, x, layer_params(params, "decoder"),
                        min(ctx.remat_groups, 1))
@@ -828,7 +847,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     - xLSTM: its recurrent state in f32, {"mlstm": {"c": (n_m, b, nh,
       hp, hp), "n": (n_m, b, nh, hp)}, "slstm": {"h", "c", "n": zeros
       and "m": -30, each (n_s, b, nh, d / nh)}} with hp = 2d / nh,
-      whatever ``max_seq`` (its size does not grow with the sequence).
+      whatever ``max_seq`` (its size does not grow with the sequence);
+    - enc-dec: {"self": kv(L), "cross": kv(L)}, both ``max_seq`` long
+      (JAX's layout: the prefill's cross K/V, frames long, is written at
+      offset 0, and the decode attends over all ``max_seq`` columns, so
+      only ``max_seq`` equal to the frame count leaves no zero column).
     """
     _check_contiguous(cfg, "init_cache")
     dt = torch_dtype(cfg)
@@ -865,6 +888,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
         if n_attn:
             cache["attn"] = kv(n_attn)
         return cache
+    if cfg.enc_dec:
+        return {"self": kv(cfg.n_layers), "cross": kv(cfg.n_layers)}
     layer = mla if cfg.mla else kv
     cache = {"moe": layer(cfg.n_layers - cfg.first_dense_layers)}
     if cfg.first_dense_layers:
@@ -974,15 +999,48 @@ def _moe_serve(cfg: ModelConfig, params: dict, x: torch.Tensor, pos,
     return x, (out if cache is None else cache)
 
 
-def prefill_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
-    """Contiguous serving prefill (JAX's ``prefill_step``) of the MoE and
-    ssm families: the forward over the whole prompt batch (b, t), with
-    attention on the flash kernel.  Returns (logits (b, V) f32 at the
-    last position, the prefill cache: ``init_cache``'s layout with the
-    sequence axis t long (the recurrent states as they are))."""
+def _enc_dec_serve(cfg: ModelConfig, params: dict, x: torch.Tensor, pos,
+                   enc_frames, cache: dict | None, cache_pos: int | None):
+    """x through the decoder: the prefill with cache None (the encoder
+    over ``enc_frames`` first; each layer's self K/V, t long, and cross
+    K/V, frames long, collected), or one decode step at ``cache_pos``
+    (the self caches written in place, the cross caches read and
+    returned as they are).  Returns (x, the cache)."""
+    e = (_encode(cfg, params, enc_frames, x.dtype) if cache is None
+         else None)
+    skv, ckv = [], []
+    for i, p in enumerate(layer_params(params, "decoder")):
+        x, s, c = _dec_layer(
+            cfg, p, x, pos, e, NO_SHARD, None, cache=None if cache is None
+            else {k: _layer(cache[k], i) for k in ("self", "cross")},
+            cache_pos=cache_pos)
+        skv.append(s)
+        ckv.append(c)
+    if cache is not None:
+        return x, cache
+    return x, {"self": _stack(skv), "cross": _stack(ckv)}
+
+
+def prefill_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                 enc_frames: torch.Tensor | None = None):
+    """Contiguous serving prefill (JAX's ``prefill_step``) of the MoE,
+    enc-dec and ssm families: the forward over the whole prompt batch
+    (b, t), with attention on the flash kernel; the enc-dec family also
+    takes ``enc_frames`` (b, frames, d), cast to the model dtype (the
+    other families ignore it, as JAX's step does).
+    Returns (logits (b, V) f32 at the last position, the prefill cache:
+    ``init_cache``'s layout with the sequence axis t long, the cross K/V
+    frames long, the recurrent states as they are)."""
     _check_contiguous(cfg, "prefill_step")
+    if cfg.enc_dec and enc_frames is None:
+        raise ValueError(f"prefill_step: {cfg.name} is an encoder-decoder "
+                         f"model and needs enc_frames (b, frames, d)")
     x = embed_lookup(params["embed"], tokens)
-    if cfg.ssm == "xlstm":
+    if cfg.enc_dec:
+        pos = torch.arange(tokens.shape[1], device=tokens.device)
+        x, cache = _enc_dec_serve(cfg, params, x, pos, enc_frames, None,
+                                  None)
+    elif cfg.ssm == "xlstm":
         x, cache = _xlstm_serve(cfg, params, x, None)
     else:
         pos = torch.arange(tokens.shape[1], device=tokens.device)
@@ -996,15 +1054,21 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     """One contiguous decode step (JAX's ``decode_step``): token (b, 1),
     every row at position ``pos`` -> (logits (b, V) f32, the cache).
     The KV and compressed caches and the hybrid's states are written IN
-    PLACE (GQA attention on the paged kernel, the cache one page a row);
-    the xLSTM family returns its new state (``pos`` unused, as in JAX:
-    the state carries the position)."""
+    PLACE (GQA attention on the paged kernel, the cache one page a row;
+    the enc-dec family's cross-attention on the paged kernel over every
+    column of its cross cache, which is returned as it is); the xLSTM
+    family returns its new state (``pos`` unused, as in JAX: the state
+    carries the position)."""
     _check_contiguous(cfg, "decode_step")
     x = embed_lookup(params["embed"], token)
     if cfg.ssm == "xlstm":
         x, cache = _xlstm_serve(cfg, params, x, cache)
     else:
         pos_arr = torch.full((1,), pos, device=token.device)
-        serve = _hybrid_serve if cfg.ssm else _moe_serve
-        x, cache = serve(cfg, params, x, pos_arr, cache, pos)
+        if cfg.enc_dec:
+            x, cache = _enc_dec_serve(cfg, params, x, pos_arr, None, cache,
+                                      pos)
+        else:
+            serve = _hybrid_serve if cfg.ssm else _moe_serve
+            x, cache = serve(cfg, params, x, pos_arr, cache, pos)
     return _logits(params, x), cache

@@ -55,7 +55,7 @@ class ServeEngine:
                 f"paged serving covers the dense-attention families; "
                 f"{cfg.name} (ssm/enc-dec/moe) is not ported to the paged "
                 f"engine (the JAX engine serves none of them either; "
-                f"ServeSession serves the MoE and ssm families on JAX's "
+                f"ServeSession serves every family, these on JAX's "
                 f"contiguous cache path)")
         if serve.top_k and serve.temperature == 0.0:
             raise ValueError("top_k needs temperature > 0")
@@ -81,10 +81,13 @@ class ServeEngine:
         """The engine of a RunSpec (``spec.serve``, ``spec.seed``):
         ``params``, else the checkpoint when ``ckpt.resume`` is set, else
         a seeded init; hot-swaps newer checkpoints every
-        ``serve.reload_every`` steps when ``ckpt.dir`` is set."""
+        ``serve.reload_every`` steps when ``ckpt.dir`` is set.  A mesh
+        the engine would not run as JAX shards it is refused by name
+        (``RunSpec.check_serves``)."""
         spec.validate()
-        device = device_util.resolve(device, "ServeEngine")
         cfg = cfg if cfg is not None else spec.model_config()
+        spec.check_serves(cfg)
+        device = device_util.resolve(device, "ServeEngine")
         step = None
         if params is None:
             params, step = reload.resolve_params(spec, cfg, device)

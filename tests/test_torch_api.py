@@ -521,15 +521,17 @@ def test_sessions_need_cuda_unless_a_device_is_given(monkeypatch):
     with pytest.raises(tapi.SpecError, match="seq-sharded"):
         tapi.ServeSession(spec(), device="cpu", seq_shard_cache=True)
     # JAX's ServeSession decodes the MoE and enc-dec families over its
-    # contiguous cache; the port serves the MoE family on it too, and
-    # refuses the enc-dec family's by name
+    # contiguous cache; the port serves both on it too (whisper with its
+    # enc_frames)
     moe = tapi.ServeSession(tapi.RunSpec(arch="phi35_moe_42b", smoke=True),
                             device="cpu")
     assert moe.contiguous and moe.generate([[1, 2, 3]], 2).shape == (1, 2)
-    with pytest.raises(NotImplementedError, match="contiguous decode "
-                       "path of the enc-dec family"):
-        tapi.ServeSession(tapi.RunSpec(arch="whisper_tiny", smoke=True),
-                          device="cpu")
+    whisper = tapi.ServeSession(tapi.RunSpec(arch="whisper_tiny",
+                                             smoke=True), device="cpu")
+    frames = torch.zeros((1, whisper.cfg.enc_frames, whisper.cfg.d_model))
+    assert whisper.contiguous and whisper.generate(
+        [[1, 2, 3]], 2, max_seq=whisper.cfg.enc_frames,
+        enc_frames=frames).shape == (1, 2)
 
 
 # ------------------------------------------------------- serving + reload

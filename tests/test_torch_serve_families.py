@@ -24,8 +24,8 @@ What is held:
   saturating int8 cast) and the decode conv's promotion to f32 when the
   f32 conv state meets the bf16 signal;
 * the cache layouts, ``seed_cache``, the expert capacity of a decode
-  step at the published configs and the refusals that stay (whisper,
-  ServeEngine, the paged steps, the seq-sharded cache).
+  step at the published configs and the refusals that stay (ServeEngine,
+  the paged steps, the seq-sharded cache).
 """
 import dataclasses
 
@@ -438,13 +438,16 @@ def test_decode_capacity_at_the_published_configs():
 
 
 def test_what_stays_refused():
-    """whisper's contiguous path, ServeEngine and the paged steps for
-    these families, and the seq-sharded cache stay refused by name."""
-    with pytest.raises(NotImplementedError, match="enc-dec family"):
-        tapi.ServeSession(tapi.RunSpec(arch="whisper_tiny", smoke=True),
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="enc-dec family"):
-        tlm.init_cache(get("whisper_tiny"), 1, 8, "cpu")
+    """ServeEngine and the paged steps for these families, and the
+    seq-sharded cache stay refused by name; whisper's contiguous path
+    (refused until its slice) now serves and sizes its cache as JAX's."""
+    whisper = get("whisper_tiny")
+    assert tapi.ServeSession(tapi.RunSpec(arch="whisper_tiny", smoke=True),
+                             device="cpu").contiguous
+    cache = tlm.init_cache(whisper, 1, 8, "cpu")
+    assert {k: tuple(v["k"].shape) for k, v in cache.items()} == {
+        k: (whisper.n_layers, 1, whisper.n_kv_heads, 8, whisper.hd)
+        for k in ("self", "cross")}
     for arch in ARCHS:
         _, cfg = cfg_pair(arch)
         sess = tapi.ServeSession(tapi.RunSpec(arch=arch, smoke=True),

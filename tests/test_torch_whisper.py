@@ -17,8 +17,9 @@ What is held:
   (one module-scoped JAX subprocess), and a 2-rank gloo world of the
   same step against the stacked run, bit for bit;
 * the refusals: ``--fsdp`` (the reference cannot run it), tp > 1 (not
-  ported yet), the sessions (JAX's trainer feeds no ``enc_frames``) and
-  serving.
+  ported yet) and the training sessions (JAX's trainer feeds no
+  ``enc_frames``); serving takes it (``test_torch_whisper_serve.py``)
+  on the contiguous steps, and the paged steps refuse it.
 """
 import dataclasses
 import json
@@ -44,11 +45,13 @@ from test_torch_processes import _env, _free_port, _wait
 from repro_torch import api as tapi
 from repro_torch.collectives.engine import SyncConfig
 from repro_torch.configs import get
-from repro_torch.launch import steps
+from repro_torch.launch import steps, train
 from repro_torch.models import lm as tlm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ShardCtx
 from repro_torch.optim.adamw import AdamWConfig, adamw_init
+from repro_torch.serving.config import ServeConfig
+from repro_torch.serving.engine import ServeEngine
 from repro_torch.tree import leaves, leaves_with_paths, set_path, unflatten
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -466,20 +469,30 @@ def test_make_train_step_refuses_what_is_not_run(ctx, err, match):
 
 @pytest.mark.parametrize("session", ["TrainSession", "RunSpec"])
 def test_sessions_refuse_the_enc_dec_family(session):
-    """JAX's trainer feeds tokens only: a whisper RunSpec is refused by
-    name, with the entry point that trains it."""
+    """JAX's trainer feeds tokens only: TrainSession refuses a whisper
+    RunSpec by name, with the entry point that trains it; the spec
+    itself validates, as JAX's does (ServeSession serves it), and the
+    train CLI refuses it too."""
     spec = tapi.RunSpec(arch=ARCH, smoke=True)
+    if session == "RunSpec":
+        assert spec.validate() is spec
+        with pytest.raises(SystemExit, match="no enc_frames.*make_train_"):
+            train.parse_args(["--arch", ARCH, "--smoke-config"])
+        return
     with pytest.raises(tapi.SpecError, match="no enc_frames.*make_train_step"):
-        if session == "RunSpec":
-            spec.validate()
-        else:
-            tapi.TrainSession(spec, device="cpu")
+        tapi.TrainSession(spec, device="cpu")
 
 
 def test_serving_refuses_the_enc_dec_family():
+    """Refused until the enc-dec serving slice: ServeSession now serves
+    whisper on the contiguous steps, and the paged steps refuse it,
+    naming them (as ServeEngine does, as JAX's engine does)."""
     _, cfg = cfg_pair()
-    with pytest.raises(NotImplementedError, match="contiguous decode path"):
-        tapi.ServeSession(tapi.RunSpec(arch=ARCH, smoke=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="enc-dec family"):
+    assert tapi.ServeSession(tapi.RunSpec(arch=ARCH, smoke=True),
+                             device="cpu").contiguous
+    with pytest.raises(NotImplementedError, match="enc-dec family serves "
+                       "on the contiguous steps"):
         tlm.batched_prefill_step(cfg, {}, torch.zeros((1, 4), dtype=torch.long),
                                  torch.ones(1))
+    with pytest.raises(NotImplementedError, match="not ported to the paged"):
+        ServeEngine(cfg, ServeConfig(), device="cpu")

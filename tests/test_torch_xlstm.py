@@ -560,9 +560,9 @@ def test_make_train_step_refuses_sharding(ctx, match):
 
 def test_paged_serving_refuses_xlstm():
     """ServeEngine (paged, continuous batching) refuses xLSTM, as JAX's
-    engine does; so do the paged steps, naming the contiguous ones; the
-    contiguous steps refuse the family whose cache is not ported
-    (whisper's)."""
+    engine does; so do the paged steps, naming the contiguous ones, as
+    they name them for whisper, whose contiguous cache (once refused
+    here) is JAX's self and cross caches."""
     _, cfg = cfg_pair()
     with pytest.raises(NotImplementedError, match="not ported"):
         ServeEngine(cfg, ServeConfig(), device="cpu")
@@ -571,5 +571,6 @@ def test_paged_serving_refuses_xlstm():
                                                       dtype=torch.long),
                                  torch.ones(1))
     whisper = get("whisper_tiny")
-    with pytest.raises(NotImplementedError, match="contiguous decode path"):
-        tlm.init_cache(whisper, 1, 16, "cpu")
+    with pytest.raises(NotImplementedError, match="contiguous steps"):
+        tlm.paged_decode_step(whisper, {}, {}, None, None, None)
+    assert set(tlm.init_cache(whisper, 1, 16, "cpu")) == {"self", "cross"}
